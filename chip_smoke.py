@@ -1,0 +1,583 @@
+"""The PyTorch port's main path on one NVIDIA H100: build, check, serve.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and nothing is caught:
+
+1. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``);
+2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc for
+   sm_90a and print ptxas's registers / shared memory / spills;
+3. hold the LUT-exp kernel bit-equal to its plain version (the reference
+   sweep shapes and edge values, orders 0/1, f32/bf16);
+4. hold the paged-attention kernel to its plain version at full-width
+   shapes (32 heads of 128, page size 16, ~1000 pages, 8 lanes with 37 to
+   ~2000 live rows, shuffled tables): decode and q-block-tiled steps over
+   f32, bf16 and int8 pools, GQA, softcap, window, lut0 and exact exp;
+5. serve 8 requests of deepseek-7b at full width and full depth (random
+   weights from a seed) through ``EngineCore`` with a bf16 pool, then an
+   int8 pool; count kernel launches over each run (paged attention =
+   layers × steps); hold one full-width ragged step's logits through the
+   kernel against the same step through the plain attention, in bf16 on
+   the served pool and in f32;
+6. time each kernel at the engine's decode shapes beside its plain
+   version, a library yardstick and its roofline bound, and print the
+   ``{"kernels": [...]}`` line;
+7. print ``{"ok": true, "device": {...}}`` as the last line.
+
+Exits non-zero without a result when no CUDA card is visible.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+DEV = "cuda"
+MODEL = "deepseek-7b"
+ENGINE = dict(lanes=8, page_size=16, num_pages=1024, chunk_size=256)
+PROMPT_LENS = (64, 1024)           # prompt lengths drawn in [lo, hi]
+MAX_NEW = 32
+HQ, D, PS, N_PAGES = 32, 128, 16, 1000          # attention-check widths
+KV_LENS = [37, 311, 598, 870, 1142, 1414, 1700, 1990]     # 37 … ~2000
+CHUNK = 128                        # the prefill chunk of the tiled checks
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off tensor cores
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# ----------------------------------------------------------------- helpers --
+
+def cuda_ms(fn, *, iters=20, warmup=3, flush=None):
+    """Median device time of ``fn`` in ms, CUDA events around each call;
+    ``flush`` (untimed) runs before each call to evict the L2 cache."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bf16_ulps(got, want) -> float:
+    """Largest |got − want| beyond the f32 atol, in bf16 ulps of the larger
+    magnitude.  Both sides sum in f32 and round once to bf16, so they may
+    land one ulp apart; near zero, where the f32 sums cancel, the f32
+    tolerance's atol (2e-5) is the floor instead."""
+    import torch
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    excess = ((g - w).abs() - F32_TOL["atol"]).clamp_min(0.0)
+    return float((excess / ulp).max())
+
+
+# ------------------------------------------------------------------ phases --
+
+def phase_card():
+    import torch
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(f"[card] {name} | torch {torch.__version__} cuda {torch.version.cuda}")
+    return name, smi_line
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
+        f"({build.build_dir()})")
+    for name, lines in build.ptxas_report().items():
+        for line in lines:
+            log(f"[ptxas {name}] {line}")
+
+
+def phase_lut_exp():
+    import torch
+    from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
+    rng = np.random.default_rng(0)
+    shapes = [(7,), (128,), (3, 5, 11), (256, 128), (1, 1), (1000,),
+              (1 << 20,)]
+    edges = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
+    checked = 0
+    for shape in shapes:
+        x = rng.uniform(-20, 20, size=shape).astype(np.float32)
+        for dt in (torch.float32, torch.bfloat16):
+            for order in (0, 1):
+                for arr in (x, np.concatenate([edges, x.reshape(-1)])):
+                    xt = torch.from_numpy(arr).to(DEV, dt)
+                    got = lut_exp(xt, order=order)
+                    want = lut_exp_ref(xt, order=order)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.view(torch.int16 if dt == torch.bfloat16
+                                                else torch.int32),
+                                       want.view(torch.int16 if dt == torch.bfloat16
+                                                 else torch.int32)):
+                        fail(f"lut_exp not bit-equal: shape {shape} {dt} "
+                             f"order {order}")
+                    checked += 1
+    log(f"[lut_exp] bit-equal to the plain version in {checked} cases")
+
+
+def make_stream(spec, *, hq=None, hkv=None, d=None, ps=None, n_pages=None,
+                pool="bfloat16", q_dtype="bfloat16", seed=0, lanes=8,
+                exact_logits=False):
+    """A full-width packed stream in the engine's layout: ``spec`` lists
+    (new tokens, live rows after the step) per lane; pages drawn without
+    replacement from a shuffled pool; dead rows pad to a power of two; cu
+    carries a trailing pseudo-segment and zero-width repeats (lanes + 2).
+    ``exact_logits`` draws q and k as small integers, so every q·k sum is
+    exact in f32 whatever its order."""
+    import torch
+    from repro_torch.core.streaming_attention import quantize_kv_rows
+    from repro_torch.kernels.paged_attention import varlen_positions
+    hq, d, ps = hq or HQ, d or D, ps or PS
+    hkv, n_pages = hkv or hq, n_pages or N_PAGES
+    rng = np.random.default_rng(seed)
+    need = [-(-kv // ps) for _, kv in spec]
+    assert sum(need) <= n_pages
+    perm = rng.permutation(n_pages)
+    width_p = 1 << (max(need) - 1).bit_length()
+    nq = np.array([n for n, _ in spec])
+    live = int(nq.sum())
+    width = 1 << (live - 1).bit_length()
+    table = np.full((width, width_p), n_pages, np.int32)     # scratch page
+    cu = np.concatenate([[0], np.cumsum(nq)]).astype(np.int32)
+    off = 0
+    for i, k in enumerate(need):
+        table[cu[i]:cu[i + 1], :k] = perm[off:off + k]
+        off += k
+    pos = np.zeros(width, np.int32)
+    pos[:live] = varlen_positions(cu, [kv for _, kv in spec])
+    cu_full = np.full(lanes + 2, width, np.int32)
+    cu_full[:len(cu)] = cu
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (n_pages + 1, hkv, ps, d)
+    k = torch.randn(shape, generator=g, device=DEV)
+    v = torch.randn(shape, generator=g, device=DEV)
+    q = torch.randn((width, hq, d), generator=g, device=DEV)
+    if exact_logits:
+        k = torch.randint(-3, 4, shape, generator=g, device=DEV).float()
+        q = torch.randint(-3, 4, q.shape, generator=g, device=DEV).float()
+    dev = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
+    out = dict(q=q.to(getattr(torch, q_dtype)), table=dev(table),
+               pos=dev(pos), cu=dev(cu_full), spec=spec, live=live,
+               hq=hq, hkv=hkv, d=d, ks=None, vs=None)
+    if pool == "int8":
+        kq, ks = quantize_kv_rows(k.reshape(1, -1, ps, d))
+        vq, vs = quantize_kv_rows(v.reshape(1, -1, ps, d))
+        out.update(k=kq.reshape(shape), v=vq.reshape(shape),
+                   ks=ks.reshape(shape[:3]), vs=vs.reshape(shape[:3]))
+    else:
+        out.update(k=k.to(getattr(torch, pool)), v=v.to(getattr(torch, pool)))
+    return out
+
+
+def phase_paged_attention():
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_varlen,
+        paged_attention_varlen_reference)
+    decode = [(1, kv) for kv in KV_LENS]
+    tiled = [(1, kv) for kv in KV_LENS]
+    tiled[3] = (CHUNK, KV_LENS[3])                  # one prefill chunk
+    cases = [
+        ("decode f32", decode, 1, dict(pool="float32", q_dtype="float32"), {}),
+        ("decode bf16", decode, 1, dict(pool="bfloat16"), {}),
+        ("decode int8", decode, 1, dict(pool="int8"), {}),
+        ("tiled f32", tiled, 8, dict(pool="float32", q_dtype="float32"), {}),
+        ("tiled bf16", tiled, 8, dict(pool="bfloat16"), {}),
+        ("tiled int8", tiled, 8, dict(pool="int8"), {}),
+        ("tiled gqa 4:1 bf16", tiled, 8, dict(pool="bfloat16", hkv=HQ // 4),
+         {}),
+        ("tiled cap=50 f32", tiled, 8, dict(pool="float32", q_dtype="float32"),
+         dict(cap=50.0)),
+        ("tiled window=256 f32", tiled, 8,
+         dict(pool="float32", q_dtype="float32"), dict(window=256)),
+
+        # The order-0 LUT steps by 0.54% at table boundaries, so a logit
+        # one rounding apart can flip a table index: the plain version scans
+        # one page per step, as the kernel does, over integer q and k whose
+        # logits are exact on both sides.
+        ("tiled lut0 f32", tiled, 8,
+         dict(pool="float32", q_dtype="float32", exact_logits=True),
+         dict(exp_mode="lut0", block_pages=1)),
+        ("tiled exact f32", tiled, 8, dict(pool="float32", q_dtype="float32"),
+         dict(exp_mode="exact")),
+    ]
+    for i, (name, spec, bq, mk, kw) in enumerate(cases):
+        s = make_stream(spec, seed=i, **mk)
+        args = (s["q"], s["k"], s["v"], s["table"], s["pos"])
+        kw = dict(dict(block_pages=8), **kw, cu_seqlens=s["cu"], block_q=bq,
+                  k_scale=s["ks"], v_scale=s["vs"])
+        before = paged_attention.launches
+        got = paged_attention_varlen(*args, **kw)
+        torch.cuda.synchronize()
+        if paged_attention.launches != before + 1:
+            fail(f"paged attention {name}: kernel not launched")
+        want = paged_attention_varlen_reference(*args, **kw)
+        rows = slice(0, s["live"])                   # dead rows are garbage
+        g, w = got[rows], want[rows]
+        if not torch.isfinite(got).all():
+            fail(f"paged attention {name}: non-finite output")
+        if got.dtype == torch.float32:
+            err = float((g - w).abs().max())
+            ok = torch.allclose(g, w, **F32_TOL)
+            msg = f"max|Δ| {err:.3g} (atol 2e-5, rtol 1e-4)"
+        else:
+            err = bf16_ulps(g, w)
+            ok = err <= 1.0
+            msg = f"max {err:.2f} bf16 ulp beyond atol 2e-5 (limit 1)"
+        log(f"[paged_attention] {name}: {msg}")
+        if not ok:
+            fail(f"paged attention {name} disagrees with the plain version: {msg}")
+
+
+def phase_engine(cfg, params, kv_quant: bool, prompts):
+    """Serve the requests; → facts of the run (counts read around it)."""
+    import torch
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving import EngineCore, Request
+    c = cfg.replace(kv_quant=kv_quant)
+    eng = EngineCore(c, params, device=DEV, **ENGINE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    lut_exp.launches = 0
+    step_ms, model_steps = [], 0
+    t0 = time.perf_counter()
+    while eng.scheduler.has_work():
+        s0 = time.perf_counter()
+        out = eng.step()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        model_steps += out.lanes > 0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(paged_attention=paged_attention.launches,
+                    lut_exp=lut_exp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    gen = sum(len(r.tokens) for r in eng.finished)
+    prompt_toks = sum(len(p) for p in prompts)
+    tag = "int8" if kv_quant else "bf16"
+    if len(eng.finished) != len(prompts) or any(
+            len(r.tokens) != MAX_NEW for r in eng.finished):
+        fail(f"engine {tag}: not every request produced {MAX_NEW} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in eng.finished for t in r.tokens):
+        fail(f"engine {tag}: token outside the vocab")
+    if launches["paged_attention"] != cfg.num_layers * model_steps:
+        fail(f"engine {tag}: paged attention launched "
+             f"{launches['paged_attention']} times, expected layers × steps = "
+             f"{cfg.num_layers} × {model_steps}")
+    if eng.pages_in_use != 0:
+        fail(f"engine {tag}: {eng.pages_in_use} pages leaked")
+    facts = dict(pool=tag, steps=model_steps, launches=launches,
+                 generated=gen, prompt_tokens=prompt_toks, wall_s=wall,
+                 tok_s=gen / wall, all_tok_s=(gen + prompt_toks) / wall,
+                 step_ms_p50=float(np.percentile(step_ms, 50)),
+                 step_ms_p99=float(np.percentile(step_ms, 99)),
+                 peak_gib=peak / 2 ** 30,
+                 streams={r.uid: r.tokens[:8] for r in eng.finished})
+    log(f"[engine {tag}] {model_steps} steps, {gen} tokens generated, "
+        f"{prompt_toks} prompt tokens in {wall:.2f} s → {facts['tok_s']:.1f} "
+        f"generated tok/s ({facts['all_tok_s']:.1f} incl. prompt); step ms "
+        f"p50 {facts['step_ms_p50']:.2f} p99 {facts['step_ms_p99']:.2f}; peak "
+        f"{facts['peak_gib']:.2f} GiB; launches {launches}")
+    return eng, facts
+
+
+def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
+    """One full-width ragged step (7 decode lanes + a prefill chunk) over
+    ``pool``, through the kernel and through the plain attention (passed
+    explicitly, at 8 pages per online-softmax step and at 1).  Each run
+    rewrites the step's own rows before attending, so all three read the
+    same history.
+
+    Tolerance: the kernel must sit within 3× the spread between the two
+    plain schedules on this very step (``floor`` at least) — in bf16 every
+    attention output rounds once, so schedules land up to an ulp apart and
+    the gap travels through the layers; in f32 only the sum order differs.
+    Greedy picks must agree on every lane whose top-2 margin exceeds twice
+    the measured gap."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_varlen_reference)
+    from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged
+    from repro_torch.serving.scheduler import default_token_buckets
+    rng = np.random.default_rng(7)
+    spec = [(1, kv) for kv in KV_LENS[1:]] + [(CHUNK, 3 * CHUNK)]
+    ps, n_pages = pool["k"].shape[3], pool["k"].shape[1] - 1
+    need = [-(-kv // ps) for _, kv in spec]
+    perm = rng.permutation(n_pages)
+    nq = np.array([n for n, _ in spec])
+    live = int(nq.sum())
+    buckets = default_token_buckets(ENGINE["lanes"] + ENGINE["chunk_size"])
+    width = min(w for w in buckets if w >= live)
+    pw = 1 << (max(need) - 1).bit_length()
+    table = np.full((width, pw), n_pages, np.int32)            # scratch page
+    cu = np.concatenate([[0], np.cumsum(nq)]).astype(np.int32)
+    pos = np.zeros(width, np.int32)
+    off = 0
+    for i, (n, kv) in enumerate(spec):
+        table[cu[i]:cu[i + 1], :need[i]] = perm[off:off + need[i]]
+        off += need[i]
+        pos[cu[i]:cu[i + 1]] = np.arange(kv - n, kv)
+    tokens = np.zeros(width, np.int32)
+    tokens[:live] = rng.integers(0, cfg.vocab_size, live)
+    cu_full = np.full(ENGINE["lanes"] + 2, width, np.int32)
+    cu_full[:len(cu)] = cu
+    last_idx = (cu[1:] - 1).astype(np.int32)
+    dev = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
+    args = (cfg, params, dev(tokens), pool, dev(table), dev(pos),
+            dev(last_idx), dev(cu_full), KERNEL_CONFIG)
+    k_logits = lm_step_ragged(*args)
+    p_logits = lm_step_ragged(*args, attend=paged_attention_varlen_reference)
+    p1_logits = lm_step_ragged(*args, attend=lambda *a, **kw: (
+        paged_attention_varlen_reference(*a, **{**kw, "block_pages": 1})))
+    torch.cuda.synchronize()
+    for lg in (k_logits, p_logits, p1_logits):
+        if lg.shape != (len(spec), cfg.vocab_size) or not torch.isfinite(lg).all():
+            fail(f"{label} step: logits {tuple(lg.shape)} not finite")
+    err = float((k_logits - p_logits).abs().max())
+    spread = float((p1_logits - p_logits).abs().max())
+    tol = max(3.0 * spread, floor)
+    top2 = torch.topk(p_logits, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    agree = (k_logits.argmax(-1) == p_logits.argmax(-1)).cpu().numpy()
+    decided = margin > 2 * err
+    log(f"[step {label}] full-width ragged step ({live} live rows, width "
+        f"{width}, {cfg.num_layers} layers): kernel vs plain attention "
+        f"max|Δlogit| {err:.3g}; plain 8-page vs 1-page schedule "
+        f"{spread:.3g} (limit {tol:.3g}); logit std "
+        f"{float(p_logits.std()):.3f}; greedy picks agree on "
+        f"{int(agree.sum())}/{len(agree)} lanes; {int(decided.sum())} lanes "
+        f"with a top-2 margin > 2×max|Δ|, all must agree")
+    if err > tol:
+        fail(f"{label} step logits differ by {err} > {tol}")
+    if not agree[decided].all():
+        fail(f"{label} step: greedy pick differs on a lane with a clear margin")
+    return dict(max_abs_logit=err, plain_schedule_spread=spread, limit=tol,
+                agree=int(agree.sum()), decided=int(decided.sum()),
+                lanes=len(agree))
+
+
+def phase_step_f32(cfg, params):
+    """The same step in f32: weights widened (the bf16 dict is consumed to
+    make room), a fresh f32 pool with random history rows."""
+    import torch
+    from repro_torch.models.lm import trunk_cache_init
+    c = cfg.replace(dtype="float32")
+    for k in list(params):
+        params[k] = params.pop(k).float()
+    pool = trunk_cache_init(c, ENGINE["num_pages"] + 1, ENGINE["page_size"],
+                            DEV)
+    g = torch.Generator(device=DEV).manual_seed(3)
+    for leaf in pool.values():
+        leaf.normal_(generator=g)
+    return phase_step_vs_plain(c, params, pool, "f32", floor=1e-3)
+
+
+def attention_work(s, itemsize):
+    """Bytes and operations the main-path attention call needs: every live
+    KV row read once (values + int8 scales), q read and out written once,
+    the table and lengths; QKᵀ and P·V over each live row's visible
+    columns."""
+    hq, hkv, d = s["hq"], s["hkv"], s["d"]
+    rows_kv = sum(kv for _, kv in s["spec"])
+    scale_bytes = 2 * 4 if s["ks"] is not None else 0
+    kv_bytes = rows_kv * hkv * (2 * d * s["k"].element_size() + scale_bytes)
+    t = s["q"].shape[0]
+    io = 2 * t * hq * d * itemsize + s["table"].numel() * 4
+    vis = sum(sum(kv - n + i + 1 for i in range(n)) for n, kv in s["spec"])
+    flops = 4.0 * d * hq * vis
+    return kv_bytes + io, flops
+
+
+def phase_timing(engine_facts):
+    """Each kernel at the engine's decode-step shape (8 lanes decoding at
+    the served requests' mid-decode lengths, block_q 8), beside its plain
+    version, a library call and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_reference, q_block_layout)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    flush = lambda: flush_buf.zero_()  # noqa: E731
+    kv_lens = engine_facts["decode_kv_lens"]
+    kernels = []
+    for pool in ("bfloat16", "int8"):
+        s = make_stream([(1, kv) for kv in kv_lens], pool=pool,
+                        n_pages=ENGINE["num_pages"], seed=11)
+        hq, d, ps = s["hq"], s["d"], s["k"].shape[2]
+        t = s["q"].shape[0]
+        rows, start, kvl, _ = q_block_layout(s["cu"], s["pos"], t, 8)
+        qb = s["q"][rows.reshape(-1).long()].reshape(rows.shape[0], 8, hq, d)
+        qb = qb.transpose(1, 2).contiguous()
+        tbl = s["table"][start.long()].contiguous()
+        a = (qb, s["k"], s["v"], tbl, kvl)
+        kw = dict(k_scale=s["ks"], v_scale=s["vs"], block_pages=8)
+        got = paged_attention(*a, **kw)
+        want = paged_attention_reference(*a, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: paged_attention(*a, **kw), flush=flush)
+        plain = cuda_ms(lambda: paged_attention_reference(*a, **kw),
+                        iters=5, flush=flush)
+        # yardstick: SDPA (exact exp, not the same function) over a gathered
+        # contiguous bf16 view padded to the longest lane, with a length mask
+        lmax = max(kv_lens)
+        pages = -(-lmax // ps)
+        lane_tbl = s["table"][s["cu"][:8].long(), :pages]
+        kf = s["k"].float() if pool == "int8" else s["k"]
+        vf = s["v"].float() if pool == "int8" else s["v"]
+        if pool == "int8":
+            kf = kf * s["ks"][..., None]
+            vf = vf * s["vs"][..., None]
+        kg = kf[lane_tbl.long()].transpose(1, 2).reshape(8, hq, pages * ps, d)
+        vg = vf[lane_tbl.long()].transpose(1, 2).reshape(8, hq, pages * ps, d)
+        kg, vg = kg[:, :, :lmax].bfloat16(), vg[:, :, :lmax].bfloat16()
+        qd = s["q"][:8].reshape(8, 1, hq, d).transpose(1, 2).contiguous()
+        mask = (torch.arange(lmax, device=DEV)[None, :]
+                < torch.tensor(kv_lens, device=DEV)[:, None])[:, None, None]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kg, vg, attn_mask=mask), flush=flush)
+        nbytes, flops = attention_work(s, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        name = "paged_attention" if pool == "bfloat16" else "paged_attention_int8"
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention/kernel.py:132",
+            launches=engine_facts["launches"][pool]["paged_attention"],
+            max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib,
+            library="scaled_dot_product_attention over a gathered bf16 view "
+                    "(exact exp, not the same function)",
+            shape=f"decode step: 8 lanes, kv {kv_lens}, block_q 8, "
+                  f"{hq} heads × {d}, ps {ps}, {pool} pool"))
+        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, sdpa "
+            f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+
+    # LUT exp: every logit that call computes, as one tensor of s − m values
+    n = sum(kv_lens) * HQ * 8
+    x = (torch.rand(n, device=DEV) * -30.0).contiguous()
+    got, want = lut_exp(x), lut_exp_ref(x)
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: lut_exp(x), flush=flush)
+    plain = cuda_ms(lambda: lut_exp_ref(x), flush=flush)
+    lib = cuda_ms(lambda: torch.exp(x), flush=flush)
+    t_bytes = 8.0 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 12.0 * n / PEAK_FLOPS["float32"] * 1e3
+    kernels.append(dict(
+        name="lut_exp", route="cuda", source="src/repro_torch/csrc/lut_exp.cu",
+        replaces="src/repro/kernels/lut_exp/kernel.py:95",
+        launches=engine_facts["launches"]["bfloat16"]["lut_exp"],
+        on_main_path=False,
+        inlined_in="paged_attention (csrc/lut_exp.cuh, every launch)",
+        max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=lib, library="torch.exp (exact exp, not the same function)",
+        shape=f"{n} f32 logits (the decode step's s − m values)"))
+    log(f"[time] lut_exp: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.exp "
+        f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({n} elements)")
+    return kernels
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to run",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+
+    t_start = time.perf_counter()
+    name, smi_line = phase_card()
+    phase_build()
+    phase_lut_exp()
+    phase_paged_attention()
+
+    cfg = get_config(MODEL)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    log(f"[weights] {cfg.name}: {n_params / 1e9:.2f} B parameters, "
+        f"{sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.1f}"
+        f" GB {cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    log(f"[requests] 8 prompts of {sorted(int(n) for n in lens)} tokens, "
+        f"max_new {MAX_NEW}")
+
+    facts = {"launches": {}}
+    for kv_quant in (False, True):
+        eng, f = phase_engine(cfg, params, kv_quant, prompts)
+        facts["launches"]["int8" if kv_quant else "bfloat16"] = f["launches"]
+        facts["int8" if kv_quant else "bf16"] = f
+        if not kv_quant:
+            steps = {"bf16": phase_step_vs_plain(cfg, params, eng.kv.pool,
+                                                 "bf16", floor=1e-2)}
+        del eng
+        torch.cuda.empty_cache()
+    steps["f32"] = phase_step_f32(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    facts["decode_kv_lens"] = [int(n) + MAX_NEW // 2 for n in lens]
+    kernels = phase_timing(facts)
+
+    summary = {k: {kk: vv for kk, vv in facts[k].items() if kk != "streams"}
+               for k in ("bf16", "int8")}
+    summary["step_vs_plain"] = steps
+    log("[summary] " + json.dumps(summary))
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

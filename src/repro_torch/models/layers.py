@@ -1,0 +1,129 @@
+"""Transformer building blocks of the dense decoder (port of
+``src/repro/models/layers.py``): dense, RMSNorm, RoPE, embed/unembed, the
+SiLU-gated MLP and the ragged (``token_pages``) branch of the paged
+attention layer.  Functions on tensors; parameters are plain tensors.  Projections,
+the MLP and the unembed stay ``torch.matmul``, as the reference leaves them
+to XLA; attention goes through the paged kernels.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.streaming_attention import quantize_kv_rows
+from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
+
+
+def dense_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in f32, cast back to ``x.dtype``.  On the card a
+    same-dtype product goes to cuBLAS, which accumulates in f32 and rounds
+    once (``device.configure_matmul_precision`` forbids reduced-precision
+    reductions); elsewhere the operands are widened to f32 first."""
+    if x.device.type == "cuda" and x.dtype == w.dtype:
+        return torch.matmul(x, w)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+
+
+def norm_apply(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm with a ``1 + scale`` weight, computed in f32."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + 1e-6) * (1.0 + scale.to(torch.float32))
+    return y.to(x.dtype)
+
+
+def rope_apply(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: (B, H, L, D); pos: (L,) or (B, L) positions."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = pos.to(torch.float32)[..., :, None] * freqs       # (…, L, D/2)
+    if angles.dim() == 3:
+        angles = angles[:, None]                               # (B, 1, L, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1 = x[..., 0::2].to(torch.float32)
+    x2 = x[..., 1::2].to(torch.float32)
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed_apply(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Final logits through the (untied) head, in f32."""
+    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(dense_apply(p["gate"], x)) * dense_apply(p["up"], x)
+    return dense_apply(p["down"], h)
+
+
+def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, l, hd = x.shape
+    return x.reshape(b, l, n, hd // n).transpose(1, 2)        # (B, H, L, Dh)
+
+
+def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                      x: torch.Tensor, *, pos: torch.Tensor,
+                      cache: Dict[str, torch.Tensor],
+                      token_pages: torch.Tensor,
+                      cu_seqlens: Optional[torch.Tensor],
+                      kernel_config: Dict, attend: Callable = None
+                      ) -> torch.Tensor:
+    """The ragged branch of the reference ``attn_apply`` (layers.py:238-349).
+
+    ``x`` is one (1, T, d_model) packed stream, ``pos`` (T,) each token's
+    position, ``token_pages`` (T, P) each token's page-table row and
+    ``cache`` this layer's pool views {"k", "v"[, "ks", "vs"]} of shape
+    (N+1, Hkv, ps, Dh) (scales (N+1, Hkv, ps)).  Each token's K/V row is
+    written at (its page, pos % ps) — quantised on the way in for int8
+    pools; dead rows carry an all-scratch table row, so their writes land
+    on the scratch page — and attention reads the pool through the tables.
+
+    The reference donates the pool buffer to the jitted step; here the
+    write updates the pool in place (``index_put_`` on the layer's view of
+    the stacked pool).
+    """
+    attend = attend or paged_attention_varlen
+    _, t, _ = x.shape
+    q = _heads(dense_apply(p["wq"], x), cfg.num_heads)
+    k = _heads(dense_apply(p["wk"], x), cfg.num_kv_heads)
+    v = _heads(dense_apply(p["wv"], x), cfg.num_kv_heads)
+    q = rope_apply(q, pos[None], cfg.rope_theta)
+    k = rope_apply(k, pos[None], cfg.rope_theta)
+
+    ps = cache["k"].shape[2]
+    slot = torch.clamp(torch.div(pos, ps, rounding_mode="floor"), 0,
+                       token_pages.shape[1] - 1)
+    pids = torch.gather(token_pages, 1, slot[:, None].long())[:, 0].long()
+    off = torch.remainder(pos, ps).long()
+
+    def put(pool, val):
+        # val (1, H, T, …) → rows-major (T, H, …), one row per (page, offset)
+        pool[pids, :, off] = val[0].transpose(0, 1).to(pool.dtype)
+
+    kw = dict(scale=cfg.d_head ** -0.5, exp_mode=cfg.exp_mode,
+              block_q=kernel_config["block_q"],
+              block_pages=kernel_config["block_pages"],
+              dequant=kernel_config["dequant"])
+    if "ks" in cache:                       # int8 pool: values + row scales
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        put(cache["k"], kq)
+        put(cache["v"], vq)
+        put(cache["ks"], ks)
+        put(cache["vs"], vs)
+        kw.update(k_scale=cache["ks"], v_scale=cache["vs"])
+    else:
+        put(cache["k"], k)
+        put(cache["v"], v)
+    qt = q[0].transpose(0, 1).contiguous()                      # (T, Hq, Dh)
+    out = attend(qt, cache["k"], cache["v"], token_pages, pos,
+                 cu_seqlens=cu_seqlens, **kw)                   # (T, Hq, Dh)
+    return dense_apply(p["wo"], out.reshape(1, t, cfg.num_heads * cfg.d_head))

@@ -1,0 +1,174 @@
+"""Port hygiene: ``repro_torch`` imports neither JAX nor the reference
+package, its entry points default to the card and never fall back, and the
+CUDA wrappers raise rather than run the plain version on a non-CPU
+tensor."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.lut_exp import ops as lut_ops  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+from repro_torch.params import init_params  # noqa: E402
+from repro_torch.serving import EngineCore, Request  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(n for n in sys.modules if n.startswith('jax')"
+        " or n.split('.')[0] == 'repro')\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 20, out.stdout        # every submodule was imported
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda_and_raises_without_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_engine_without_device_raises_without_card(no_card):
+    cfg = get_config("deepseek-7b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8)
+    EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(mode="padded"), dict(prefix_cache=True),
+                                dict(speculative=True), dict(mesh=2)])
+def test_later_slices_raise_not_implemented(kw):
+    cfg = get_config("deepseek-7b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        EngineCore(cfg, params, device="cpu", **kw)
+
+
+def test_sampled_request_raises_not_implemented():
+    cfg = get_config("deepseek-7b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8,
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="sampling"):
+        eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                           max_new=2, temperature=0.7))
+
+
+def test_engine_rejects_params_on_another_device():
+    cfg = get_config("deepseek-7b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params["embed"] = params["embed"].to("meta")
+    with pytest.raises(ValueError, match="meta"):
+        EngineCore(cfg, params, device="cpu")
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: drives the wrappers' card
+    branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _fake(a):
+    return torch.as_tensor(a).as_subclass(_FakeCuda)
+
+
+@pytest.fixture
+def no_toolchain(monkeypatch, tmp_path):
+    """No nvcc anywhere and an empty build cache."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(build, "_libs", {})
+
+
+def _forbid(monkeypatch, module, name):
+    def fail(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(module, name, fail)
+
+
+def test_lut_exp_cuda_tensor_raises_without_toolchain(no_toolchain,
+                                                      monkeypatch):
+    _forbid(monkeypatch, lut_ops, "lut_exp_ref")
+    before = lut_ops.lut_exp.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lut_ops.lut_exp(_fake(np.zeros(8, np.float32)))
+    assert lut_ops.lut_exp.launches == before
+
+
+def test_paged_attention_cuda_tensor_raises_without_toolchain(no_toolchain,
+                                                              monkeypatch):
+    _forbid(monkeypatch, pa_ops, "paged_attention_reference")
+    q = _fake(np.zeros((2, 4, 1, 16), np.float32))
+    pool = _fake(np.zeros((5, 2, 8, 16), np.float32))
+    tbl = _fake(np.zeros((2, 2), np.int32))
+    lens = _fake(np.ones(2, np.int32))
+    before = pa_ops.paged_attention.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pa_ops.paged_attention(q, pool, pool, tbl, lens)
+    assert pa_ops.paged_attention.launches == before
+
+
+def test_wrappers_refuse_other_devices(monkeypatch):
+    _forbid(monkeypatch, lut_ops, "lut_exp_ref")
+    _forbid(monkeypatch, pa_ops, "paged_attention_reference")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lut_ops.lut_exp(torch.zeros(4, device="meta"))
+    m = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa_ops.paged_attention(m(1, 2, 1, 8), m(3, 2, 4, 8), m(3, 2, 4, 8),
+                               m(1, 1, dt=torch.int32), m(1, dt=torch.int32))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(q_dtype=torch.float16), dict(cap=0.0), dict(window=0),
+    dict(exp_mode="exp2"), dict(ps=48)])
+def test_paged_attention_card_checks_raise(bad, no_toolchain, monkeypatch):
+    """What the kernel does not take is refused before any launch."""
+    _forbid(monkeypatch, pa_ops, "paged_attention_reference")
+    ps = bad.pop("ps", 8)
+    dt = bad.pop("q_dtype", torch.float32)
+    q = _fake(torch.zeros((2, 4, 1, 16), dtype=dt))
+    pool = _fake(np.zeros((5, 2, ps, 16), np.float32))
+    tbl = _fake(np.zeros((2, 2), np.int32))
+    lens = _fake(np.ones(2, np.int32))
+    with pytest.raises((TypeError, ValueError)):
+        pa_ops.paged_attention(q, pool, pool, tbl, lens, **bad)
+
+
+def test_build_flags_target_hopper():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert {"-O3", "-shared", "-std=c++17"} <= set(build.NVCC_FLAGS)
+    assert set(build.sources()) == {"lut_exp", "paged_attention"}
+    assert len(build.source_hash()) == 16
