@@ -1,4 +1,5 @@
-"""The PyTorch port's main path on one NVIDIA H100: build, check, serve.
+"""The PyTorch port's main paths on one NVIDIA H100: build, check, encode,
+serve, score.
 
     python3 chip_smoke.py
 
@@ -13,16 +14,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    shapes (32 heads of 128, page size 16, ~1000 pages, 8 lanes with 37 to
    ~2000 live rows, shuffled tables): decode and q-block-tiled steps over
    f32, bf16 and int8 pools, GQA, softcap, window, lut0 and exact exp;
-5. serve 8 requests of deepseek-7b at full width and full depth (random
-   weights from a seed) through ``EngineCore`` with a bf16 pool, then an
-   int8 pool; count kernel launches over each run (paged attention =
-   layers × steps); hold one full-width ragged step's logits through the
-   kernel against the same step through the plain attention, in bf16 on
-   the served pool and in f32;
-6. time each kernel at the engine's decode shapes beside its plain
-   version, a library yardstick and its roofline bound, and print the
-   ``{"kernels": [...]}`` line;
-7. print ``{"ok": true, "device": {...}}`` as the last line.
+5. hold the streaming-attention kernel to its plain version at BERT-large
+   widths (16 × 64, l 512 and 4096) and deepseek widths (32 × 128, causal,
+   l 2048), f32 and bf16, with GQA 4:1, window, softcap, q_offset/kv_len,
+   ragged Lq/Lkv, rows that see no key, lut0 and exact exp;
+6. encode with BERT-large at full width and depth (random weights from a
+   seed) through ``build_model(cfg).prefill`` on 8 × 512 and 1 × 4096
+   tokens: 24 streaming-attention launches per forward, tokens/s, peak
+   memory; the masked-LM loss; logits through the kernel held against the
+   same forward through the plain attention, in bf16 and f32;
+7. serve 8 requests of deepseek-7b at full width and full depth through
+   ``EngineCore`` with a bf16 pool, then an int8 pool; count kernel
+   launches over each run (paged attention = layers × steps); hold one
+   full-width ragged step's logits through the kernel against the same
+   step through the plain attention, in bf16 on the served pool and in
+   f32; score 2 × 1024 tokens causally through ``build_model(cfg).loss``
+   (one streaming-attention launch per layer) against the plain attention,
+   in bf16 and in f32;
+8. time each kernel at its main path's shapes (paged attention and the LUT
+   exp at the engine's decode step, streaming attention at the BERT encode
+   shapes) beside its plain version, a library yardstick and its roofline
+   bound, and print the ``{"kernels": [...]}`` line;
+9. print the card's name and power limit, then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA card is visible.
 """
@@ -51,6 +65,11 @@ CHUNK = 128                        # the prefill chunk of the tiled checks
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off tensor cores
 F32_TOL = dict(atol=2e-5, rtol=1e-4)
+SA_TOL = dict(atol=3e-5, rtol=1e-4)  # the reference kernel suite's
+BERT = "bert-large"
+BERT_SHAPES = ((8, 512), (1, 4096))  # the paper's l, and the top of its sweep
+MASK_ID = 103                        # [MASK] in BERT's WordPiece vocab
+SCORE_SHAPE = (2, 1024)              # deepseek-7b causal scoring batch
 
 
 def log(*a):
@@ -83,16 +102,16 @@ def cuda_ms(fn, *, iters=20, warmup=3, flush=None):
     return float(np.median(times))
 
 
-def bf16_ulps(got, want) -> float:
+def bf16_ulps(got, want, atol=F32_TOL["atol"]) -> float:
     """Largest |got − want| beyond the f32 atol, in bf16 ulps of the larger
     magnitude.  Both sides sum in f32 and round once to bf16, so they may
     land one ulp apart; near zero, where the f32 sums cancel, the f32
-    tolerance's atol (2e-5) is the floor instead."""
+    tolerance's atol is the floor instead."""
     import torch
     g, w = got.float(), want.float()
     mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    excess = ((g - w).abs() - F32_TOL["atol"]).clamp_min(0.0)
+    excess = ((g - w).abs() - atol).clamp_min(0.0)
     return float((excess / ulp).max())
 
 
@@ -261,6 +280,285 @@ def phase_paged_attention():
         log(f"[paged_attention] {name}: {msg}")
         if not ok:
             fail(f"paged attention {name} disagrees with the plain version: {msg}")
+
+
+def sa_inputs(shape, dtype, seed, integers=False):
+    """q (B, Hq, Lq, D), k/v (B, Hkv, Lkv, D) drawn on the card from a seed;
+    ``integers`` draws q and k as small integers, so every logit is exact."""
+    import torch
+    b, hq, hkv, lq, lkv, d = shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    if integers:
+        draw = lambda *s: torch.randint(-3, 4, s, generator=g,  # noqa: E731
+                                        device=DEV).float()
+    else:
+        draw = lambda *s: torch.randn(s, generator=g, device=DEV)  # noqa: E731
+    q, k = draw(b, hq, lq, d), draw(b, hkv, lkv, d)
+    v = torch.randn((b, hkv, lkv, d), generator=g, device=DEV)
+    dt = getattr(torch, dtype)
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
+# (name, (B, Hq, Hkv, Lq, Lkv, D), dtype, kwargs): BERT-large widths at the
+# paper's l and the top of its sweep, deepseek widths causal, then every
+# option of the kernel at full width.
+SA_CASES = [
+    ("bert-large l512 f32", (8, 16, 16, 512, 512, 64), "float32", {}),
+    ("bert-large l512 bf16", (8, 16, 16, 512, 512, 64), "bfloat16", {}),
+    ("bert-large l4096 f32", (1, 16, 16, 4096, 4096, 64), "float32", {}),
+    ("bert-large l4096 bf16", (1, 16, 16, 4096, 4096, 64), "bfloat16", {}),
+    ("deepseek causal l2048 f32", (1, 32, 32, 2048, 2048, 128), "float32",
+     dict(causal=True)),
+    ("deepseek causal l2048 bf16", (1, 32, 32, 2048, 2048, 128), "bfloat16",
+     dict(causal=True)),
+    ("gqa 4:1 causal bf16", (2, 32, 8, 1024, 1024, 128), "bfloat16",
+     dict(causal=True)),
+    ("window 256 causal f32", (1, 32, 32, 2048, 2048, 128), "float32",
+     dict(causal=True, window=256)),
+    ("softcap 50 f32", (2, 16, 16, 512, 512, 64), "float32", dict(cap=50.0)),
+    ("q_offset 1000 kv_len 1290 gqa f32", (2, 32, 8, 300, 1400, 128),
+     "float32", dict(causal=True, q_offset=1000, kv_len=1290)),
+    ("ragged Lq 1000 Lkv 1037 gqa f32", (3, 16, 4, 1000, 1037, 64), "float32",
+     {}),
+    ("rows that see no key f32", (1, 16, 16, 200, 512, 64), "float32",
+     dict(causal=True, q_offset=560, window=100)),
+    ("exact l512 f32", (8, 16, 16, 512, 512, 64), "float32",
+     dict(exp_mode="exact")),
+    ("exact causal l2048 bf16", (1, 32, 32, 2048, 2048, 128), "bfloat16",
+     dict(causal=True, exp_mode="exact")),
+    # The order-0 LUT depends on the online-softmax blocking and a logit one
+    # rounding apart can flip a table index: held against the plain scan at
+    # the kernel's 64-key tiles over integer q and k (exact logits).
+    ("lut0 l512 f32", (8, 16, 16, 512, 512, 64), "float32",
+     dict(exp_mode="lut0")),
+    ("lut0 causal l2048 f32", (1, 32, 32, 2048, 2048, 128), "float32",
+     dict(causal=True, exp_mode="lut0")),
+]
+
+
+def phase_streaming_attention():
+    """Kernel #3 against its plain version on every case of ``SA_CASES``:
+    f32 within the reference kernel suite's atol 3e-5 / rtol 1e-4, bf16
+    within one bf16 ulp beyond that atol."""
+    import torch
+    from repro_torch.core.streaming_attention import (
+        streaming_attention as attention_scan)
+    from repro_torch.kernels.streaming_attention import (attention_ref,
+                                                         streaming_attention)
+    from repro_torch.kernels.streaming_attention.ops import BLOCK_K
+    worst = {}
+    for i, (name, shape, dtype, kw) in enumerate(SA_CASES):
+        lut0 = kw.get("exp_mode") == "lut0"
+        q, k, v = sa_inputs(shape, dtype, seed=100 + i, integers=lut0)
+        before = streaming_attention.launches
+        got = streaming_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if streaming_attention.launches != before + 1:
+            fail(f"streaming attention {name}: kernel not launched")
+        want = (attention_scan(q, k, v, block_k=BLOCK_K, **kw) if lut0
+                else attention_ref(q, k, v, **kw))
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"streaming attention {name}: shape {tuple(got.shape)} or "
+                 f"non-finite output")
+        if "window" in kw and "q_offset" in kw:        # rows past the keys
+            blind = torch.arange(shape[3], device=DEV) + kw["q_offset"] \
+                - kw["window"] + 1 >= shape[4]
+            if got[:, :, blind].any():
+                fail(f"streaming attention {name}: a row that sees no key "
+                     f"is not 0")
+        if got.dtype == torch.float32:
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, **SA_TOL)
+            msg = f"max|Δ| {err:.3g} (atol 3e-5, rtol 1e-4)"
+        else:
+            err = bf16_ulps(got, want, SA_TOL["atol"])
+            ok = err <= 1.0
+            msg = f"max {err:.2f} bf16 ulp beyond atol 3e-5 (limit 1)"
+        worst[name] = err
+        log(f"[streaming_attention] {name}: {msg}")
+        if not ok:
+            fail(f"streaming attention {name} disagrees with the plain "
+                 f"version: {msg}")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def hold_logits(label, k_logits, p_logits, p2_logits, floor):
+    """Kernel logits against the plain attention's, with the serving step's
+    margin rule (``phase_step_vs_plain``):
+    the kernel must sit within 3× the spread between two plain schedules
+    (materialised logits and the online-softmax scan) on this very input,
+    ``floor`` at least; greedy picks must agree on every row whose top-2
+    margin exceeds twice the measured gap."""
+    import torch
+    for lg in (k_logits, p_logits, p2_logits):
+        if not torch.isfinite(lg).all():
+            fail(f"{label}: non-finite logits")
+    err = float((k_logits - p_logits).abs().max())
+    spread = float((p2_logits - p_logits).abs().max())
+    tol = max(3.0 * spread, floor)
+    flat_p = p_logits.reshape(-1, p_logits.shape[-1])
+    top2 = torch.topk(flat_p, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = (k_logits.reshape(flat_p.shape).argmax(-1) == flat_p.argmax(-1))
+    decided = margin > 2 * err
+    log(f"[{label}] kernel vs plain attention max|Δlogit| {err:.3g}; plain "
+        f"materialised vs scan {spread:.3g} (limit {tol:.3g}); logit std "
+        f"{float(p_logits.std()):.3f}; argmax agrees on "
+        f"{int(agree.sum())}/{agree.numel()} rows, all {int(decided.sum())} "
+        f"rows with a top-2 margin > 2×max|Δ| must")
+    if err > tol:
+        fail(f"{label}: logits differ by {err} > {tol}")
+    if not agree[decided].all():
+        fail(f"{label}: argmax differs on a row with a clear margin")
+    return dict(max_abs_logit=err, plain_spread=spread, limit=tol,
+                rows=agree.numel(), agree=int(agree.sum()),
+                decided=int(decided.sum()))
+
+
+def hold_loss(label, losses, floor):
+    """(kernel, materialised plain, plain scan) losses: the kernel within 3×
+    the plain schedules' spread, ``floor`` at least."""
+    k, p, p2 = losses
+    err, spread = abs(k - p), abs(p2 - p)
+    tol = max(3.0 * spread, floor)
+    log(f"[{label}] kernel {k:.6f}, plain {p:.6f}, plain scan {p2:.6f}: "
+        f"|Δ| {err:.3g} (limit {tol:.3g})")
+    if not np.isfinite(losses).all() or err > tol:
+        fail(f"{label}: kernel {k} vs plain {p} (limit {tol})")
+    return dict(kernel=k, plain=p, plain_scan=p2, limit=tol)
+
+
+def logits_three_ways(cfg, params, tokens, causal):
+    """``lm_apply`` logits through the kernel (``auto``), the materialised
+    plain attention (``naive``) and the plain scan (``jnp``)."""
+    from repro_torch.models.lm import lm_apply
+    return [lm_apply(cfg.replace(attn_backend=b), params, tokens,
+                     causal=causal) for b in ("auto", "naive", "jnp")]
+
+
+def phase_bert():
+    """BERT-large at full width and depth: encode 8 × 512 and 1 × 4096
+    tokens through ``build_model(cfg).prefill`` (24 kernel launches per
+    forward), the masked-LM loss, and the logits held against the plain
+    attention in bf16 and f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    from repro_torch.models.api import build_model
+    cfg = get_config(BERT)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(1), DEV)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"[weights] {cfg.name}: {sum(p.numel() for p in params.values()) / 1e6:.1f}"
+        f" M parameters, {n_bytes / 1e9:.2f} GB {cfg.dtype}, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    facts = {"launches": 0, "forwards": {}}
+    for b, l in BERT_SHAPES:
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, l)).astype(np.int32)).to(DEV)
+        batch = {"tokens": tokens}
+        model.prefill(params, batch)                  # warm: cuBLAS plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        streaming_attention.launches = 0
+        paged_attention.launches = 0
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = streaming_attention.launches
+        if launches != cfg.num_layers or paged_attention.launches:
+            fail(f"bert encode {b}×{l}: streaming attention launched "
+                 f"{launches} times (expected {cfg.num_layers}), paged "
+                 f"{paged_attention.launches}")
+        if logits.shape != (b, l, cfg.vocab_size) or not torch.isfinite(
+                logits).all():
+            fail(f"bert encode {b}×{l}: logits {tuple(logits.shape)} not "
+                 f"finite")
+        facts["launches"] += launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        walls = []
+        for _ in range(5):                            # host clock, synced
+            t0 = time.perf_counter()
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        f = dict(ms=wall * 1e3, ms_all=[w * 1e3 for w in walls],
+                 tok_s=b * l / wall, launches=launches, peak_gib=peak)
+        log(f"[bert encode {b}×{l}] median of 5 forwards {f['ms']:.1f} ms → "
+            f"{f['tok_s']:.0f} tokens/s; peak {peak:.2f} GiB; "
+            f"streaming_attention launches {launches} in the counted forward")
+        f["bf16"] = hold_logits(f"bert {b}×{l} bf16", *logits_three_ways(
+            cfg, params, tokens, causal=False), floor=1e-2)
+        facts["forwards"][f"{b}x{l}"] = f
+        del logits
+    # the masked-LM loss on the 8 × 512 batch: 15% of positions masked
+    b, l = BERT_SHAPES[0]
+    tokens = rng.integers(0, cfg.vocab_size, (b, l)).astype(np.int32)
+    masked = rng.random((b, l)) < 0.15
+    batch = {"tokens": torch.from_numpy(np.where(masked, MASK_ID, tokens)
+                                        .astype(np.int32)).to(DEV),
+             "labels": torch.from_numpy(tokens).to(DEV),
+             "loss_mask": torch.from_numpy(masked.astype(np.float32)).to(DEV)}
+    before = streaming_attention.launches
+    losses = [float(build_model(cfg.replace(attn_backend=be)).loss(
+        params, batch)[0]) for be in ("auto", "naive", "jnp")]
+    if streaming_attention.launches != before + cfg.num_layers:
+        fail("bert loss did not run through the kernel")
+    facts["mlm_loss"] = hold_loss("bert MLM loss", losses, floor=1e-3)
+    log(f"[bert loss] masked-LM loss on {b}×{l} ({int(masked.sum())} masked): "
+        f"{losses[0]:.4f} through the kernel, {losses[1]:.4f} plain (ln V = "
+        f"{np.log(cfg.vocab_size):.4f})")
+    # f32: the same weights widened
+    c32 = cfg.replace(dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    del params
+    for b, l in BERT_SHAPES:
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, l)).astype(np.int32)).to(DEV)
+        facts["forwards"][f"{b}x{l}"]["f32"] = hold_logits(
+            f"bert {b}×{l} f32", *logits_three_ways(c32, p32, tokens,
+                                                     causal=False), floor=1e-3)
+    del p32
+    torch.cuda.empty_cache()
+    return facts
+
+
+def phase_scoring(cfg, params, label, floor):
+    """deepseek-7b causal scoring (``build_model(cfg).loss``) on 2 × 1024
+    tokens: one kernel launch per layer, the loss and the logits held
+    against the plain attention."""
+    import torch
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    from repro_torch.models.api import build_model
+    b, l = SCORE_SHAPE
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, l))
+                              .astype(np.int32)).to(DEV)
+    streaming_attention.launches = 0
+    t0 = time.perf_counter()
+    loss = float(build_model(cfg).loss(params, {"tokens": tokens})[0])
+    wall = time.perf_counter() - t0
+    launches = streaming_attention.launches
+    if launches != cfg.num_layers:
+        fail(f"deepseek scoring {label}: streaming attention launched "
+             f"{launches} times, expected {cfg.num_layers}")
+    losses = [loss] + [float(build_model(cfg.replace(attn_backend=be)).loss(
+        params, {"tokens": tokens})[0]) for be in ("naive", "jnp")]
+    log(f"[scoring {label}] deepseek-7b next-token loss on {b}×{l}: {loss:.4f} "
+        f"through the kernel ({launches} launches, {wall * 1e3:.0f} ms incl. "
+        f"the first call), {losses[1]:.4f} plain (ln V = "
+        f"{np.log(cfg.vocab_size):.4f})")
+    held = hold_logits(f"scoring {label}", *logits_three_ways(
+        cfg, params, tokens, causal=True), floor=floor)
+    held["loss"] = hold_loss(f"scoring {label} loss", losses, floor=floor / 10)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=wall * 1e3, **held)
 
 
 def phase_engine(cfg, params, kv_quant: bool, prompts):
@@ -477,19 +775,24 @@ def phase_timing(engine_facts):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         name = "paged_attention" if pool == "bfloat16" else "paged_attention_int8"
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/csrc/paged_attention.cu",
-            replaces="src/repro/kernels/paged_attention/kernel.py:132",
+        entry = dict(
             launches=engine_facts["launches"][pool]["paged_attention"],
             max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib,
-            library="scaled_dot_product_attention over a gathered bf16 view "
-                    "(exact exp, not the same function)",
             shape=f"decode step: 8 lanes, kv {kv_lens}, block_q 8, "
-                  f"{hq} heads × {d}, ps {ps}, {pool} pool"))
+                  f"{hq} heads × {d}, ps {ps}, {pool} pool")
+        if pool == "bfloat16":
+            kernels.append(dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention/kernel.py:132",
+                **entry,
+                library="scaled_dot_product_attention over a gathered bf16 "
+                        "view (exact exp, not the same function)"))
+        else:                        # the same kernel over an int8 pool
+            kernels[-1]["int8_pool"] = entry
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, sdpa "
             f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -509,7 +812,8 @@ def phase_timing(engine_facts):
         replaces="src/repro/kernels/lut_exp/kernel.py:95",
         launches=engine_facts["launches"]["bfloat16"]["lut_exp"],
         on_main_path=False,
-        inlined_in="paged_attention (csrc/lut_exp.cuh, every launch)",
+        inlined_in="paged_attention and streaming_attention "
+                   "(csrc/lut_exp.cuh, every launch)",
         max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -517,7 +821,63 @@ def phase_timing(engine_facts):
         shape=f"{n} f32 logits (the decode step's s − m values)"))
     log(f"[time] lut_exp: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.exp "
         f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({n} elements)")
+    kernels.append(time_streaming(flush, engine_facts))
     return kernels
+
+
+def time_streaming(flush, facts):
+    """Kernel #3 at its main paths' shapes: the BERT-large encodes (bf16, 16
+    heads × 64, bidirectional) and the deepseek-7b scoring batch (bf16, 32
+    heads × 128, causal): kernel, plain version, SDPA (exact exp, the same
+    mask) and the bound.  Bytes: q, k, v read once and out written once;
+    operations: the QKᵀ and P·V products over the visible keys, at the bf16
+    tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.streaming_attention import (attention_ref,
+                                                         streaming_attention)
+    shapes = [(f"l{l}", (b, 16, 16, l, l, 64), False) for b, l in BERT_SHAPES]
+    b, l = SCORE_SHAPE
+    shapes.append((f"scoring_{b}x{l}", (b, 32, 32, l, l, 128), True))
+    timed = {}
+    for label, shape, causal in shapes:
+        b, hq, _, l, _, d = shape
+        q, k, v = sa_inputs(shape, "bfloat16", seed=7)
+        got = streaming_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: streaming_attention(q, k, v, causal=causal),
+                     flush=flush)
+        plain = cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
+                        iters=5, flush=flush)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), flush=flush)
+        nbytes = 4.0 * q.numel() * q.element_size()
+        visible = l * (l + 1) / 2 if causal else l * l
+        flops = 4.0 * b * hq * visible * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        timed[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib, shape=f"B {b}, {hq} heads × {d}, l {l}, bf16, "
+                                  f"{'causal' if causal else 'bidirectional'}")
+        log(f"[time] streaming_attention {label} ({timed[label]['shape']}): "
+            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, sdpa {lib:.4f} ms, "
+            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP; {flops / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, got, want
+    first = timed.pop(shapes[0][0])
+    return dict(
+        name="streaming_attention", route="cuda",
+        source="src/repro_torch/csrc/streaming_attention.cu",
+        replaces="src/repro/kernels/streaming_attention/kernel.py:130",
+        launches=facts["bert"]["launches"],
+        launches_per_forward=facts["bert"]["launches"] // len(BERT_SHAPES),
+        scoring_launches=facts["scoring"]["bf16"]["launches"],
+        **first, library="scaled_dot_product_attention (exact exp, not the "
+                         "same function)",
+        **timed)
 
 
 def main() -> int:
@@ -534,6 +894,8 @@ def main() -> int:
     phase_build()
     phase_lut_exp()
     phase_paged_attention()
+    sa_worst = phase_streaming_attention()
+    bert = phase_bert()
 
     cfg = get_config(MODEL)
     t0 = time.perf_counter()
@@ -560,15 +922,22 @@ def main() -> int:
                                                  "bf16", floor=1e-2)}
         del eng
         torch.cuda.empty_cache()
-    steps["f32"] = phase_step_f32(cfg, params)
+    scoring = {"bf16": phase_scoring(cfg, params, "bf16", floor=1e-2)}
+    steps["f32"] = phase_step_f32(cfg, params)       # widens params to f32
+    scoring["f32"] = phase_scoring(cfg.replace(dtype="float32"), params,
+                                   "f32", floor=1e-3)
     del params
     torch.cuda.empty_cache()
     facts["decode_kv_lens"] = [int(n) + MAX_NEW // 2 for n in lens]
+    facts["bert"], facts["scoring"] = bert, scoring
     kernels = phase_timing(facts)
 
     summary = {k: {kk: vv for kk, vv in facts[k].items() if kk != "streams"}
                for k in ("bf16", "int8")}
     summary["step_vs_plain"] = steps
+    summary["streaming_attention_checks"] = sa_worst
+    summary["bert"] = bert
+    summary["scoring"] = scoring
     log("[summary] " + json.dumps(summary))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,23 +17,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lut_exp import lut_exp, make_table
-from repro_torch.core.lut_softmax import NEG_INF, softcap
+from repro_torch.core.lut_softmax import NEG_INF, exp_fn, softcap
 
 
 def default_block_pages(page_size: int, block_k: int = 128) -> int:
     """Pages per scan step so one block is ~``block_k`` KV rows."""
     return max(1, block_k // max(page_size, 1))
-
-
-def exp_fn(exp_mode: str, device) -> callable:
-    if exp_mode == "exact":
-        return torch.exp
-    if exp_mode not in ("lut", "lut0"):
-        raise ValueError(f"exp_mode must be lut, lut0 or exact, got {exp_mode!r}")
-    table = make_table(device=device)
-    order = 1 if exp_mode == "lut" else 0
-    return lambda x: lut_exp(x, order=order, table=table)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,

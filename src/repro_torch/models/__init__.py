@@ -1,1 +1,2 @@
-"""The dense decoder of the port (layers + ragged LM step)."""
+"""Models of the port: layers, the LM (cache-free forward and ragged
+serving step) and ``api.build_model``."""

@@ -1,9 +1,12 @@
-"""Transformer building blocks of the dense decoder (port of
-``src/repro/models/layers.py``): dense, RMSNorm, RoPE, embed/unembed, the
-SiLU-gated MLP and the ragged (``token_pages``) branch of the paged
-attention layer.  Functions on tensors; parameters are plain tensors.  Projections,
-the MLP and the unembed stay ``torch.matmul``, as the reference leaves them
-to XLA; attention goes through the paged kernels.
+"""Transformer building blocks (port of ``src/repro/models/layers.py``):
+dense (optionally biased), RMSNorm and LayerNorm, RoPE, token and learned
+position embeddings, the untied and tied unembed, the gated and plain MLP,
+and two branches of the attention layer: the cache-free full-sequence
+branch (``attn_apply``, through the attention registry) and the ragged
+(``token_pages``) branch of the paged serving step (``attn_apply_ragged``).
+Functions on tensors; parameters are plain tensors.  Projections, the MLP
+and the unembed stay ``torch.matmul``, as the reference leaves them to
+XLA; attention goes through the port's kernels.
 """
 from __future__ import annotations
 
@@ -13,18 +16,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.attention_api import attention, backend_for_config
 from repro_torch.core.streaming_attention import quantize_kv_rows
 from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
 
+Params = Dict[str, torch.Tensor]
 
-def dense_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x @ w accumulated in f32, cast back to ``x.dtype``.  On the card a
-    same-dtype product goes to cuBLAS, which accumulates in f32 and rounds
-    once (``device.configure_matmul_precision`` forbids reduced-precision
-    reductions); elsewhere the operands are widened to f32 first."""
+
+def dense_apply(w: torch.Tensor, x: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w accumulated in f32, cast back to ``x.dtype``, then ``+ b`` in
+    that dtype.  On the card a same-dtype product goes to cuBLAS, which
+    accumulates in f32 and rounds once (``device.configure_matmul_precision``
+    forbids reduced-precision reductions); elsewhere the operands are
+    widened to f32 first."""
     if x.device.type == "cuda" and x.dtype == w.dtype:
-        return torch.matmul(x, w)
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+        y = torch.matmul(x, w)
+    else:
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
 
 
 def norm_apply(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -33,6 +45,25 @@ def norm_apply(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + 1e-6) * (1.0 + scale.to(torch.float32))
     return y.to(x.dtype)
+
+
+def layer_norm_apply(scale: torch.Tensor, bias: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm as the reference computes it: f32, population variance,
+    eps 1e-6 inside the rsqrt (not ``F.layer_norm``'s 1e-5)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    y = y * scale.to(torch.float32) + bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def norm(cfg: ModelConfig, p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm with parameters ``p[name]`` (and ``p[name + "_b"]``)."""
+    if cfg.norm == "layernorm":
+        return layer_norm_apply(p[name], p[name + "_b"], x)
+    return norm_apply(p[name], x)
 
 
 def rope_apply(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -54,14 +85,36 @@ def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
-def unembed_apply(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Final logits through the (untied) head, in f32."""
+def embed_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+    """Token rows plus, for learned positions, the position rows, added in
+    the working dtype."""
+    x = embed_apply(params["embed"], tokens)
+    if cfg.pos_embedding == "learned":
+        x = x + params["positions"][pos.long()]
+    return x
+
+
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final logits in f32, through ``lm_head`` or, for tied embeddings,
+    the token table."""
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     return torch.matmul(x.to(torch.float32), head.to(torch.float32))
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(dense_apply(p["gate"], x)) * dense_apply(p["up"], x)
-    return dense_apply(p["down"], h)
+_ACTS = {"silu": F.silu, "relu": F.relu,
+         # jax.nn.gelu defaults to the tanh approximation
+         "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    act = _ACTS[cfg.act]
+    h = dense_apply(p["up"], x, p.get("up_b"))
+    if cfg.mlp_gated:
+        h = act(dense_apply(p["gate"], x)) * h
+    else:
+        h = act(h)
+    return dense_apply(p["down"], h, p.get("down_b"))
 
 
 def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -127,3 +180,30 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     out = attend(qt, cache["k"], cache["v"], token_pages, pos,
                  cu_seqlens=cu_seqlens, **kw)                   # (T, Hq, Dh)
     return dense_apply(p["wo"], out.reshape(1, t, cfg.num_heads * cfg.d_head))
+
+
+def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+               pos: torch.Tensor, kind: str = "global",
+               causal: bool = True) -> torch.Tensor:
+    """The cache-free branch of the reference ``attn_apply``
+    (layers.py:160-433): the whole sequence attends itself through the
+    attention registry (``cfg.attn_backend``; on the card ``auto`` resolves
+    multi-row calls to the CUDA streaming-attention kernel).  x (B, L, D),
+    pos (L,) positions (RoPE)."""
+    b, l, _ = x.shape
+    q = _heads(dense_apply(p["wq"], x, p.get("wq_b")), cfg.num_heads)
+    k = _heads(dense_apply(p["wk"], x, p.get("wk_b")), cfg.num_kv_heads)
+    v = _heads(dense_apply(p["wv"], x, p.get("wv_b")), cfg.num_kv_heads)
+    if cfg.pos_embedding == "rope":
+        q = rope_apply(q, pos, cfg.rope_theta)
+        k = rope_apply(k, pos, cfg.rope_theta)
+    out = attention(q, k, v,
+                    backend=backend_for_config(cfg.attn_backend,
+                                               cfg.attn_impl),
+                    scale=cfg.attn_scale or cfg.d_head ** -0.5,
+                    causal=causal,
+                    window=cfg.window if kind == "local" else None,
+                    cap=cfg.attn_softcap, block_k=cfg.block_k,
+                    exp_mode=cfg.exp_mode, fallback=True)
+    out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
+    return dense_apply(p["wo"], out)

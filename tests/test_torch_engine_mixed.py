@@ -9,7 +9,8 @@ import os
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread per test process
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from tests._torch_twin import prompts_for, run_twins  # noqa: E402

@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread per test process
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.lut_exp import ops as lut_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
-from repro_torch.params import init_params  # noqa: E402
+from repro_torch.kernels.streaming_attention import ops as sa_ops  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.params import from_flat, init_params, param_paths  # noqa: E402
 from repro_torch.serving import EngineCore, Request  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -53,6 +56,22 @@ def test_default_device_is_cuda_and_raises_without_card(no_card):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["deepseek-7b-smoke", "bert-base-smoke"])
+def test_params_default_to_card_and_raise_without_one(no_card, name):
+    """``init_params``, ``from_flat`` and ``Model.init`` run on the card
+    unless told ``cpu``, and raise without one."""
+    cfg = get_config(name)
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, "cpu")
+    assert all(t.device.type == "cpu" for t in params.values())
+    flat = {param_paths(cfg)[k]: v.float().numpy() for k, v in params.items()}
+    assert from_flat(flat, cfg, "cpu")["embed"].device.type == "cpu"
+    for make in (lambda: init_params(cfg, gen), lambda: from_flat(flat, cfg),
+                 lambda: build_model(cfg).init(gen)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_engine_without_device_raises_without_card(no_card):
@@ -140,9 +159,51 @@ def test_paged_attention_cuda_tensor_raises_without_toolchain(no_toolchain,
     assert pa_ops.paged_attention.launches == before
 
 
+def test_streaming_attention_cuda_tensor_raises_without_toolchain(
+        no_toolchain, monkeypatch):
+    _forbid(monkeypatch, sa_ops, "attention_ref")
+    q = _fake(np.zeros((2, 4, 5, 16), np.float32))
+    kv = _fake(np.zeros((2, 2, 7, 16), np.float32))
+    before = sa_ops.streaming_attention.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sa_ops.streaming_attention(q, kv, kv, causal=True)
+    assert sa_ops.streaming_attention.launches == before
+
+
+@pytest.mark.parametrize("bad", [
+    dict(q_dtype=torch.float16), dict(kv_dtype=torch.bfloat16), dict(d=24),
+    dict(cap=0.0), dict(window=0), dict(exp_mode="exp2"),
+    dict(q_offset=torch.tensor(3)), dict(kv_len=-1), dict(hkv=3)])
+def test_streaming_attention_card_checks_raise(bad, no_toolchain,
+                                               monkeypatch):
+    """What the kernel does not take is refused before any launch."""
+    _forbid(monkeypatch, sa_ops, "attention_ref")
+    d, hkv = bad.pop("d", 16), bad.pop("hkv", 2)
+    q = _fake(torch.zeros((2, 4, 5, d), dtype=bad.pop("q_dtype", torch.float32)))
+    kv = _fake(torch.zeros((2, hkv, 7, d),
+                           dtype=bad.pop("kv_dtype", torch.float32)))
+    with pytest.raises((TypeError, ValueError)):
+        sa_ops.streaming_attention(q, kv, kv, **bad)
+
+
+def test_streaming_attention_kernel_refuses_a_gradient(monkeypatch):
+    """Autograd through the card path raises and names the training slice
+    (the launch itself is stubbed: there is no card here)."""
+    monkeypatch.setattr(sa_ops, "_launch",
+                        lambda q, k, v, **kw: torch.zeros(q.shape))
+    q = _fake(np.zeros((1, 2, 5, 16), np.float32)).requires_grad_()
+    kv = _fake(np.zeros((1, 2, 5, 16), np.float32))
+    out = sa_ops.streaming_attention(q, kv, kv)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out.sum().backward()
+
+
 def test_wrappers_refuse_other_devices(monkeypatch):
     _forbid(monkeypatch, lut_ops, "lut_exp_ref")
     _forbid(monkeypatch, pa_ops, "paged_attention_reference")
+    _forbid(monkeypatch, sa_ops, "attention_ref")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sa_ops.streaming_attention(*(torch.zeros((1, 2, 4, 8), device="meta"),) * 3)
     with pytest.raises(ValueError, match="unsupported device"):
         lut_ops.lut_exp(torch.zeros(4, device="meta"))
     m = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device="meta")  # noqa: E731
@@ -170,5 +231,6 @@ def test_paged_attention_card_checks_raise(bad, no_toolchain, monkeypatch):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"-O3", "-shared", "-std=c++17"} <= set(build.NVCC_FLAGS)
-    assert set(build.sources()) == {"lut_exp", "paged_attention"}
+    assert set(build.sources()) == {"lut_exp", "paged_attention",
+                                    "streaming_attention"}
     assert len(build.source_hash()) == 16

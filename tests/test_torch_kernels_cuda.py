@@ -7,10 +7,14 @@ only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the LUT exponential is bit-exact (the kernel repeats the plain
-version's operations in order, each rounded once); f32 attention outputs
-hold the reference suite's ``atol=2e-5, rtol=1e-4`` (the kernel walks one
+version's operations in order, each rounded once); f32 paged attention
+holds the reference suite's ``atol=2e-5, rtol=1e-4`` (the kernel walks one
 page at a time, the plain version 8 pages per step, so the online-softmax
-rescaling and the dot products round in another order).
+rescaling and the dot products round in another order); f32 streaming
+attention holds the reference kernel suite's ``atol=3e-5, rtol=1e-4``
+(``tests/test_kernels.py``: an online softmax over 64-key tiles against
+the materialised-logits plain version); bf16 outputs lie within one bf16
+ulp of the plain version beyond the f32 atol (both round one f32 result).
 """
 import numpy as np
 import pytest
@@ -18,10 +22,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.streaming_attention import quantize_kv_rows  # noqa: E402
+from repro_torch.core.streaming_attention import (  # noqa: E402
+    streaming_attention as attention_scan)
 from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference, paged_attention_varlen,
     paged_attention_varlen_reference, varlen_positions)
+from repro_torch.kernels.streaming_attention import (  # noqa: E402
+    attention_ref, streaming_attention)
+from repro_torch.kernels.streaming_attention.ops import BLOCK_K  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 EDGES = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
@@ -46,6 +55,15 @@ def test_lut_exp_kernel_bit_exact(cuda_device, rng, dtype, order):
     assert lut_exp.launches == before + 1
     want = lut_exp_ref(xt, order=order)
     assert torch.equal(got.float(), want.float())
+
+
+def bf16_ulps(got, want, atol):
+    """Largest |got − want| beyond ``atol``, in bf16 ulps of the larger
+    magnitude."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float((((g - w).abs() - atol).clamp_min(0.0) / ulp).max())
 
 
 def make_case(seed, dev, *, b=5, group=2, hkv=2, d=16, ps=8, p=6, lq=1,
@@ -118,14 +136,11 @@ def test_paged_attention_kernel_bf16_within_one_ulp(cuda_device):
     args, sc = make_case(3, cuda_device, group=2, ps=16, lq=8, d=128)
     args[0] = args[0].bfloat16()
     args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
-    got = paged_attention(*args).float()
-    want = paged_attention_reference(*args).float()
+    got = paged_attention(*args)
+    want = paged_attention_reference(*args)
     # one bf16 ulp of the larger magnitude, over the f32 atol that bounds
     # the cancellation error of outputs near zero
-    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    excess = ((got - want).abs() - TOL["atol"]).clamp_min(0.0)
-    assert float((excess / ulp).max()) <= 1.0
+    assert bf16_ulps(got, want, TOL["atol"]) <= 1.0
 
 
 @pytest.mark.cuda
@@ -154,3 +169,106 @@ def test_varlen_kernel_matches_plain(cuda_device, block_q):
     got = paged_attention_varlen(*args, **kw)
     want = paged_attention_varlen_reference(*args, **kw)
     torch.testing.assert_close(got, want, **TOL)
+
+
+# ------------------------------------------------- streaming attention --
+
+SA_TOL = dict(atol=3e-5, rtol=1e-4)
+# The reference kernel suite's cases (tests/test_kernels.py ATTN_CASES),
+# then head dims 64 and 128 with ragged Lq/Lkv, and rows that see no key
+SA_CASES = [
+    dict(b=2, hq=4, hkv=4, lq=64, lkv=64, d=16, causal=True),
+    dict(b=1, hq=8, hkv=2, lq=48, lkv=48, d=32, causal=True),
+    dict(b=1, hq=4, hkv=4, lq=32, lkv=96, d=16, causal=True, q_offset=64),
+    dict(b=2, hq=4, hkv=2, lq=64, lkv=64, d=16, causal=True, window=16),
+    dict(b=1, hq=2, hkv=2, lq=40, lkv=40, d=16, causal=False, cap=30.0),
+    dict(b=1, hq=2, hkv=2, lq=64, lkv=64, d=16, causal=True,
+         exp_mode="exact"),
+    dict(b=1, hq=2, hkv=1, lq=8, lkv=72, d=8, causal=True, q_offset=64,
+         kv_len=70),
+    dict(b=2, hq=8, hkv=2, lq=100, lkv=130, d=64, causal=False),
+    dict(b=1, hq=4, hkv=1, lq=77, lkv=77, d=128, causal=True, window=20,
+         cap=30.0),
+    dict(b=1, hq=2, hkv=2, lq=16, lkv=64, d=32, causal=True, q_offset=100,
+         window=4),
+]
+
+
+def sa_inputs(case, dev, seed=0, integers=False):
+    c = dict(case)
+    g = torch.Generator().manual_seed(seed)
+    b, hq, hkv = c.pop("b"), c.pop("hq"), c.pop("hkv")
+    lq, lkv, d = c.pop("lq"), c.pop("lkv"), c.pop("d")
+    draw = ((lambda *s: torch.randint(-3, 4, s, generator=g).float())
+            if integers else (lambda *s: torch.randn(s, generator=g)))
+    q, k, v = draw(b, hq, lq, d), draw(b, hkv, lkv, d), torch.randn(
+        (b, hkv, lkv, d), generator=g)
+    return [t.to(dev) for t in (q, k, v)], c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SA_CASES)
+def test_streaming_attention_kernel_matches_plain(cuda_device, case):
+    (q, k, v), kw = sa_inputs(case, cuda_device)
+    before = streaming_attention.launches
+    got = streaming_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert streaming_attention.launches == before + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw), **SA_TOL)
+
+
+@pytest.mark.cuda
+def test_streaming_attention_rows_that_see_no_key_emit_zero(cuda_device):
+    (q, k, v), kw = sa_inputs(SA_CASES[-1], cuda_device)
+    assert not streaming_attention(q, k, v, **kw).any()
+    assert not streaming_attention(q, k, v, kv_len=0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SA_CASES[0], SA_CASES[7], SA_CASES[8]])
+def test_streaming_attention_kernel_lut0_at_its_blocking(cuda_device, case):
+    """The order-0 LUT depends on the online-softmax blocking, so it is
+    held against the plain scan at the kernel's 64-key tiles, over integer
+    q and k whose logits are exact on both sides (no softcap: tanh rounds
+    differently on the two sides)."""
+    (q, k, v), kw = sa_inputs(case, cuda_device, integers=True)
+    kw = dict(kw, exp_mode="lut0", cap=None)
+    got = streaming_attention(q, k, v, **kw)
+    want = attention_scan(q, k, v, block_k=BLOCK_K, **kw)
+    torch.testing.assert_close(got, want, **SA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SA_CASES[1], SA_CASES[7], SA_CASES[8]])
+def test_streaming_attention_kernel_bf16_within_one_ulp(cuda_device, case):
+    (q, k, v), kw = sa_inputs(case, cuda_device, seed=4)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = streaming_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulps(got, attention_ref(q, k, v, **kw), SA_TOL["atol"]) <= 1.0
+
+
+@pytest.mark.cuda
+def test_streaming_attention_kernel_reads_strided_views(cuda_device):
+    """The model's head split: q, k, v are transposed views of (B, L, H, D)
+    projections (k a slice of a wider one); the output keeps q's layout
+    and the values match."""
+    g = torch.Generator().manual_seed(6)
+    q, v = (torch.randn((2, 70, 4, 64), generator=g).to(cuda_device)
+            .transpose(1, 2) for _ in range(2))
+    k = torch.randn((2, 70, 8, 64), generator=g).to(cuda_device)[:, :, :4]
+    k = k.transpose(1, 2)
+    got = streaming_attention(q, k, v, causal=True)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(
+        got, attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True), **SA_TOL)
+
+
+@pytest.mark.cuda
+def test_streaming_attention_kernel_refuses_a_gradient(cuda_device):
+    (q, k, v), kw = sa_inputs(SA_CASES[0], cuda_device)
+    q.requires_grad_()
+    out = streaming_attention(q, k, v, **kw)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out.sum().backward()
