@@ -31,11 +31,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    f32; score 2 × 1024 tokens causally through ``build_model(cfg).loss``
    (one streaming-attention launch per layer) against the plain attention,
    in bf16 and in f32;
-8. time each kernel at its main path's shapes (paged attention and the LUT
+8. hold the int8 matmul kernel bit-exactly to its plain version,
+   accumulators and outputs: the reference suite's shapes, a batch, M = 1
+   and 8, ragged K and N, and all-±127 operands past 2^24;
+9. the INT8 path at BERT-large width and depth: quantise the 144 projection
+   weights (wq, wk, wv, wo, up, down of 24 layers) with ``quantize(w,
+   axis=0)`` and push real activations of 8 × 512 tokens through
+   ``dense_maybe_quant`` (144 kernel launches): every output bit-equal to the
+   plain version, int32 accumulators included, and within 3% (relative) of
+   the bf16 product in f32;
+10. time each kernel at its main path's shapes (paged attention and the LUT
    exp at the engine's decode step, streaming attention at the BERT encode
-   shapes) beside its plain version, a library yardstick and its roofline
-   bound, and print the ``{"kernels": [...]}`` line;
-9. print the card's name and power limit, then ``{"ok": true, "device":
+   shapes, the int8 matmul at the BERT-large projections) beside its plain
+   version, a library yardstick and its roofline bound, and print the
+   ``{"kernels": [...]}`` line;
+11. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -63,13 +73,22 @@ KV_LENS = [37, 311, 598, 870, 1142, 1414, 1700, 1990]     # 37 … ~2000
 CHUNK = 128                        # the prefill chunk of the tiled checks
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off tensor cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,    # dense; f32 off tensor cores
+              "int8": 1979e12}
 F32_TOL = dict(atol=2e-5, rtol=1e-4)
 SA_TOL = dict(atol=3e-5, rtol=1e-4)  # the reference kernel suite's
 BERT = "bert-large"
 BERT_SHAPES = ((8, 512), (1, 4096))  # the paper's l, and the top of its sweep
 MASK_ID = 103                        # [MASK] in BERT's WordPiece vocab
 SCORE_SHAPE = (2, 1024)              # deepseek-7b causal scoring batch
+INT8_TOKENS = (8, 512)               # the BERT-large int8 pass
+INT8_PROJ = ("wq", "wk", "wv", "wo", "up", "down")
+INT8_REL_TOL = 0.03                  # the reference's own bound (test_quant.py)
+# (M, K, N, what): the projections of an 8 × 512 batch, then the reference
+# microbenchmark's shape
+INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
+              (4096, 4096, 1024, "down"),
+              (256, 1024, 1024, "benchmarks/microbench.py bench_int8")]
 
 
 def log(*a):
@@ -529,6 +548,209 @@ def phase_bert():
     return facts
 
 
+def bits_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+# (leading dims, K, N, x dtype): the reference kernel suite's shapes, its
+# batched case, M = 1 and 8 at BERT-large widths, ragged K (byte staging) and
+# N (masked and scalar stores)
+INT8_CASES = [((64,), 256, 128, "float32"), ((17,), 300, 130, "float32"),
+              ((4,), 128, 512, "float32"), ((257,), 1024, 384, "float32"),
+              ((1,), 128, 128, "float32"), ((2, 3), 256, 64, "float32"),
+              ((1,), 1024, 4096, "bfloat16"), ((8,), 4096, 1024, "bfloat16"),
+              ((257,), 1024, 384, "bfloat16"), ((33,), 200, 96, "float32"),
+              ((130,), 256, 100, "bfloat16")]
+
+
+def phase_int8_checks():
+    """Kernel #4 against its plain version, bit for bit: the f32 output of
+    the public wrapper and, through the 2-D entry, the int32 accumulator."""
+    import torch
+    from repro_torch.core.quant import quantize, quantize_dynamic
+    from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_2d,
+                                                 int8_matmul_2d_ref,
+                                                 int8_matmul_ref)
+    g = torch.Generator(device=DEV).manual_seed(13)
+    for lead, k, n, dt in INT8_CASES:
+        x = torch.randn((*lead, k), generator=g, device=DEV).to(getattr(torch, dt))
+        wq = quantize(torch.randn((k, n), generator=g, device=DEV), axis=0)
+        before = int8_matmul.launches
+        got = int8_matmul(x, wq)
+        torch.cuda.synchronize()
+        if int8_matmul.launches != before + 1:
+            fail(f"int8_matmul {lead}×{k}×{n}: kernel not launched")
+        xq = quantize_dynamic(x)
+        xv = xq.values.reshape(-1, k)
+        out, acc = int8_matmul_2d(xv, wq.values, xq.scale, wq.scale,
+                                  with_acc=True)
+        ref, ref_acc = int8_matmul_2d_ref(xv, wq.values, xq.scale, wq.scale,
+                                          with_acc=True)
+        if not (torch.equal(acc, ref_acc) and bits_equal(out, ref)
+                and bits_equal(got, int8_matmul_ref(x, wq))):
+            fail(f"int8_matmul {lead}×{k}×{n} {dt}: not bit-equal to the "
+                 f"plain version (max|Δacc| "
+                 f"{int((acc.long() - ref_acc.long()).abs().max())})")
+    # all-±127 operands: |acc| past 2^24, where int→f32 rounds
+    k, n = 4096, 1024
+    xv = torch.where(torch.rand((256, k), generator=g, device=DEV) < 0.9, 127,
+                     -127).to(torch.int8)
+    wv = torch.where(torch.rand((k, n), generator=g, device=DEV) < torch.linspace(
+        0.5, 1.0, n, device=DEV), 127, -127).to(torch.int8)
+    xs = torch.full((), 0.01, device=DEV)
+    ws = torch.rand((1, n), generator=g, device=DEV) + 0.5
+    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True)
+    ref, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
+    big = int(ref_acc.abs().max())
+    if big <= 2 ** 24 or not (torch.equal(acc, ref_acc) and bits_equal(out, ref)):
+        fail(f"int8_matmul ±127: max|acc| {big}, not bit-equal to the plain "
+             f"version")
+    log(f"[int8_matmul] bit-equal to the plain version (accumulators and f32 "
+        f"outputs) in {len(INT8_CASES) + 1} cases; ±127 operands reach "
+        f"|acc| = {big} > 2^24")
+
+
+def phase_int8_bert():
+    """The INT8 path at BERT-large width and depth: the 144 projection
+    weights quantised per output channel, real activations of 8 × 512
+    tokens (the layer-norm'd embeddings for the K = 1024 products, the GELU
+    of up's int8 output for down) through ``dense_maybe_quant``.  Counts
+    zeroed just before the pass and read just after, also for each
+    (M, K, N); then every output held bit-exactly to the plain version
+    (through the 2-D entry for the int32 accumulators, launches outside the
+    counted pass) and against the bf16 product in f32.  The pass is timed
+    whole, and split: its 144 launches on activations quantised beforehand,
+    and its GELUs (one a layer); the rest is the wrapper's
+    ``quantize_dynamic``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import dense_maybe_quant, quantize, quantize_dynamic
+    from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_2d,
+                                                 int8_matmul_2d_ref)
+    from repro_torch.models.layers import embed_full, layer_norm_apply
+    from repro_torch.params import init_params
+    cfg = get_config(BERT)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1), DEV)
+    t0 = time.perf_counter()
+    qw = {(key, i): quantize(params[key][i], axis=0)
+          for i in range(cfg.num_layers) for key in INT8_PROJ}
+    torch.cuda.synchronize()
+    quant_ms = (time.perf_counter() - t0) * 1e3
+    b, l = INT8_TOKENS
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, l))
+                              .astype(np.int32)).to(DEV)
+    x = layer_norm_apply(params["ln1"][0], params["ln1_b"][0], embed_full(
+        cfg, params, tokens, torch.arange(l, device=DEV)))
+    dt = x.dtype
+
+    def project(inp, wq, by_shape):
+        before = int8_matmul.launches
+        y = dense_maybe_quant(inp, wq)
+        if by_shape is not None:
+            mkn = f"{inp.numel() // inp.shape[-1]}x{wq.shape[0]}x{wq.shape[1]}"
+            by_shape[mkn] = by_shape.get(mkn, 0) + int8_matmul.launches - before
+        return y
+
+    def forward_projections(by_shape=None):
+        outs = {}
+        for i in range(cfg.num_layers):
+            for key in INT8_PROJ[:5]:
+                outs[key, i] = (x, project(x, qw[key, i], by_shape))
+            h = F.gelu(outs["up", i][1], approximate="tanh").to(dt)
+            outs["down", i] = (h, project(h, qw["down", i], by_shape))
+        return outs
+
+    forward_projections()                             # warm
+    torch.cuda.synchronize()
+    by_shape = {}
+    int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    outs = forward_projections(by_shape)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = int8_matmul.launches
+    if launches != len(qw) or sum(by_shape.values()) != launches:
+        fail(f"int8 bert pass: int8_matmul launched {launches} times "
+             f"({by_shape}), expected {len(qw)}")
+
+    def host_ms(fn):                                  # host clock, synced
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    walls = host_ms(forward_projections)
+    # the same 144 launches on activations quantised outside the timed pass
+    pre = [(quantize_dynamic(inp), qw[k]) for k, (inp, _) in outs.items()]
+    pre = [(xq.values.reshape(-1, wq.shape[0]), xq.scale, wq) for xq, wq in pre]
+    kernel_walls = host_ms(lambda: [int8_matmul_2d(xv, wq.values, xs, wq.scale)
+                                    for xv, xs, wq in pre])
+    ups = [outs["up", i][1] for i in range(cfg.num_layers)]
+    gelu_walls = host_ms(lambda: [F.gelu(u, approximate="tanh").to(dt)
+                                  for u in ups])
+    del pre, ups
+
+    def forward_bf16():
+        for i in range(cfg.num_layers):
+            for key in INT8_PROJ[:5]:
+                y = dense_maybe_quant(x, params[key][i])
+            dense_maybe_quant(F.gelu(y, approximate="tanh"), params["down"][i])
+
+    bf16_walls = host_ms(forward_bf16)
+
+    worst = {key: 0.0 for key in INT8_PROJ}
+    for (key, i), (inp, y) in outs.items():
+        wq = qw[key, i]
+        xq = quantize_dynamic(inp)
+        xv = xq.values.reshape(-1, inp.shape[-1])
+        out, acc = int8_matmul_2d(xv, wq.values, xq.scale, wq.scale,
+                                  with_acc=True)
+        ref, ref_acc = int8_matmul_2d_ref(xv, wq.values, xq.scale, wq.scale,
+                                          with_acc=True)
+        if not (torch.equal(acc, ref_acc) and bits_equal(out, ref)
+                and bits_equal(y.reshape(ref.shape), ref)):
+            fail(f"int8 bert {key}[{i}]: not bit-equal to the plain version")
+        full = torch.matmul(inp.float(), params[key][i].float())
+        rel = float(torch.linalg.norm(y - full) / torch.linalg.norm(full))
+        worst[key] = max(worst[key], rel)
+        if not y.isfinite().all() or y.shape != (b, l, wq.values.shape[1]):
+            fail(f"int8 bert {key}[{i}]: output {tuple(y.shape)} not finite")
+    if max(worst.values()) >= INT8_REL_TOL:
+        fail(f"int8 bert: relative error to the bf16 product {worst} >= "
+             f"{INT8_REL_TOL}")
+    med = lambda w: float(np.median(w))  # noqa: E731
+    facts = dict(launches=launches, launches_by_shape=by_shape, weights=len(qw),
+                 quantize_ms=quant_ms, first_pass_ms=wall_ms, ms=med(walls),
+                 ms_all=walls, kernels_only_ms=med(kernel_walls),
+                 gelu_ms=med(gelu_walls), bf16_ms=med(bf16_walls),
+                 rel_err_vs_bf16=worst)
+    facts["quantize_dynamic_ms_by_difference"] = (
+        facts["ms"] - facts["kernels_only_ms"] - facts["gelu_ms"])
+    log(f"[int8 bert] {len(qw)} projection weights quantised in "
+        f"{quant_ms:.0f} ms; {launches} int8_matmul launches over {b}×{l} "
+        f"tokens ({by_shape}), every output and accumulator bit-equal to the "
+        f"plain version; the {len(qw)} projections take {facts['ms']:.2f} ms "
+        f"(median of 5, host clock): the launches alone on pre-quantised "
+        f"inputs {facts['kernels_only_ms']:.2f} ms, the {cfg.num_layers} GELUs "
+        f"{facts['gelu_ms']:.2f} ms, quantize_dynamic the rest "
+        f"{facts['quantize_dynamic_ms_by_difference']:.2f} ms; bf16 "
+        f"{facts['bf16_ms']:.2f} ms; worst relative error to the bf16 product "
+        + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+        + f" (limit {INT8_REL_TOL})")
+    del params, qw, outs, x
+    torch.cuda.empty_cache()
+    return facts
+
+
 def phase_scoring(cfg, params, label, floor):
     """deepseek-7b causal scoring (``build_model(cfg).loss``) on 2 × 1024
     tokens: one kernel launch per layer, the loss and the logits held
@@ -822,7 +1044,82 @@ def phase_timing(engine_facts):
     log(f"[time] lut_exp: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.exp "
         f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({n} elements)")
     kernels.append(time_streaming(flush, engine_facts))
+    kernels.append(time_int8(flush, engine_facts["int8_bert"]))
     return kernels
+
+
+def time_int8(flush, facts):
+    """Kernel #4 at the BERT-large projection shapes of an 8 × 512 batch and
+    at the reference microbenchmark's shape: the 2-D kernel (int8 in, f32
+    out, scales applied), its plain version, ``torch._int_mm`` alone and
+    plus the same scale multiply, each with w row-major and column-major
+    (the library yardstick is the faster with the scales; the port never
+    calls it), and for context a bf16 ``torch.matmul`` of the same shape and
+    the eager ``quantize_dynamic`` of a bf16 (M, K) input that the wrapper
+    runs before each launch.  Launches per forward are those counted for
+    each shape in the BERT-large pass.  Bytes: x, w, the scales read once
+    and the f32 output written once; operations: 2·M·N·K at the int8
+    tensor-core peak."""
+    import torch
+    from repro_torch.core.quant import quantize_dynamic
+    from repro_torch.kernels.int8_matmul import int8_matmul_2d, int8_matmul_2d_ref
+    g = torch.Generator(device=DEV).manual_seed(17)
+    timed = {}
+    for m, k, n, what in INT8_TIMED:
+        xv = torch.randint(-127, 128, (m, k), generator=g, device=DEV,
+                           dtype=torch.int8)
+        wv = torch.randint(-127, 128, (k, n), generator=g, device=DEV,
+                           dtype=torch.int8)
+        xs = torch.rand((), generator=g, device=DEV) * 0.01
+        ws = torch.rand((1, n), generator=g, device=DEV) * 0.01
+        got, want = int8_matmul_2d(xv, wv, xs, ws), int8_matmul_2d_ref(xv, wv, xs, ws)
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: int8_matmul_2d(xv, wv, xs, ws), flush=flush)
+        plain = cuda_ms(lambda: int8_matmul_2d_ref(xv, wv, xs, ws), iters=5,
+                        flush=flush)
+        layouts = {"row": wv, "col": wv.t().contiguous().t()}
+        int_mm, lib_by, lib_equal = {}, {}, {}
+        for lay, w in layouts.items():
+            lib_equal[lay] = bits_equal(torch._int_mm(xv, w).float() * (xs * ws), got)
+            int_mm[lay] = cuda_ms(lambda: torch._int_mm(xv, w), flush=flush)
+            lib_by[lay] = cuda_ms(lambda: torch._int_mm(xv, w).float() * (xs * ws),
+                                  flush=flush)
+        best = min(lib_by, key=lib_by.get)
+        lib = lib_by[best]
+        xb, wb = xv.bfloat16(), wv.bfloat16()
+        bf16 = cuda_ms(lambda: torch.matmul(xb, wb), flush=flush)
+        qd = cuda_ms(lambda: quantize_dynamic(xb), flush=flush)
+        nbytes = m * k + k * n + 4 * n + 4 + 4 * m * n
+        ops = 2.0 * m * n * k
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+        label = f"{m}x{k}x{n}"
+        timed[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib, library_w_layout=best, library_bit_equal=lib_equal,
+            library_ms_by_w_layout=lib_by, int_mm_alone_ms_by_w_layout=int_mm,
+            bf16_matmul_ms=bf16, quantize_dynamic_ms=qd,
+            launches_per_forward=facts["launches_by_shape"].get(label, 0),
+            shape=f"M {m} × K {k} × N {n} ({what})")
+        log(f"[time] int8_matmul {label} ({what}): kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, _int_mm alone row/col-major w {int_mm['row']:.4f}/"
+            f"{int_mm['col']:.4f} ms, +scale {lib_by['row']:.4f}/"
+            f"{lib_by['col']:.4f} ms (bit-equal {lib_equal}), launches per "
+            f"forward {timed[label]['launches_per_forward']}, bf16 matmul "
+            f"{bf16:.4f} ms, "
+            f"quantize_dynamic of a bf16 (M, K) input {qd:.4f} ms, "
+            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} GOP; {ops / ms / 1e9:.1f} TOP/s)")
+        del xv, wv, xb, wb, got, want, layouts
+    first = timed.pop(f"{INT8_TIMED[0][0]}x{INT8_TIMED[0][1]}x{INT8_TIMED[0][2]}")
+    return dict(
+        name="int8_matmul", route="cuda", source="src/repro_torch/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul/kernel.py:49",
+        launches=facts["launches"], **first,
+        library="torch._int_mm + the same scale multiply, w in the faster "
+                "of row- and column-major",
+        bert_int8_projections=facts, **timed)
 
 
 def time_streaming(flush, facts):
@@ -896,6 +1193,8 @@ def main() -> int:
     phase_paged_attention()
     sa_worst = phase_streaming_attention()
     bert = phase_bert()
+    phase_int8_checks()
+    int8_bert = phase_int8_bert()
 
     cfg = get_config(MODEL)
     t0 = time.perf_counter()
@@ -930,6 +1229,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     facts["decode_kv_lens"] = [int(n) + MAX_NEW // 2 for n in lens]
     facts["bert"], facts["scoring"] = bert, scoring
+    facts["int8_bert"] = int8_bert
     kernels = phase_timing(facts)
 
     summary = {k: {kk: vv for kk, vv in facts[k].items() if kk != "streams"}
@@ -938,6 +1238,7 @@ def main() -> int:
     summary["streaming_attention_checks"] = sa_worst
     summary["bert"] = bert
     summary["scoring"] = scoring
+    summary["int8_bert"] = int8_bert
     log("[summary] " + json.dumps(summary))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

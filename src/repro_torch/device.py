@@ -1,7 +1,9 @@
-"""Device resolution for the port's entry points.
+"""Device resolution and matmul precision for the port's entry points.
 
 Entry points run on the card unless the caller names the CPU.  There is no
 silent fallback: asking for CUDA on a machine without a card raises.
+``dense`` is the model's full-precision product, shared by the layers and
+the INT8 dispatch point's full-precision branch.
 """
 from __future__ import annotations
 
@@ -34,3 +36,13 @@ def configure_matmul_precision() -> None:
     would break parity with it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in f32, in ``x.dtype``.  On the card a same-dtype
+    product goes to cuBLAS, which accumulates in f32 and rounds once
+    (``configure_matmul_precision`` forbids reduced-precision reductions);
+    elsewhere the operands are widened to f32 first."""
+    if x.device.type == "cuda" and x.dtype == w.dtype:
+        return torch.matmul(x, w)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)

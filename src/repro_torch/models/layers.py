@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig
 from repro_torch.core.attention_api import attention, backend_for_config
 from repro_torch.core.streaming_attention import quantize_kv_rows
+from repro_torch.device import dense
 from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
 
 Params = Dict[str, torch.Tensor]
@@ -25,15 +26,9 @@ Params = Dict[str, torch.Tensor]
 
 def dense_apply(w: torch.Tensor, x: torch.Tensor,
                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w accumulated in f32, cast back to ``x.dtype``, then ``+ b`` in
-    that dtype.  On the card a same-dtype product goes to cuBLAS, which
-    accumulates in f32 and rounds once (``device.configure_matmul_precision``
-    forbids reduced-precision reductions); elsewhere the operands are
-    widened to f32 first."""
-    if x.device.type == "cuda" and x.dtype == w.dtype:
-        y = torch.matmul(x, w)
-    else:
-        y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+    """x @ w accumulated in f32, cast back to ``x.dtype`` (``device.
+    dense``), then ``+ b`` in that dtype."""
+    y = dense(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

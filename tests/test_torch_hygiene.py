@@ -2,6 +2,7 @@
 package, its entry points default to the card and never fall back, and the
 CUDA wrappers raise rather than run the plain version on a non-CPU
 tensor."""
+import ast
 import os
 import subprocess
 import sys
@@ -14,8 +15,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # one intra-op thread per test process
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.int8_matmul import ops as i8_ops  # noqa: E402
 from repro_torch.kernels.lut_exp import ops as lut_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.streaming_attention import ops as sa_ops  # noqa: E402
@@ -23,7 +26,8 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.params import from_flat, init_params, param_paths  # noqa: E402
 from repro_torch.serving import EngineCore, Request  # noqa: E402
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -231,6 +235,122 @@ def test_paged_attention_card_checks_raise(bad, no_toolchain, monkeypatch):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"-O3", "-shared", "-std=c++17"} <= set(build.NVCC_FLAGS)
-    assert set(build.sources()) == {"lut_exp", "paged_attention",
-                                    "streaming_attention"}
+    assert set(build.sources()) == {"int8_matmul", "lut_exp",
+                                    "paged_attention", "streaming_attention"}
     assert len(build.source_hash()) == 16
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    """Every import in ``chip_smoke.py``, at any depth, read from its AST:
+    the script runs where there is no JAX."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert "repro_torch.kernels.int8_matmul" in names     # the walk sees nested imports
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad
+
+
+def _fake_qtensor(k=64, n=32):
+    return quant.QTensor(_fake(np.ones((k, n), np.int8)),
+                         _fake(np.ones((1, n), np.float32)))
+
+
+@pytest.mark.parametrize("entry", ["kernel", "core", "dense", "dense_use_int8"])
+def test_int8_matmul_cuda_tensor_raises_without_toolchain(entry, no_toolchain,
+                                                          monkeypatch):
+    """Every int8 entry point on a CUDA tensor goes to the kernel and, with
+    no nvcc, raises; the plain version is never taken."""
+    _forbid(monkeypatch, i8_ops, "int8_matmul_ref")
+    _forbid(monkeypatch, i8_ops, "int8_matmul_2d_ref")
+    _forbid(monkeypatch, quant, "int8_accumulate")
+    x = _fake(np.ones((2, 3, 64), np.float32))
+    wq = _fake_qtensor()
+    call = {"kernel": lambda: i8_ops.int8_matmul(x, wq),
+            "core": lambda: quant.int8_matmul(x, wq),
+            "dense": lambda: quant.dense_maybe_quant(x, wq),
+            "dense_use_int8": lambda: quant.dense_maybe_quant(
+                x, _fake(np.ones((64, 32), np.float32)), use_int8=True)}[entry]
+    before = i8_ops.int8_matmul.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        call()
+    assert i8_ops.int8_matmul.launches == before
+
+
+@pytest.mark.parametrize("bad", [
+    "x_int", "w_float", "scale_f64", "w_3d", "k_mismatch", "scale_flat",
+    "w_strided", "k_too_large"])
+def test_int8_matmul_card_checks_raise(bad, no_toolchain, monkeypatch):
+    """What the kernel does not take is refused before any launch."""
+    _forbid(monkeypatch, i8_ops, "int8_matmul_ref")
+    x = np.ones((4, 64), np.float32)
+    w = np.ones((64, 32), np.int8)
+    ws = np.ones((1, 32), np.float32)
+    if bad == "x_int":
+        x = x.astype(np.int32)
+    elif bad == "w_float":
+        w = w.astype(np.float32)
+    elif bad == "scale_f64":
+        ws = ws.astype(np.float64)
+    elif bad == "w_3d":
+        w = w[None]
+    elif bad == "k_mismatch":
+        w = np.ones((48, 32), np.int8)
+    elif bad == "scale_flat":
+        ws = ws[0]
+    elif bad == "w_strided":
+        w = np.ones((32, 64), np.int8).T
+    elif bad == "k_too_large":
+        x = np.ones((1, i8_ops.MAX_K + 1), np.float32)
+        w = np.ones((i8_ops.MAX_K + 1, 1), np.int8)
+        ws = np.ones((1, 1), np.float32)
+    wq = quant.QTensor(_fake(torch.from_numpy(w)), _fake(ws))
+    before = i8_ops.int8_matmul.launches
+    with pytest.raises((TypeError, ValueError)):
+        i8_ops.int8_matmul(_fake(x), wq)
+    assert i8_ops.int8_matmul.launches == before
+
+
+def test_int8_matmul_k_limit_is_the_int32_boundary(no_toolchain, monkeypatch):
+    """K up to MAX_K keeps |acc| ≤ K·2^14 inside int32 (operands of −128)
+    and reaches the build; one more is refused before any launch."""
+    assert i8_ops.MAX_K * 2**14 <= 2**31 - 1 < (i8_ops.MAX_K + 1) * 2**14
+    _forbid(monkeypatch, i8_ops, "int8_matmul_2d_ref")
+    xs = _fake(np.ones((), np.float32))
+    ws = _fake(np.ones((1, 1), np.float32))
+    for k, err in ((i8_ops.MAX_K, RuntimeError), (i8_ops.MAX_K + 1, ValueError)):
+        xv = _fake(np.full((1, k), -128, np.int8))
+        wv = _fake(np.full((k, 1), -128, np.int8))
+        before = i8_ops.int8_matmul.launches
+        with pytest.raises(err, match="nvcc" if err is RuntimeError else "K ≤"):
+            i8_ops.int8_matmul_2d(xv, wv, xs, ws)
+        assert i8_ops.int8_matmul.launches == before
+
+
+def test_int8_matmul_2d_checks_raise(no_toolchain, monkeypatch):
+    _forbid(monkeypatch, i8_ops, "int8_matmul_2d_ref")
+    xv = _fake(np.ones((4, 64), np.int8))
+    wv = _fake(np.ones((64, 32), np.int8))
+    ws = _fake(np.ones((1, 32), np.float32))
+    with pytest.raises(ValueError, match="x_scale"):
+        i8_ops.int8_matmul_2d(xv, wv, _fake(np.ones(2, np.float32)), ws)
+    with pytest.raises(TypeError, match="int8 values"):
+        i8_ops.int8_matmul_2d(_fake(np.ones((4, 64), np.float32)), wv,
+                              _fake(np.ones((), np.float32)), ws)
+
+
+def test_int8_wrappers_refuse_other_devices(monkeypatch):
+    _forbid(monkeypatch, i8_ops, "int8_matmul_ref")
+    _forbid(monkeypatch, i8_ops, "int8_matmul_2d_ref")
+    m = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device="meta")  # noqa: E731
+    wq = quant.QTensor(m(8, 4, dt=torch.int8), m(1, 4))
+    for call in (lambda: i8_ops.int8_matmul(m(2, 8), wq),
+                 lambda: quant.int8_matmul(m(2, 8), wq),
+                 lambda: i8_ops.int8_matmul_2d(m(2, 8, dt=torch.int8),
+                                               wq.values, m(1), wq.scale)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()

@@ -14,16 +14,21 @@ rescaling and the dot products round in another order); f32 streaming
 attention holds the reference kernel suite's ``atol=3e-5, rtol=1e-4``
 (``tests/test_kernels.py``: an online softmax over 64-key tiles against
 the materialised-logits plain version); bf16 outputs lie within one bf16
-ulp of the plain version beyond the f32 atol (both round one f32 result).
+ulp of the plain version beyond the f32 atol (both round one f32 result);
+the int8 matmul is bit-exact, accumulators and outputs (an exact int32 sum,
+then the same two f32 products in the same order).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.streaming_attention import quantize_kv_rows  # noqa: E402
 from repro_torch.core.streaming_attention import (  # noqa: E402
     streaming_attention as attention_scan)
+from repro_torch.kernels.int8_matmul import (  # noqa: E402
+    int8_matmul, int8_matmul_2d, int8_matmul_2d_ref, int8_matmul_ref)
 from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference, paged_attention_varlen,
@@ -272,3 +277,98 @@ def test_streaming_attention_kernel_refuses_a_gradient(cuda_device):
     out = streaming_attention(q, k, v, **kw)
     with pytest.raises(NotImplementedError, match="training slice"):
         out.sum().backward()
+
+
+# ------------------------------------------------------------- int8 matmul --
+
+# (leading dims, K, N): the reference kernel suite's shapes, a batch, M = 1
+# and 8 at BERT-large widths, the BERT-large projections at 8 × 512 tokens,
+# and ragged edges on each side (K or N not a multiple of 16: byte staging;
+# N a multiple of 4 but not of 8: scalar stores at the last columns).
+INT8_SHAPES = [((64,), 256, 128), ((17,), 300, 130), ((4,), 128, 512),
+               ((257,), 1024, 384), ((1,), 128, 128), ((2, 3), 256, 64),
+               ((1,), 1024, 4096), ((8,), 4096, 1024), ((8, 512), 1024, 1024),
+               ((8, 512), 1024, 4096), ((8, 512), 4096, 1024),
+               ((33,), 200, 96), ((130,), 256, 100), ((5,), 64, 20)]
+
+
+def int8_case(lead, k, n, dev, seed=0, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((*lead, k), generator=g).to(dtype)
+    wq = quant.quantize(torch.randn((k, n), generator=g), axis=0)
+    return x.to(dev), quant.QTensor(wq.values.to(dev), wq.scale.to(dev))
+
+
+def assert_bits_equal(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_matmul_kernel_bit_exact(cuda_device, shape, dtype):
+    x, wq = int8_case(*shape, cuda_device, dtype=getattr(torch, dtype))
+    before = int8_matmul.launches
+    got = int8_matmul(x, wq)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert_bits_equal(got, int8_matmul_ref(x, wq))
+    xq = quant.quantize_dynamic(x)
+    xv = xq.values.reshape(-1, shape[1])
+    out, acc = int8_matmul_2d(xv, wq.values, xq.scale, wq.scale, with_acc=True)
+    ref_out, ref_acc = int8_matmul_2d_ref(xv, wq.values, xq.scale, wq.scale,
+                                          with_acc=True)
+    assert torch.equal(acc, ref_acc)
+    assert_bits_equal(out, ref_out)
+    assert_bits_equal(out.reshape(got.shape), got)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_kernel_accumulator_past_2_24(cuda_device):
+    """All-±127 operands drive |acc| past 2^24, where int→f32 rounds."""
+    k, n = 4096, 256
+    g = torch.Generator().manual_seed(1)
+    xv = torch.where(torch.rand((64, k), generator=g) < 0.9, 127, -127)
+    wv = torch.where(torch.rand((k, n), generator=g) < torch.linspace(
+        0.5, 1.0, n), 127, -127)
+    xv, wv = (t.to(torch.int8).to(cuda_device) for t in (xv, wv))
+    xs = torch.full((), 0.01, device=cuda_device)
+    ws = torch.rand((1, n), generator=g).to(cuda_device) + 0.5
+    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True)
+    ref_out, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
+    assert ref_acc.abs().max() > 2 ** 24 and (ref_acc % 4 != 0).any()
+    assert torch.equal(acc, ref_acc)
+    assert_bits_equal(out, ref_out)
+
+
+@pytest.mark.cuda
+def test_int8_core_entry_points_launch_the_kernel(cuda_device):
+    """``core.quant.int8_matmul`` and ``dense_maybe_quant`` (QTensor and
+    ``use_int8``) on CUDA tensors go through the kernel; quantisation on the
+    card is bit-equal to the CPU's."""
+    x, wq = int8_case((3, 40), 512, 192, cuda_device, seed=2,
+                      dtype=torch.bfloat16)
+    w = torch.randn((512, 192), generator=torch.Generator().manual_seed(3))
+    want_q = quant.quantize(w, axis=0)
+    got_q = quant.quantize(w.to(cuda_device), axis=0)
+    assert torch.equal(got_q.values.cpu(), want_q.values)
+    assert torch.equal(got_q.scale.cpu(), want_q.scale)
+    xq_cpu = quant.quantize_dynamic(x.cpu())
+    xq = quant.quantize_dynamic(x)
+    assert torch.equal(xq.values.cpu(), xq_cpu.values)
+    assert torch.equal(xq.scale.cpu(), xq_cpu.scale)
+    before = int8_matmul.launches
+    a = quant.int8_matmul(x, wq)
+    b = quant.dense_maybe_quant(x, wq)
+    c = quant.dense_maybe_quant(x, w.to(cuda_device), use_int8=True)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 3
+    assert_bits_equal(a, int8_matmul_ref(x, wq))
+    assert_bits_equal(b, a)
+    assert_bits_equal(c, int8_matmul_ref(x, got_q))
+    # the core order on the CPU sits within two f32 ulps of the kernel order
+    core = quant.int8_matmul(x.cpu(), quant.QTensor(wq.values.cpu(),
+                                                    wq.scale.cpu()))
+    ulps = (a.cpu().view(torch.int32).long() - core.view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 2
