@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a and print ptxas's registers / shared memory / spills;
+   sm_90a and print ptxas's registers / shared memory / spills; the bf16
+   streaming-attention kernels' lines again, and their SASS HMMA counts
+   (``cuobjdump``): each head-dim instantiation must hold tensor-core
+   instructions;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
    sweep shapes and edge values, orders 0/1, f32/bf16);
 4. hold the paged-attention kernel to its plain version at full-width
@@ -17,20 +20,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 5. hold the streaming-attention kernel to its plain version at BERT-large
    widths (16 × 64, l 512 and 4096) and deepseek widths (32 × 128, causal,
    l 2048), f32 and bf16, with GQA 4:1, window, softcap, q_offset/kv_len,
-   ragged Lq/Lkv, rows that see no key, lut0 and exact exp;
+   ragged Lq/Lkv, rows that see no key, lut0 and exact exp, each in both
+   dtypes, bf16 also against the f32 plain version (``PV_LIMITS``: P·V
+   stays the f32 product); every bf16 call counted on the tensor-core
+   kernel, every f32 call on the CUDA-core one;
 6. encode with BERT-large at full width and depth (random weights from a
    seed) through ``build_model(cfg).prefill`` on 8 × 512 and 1 × 4096
-   tokens: 24 streaming-attention launches per forward, tokens/s, peak
-   memory; the masked-LM loss; logits through the kernel held against the
-   same forward through the plain attention, in bf16 and f32;
+   tokens: 24 streaming-attention launches per forward (bf16: all on the
+   tensor-core kernel), tokens/s, peak memory; the masked-LM loss; logits
+   through the kernel held against the same forward through the plain
+   attention, in bf16 and f32 (f32: all 24 on the CUDA-core kernel);
 7. serve 8 requests of deepseek-7b at full width and full depth through
    ``EngineCore`` with a bf16 pool, then an int8 pool; count kernel
    launches over each run (paged attention = layers × steps); hold one
    full-width ragged step's logits through the kernel against the same
    step through the plain attention, in bf16 on the served pool and in
    f32; score 2 × 1024 tokens causally through ``build_model(cfg).loss``
-   (one streaming-attention launch per layer) against the plain attention,
-   in bf16 and in f32;
+   (one streaming-attention launch per layer: bf16 on the tensor-core
+   kernel, f32 on the CUDA-core one) against the plain attention, in bf16
+   and in f32;
 8. hold the int8 matmul kernel bit-exactly to its plain version,
    accumulators and outputs: the reference suite's shapes, a batch, M = 1
    and 8, ragged K and N, and all-±127 operands past 2^24;
@@ -42,9 +50,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the bf16 product in f32;
 10. time each kernel at its main path's shapes (paged attention and the LUT
    exp at the engine's decode step, streaming attention at the BERT encode
-   shapes, the int8 matmul at the BERT-large projections) beside its plain
-   version, a library yardstick and its roofline bound, and print the
-   ``{"kernels": [...]}`` line;
+   and deepseek scoring shapes, with exact exp and the f32 CUDA-core
+   kernel beside it, the int8 matmul at the BERT-large projections)
+   beside its plain version, a library yardstick and its roofline bound,
+   and print the ``{"kernels": [...]}`` line;
 11. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -134,6 +143,37 @@ def bf16_ulps(got, want, atol=F32_TOL["atol"]) -> float:
     return float((excess / ulp).max())
 
 
+# The bf16 tensor-core attention kernel multiplies p_hi + p_lo (two bf16
+# halves of each f32 weight) by V so that P·V stays the plain version's f32
+# product.  Within one bf16 ulp does not show that: p rounded once, or p_hi
+# alone, stays within it.  These two statistics do (limits chosen from a
+# float64 model of a 512-key softmax before any card run: the split reads
+# rms ratio 1.0000 and bias ~2e-5, p rounded once 1.30, p_hi alone 2.03 and
+# −2.3e-3).
+PV_LIMITS = dict(rms_ratio=1.05, bias=2.0 ** -12)
+
+
+def bf16_pv_precision(got, want32) -> dict:
+    """bf16 outputs ``got`` against the f32 plain version ``want32``:
+    ``rms_ratio``, the rms of got − want over the rms of bf16(want) − want
+    (1 when the kernel's f32 result rounds as the plain one does), and
+    ``bias``, Σ(got − want)·want / Σ want² (0 unless the weights are
+    rounded one way)."""
+    import torch
+    g, w = got.double(), want32.double()
+    base = float((want32.to(torch.bfloat16).double() - w).square().mean()
+                 .sqrt())
+    rms = float((g - w).square().mean().sqrt())
+    ratio = rms / base if base > 0 else (0.0 if rms == 0 else np.inf)
+    return dict(rms_ratio=ratio,
+                bias=float(((g - w) * w).sum() / w.square().sum()))
+
+
+def pv_precision_ok(stats) -> bool:
+    return (stats["rms_ratio"] <= PV_LIMITS["rms_ratio"]
+            and abs(stats["bias"]) <= PV_LIMITS["bias"])
+
+
 # ------------------------------------------------------------------ phases --
 
 def phase_card():
@@ -149,15 +189,50 @@ def phase_card():
     return name, smi_line
 
 
+def sass_counts(lib, opcode):
+    """Per kernel function of a built library, how many SASS instructions
+    carry ``opcode`` (``cuobjdump -sass`` from the toolkit that built it)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib}: {out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
+    """Build every kernel; → the tensor-core attention kernels' ptxas lines
+    (registers, spills) and their SASS tensor-core instruction counts."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
         f"({build.build_dir()})")
-    for name, lines in build.ptxas_report().items():
+    report = build.ptxas_report()
+    for name, lines in report.items():
         for line in lines:
             log(f"[ptxas {name}] {line}")
+    tc_kernel = "tensor_core16attention_kernel"    # the mangled name's tail
+    tc = [line for line in report["streaming_attention"] if tc_kernel in line]
+    for line in tc:
+        log(f"[tensor_core kernel] {line}")
+    hmma = {fn: n for fn, n in sass_counts(libs["streaming_attention"],
+                                           "HMMA").items()
+            if tc_kernel in fn}
+    log(f"[tensor_core kernel] SASS HMMA instructions per instantiation "
+        f"(head dim × exp mode): {sorted(hmma.values())}")
+    if not tc or len(hmma) != len(tc) or not all(hmma.values()):
+        fail(f"streaming attention: the bf16 kernels are not all on the tensor "
+             f"cores (ptxas {len(tc)}, HMMA {hmma})")
+    return dict(ptxas=tc, sass_hmma=hmma)
 
 
 def phase_lut_exp():
@@ -185,6 +260,23 @@ def phase_lut_exp():
                              f"order {order}")
                     checked += 1
     log(f"[lut_exp] bit-equal to the plain version in {checked} cases")
+    # the form the tensor-core attention kernel inlines (lut_exp_nonpos):
+    # bit-equal on x <= 0, with the floors where the table index turns
+    from repro_torch.kernels.streaming_attention.ops import softmax_exp
+    grid = (np.arange(-126 * 128, 1, dtype=np.float64) / 128
+            * np.log(2.0)).astype(np.float32)
+    x = np.concatenate([edges[:3], np.float32([-0.0, -1e-45, -87.0]), grid,
+                        np.nextafter(grid, np.float32(-np.inf)),
+                        np.minimum(np.nextafter(grid, np.float32(np.inf)), 0),
+                        -rng.uniform(0, 100, 1 << 22).astype(np.float32)])
+    xt = torch.from_numpy(x).to(DEV)
+    for order in (0, 1):
+        got, want = softmax_exp(xt, order=order), lut_exp_ref(xt, order=order)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"lut_exp_nonpos (order {order}) not bit-equal to the plain "
+                 f"LUT on x <= 0")
+    log(f"[lut_exp] lut_exp_nonpos (the tensor-core attention kernel's form) "
+        f"bit-equal to the plain version on {x.size} values x <= 0, orders 0/1")
 
 
 def make_stream(spec, *, hq=None, hkv=None, d=None, ps=None, n_pages=None,
@@ -347,18 +439,28 @@ SA_CASES = [
      dict(causal=True, exp_mode="exact")),
     # The order-0 LUT depends on the online-softmax blocking and a logit one
     # rounding apart can flip a table index: held against the plain scan at
-    # the kernel's 64-key tiles over integer q and k (exact logits).
+    # the kernel's 64-key tiles over integer q and k (exact logits, in bf16
+    # too).
     ("lut0 l512 f32", (8, 16, 16, 512, 512, 64), "float32",
      dict(exp_mode="lut0")),
     ("lut0 causal l2048 f32", (1, 32, 32, 2048, 2048, 128), "float32",
      dict(causal=True, exp_mode="lut0")),
 ]
+# bf16 twins of the f32-only cases: the tensor-core kernel on every option
+SA_CASES += [(name[:-len(" f32")] + " bf16", shape, "bfloat16", kw)
+             for name, shape, dtype, kw in SA_CASES[7:]
+             if dtype == "float32"]
+# the kernel each dtype launches (ops.kernel_variant)
+VARIANT = {"float32": "cuda_core", "bfloat16": "tensor_core"}
 
 
 def phase_streaming_attention():
     """Kernel #3 against its plain version on every case of ``SA_CASES``:
     f32 within the reference kernel suite's atol 3e-5 / rtol 1e-4, bf16
-    within one bf16 ulp beyond that atol."""
+    within one bf16 ulp beyond that atol and, against the f32 plain
+    version, within ``PV_LIMITS`` (lut0 excepted: its plain scan is held
+    bit-close at the kernel's blocking instead); each launch counted under
+    the kernel its dtype selects (bf16: tensor cores, f32: CUDA cores)."""
     import torch
     from repro_torch.core.streaming_attention import (
         streaming_attention as attention_scan)
@@ -370,12 +472,18 @@ def phase_streaming_attention():
         lut0 = kw.get("exp_mode") == "lut0"
         q, k, v = sa_inputs(shape, dtype, seed=100 + i, integers=lut0)
         before = streaming_attention.launches
+        by = dict(streaming_attention.launches_by_variant)
         got = streaming_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        if streaming_attention.launches != before + 1:
-            fail(f"streaming attention {name}: kernel not launched")
+        by[VARIANT[dtype]] += 1
+        if (streaming_attention.launches != before + 1
+                or streaming_attention.launches_by_variant != by):
+            fail(f"streaming attention {name}: the {VARIANT[dtype]} kernel "
+                 f"was not launched once ({streaming_attention.launches_by_variant})")
+        want32 = None if lut0 else attention_ref(q.float(), k.float(),
+                                                 v.float(), **kw)
         want = (attention_scan(q, k, v, block_k=BLOCK_K, **kw) if lut0
-                else attention_ref(q, k, v, **kw))
+                else want32.to(q.dtype))
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"streaming attention {name}: shape {tuple(got.shape)} or "
                  f"non-finite output")
@@ -393,14 +501,39 @@ def phase_streaming_attention():
             err = bf16_ulps(got, want, SA_TOL["atol"])
             ok = err <= 1.0
             msg = f"max {err:.2f} bf16 ulp beyond atol 3e-5 (limit 1)"
+            if not lut0:
+                pv = bf16_pv_precision(got, want32)
+                ok = ok and pv_precision_ok(pv)
+                msg += (f"; against f32: rms {pv['rms_ratio']:.4f}× the "
+                        f"rounding's (limit {PV_LIMITS['rms_ratio']}), bias "
+                        f"{pv['bias']:.2e} (limit ±2^-12)")
         worst[name] = err
         log(f"[streaming_attention] {name}: {msg}")
         if not ok:
             fail(f"streaming attention {name} disagrees with the plain "
                  f"version: {msg}")
-        del q, k, v, got, want
+        del q, k, v, got, want, want32
     torch.cuda.empty_cache()
     return worst
+
+
+def reset_streaming_counts():
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    streaming_attention.launches = 0
+    for v in streaming_attention.launches_by_variant:
+        streaming_attention.launches_by_variant[v] = 0
+
+
+def expect_variant(label, variant, n):
+    """Since the last reset, kernel #3 launched ``n`` times, all of them
+    the ``variant`` kernel."""
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    by = streaming_attention.launches_by_variant
+    want = {v: (n if v == variant else 0) for v in by}
+    log(f"[{label}] streaming attention launches by kernel: {by}")
+    if by != want:
+        fail(f"{label}: streaming attention launches by kernel {by}, "
+             f"expected {want}")
 
 
 def hold_logits(label, k_logits, p_logits, p2_logits, floor):
@@ -485,7 +618,7 @@ def phase_bert():
         model.prefill(params, batch)                  # warm: cuBLAS plans
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        streaming_attention.launches = 0
+        reset_streaming_counts()
         paged_attention.launches = 0
         logits, _ = model.prefill(params, batch)
         torch.cuda.synchronize()
@@ -494,6 +627,7 @@ def phase_bert():
             fail(f"bert encode {b}×{l}: streaming attention launched "
                  f"{launches} times (expected {cfg.num_layers}), paged "
                  f"{paged_attention.launches}")
+        expect_variant(f"bert encode {b}×{l}", "tensor_core", cfg.num_layers)
         if logits.shape != (b, l, cfg.vocab_size) or not torch.isfinite(
                 logits).all():
             fail(f"bert encode {b}×{l}: logits {tuple(logits.shape)} not "
@@ -524,11 +658,12 @@ def phase_bert():
                                         .astype(np.int32)).to(DEV),
              "labels": torch.from_numpy(tokens).to(DEV),
              "loss_mask": torch.from_numpy(masked.astype(np.float32)).to(DEV)}
-    before = streaming_attention.launches
+    reset_streaming_counts()
     losses = [float(build_model(cfg.replace(attn_backend=be)).loss(
         params, batch)[0]) for be in ("auto", "naive", "jnp")]
-    if streaming_attention.launches != before + cfg.num_layers:
+    if streaming_attention.launches != cfg.num_layers:
         fail("bert loss did not run through the kernel")
+    expect_variant("bert loss", "tensor_core", cfg.num_layers)
     facts["mlm_loss"] = hold_loss("bert MLM loss", losses, floor=1e-3)
     log(f"[bert loss] masked-LM loss on {b}×{l} ({int(masked.sum())} masked): "
         f"{losses[0]:.4f} through the kernel, {losses[1]:.4f} plain (ln V = "
@@ -540,9 +675,12 @@ def phase_bert():
     for b, l in BERT_SHAPES:
         tokens = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (b, l)).astype(np.int32)).to(DEV)
+        reset_streaming_counts()
+        three = logits_three_ways(c32, p32, tokens, causal=False)
+        expect_variant(f"bert {b}×{l} f32", "cuda_core", cfg.num_layers)
         facts["forwards"][f"{b}x{l}"]["f32"] = hold_logits(
-            f"bert {b}×{l} f32", *logits_three_ways(c32, p32, tokens,
-                                                     causal=False), floor=1e-3)
+            f"bert {b}×{l} f32", *three, floor=1e-3)
+        del three
     del p32
     torch.cuda.empty_cache()
     return facts
@@ -762,7 +900,7 @@ def phase_scoring(cfg, params, label, floor):
     rng = np.random.default_rng(5)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, l))
                               .astype(np.int32)).to(DEV)
-    streaming_attention.launches = 0
+    reset_streaming_counts()
     t0 = time.perf_counter()
     loss = float(build_model(cfg).loss(params, {"tokens": tokens})[0])
     wall = time.perf_counter() - t0
@@ -770,6 +908,8 @@ def phase_scoring(cfg, params, label, floor):
     if launches != cfg.num_layers:
         fail(f"deepseek scoring {label}: streaming attention launched "
              f"{launches} times, expected {cfg.num_layers}")
+    expect_variant(f"deepseek scoring {label}", VARIANT[cfg.dtype],
+                   cfg.num_layers)
     losses = [loss] + [float(build_model(cfg.replace(attn_backend=be)).loss(
         params, {"tokens": tokens})[0]) for be in ("naive", "jnp")]
     log(f"[scoring {label}] deepseek-7b next-token loss on {b}×{l}: {loss:.4f} "
@@ -779,8 +919,17 @@ def phase_scoring(cfg, params, label, floor):
     held = hold_logits(f"scoring {label}", *logits_three_ways(
         cfg, params, tokens, causal=True), floor=floor)
     held["loss"] = hold_loss(f"scoring {label} loss", losses, floor=floor / 10)
+    walls = []
+    for _ in range(3):                                # warm; host clock, synced
+        t0 = time.perf_counter()
+        build_model(cfg).loss(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"[scoring {label}] warm forward + loss, median of 3: "
+        f"{np.median(walls):.1f} ms ({walls})")
     torch.cuda.empty_cache()
-    return dict(launches=launches, ms=wall * 1e3, **held)
+    return dict(launches=launches, ms=wall * 1e3, warm_ms=float(np.median(walls)),
+                warm_ms_all=walls, **held)
 
 
 def phase_engine(cfg, params, kv_quant: bool, prompts):
@@ -1122,29 +1271,45 @@ def time_int8(flush, facts):
         bert_int8_projections=facts, **timed)
 
 
+def streaming_shapes():
+    """(label, (B, Hq, Hkv, Lq, Lkv, D), causal) of kernel #3's main-path
+    calls: the BERT-large encodes and the deepseek-7b scoring batch."""
+    shapes = [(f"l{l}", (b, 16, 16, l, l, 64), False) for b, l in BERT_SHAPES]
+    b, l = SCORE_SHAPE
+    shapes.append((f"scoring_{b}x{l}", (b, 32, 32, l, l, 128), True))
+    return shapes
+
+
 def time_streaming(flush, facts):
     """Kernel #3 at its main paths' shapes: the BERT-large encodes (bf16, 16
     heads × 64, bidirectional) and the deepseek-7b scoring batch (bf16, 32
-    heads × 128, causal): kernel, plain version, SDPA (exact exp, the same
-    mask) and the bound.  Bytes: q, k, v read once and out written once;
-    operations: the QKᵀ and P·V products over the visible keys, at the bf16
-    tensor-core peak."""
+    heads × 128, causal): the tensor-core kernel, its plain version, SDPA
+    (exact exp, the same mask) and the bound; beside them the same kernel
+    with exp_mode "exact" (expf in place of the LUT: what the softmax's
+    exponential costs) and the f32 CUDA-core kernel on the same inputs
+    widened.  Bytes: q, k, v read once and out written once; operations:
+    the QKᵀ and P·V products over the visible keys, at the bf16
+    tensor-core peak (the split P·V's second product is the kernel's cost,
+    not the function's work)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.streaming_attention import (attention_ref,
                                                          streaming_attention)
-    shapes = [(f"l{l}", (b, 16, 16, l, l, 64), False) for b, l in BERT_SHAPES]
-    b, l = SCORE_SHAPE
-    shapes.append((f"scoring_{b}x{l}", (b, 32, 32, l, l, 128), True))
+    shapes = streaming_shapes()
     timed = {}
     for label, shape, causal in shapes:
         b, hq, _, l, _, d = shape
         q, k, v = sa_inputs(shape, "bfloat16", seed=7)
+        q32, k32, v32 = q.float(), k.float(), v.float()
         got = streaming_attention(q, k, v, causal=causal)
         want = attention_ref(q, k, v, causal=causal)
         err = float((got.float() - want.float()).abs().max())
         ms = cuda_ms(lambda: streaming_attention(q, k, v, causal=causal),
                      flush=flush)
+        exact = cuda_ms(lambda: streaming_attention(
+            q, k, v, causal=causal, exp_mode="exact"), flush=flush)
+        f32 = cuda_ms(lambda: streaming_attention(q32, k32, v32, causal=causal),
+                      flush=flush)
         plain = cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
                         iters=5, flush=flush)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -1157,13 +1322,17 @@ def time_streaming(flush, facts):
         timed[label] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib, shape=f"B {b}, {hq} heads × {d}, l {l}, bf16, "
-                                  f"{'causal' if causal else 'bidirectional'}")
+            library_ms=lib, tflops=flops / ms / 1e9, exact_exp_ms=exact,
+            f32_cuda_core_ms=f32, f32_cuda_core_tflops=flops / f32 / 1e9,
+            shape=f"B {b}, {hq} heads × {d}, l {l}, bf16, "
+                  f"{'causal' if causal else 'bidirectional'}")
         log(f"[time] streaming_attention {label} ({timed[label]['shape']}): "
-            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, sdpa {lib:.4f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP; {flops / ms / 1e9:.1f} TFLOP/s)")
-        del q, k, v, got, want
+            f"tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"exact exp {exact:.4f} ms, f32 CUDA-core kernel {f32:.4f} ms "
+            f"({flops / f32 / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, sdpa "
+            f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        del q, k, v, q32, k32, v32, got, want
     first = timed.pop(shapes[0][0])
     return dict(
         name="streaming_attention", route="cuda",
@@ -1174,7 +1343,7 @@ def time_streaming(flush, facts):
         scoring_launches=facts["scoring"]["bf16"]["launches"],
         **first, library="scaled_dot_product_attention (exact exp, not the "
                          "same function)",
-        **timed)
+        **timed, tensor_core_build=facts["build"])
 
 
 def main() -> int:
@@ -1188,7 +1357,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     name, smi_line = phase_card()
-    phase_build()
+    built = phase_build()
     phase_lut_exp()
     phase_paged_attention()
     sa_worst = phase_streaming_attention()
@@ -1230,6 +1399,7 @@ def main() -> int:
     facts["decode_kv_lens"] = [int(n) + MAX_NEW // 2 for n in lens]
     facts["bert"], facts["scoring"] = bert, scoring
     facts["int8_bert"] = int8_bert
+    facts["build"] = built
     kernels = phase_timing(facts)
 
     summary = {k: {kk: vv for kk, vv in facts[k].items() if kk != "streams"}

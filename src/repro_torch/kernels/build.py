@@ -106,25 +106,29 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def parse_ptxas(log: str) -> List[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its (mangled)
+    name with ptxas's registers, shared memory, barriers and spill
+    counts."""
+    lines, entry, spill = [], "", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; {spill}")
+    return lines
+
+
 def ptxas_report() -> Dict[str, List[str]]:
-    """Per source, one line per compiled kernel: its (mangled) name with
-    ptxas's registers, shared memory, barriers and spill counts."""
+    """Per source, ``parse_ptxas`` of its build log."""
     out: Dict[str, List[str]] = {}
     for name in sources():
         log = build_dir() / f"{name}.log"
-        if not log.exists():
-            continue
-        lines, entry, spill = [], "", ""
-        for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                entry = m.group(1)
-            elif "spill" in line:
-                spill = line.strip()
-            elif "Used" in line and entry:
-                lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; "
-                             f"{spill}")
-        out[name] = lines
+        if log.exists():
+            out[name] = parse_ptxas(log.read_text())
     return out
 
 

@@ -11,7 +11,10 @@ the f32 tolerance, not bit for bit, because the online softmax rescales at
 other block edges.
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  ``streaming_attention.launches`` counts kernel launches.
+kernel or raise.  One C entry point holds two kernels, chosen by dtype
+(``kernel_variant``): bf16 runs on the tensor cores, f32 on the CUDA cores.
+``streaming_attention.launches`` counts kernel launches, and
+``streaming_attention.launches_by_variant`` the same launches per kernel.
 The kernel is forward only: asking autograd for a gradient through it
 raises ``NotImplementedError`` (the backward kernel is the training slice's
 work); on the CPU the plain version is ordinary torch and differentiates.
@@ -25,13 +28,29 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.lut_exp.ops import device_table
+from repro_torch.kernels.lut_exp.ref import lut_exp_ref
 from repro_torch.kernels.streaming_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype → the kernel the C entry point launches for it
+VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 _EXP_MODES = {"lut": 0, "lut0": 1, "exact": 2}
 HEAD_DIMS = (8, 16, 32, 64, 128)
 BLOCK_K = 64          # key rows per kv tile (the kernel's online-softmax step)
 MAX_HEAD_BATCH = 65535
+
+
+def kernel_variant(dtype: torch.dtype, d: int) -> str:
+    """Which kernel a CUDA call with this dtype and head dim launches:
+    ``"tensor_core"`` (bf16: mma.sync, head dims 8–128, 8 zero-filled to
+    16) or ``"cuda_core"`` (f32).  Raises on what neither kernel takes."""
+    if dtype not in VARIANTS:
+        raise TypeError(f"streaming_attention kernel: q, k, v must share "
+                        f"float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"streaming_attention kernel: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    return VARIANTS[dtype]
 
 
 def _library() -> ctypes.CDLL:
@@ -42,7 +61,33 @@ def _library() -> ctypes.CDLL:
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    ex = lib.streaming_attention_exp_launch
+    ex.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
+    ex.restype = ctypes.c_int
     return lib
+
+
+def softmax_exp(x: torch.Tensor, *, order: int = 1) -> torch.Tensor:
+    """The LUT exponential as the tensor-core kernel's softmax evaluates it
+    (``lut_exp_nonpos`` in ``csrc/lut_exp.cuh``: no conversion
+    instructions), elementwise over f32: on the card, the check that it is
+    the plain LUT bit for bit for x <= 0.  CPU tensors take the plain LUT.
+    Not a main-path launch; not counted."""
+    if x.device.type == "cpu":
+        return lut_exp_ref(x, order=order)
+    if x.device.type != "cuda":
+        raise ValueError(f"softmax_exp: unsupported device {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or order not in (0, 1):
+        raise ValueError(f"softmax_exp takes a contiguous float32 tensor and "
+                         f"order 0 or 1, got {x.dtype}, order {order}")
+    lib = _library()
+    out = torch.empty_like(x)
+    err = lib.streaming_attention_exp_launch(
+        x.data_ptr(), out.data_ptr(), device_table(x.device).data_ptr(),
+        x.numel(), order, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "streaming_attention_exp launch")
+    return out
 
 
 def _check_cuda(q, k, v, cap, window, exp_mode, q_offset, kv_len):
@@ -50,7 +95,7 @@ def _check_cuda(q, k, v, cap, window, exp_mode, q_offset, kv_len):
         if t.device != q.device:
             raise ValueError(f"streaming_attention: {name} on {t.device}, "
                              f"q on {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"streaming_attention kernel: q, k, v must share "
                         f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -63,9 +108,7 @@ def _check_cuda(q, k, v, cap, window, exp_mode, q_offset, kv_len):
         raise ValueError(f"streaming_attention kernel: k/v {tuple(k.shape)} "
                          f"do not match q {tuple(q.shape)} (GQA needs Hq % "
                          f"Hkv == 0)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"streaming_attention kernel: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    kernel_variant(q.dtype, d)
     if b * hq > MAX_HEAD_BATCH:
         raise ValueError(f"streaming_attention kernel: B·Hq = {b * hq} > "
                          f"{MAX_HEAD_BATCH}")
@@ -104,6 +147,7 @@ def _launch(q, k, v, *, scale, causal, window, cap, exp_mode, q_offset,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "streaming_attention launch")
     streaming_attention.launches += 1
+    streaming_attention.launches_by_variant[kernel_variant(q.dtype, d)] += 1
     return out
 
 
@@ -151,3 +195,4 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 streaming_attention.launches = 0
+streaming_attention.launches_by_variant = dict.fromkeys(VARIANTS.values(), 0)

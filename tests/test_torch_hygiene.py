@@ -174,6 +174,57 @@ def test_streaming_attention_cuda_tensor_raises_without_toolchain(
     assert sa_ops.streaming_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
+                                           (torch.float32, "cuda_core")])
+@pytest.mark.parametrize("d", sa_ops.HEAD_DIMS)
+def test_streaming_attention_variant_follows_dtype(dtype, variant, d):
+    """bf16 runs on the tensor-core kernel at every head dim (8 included),
+    f32 on the CUDA-core kernel."""
+    assert sa_ops.kernel_variant(dtype, d) == variant
+
+
+@pytest.mark.parametrize("dtype,d,err", [
+    (torch.float16, 64, TypeError), (torch.float64, 64, TypeError),
+    (torch.int8, 64, TypeError), (torch.bfloat16, 24, ValueError),
+    (torch.bfloat16, 256, ValueError), (torch.float32, 4, ValueError)])
+def test_streaming_attention_variant_refuses(dtype, d, err):
+    with pytest.raises(err):
+        sa_ops.kernel_variant(dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_streaming_attention_cuda_tensor_counts_no_refused_launch(
+        dtype, no_toolchain, monkeypatch):
+    """A CUDA tensor of either dtype goes to its kernel: with no nvcc the
+    call raises, neither the plain version nor the other kernel is taken,
+    and no count moves."""
+    _forbid(monkeypatch, sa_ops, "attention_ref")
+    q = _fake(torch.zeros((1, 4, 5, 8), dtype=dtype))
+    kv = _fake(torch.zeros((1, 2, 7, 8), dtype=dtype))
+    before = dict(sa_ops.streaming_attention.launches_by_variant)
+    total = sa_ops.streaming_attention.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sa_ops.streaming_attention(q, kv, kv)
+    assert sa_ops.streaming_attention.launches_by_variant == before
+    assert sa_ops.streaming_attention.launches == total
+    assert set(before) == {"tensor_core", "cuda_core"}
+
+
+def test_softmax_exp_check_goes_to_the_card(no_toolchain, monkeypatch):
+    """The softmax-exponential check takes the plain LUT on the CPU and
+    on a CUDA tensor reaches the build (here: raises without nvcc); other
+    dtypes and devices are refused."""
+    x = torch.tensor([0.0, -1.0, -100.0])
+    assert torch.equal(sa_ops.softmax_exp(x), lut_ops.lut_exp_ref(x))
+    _forbid(monkeypatch, sa_ops, "lut_exp_ref")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sa_ops.softmax_exp(_fake(np.zeros(8, np.float32)))
+    with pytest.raises(ValueError):
+        sa_ops.softmax_exp(_fake(np.zeros(8, np.float64)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        sa_ops.softmax_exp(torch.zeros(4, device="meta"))
+
+
 @pytest.mark.parametrize("bad", [
     dict(q_dtype=torch.float16), dict(kv_dtype=torch.bfloat16), dict(d=24),
     dict(cap=0.0), dict(window=0), dict(exp_mode="exp2"),
@@ -240,19 +291,69 @@ def test_build_flags_target_hopper():
     assert len(build.source_hash()) == 16
 
 
-def test_chip_smoke_imports_no_jax_and_no_reference_package():
-    """Every import in ``chip_smoke.py``, at any depth, read from its AST:
-    the script runs where there is no JAX."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imports(path):
+    """Every module a script imports, at any depth, read from its AST."""
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
+    return names
+
+
+def _jax_or_reference(names):
+    return sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    """Every import in ``chip_smoke.py``, at any depth, read from its AST:
+    the script runs where there is no JAX."""
+    names = _imports(ROOT / "chip_smoke.py")
     assert "repro_torch.kernels.int8_matmul" in names     # the walk sees nested imports
-    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    bad = _jax_or_reference(names)
     assert not bad, bad
+
+
+VARIANT_TOOL = ROOT / "tools" / "streaming_attention_variants.py"
+
+
+def _variant_tool():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("sa_variants", VARIANT_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_variant_tool_imports_no_jax_and_no_reference_package():
+    """The kernel-variant timing script runs on the card's machine too."""
+    names = _imports(VARIANT_TOOL)
+    assert {"chip_smoke", "repro_torch.kernels"} <= names
+    bad = _jax_or_reference(names)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["no_exp", "no_p_lo", "p_rounded",
+                                  "no_exp_no_p_lo", "table_32", "no_reg_cap"])
+def test_variant_tool_edits_match_the_shipped_kernel(name, tmp_path):
+    """Each design variant's replacements find their lines in the shipped
+    sources exactly once, so the variants stay the shipped kernel but for
+    what they name."""
+    tool = _variant_tool()
+    shipped = {p.name: p.read_text() for p in build.CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    files = tool.variant_sources(name, build.CSRC)
+    edited = {f for f, _, _ in tool.VARIANTS[name][1]}
+    assert set(files) == set(shipped)
+    assert {f for f in files if files[f] != shipped[f]} == edited
+    for f, old, new in tool.VARIANTS[name][1]:
+        assert old not in files[f] or old in new
+    f0, old0, _ = tool.VARIANTS[name][1][0]         # a source that drifted
+    for f, text in shipped.items():
+        (tmp_path / f).write_text(text.replace(old0, "") if f == f0 else text)
+    with pytest.raises(ValueError, match="expected once"):
+        tool.variant_sources(name, tmp_path)
 
 
 def _fake_qtensor(k=64, n=32):

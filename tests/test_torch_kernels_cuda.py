@@ -35,7 +35,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_varlen_reference, varlen_positions)
 from repro_torch.kernels.streaming_attention import (  # noqa: E402
     attention_ref, streaming_attention)
-from repro_torch.kernels.streaming_attention.ops import BLOCK_K  # noqa: E402
+from repro_torch.kernels.streaming_attention.ops import (  # noqa: E402
+    BLOCK_K, softmax_exp)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 EDGES = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
@@ -60,6 +61,31 @@ def test_lut_exp_kernel_bit_exact(cuda_device, rng, dtype, order):
     assert lut_exp.launches == before + 1
     want = lut_exp_ref(xt, order=order)
     assert torch.equal(got.float(), want.float())
+
+
+def nonpos_sweep(rng):
+    """x <= 0 where the LUT's floors turn: each table step k/128 of ln 2
+    down to −126·ln 2 with its two f32 neighbours, the smallest denormal
+    (t − ⌊t⌋ rounds to 1 there), both zeros and uniform draws."""
+    grid = (np.arange(-126 * 128, 1, dtype=np.float64) / 128
+            * np.log(2.0)).astype(np.float32)
+    return np.concatenate([
+        EDGES[:3], np.float32([-0.0, -1e-45, -87.0, -86.99999]), grid,
+        np.nextafter(grid, np.float32(-np.inf)),
+        np.minimum(np.nextafter(grid, np.float32(np.inf)), 0),
+        -rng.uniform(0, 100, 100003).astype(np.float32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 1])
+def test_softmax_exp_kernel_bit_exact(cuda_device, rng, order):
+    """The tensor-core kernel's exponential (``lut_exp_nonpos``: floors by
+    magic-constant additions, no conversion instructions) is the plain LUT
+    bit for bit on x <= 0."""
+    xt = torch.from_numpy(nonpos_sweep(rng)).to(cuda_device)
+    got = softmax_exp(xt, order=order)
+    assert torch.equal(got.view(torch.int32),
+                       lut_exp_ref(xt, order=order).view(torch.int32))
 
 
 def bf16_ulps(got, want, atol):
@@ -243,14 +269,88 @@ def test_streaming_attention_kernel_lut0_at_its_blocking(cuda_device, case):
     torch.testing.assert_close(got, want, **SA_TOL)
 
 
+def bf16(*ts):
+    return [t.bfloat16() for t in ts]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [SA_CASES[1], SA_CASES[7], SA_CASES[8]])
+@pytest.mark.parametrize("case", SA_CASES)
 def test_streaming_attention_kernel_bf16_within_one_ulp(cuda_device, case):
+    """Every case in bf16, on the tensor-core kernel: head dims 8–128, GQA,
+    window, softcap, q_offset/kv_len, ragged Lq/Lkv and exact exp."""
     (q, k, v), kw = sa_inputs(case, cuda_device, seed=4)
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    q, k, v = bf16(q, k, v)
+    before = streaming_attention.launches_by_variant["tensor_core"]
     got = streaming_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert streaming_attention.launches_by_variant["tensor_core"] == before + 1
     assert got.dtype == torch.bfloat16
     assert bf16_ulps(got, attention_ref(q, k, v, **kw), SA_TOL["atol"]) <= 1.0
+
+
+# P·V on the tensor cores multiplies p_hi + p_lo (two bf16 halves of each f32
+# weight) by V so that it stays the plain version's f32 product.  One bf16
+# ulp does not show that (p rounded once, or p_hi alone, stays within it);
+# against the f32 plain version, the rms error over the rms of rounding that
+# version to bf16, and the error's signed projection on it, do (p rounded
+# once reads ~1.3, p_hi alone ~2.0 and about -2^-9).
+PV_LIMITS = dict(rms_ratio=1.05, bias=2.0 ** -12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_streaming_attention_bf16_pv_keeps_f32_weights(cuda_device, causal, d):
+    (q, k, v), kw = sa_inputs(dict(b=2, hq=8, hkv=8, lq=512, lkv=512, d=d,
+                                   causal=causal), cuda_device, seed=5)
+    q, k, v = bf16(q, k, v)
+    got = streaming_attention(q, k, v, **kw).double()
+    want32 = attention_ref(q.float(), k.float(), v.float(), **kw)
+    w = want32.double()
+    base = (want32.bfloat16().double() - w).square().mean().sqrt()
+    rms_ratio = float((got - w).square().mean().sqrt() / base)
+    bias = float(((got - w) * w).sum() / w.square().sum())
+    assert rms_ratio <= PV_LIMITS["rms_ratio"], rms_ratio
+    assert abs(bias) <= PV_LIMITS["bias"], bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SA_CASES[0], SA_CASES[6], SA_CASES[7],
+                                  SA_CASES[8]])
+def test_streaming_attention_kernel_bf16_lut0_at_its_blocking(cuda_device,
+                                                              case):
+    """lut0 in bf16 over integer q and k (exact in bf16, exact logits),
+    held against the plain scan at the kernel's 64-key tiles."""
+    (q, k, v), kw = sa_inputs(case, cuda_device, integers=True)
+    q, k, v = bf16(q, k, v)
+    kw = dict(kw, exp_mode="lut0", cap=None)
+    got = streaming_attention(q, k, v, **kw)
+    want = attention_scan(q, k, v, block_k=BLOCK_K, **kw)
+    assert bf16_ulps(got, want, SA_TOL["atol"]) <= 1.0
+
+
+@pytest.mark.cuda
+def test_streaming_attention_bf16_rows_that_see_no_key_emit_zero(cuda_device):
+    (q, k, v), kw = sa_inputs(SA_CASES[-1], cuda_device)
+    q, k, v = bf16(q, k, v)
+    assert not streaming_attention(q, k, v, **kw).any()
+    assert not streaming_attention(q, k, v, kv_len=0).any()
+
+
+@pytest.mark.cuda
+def test_streaming_attention_variant_counts(cuda_device):
+    """bf16 launches count under the tensor-core kernel, f32 under the
+    CUDA-core one, and the total counts both."""
+    (q, k, v), kw = sa_inputs(SA_CASES[1], cuda_device)
+    by = streaming_attention.launches_by_variant
+    before, tc, cc = streaming_attention.launches, by["tensor_core"], by["cuda_core"]
+    streaming_attention(q, k, v, **kw)
+    assert (by["tensor_core"], by["cuda_core"]) == (tc, cc + 1)
+    streaming_attention(*bf16(q, k, v), **kw)
+    streaming_attention(*bf16(q, k, v), **kw)
+    torch.cuda.synchronize()
+    assert (by["tensor_core"], by["cuda_core"]) == (tc + 2, cc + 1)
+    assert streaming_attention.launches == before + 3
 
 
 @pytest.mark.cuda
@@ -268,6 +368,28 @@ def test_streaming_attention_kernel_reads_strided_views(cuda_device):
     torch.testing.assert_close(
         got, attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True), **SA_TOL)
+
+
+@pytest.mark.cuda
+def test_streaming_attention_bf16_reads_strided_views(cuda_device):
+    """The same head-split views in bf16 (cp.async path: every row stride a
+    multiple of 8 elements), then rows 68 elements apart (136 bytes: not
+    16-byte aligned), which the tensor-core kernel stages through
+    registers; the output keeps q's layout."""
+    g = torch.Generator().manual_seed(6)
+    q, v = (torch.randn((2, 70, 4, 64), generator=g).bfloat16()
+            .to(cuda_device).transpose(1, 2) for _ in range(2))
+    k = torch.randn((2, 70, 8, 64), generator=g).bfloat16().to(cuda_device)
+    k = k[:, :, :4].transpose(1, 2)
+    odd = [torch.randn((2, 4, 70, 68), generator=g).bfloat16().to(cuda_device)
+           [..., :64] for _ in range(3)]
+    assert odd[0].stride(2) % 8
+    assert streaming_attention(q, k, v, causal=True).stride() == q.stride()
+    for qq, kk, vv, causal in ((q, k, v, True), (*odd, False)):
+        got = streaming_attention(qq, kk, vv, causal=causal)
+        want = attention_ref(qq.contiguous(), kk.contiguous(), vv.contiguous(),
+                             causal=causal)
+        assert bf16_ulps(got, want, SA_TOL["atol"]) <= 1.0
 
 
 @pytest.mark.cuda

@@ -103,3 +103,58 @@ def test_quantize_kv_rows_bit_exact(rng, shape):
     assert qt.dtype == torch.int8 and st.dtype == torch.float32
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
     np.testing.assert_array_equal(bits(st.numpy()), bits(sj))
+
+
+def nonpos_sweep(rng):
+    """x <= 0 where the LUT's floors turn: every table step k/128 of
+    ln 2 from −126·ln 2 to 0 and its two f32 neighbours, uniform draws, the
+    underflow edge and both zeros."""
+    grid = (np.arange(-126 * 128, 1, dtype=np.float64) / 128 * np.log(2.0))
+    grid = grid.astype(np.float32)
+    near = [grid, np.nextafter(grid, np.float32(-np.inf)),
+            np.minimum(np.nextafter(grid, np.float32(np.inf)), 0)]
+    return np.concatenate([EDGES[:3], np.float32([-0.0, -87.0, -86.99999]),
+                           *near, -rng.uniform(0, 100, 20000).astype(np.float32)])
+
+
+def lut_exp_nonpos_formula(x, order):
+    """``lut_exp_nonpos`` of ``csrc/lut_exp.cuh`` in numpy, one rounded f32
+    operation per step.  An addition of an integer constant rounded toward
+    −∞ whose result lies in [2^23, 2^24), where the floats are the
+    integers, is the constant plus the floor of the other operand."""
+    f32 = np.float32
+    with np.errstate(all="ignore"):
+        t = x * f32(tlut.LOG2E)
+        nb = (np.floor(t.astype(np.float64)) + 12582912.0).astype(f32)
+        fk = (t - (nb - f32(12582912.0))) * f32(tlut.K)
+        db = np.minimum((np.floor(fk.astype(np.float64)) + 8388608.0)
+                        .astype(f32), f32(8388608.0 + tlut.K - 1))
+        r = fk - (db - f32(8388608.0))
+        di = db.view(np.uint32) - np.uint32(0x4B000000)
+        p2 = ((nb.view(np.uint32) - np.uint32(0x4B400000) + np.uint32(127))
+              << np.uint32(23)).view(f32)
+        out = p2 * tlut.make_table().numpy()[di]
+        if order:
+            out = out * (f32(1.0) + r * f32(tlut.LN2 / tlut.K))
+        return np.where(x < f32(tlut.UNDERFLOW_X), f32(0.0), out).astype(f32)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_lut_exp_nonpos_formula_is_the_plain_lut(rng, order):
+    """The bf16 streaming-attention kernel's exponential floors by adding a
+    magic constant rounded toward −∞ instead of ``floorf`` and float → int
+    conversions; for every x <= 0 it is the reference's LUT (JAX core,
+    eager: one rounding per operation) bit for bit, and the port's plain
+    LUT.  One input differs between those two: the sweep's denormal
+    −2^-149, which XLA on the CPU (like the TPU) reads as −0 (e^x = 1)
+    while torch and the card keep it (⌊t⌋ = −1, table entry 127).  The
+    CUDA code itself is held to the plain LUT on the card (``softmax_exp``
+    in ``test_torch_kernels_cuda.py`` and ``chip_smoke.py``)."""
+    x = nonpos_sweep(rng)
+    got = bits(lut_exp_nonpos_formula(x, order))
+    port = tlut.lut_exp(torch.from_numpy(x), order=order).numpy()
+    np.testing.assert_array_equal(got, bits(port))
+    want = bits(np.asarray(jlut.lut_exp(jnp.asarray(x), order=order)))
+    normal = (x == 0) | (np.abs(x) >= np.finfo(np.float32).tiny)
+    assert (~normal).sum() == 1 and want[~normal] == bits(np.float32(1.0))
+    np.testing.assert_array_equal(got[normal], want[normal])
