@@ -13,10 +13,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    instructions;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
    sweep shapes and edge values, orders 0/1, f32/bf16);
-4. hold the paged-attention kernel to its plain version at full-width
-   shapes (32 heads of 128, page size 16, ~1000 pages, 8 lanes with 37 to
-   ~2000 live rows, shuffled tables): decode and q-block-tiled steps over
-   f32, bf16 and int8 pools, GQA, softcap, window, lut0 and exact exp;
+4. hold the paged-attention kernel (split pass + combine) to its plain
+   version cut into the same splits, at full-width shapes (32 heads of 128,
+   page size 16, ~1000 pages, 8 lanes with 37 to ~2000 live rows, shuffled
+   tables): decode and q-block-tiled steps over f32, bf16 and int8 pools,
+   GQA, softcap, window, lut0 and exact exp, each at the default split and
+   at one page per split;
 5. hold the streaming-attention kernel to its plain version at BERT-large
    widths (16 × 64, l 512 and 4096) and deepseek widths (32 × 128, causal,
    l 2048), f32 and bf16, with GQA 4:1, window, softcap, q_offset/kv_len,
@@ -32,7 +34,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    attention, in bf16 and f32 (f32: all 24 on the CUDA-core kernel);
 7. serve 8 requests of deepseek-7b at full width and full depth through
    ``EngineCore`` with a bf16 pool, then an int8 pool; count kernel
-   launches over each run (paged attention = layers × steps); hold one
+   launches over each run (paged attention's split pass and its combine,
+   each = layers × steps); hold one
    full-width ragged step's logits through the kernel against the same
    step through the plain attention, in bf16 on the served pool and in
    f32; score 2 × 1024 tokens causally through ``build_model(cfg).loss``
@@ -48,12 +51,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``dense_maybe_quant`` (144 kernel launches): every output bit-equal to the
    plain version, int32 accumulators included, and within 3% (relative) of
    the bf16 product in f32;
-10. time each kernel at its main path's shapes (paged attention and the LUT
-   exp at the engine's decode step, streaming attention at the BERT encode
-   and deepseek scoring shapes, with exact exp and the f32 CUDA-core
-   kernel beside it, the int8 matmul at the BERT-large projections)
-   beside its plain version, a library yardstick and its roofline bound,
-   and print the ``{"kernels": [...]}`` line;
+10. time each kernel at its main path's shapes (paged attention, its
+   combine and the LUT exp at the engine's decode step, paged attention
+   also at a mixed step of one 256-token prefill chunk and 7 decodes, and
+   at both shapes beside SDPA three ways: as a caller sees it, the device
+   time alone and the host time per call, with a sweep over 4, 8 and 16
+   pages per split; streaming attention at the BERT
+   encode and deepseek scoring shapes, with exact exp and the f32 CUDA-core
+   kernel beside it; the int8 matmul at the BERT-large projections) beside
+   its plain version, a library yardstick and its roofline bound, and
+   print the ``{"kernels": [...]}`` line; the end-to-end times beside
+   the readings before the split-KV kernel and the bf16 unembed;
 11. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -93,6 +101,14 @@ SCORE_SHAPE = (2, 1024)              # deepseek-7b causal scoring batch
 INT8_TOKENS = (8, 512)               # the BERT-large int8 pass
 INT8_PROJ = ("wq", "wk", "wv", "wo", "up", "down")
 INT8_REL_TOL = 0.03                  # the reference's own bound (test_quant.py)
+# The readings on this card before the split-KV paged kernel and the bf16
+# unembed (PERF.md), printed beside this run's: encode, scoring and
+# engine-step ms
+EARLIER_MS = {"bert 8x512": 24.1, "bert 1x4096": 33.7, "scoring bf16": 104.0,
+              "scoring f32": 584.2, "step p50 bf16": 70.78,
+              "step p50 int8": 91.61}
+KV_SPLIT_SWEEP = (4, 8, 16)        # pages per split timed at the decode shape
+MIXED_CHUNK = (256, 512)           # the mixed step's chunk: (tokens, live rows)
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -110,9 +126,13 @@ def fail(msg: str):
 
 # ----------------------------------------------------------------- helpers --
 
-def cuda_ms(fn, *, iters=20, warmup=3, flush=None):
-    """Median device time of ``fn`` in ms, CUDA events around each call;
-    ``flush`` (untimed) runs before each call to evict the L2 cache."""
+def cuda_ms(fn, *, iters=20, warmup=3, flush=None, spin=False):
+    """Median time of ``fn`` in ms, CUDA events around each call; ``flush``
+    (untimed) runs before each call to evict the L2 cache.  The events
+    start when the host reaches ``fn``, so a call whose host work outlasts
+    its device work reads its host time.  ``spin`` puts ~1 ms of spinning
+    on the stream ahead of each call, so the host has enqueued all of
+    ``fn`` before the first event fires: the device time alone."""
     import torch
     for _ in range(warmup):
         fn()
@@ -120,6 +140,8 @@ def cuda_ms(fn, *, iters=20, warmup=3, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -128,6 +150,35 @@ def cuda_ms(fn, *, iters=20, warmup=3, flush=None):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+SPIN_CYCLES = 2_000_000            # ~1 ms at the H100's boost clock
+
+
+def host_ms(fn, *, calls=50):
+    """Host time of one call of ``fn`` in ms: ``calls`` calls enqueued back
+    to back while the stream spins (~20 ms), so no call waits on the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20 * SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def interleaved_ms(timers, *, rounds=5):
+    """Each zero-argument timer of ``timers`` run ``rounds`` times in turn
+    (A, B, C, A, B, C, …) → name → the median of its readings.  Readings
+    drift within a call; turns spread the drift over every configuration."""
+    out = {k: [] for k in timers}
+    for _ in range(rounds):
+        for k, timer in timers.items():
+            out[k].append(timer())
+    return {k: float(np.median(v)) for k, v in out.items()}
 
 
 def bf16_ulps(got, want, atol=F32_TOL["atol"]) -> float:
@@ -281,11 +332,12 @@ def phase_lut_exp():
 
 def make_stream(spec, *, hq=None, hkv=None, d=None, ps=None, n_pages=None,
                 pool="bfloat16", q_dtype="bfloat16", seed=0, lanes=8,
-                exact_logits=False):
+                exact_logits=False, width=None):
     """A full-width packed stream in the engine's layout: ``spec`` lists
     (new tokens, live rows after the step) per lane; pages drawn without
     replacement from a shuffled pool; dead rows pad to a power of two; cu
-    carries a trailing pseudo-segment and zero-width repeats (lanes + 2).
+    carries a trailing pseudo-segment and zero-width repeats (lanes + 2);
+    ``width`` overrides the stream width (a scheduler bucket).
     ``exact_logits`` draws q and k as small integers, so every q·k sum is
     exact in f32 whatever its order."""
     import torch
@@ -300,7 +352,7 @@ def make_stream(spec, *, hq=None, hkv=None, d=None, ps=None, n_pages=None,
     width_p = 1 << (max(need) - 1).bit_length()
     nq = np.array([n for n, _ in spec])
     live = int(nq.sum())
-    width = 1 << (live - 1).bit_length()
+    width = width or 1 << (live - 1).bit_length()
     table = np.full((width, width_p), n_pages, np.int32)     # scratch page
     cu = np.concatenate([[0], np.cumsum(nq)]).astype(np.int32)
     off = 0
@@ -338,6 +390,7 @@ def phase_paged_attention():
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_varlen,
         paged_attention_varlen_reference)
+    from repro_torch.kernels.paged_attention.ops import default_kv_split
     decode = [(1, kv) for kv in KV_LENS]
     tiled = [(1, kv) for kv in KV_LENS]
     tiled[3] = (CHUNK, KV_LENS[3])                  # one prefill chunk
@@ -357,8 +410,8 @@ def phase_paged_attention():
 
         # The order-0 LUT steps by 0.54% at table boundaries, so a logit
         # one rounding apart can flip a table index: the plain version scans
-        # one page per step, as the kernel does, over integer q and k whose
-        # logits are exact on both sides.
+        # one page per step in the kernel's splits, as the kernel does, over
+        # integer q and k whose logits are exact on both sides.
         ("tiled lut0 f32", tiled, 8,
          dict(pool="float32", q_dtype="float32", exact_logits=True),
          dict(exp_mode="lut0", block_pages=1)),
@@ -368,29 +421,35 @@ def phase_paged_attention():
     for i, (name, spec, bq, mk, kw) in enumerate(cases):
         s = make_stream(spec, seed=i, **mk)
         args = (s["q"], s["k"], s["v"], s["table"], s["pos"])
-        kw = dict(dict(block_pages=8), **kw, cu_seqlens=s["cu"], block_q=bq,
-                  k_scale=s["ks"], v_scale=s["vs"])
-        before = paged_attention.launches
-        got = paged_attention_varlen(*args, **kw)
-        torch.cuda.synchronize()
-        if paged_attention.launches != before + 1:
-            fail(f"paged attention {name}: kernel not launched")
-        want = paged_attention_varlen_reference(*args, **kw)
-        rows = slice(0, s["live"])                   # dead rows are garbage
-        g, w = got[rows], want[rows]
-        if not torch.isfinite(got).all():
-            fail(f"paged attention {name}: non-finite output")
-        if got.dtype == torch.float32:
-            err = float((g - w).abs().max())
-            ok = torch.allclose(g, w, **F32_TOL)
-            msg = f"max|Δ| {err:.3g} (atol 2e-5, rtol 1e-4)"
-        else:
-            err = bf16_ulps(g, w)
-            ok = err <= 1.0
-            msg = f"max {err:.2f} bf16 ulp beyond atol 2e-5 (limit 1)"
-        log(f"[paged_attention] {name}: {msg}")
-        if not ok:
-            fail(f"paged attention {name} disagrees with the plain version: {msg}")
+        for kv_split in (default_kv_split(s["k"].shape[2]), 1):
+            kws = dict(dict(block_pages=8), **kw, cu_seqlens=s["cu"],
+                       block_q=bq, k_scale=s["ks"], v_scale=s["vs"],
+                       kv_split=kv_split)
+            before = paged_attention.launches, paged_attention.combine_launches
+            got = paged_attention_varlen(*args, **kws)
+            torch.cuda.synchronize()
+            if (paged_attention.launches, paged_attention.combine_launches) != (
+                    before[0] + 1, before[1] + 1):
+                fail(f"paged attention {name}: split pass and combine not "
+                     f"launched once each")
+            want = paged_attention_varlen_reference(*args, **kws)
+            rows = slice(0, s["live"])               # dead rows are garbage
+            g, w = got[rows], want[rows]
+            if not torch.isfinite(got).all():
+                fail(f"paged attention {name}: non-finite output")
+            if got.dtype == torch.float32:
+                err = float((g - w).abs().max())
+                ok = torch.allclose(g, w, **F32_TOL)
+                msg = f"max|Δ| {err:.3g} (atol 2e-5, rtol 1e-4)"
+            else:
+                err = bf16_ulps(g, w)
+                ok = err <= 1.0
+                msg = f"max {err:.2f} bf16 ulp beyond atol 2e-5 (limit 1)"
+            log(f"[paged_attention] {name}, {kv_split} pages per split "
+                f"({s['table'].shape[1]} table slots): {msg}")
+            if not ok:
+                fail(f"paged attention {name} at {kv_split} pages per split "
+                     f"disagrees with the plain version: {msg}")
 
 
 def sa_inputs(shape, dtype, seed, integers=False):
@@ -643,7 +702,8 @@ def phase_bert():
         wall = float(np.median(walls))
         f = dict(ms=wall * 1e3, ms_all=[w * 1e3 for w in walls],
                  tok_s=b * l / wall, launches=launches, peak_gib=peak)
-        log(f"[bert encode {b}×{l}] median of 5 forwards {f['ms']:.1f} ms → "
+        log(f"[bert encode {b}×{l}] median of 5 forwards {f['ms']:.1f} ms "
+            f"(earlier: {EARLIER_MS[f'bert {b}x{l}']} ms) → "
             f"{f['tok_s']:.0f} tokens/s; peak {peak:.2f} GiB; "
             f"streaming_attention launches {launches} in the counted forward")
         f["bf16"] = hold_logits(f"bert {b}×{l} bf16", *logits_three_ways(
@@ -926,7 +986,8 @@ def phase_scoring(cfg, params, label, floor):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     log(f"[scoring {label}] warm forward + loss, median of 3: "
-        f"{np.median(walls):.1f} ms ({walls})")
+        f"{np.median(walls):.1f} ms ({walls}; earlier: "
+        f"{EARLIER_MS[f'scoring {label}']} ms)")
     torch.cuda.empty_cache()
     return dict(launches=launches, ms=wall * 1e3, warm_ms=float(np.median(walls)),
                 warm_ms_all=walls, **held)
@@ -945,6 +1006,7 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     paged_attention.launches = 0
+    paged_attention.combine_launches = 0
     lut_exp.launches = 0
     step_ms, model_steps = [], 0
     t0 = time.perf_counter()
@@ -956,6 +1018,7 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(paged_attention=paged_attention.launches,
+                    paged_combine=paged_attention.combine_launches,
                     lut_exp=lut_exp.launches)
     peak = torch.cuda.max_memory_allocated()
     gen = sum(len(r.tokens) for r in eng.finished)
@@ -966,10 +1029,10 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
         fail(f"engine {tag}: not every request produced {MAX_NEW} tokens")
     if any(not 0 <= t < cfg.vocab_size for r in eng.finished for t in r.tokens):
         fail(f"engine {tag}: token outside the vocab")
-    if launches["paged_attention"] != cfg.num_layers * model_steps:
-        fail(f"engine {tag}: paged attention launched "
-             f"{launches['paged_attention']} times, expected layers × steps = "
-             f"{cfg.num_layers} × {model_steps}")
+    for kernel in ("paged_attention", "paged_combine"):
+        if launches[kernel] != cfg.num_layers * model_steps:
+            fail(f"engine {tag}: {kernel} launched {launches[kernel]} times, "
+                 f"expected layers × steps = {cfg.num_layers} × {model_steps}")
     if eng.pages_in_use != 0:
         fail(f"engine {tag}: {eng.pages_in_use} pages leaked")
     facts = dict(pool=tag, steps=model_steps, launches=launches,
@@ -982,7 +1045,8 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
     log(f"[engine {tag}] {model_steps} steps, {gen} tokens generated, "
         f"{prompt_toks} prompt tokens in {wall:.2f} s → {facts['tok_s']:.1f} "
         f"generated tok/s ({facts['all_tok_s']:.1f} incl. prompt); step ms "
-        f"p50 {facts['step_ms_p50']:.2f} p99 {facts['step_ms_p99']:.2f}; peak "
+        f"p50 {facts['step_ms_p50']:.2f} (earlier: "
+        f"{EARLIER_MS[f'step p50 {tag}']}) p99 {facts['step_ms_p99']:.2f}; peak "
         f"{facts['peak_gib']:.2f} GiB; launches {launches}")
     return eng, facts
 
@@ -1094,15 +1158,99 @@ def attention_work(s, itemsize):
     return kv_bytes + io, flops
 
 
+def q_blocks(s, bq=8):
+    """The tiled call the varlen path makes for stream ``s``: (q-blocks,
+    pools, block tables, block kv_len) and the int8 scales."""
+    from repro_torch.kernels.paged_attention import q_block_layout
+    hq, d = s["hq"], s["d"]
+    rows, start, kvl, _ = q_block_layout(s["cu"], s["pos"], s["q"].shape[0], bq)
+    qb = s["q"][rows.reshape(-1).long()].reshape(rows.shape[0], bq, hq, d)
+    qb = qb.transpose(1, 2).contiguous()
+    tbl = s["table"][start.long()].contiguous()
+    return (qb, s["k"], s["v"], tbl, kvl), dict(k_scale=s["ks"], v_scale=s["vs"])
+
+
+def lane_views(s, lanes):
+    """Per lane of ``s`` (indices into its spec): the gathered contiguous K
+    and V (dequantised for int8), as bf16 (1, Hkv, kv, D) views."""
+    import torch
+    ps = s["k"].shape[2]
+    kf, vf = s["k"], s["v"]
+    if s["ks"] is not None:
+        kf = kf.float() * s["ks"][..., None]
+        vf = vf.float() * s["vs"][..., None]
+    out = []
+    for i in lanes:
+        kv = s["spec"][i][1]
+        ids = s["table"][s["cu"][i].long(), :-(-kv // ps)].long()
+        g = lambda pool: (pool[ids].transpose(0, 1).reshape(  # noqa: E731
+            1, s["hkv"], -1, s["d"])[:, :, :kv].bfloat16())
+        out.append((g(kf), g(vf)))
+    return out
+
+
+def paged_bound(s, itemsize):
+    nbytes, flops = attention_work(s, itemsize)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def time_paged(a, kw, library, flush):
+    """Kernel #2 (both launches) on the tiled call ``a``/``kw`` beside the
+    library yardstick ``library``, in interleaved rounds: ``ms`` and
+    ``library_ms`` as a caller sees them (CUDA events from the host's call:
+    the wrapper's host work shows where it outlasts the card's), the same
+    two with a spin lead (``device_ms``, ``library_device_ms``: the card's
+    work alone), the host time of one call of each (``host_ms``,
+    ``library_host_ms``), and the device time at each pages-per-split
+    of ``KV_SPLIT_SWEEP`` (``kv_split_sweep_device_ms``)."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    kernel = lambda: paged_attention(*a, **kw)  # noqa: E731
+    timers = {
+        "ms": lambda: cuda_ms(kernel, flush=flush),
+        "library_ms": lambda: cuda_ms(library, flush=flush),
+        "device_ms": lambda: cuda_ms(kernel, flush=flush, spin=True),
+        "library_device_ms": lambda: cuda_ms(library, flush=flush, spin=True)}
+    for n in KV_SPLIT_SWEEP:
+        timers[n] = lambda n=n: cuda_ms(
+            lambda: paged_attention(*a, **kw, kv_split=n), flush=flush,
+            spin=True)
+    med = interleaved_ms(timers)
+    return dict(
+        **{k: med[k] for k in ("ms", "library_ms", "device_ms",
+                               "library_device_ms")},
+        host_ms=host_ms(kernel), library_host_ms=host_ms(library),
+        kv_split_sweep_device_ms={n: med[n] for n in KV_SPLIT_SWEEP})
+
+
+def paged_times(t) -> str:
+    sweep = ", ".join(f"{n} pages {v:.4f}"
+                      for n, v in t["kv_split_sweep_device_ms"].items())
+    return (f"kernel {t['ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms; device "
+            f"alone (spin lead) kernel {t['device_ms']:.4f} ms, sdpa "
+            f"{t['library_device_ms']:.4f} ms; host per call kernel "
+            f"{t['host_ms']:.4f} ms, sdpa {t['library_host_ms']:.4f} ms; "
+            f"split sweep, device alone: {sweep} ms (medians of 5 "
+            f"interleaved rounds)")
+
+
 def phase_timing(engine_facts):
     """Each kernel at the engine's decode-step shape (8 lanes decoding at
     the served requests' mid-decode lengths, block_q 8), beside its plain
-    version, a library call and its bound."""
+    version, a library call and its bound; paged attention also at 4, 8
+    and 16 pages per split and at a mixed step (one 256-token prefill chunk
+    and 7 decodes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
     from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_reference, q_block_layout)
+        paged_attention, paged_attention_reference)
+    from repro_torch.kernels.paged_attention.ops import (default_kv_split,
+                                                         paged_combine)
+    from repro_torch.kernels.paged_attention.ref import paged_combine_reference
+    from repro_torch.serving.scheduler import default_token_buckets
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     flush = lambda: flush_buf.zero_()  # noqa: E731
     kv_lens = engine_facts["decode_kv_lens"]
@@ -1111,49 +1259,34 @@ def phase_timing(engine_facts):
         s = make_stream([(1, kv) for kv in kv_lens], pool=pool,
                         n_pages=ENGINE["num_pages"], seed=11)
         hq, d, ps = s["hq"], s["d"], s["k"].shape[2]
-        t = s["q"].shape[0]
-        rows, start, kvl, _ = q_block_layout(s["cu"], s["pos"], t, 8)
-        qb = s["q"][rows.reshape(-1).long()].reshape(rows.shape[0], 8, hq, d)
-        qb = qb.transpose(1, 2).contiguous()
-        tbl = s["table"][start.long()].contiguous()
-        a = (qb, s["k"], s["v"], tbl, kvl)
-        kw = dict(k_scale=s["ks"], v_scale=s["vs"], block_pages=8)
+        a, kw = q_blocks(s)
+        split = default_kv_split(ps)
+        plain_kw = dict(kw, block_pages=8, kv_split=split)
         got = paged_attention(*a, **kw)
-        want = paged_attention_reference(*a, **kw)
+        want = paged_attention_reference(*a, **plain_kw)
         err = float((got.float() - want.float()).abs().max())
-        ms = cuda_ms(lambda: paged_attention(*a, **kw), flush=flush)
-        plain = cuda_ms(lambda: paged_attention_reference(*a, **kw),
+        plain = cuda_ms(lambda: paged_attention_reference(*a, **plain_kw),
                         iters=5, flush=flush)
         # yardstick: SDPA (exact exp, not the same function) over a gathered
         # contiguous bf16 view padded to the longest lane, with a length mask
         lmax = max(kv_lens)
-        pages = -(-lmax // ps)
-        lane_tbl = s["table"][s["cu"][:8].long(), :pages]
-        kf = s["k"].float() if pool == "int8" else s["k"]
-        vf = s["v"].float() if pool == "int8" else s["v"]
-        if pool == "int8":
-            kf = kf * s["ks"][..., None]
-            vf = vf * s["vs"][..., None]
-        kg = kf[lane_tbl.long()].transpose(1, 2).reshape(8, hq, pages * ps, d)
-        vg = vf[lane_tbl.long()].transpose(1, 2).reshape(8, hq, pages * ps, d)
-        kg, vg = kg[:, :, :lmax].bfloat16(), vg[:, :, :lmax].bfloat16()
+        views = lane_views(s, range(8))
+        kg = torch.cat([F.pad(k, (0, 0, 0, lmax - k.shape[2])) for k, _ in views])
+        vg = torch.cat([F.pad(v, (0, 0, 0, lmax - v.shape[2])) for _, v in views])
         qd = s["q"][:8].reshape(8, 1, hq, d).transpose(1, 2).contiguous()
         mask = (torch.arange(lmax, device=DEV)[None, :]
                 < torch.tensor(kv_lens, device=DEV)[:, None])[:, None, None]
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, kg, vg, attn_mask=mask), flush=flush)
-        nbytes, flops = attention_work(s, 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        entry = time_paged(a, kw, lambda: F.scaled_dot_product_attention(
+            qd, kg, vg, attn_mask=mask), flush)
+        bound, bound_by, nbytes, flops = paged_bound(s, 2)
         name = "paged_attention" if pool == "bfloat16" else "paged_attention_int8"
         entry = dict(
             launches=engine_facts["launches"][pool]["paged_attention"],
-            max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib,
+            max_abs_err=err, **entry, kernel_ms=entry["ms"], plain_ms=plain,
+            bound_ms=bound, bound_by=bound_by, kv_split=split,
             shape=f"decode step: 8 lanes, kv {kv_lens}, block_q 8, "
-                  f"{hq} heads × {d}, ps {ps}, {pool} pool")
+                  f"{hq} heads × {d}, ps {ps}, {s['table'].shape[1]} table "
+                  f"slots, {pool} pool; both launches (split pass + combine)")
         if pool == "bfloat16":
             kernels.append(dict(
                 name=name, route="cuda",
@@ -1162,11 +1295,121 @@ def phase_timing(engine_facts):
                 **entry,
                 library="scaled_dot_product_attention over a gathered bf16 "
                         "view (exact exp, not the same function)"))
+            decode = s
         else:                        # the same kernel over an int8 pool
             kernels[-1]["int8_pool"] = entry
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, sdpa "
-            f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        log(f"[time] {name}: {paged_times(entry)}; plain {plain:.3f} ms, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+
+    # the mixed step: one 256-token prefill chunk and 7 decode lanes in one
+    # stream of the scheduler's bucket width, bf16 pool
+    n_chunk, kv_chunk = MIXED_CHUNK
+    spec = [(n_chunk, kv_chunk)] + [(1, kv) for kv in kv_lens[:7]]
+    live = sum(n for n, _ in spec)
+    width = min(w for w in default_token_buckets(
+        ENGINE["lanes"] + ENGINE["chunk_size"]) if w >= live)
+    s = make_stream(spec, pool="bfloat16", n_pages=ENGINE["num_pages"],
+                    seed=12, width=width)
+    a, kw = q_blocks(s)
+    split = default_kv_split(s["k"].shape[2])
+    plain_kw = dict(kw, block_pages=8, kv_split=split)
+    got = paged_attention(*a, **kw)
+    want = paged_attention_reference(*a, **plain_kw)
+    mixed_err = float((got.float() - want.float()).abs().max())
+    mixed_plain = cuda_ms(lambda: paged_attention_reference(*a, **plain_kw),
+                          iters=5, flush=flush)
+    views = lane_views(s, range(len(spec)))
+    qc = s["q"][:n_chunk].transpose(0, 1)[None]               # (1, Hq, n, D)
+    qpos = kv_chunk - n_chunk + torch.arange(n_chunk, device=DEV)
+    cmask = torch.arange(kv_chunk, device=DEV)[None, :] <= qpos[:, None]
+    lmax = max(kv for _, kv in spec[1:])
+    kd = torch.cat([F.pad(k, (0, 0, 0, lmax - k.shape[2])) for k, _ in views[1:]])
+    vd = torch.cat([F.pad(v, (0, 0, 0, lmax - v.shape[2])) for _, v in views[1:]])
+    qd = s["q"][n_chunk:live].reshape(7, 1, s["hq"], s["d"]).transpose(1, 2)
+    qd = qd.contiguous()
+    dmask = (torch.arange(lmax, device=DEV)[None, :] < torch.tensor(
+        [kv for _, kv in spec[1:]], device=DEV)[:, None])[:, None, None]
+    mixed = time_paged(a, kw, lambda: (
+        F.scaled_dot_product_attention(qc, *views[0], attn_mask=cmask),
+        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask)), flush)
+    bound, bound_by, nbytes, flops = paged_bound(s, 2)
+    kernels[0]["mixed_step"] = dict(
+        **mixed, plain_ms=mixed_plain, bound_ms=bound, bound_by=bound_by,
+        max_abs_err=mixed_err, kv_split=split,
+        library="two scaled_dot_product_attention calls on gathered bf16 "
+                "views (the chunk with its causal mask; the 7 decodes)",
+        shape=f"one {n_chunk}-token chunk at kv {kv_chunk} + 7 decodes at "
+              f"kv {kv_lens[:7]}, stream width {width}, block_q 8, bf16 pool")
+    log(f"[time] paged_attention mixed step ({kernels[0]['mixed_step']['shape']}"
+        f"): {paged_times(mixed)}; plain {mixed_plain:.3f} ms, bound "
+        f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP); max|Δ| {mixed_err:.3g}")
+
+    # the combine alone, at the decode step's workspace shape: partials as
+    # the split pass leaves them, never-written splits NaN
+    a, _ = q_blocks(decode)
+    kvl, ps = a[4], decode["k"].shape[2]
+    split = default_kv_split(ps)
+    nb, hkv, rows, d = a[0].shape[0], decode["hkv"], a[0].shape[2], decode["d"]
+    n_split = -(-a[3].shape[1] // split)
+    g = torch.Generator(device=DEV).manual_seed(13)
+    pm = torch.randn((nb, hkv, n_split, rows), generator=g, device=DEV) * 3
+    pl = torch.rand((nb, hkv, n_split, rows), generator=g, device=DEV) * 40 + 1
+    pa = torch.randn((nb, hkv, n_split, rows, d), generator=g,
+                     device=DEV) * pl[..., None]
+    live_n = torch.clamp((kvl.long() + ps - 1) // ps + split - 1, min=0) // split
+    dead = torch.arange(n_split, device=DEV)[None, :] >= live_n[:, None]
+    dead = dead[:, None, :, None]
+    pm, pl = pm.masked_fill(dead, float("nan")), pl.masked_fill(dead, float("nan"))
+    pa = pa.masked_fill(dead[..., None], float("nan"))
+    ckw = dict(page_size=ps, kv_split=split, exp_mode="lut")
+    got = paged_combine(pm, pl, pa, kvl, **ckw)          # f32 out: the check
+    want = paged_combine_reference(pm, pl, pa, kvl, **ckw)
+    if not torch.isfinite(got).all():
+        fail("paged_combine read a split the split pass never wrote")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **F32_TOL):
+        fail(f"paged_combine disagrees with its plain version: max|Δ| {err}")
+    ms = cuda_ms(lambda: paged_combine(pm, pl, pa, kvl, **ckw,
+                                       dtype=torch.bfloat16), flush=flush)
+    plain = cuda_ms(lambda: paged_combine_reference(pm, pl, pa, kvl, **ckw),
+                    iters=5, flush=flush)
+    # bytes and operations the step needs: each live row's partials of the
+    # splits its own keys span and its output (the rule of attention_work);
+    # the block_q 8 tiling's dead rows of live q-blocks are counted apart
+    row_splits = lambda vis: -(-(-(-vis // ps)) // split)  # noqa: E731
+    need = decode["hq"] // hkv * sum(row_splits(kv - n + i + 1)
+                                     for n, kv in decode["spec"]
+                                     for i in range(n))
+    live_rows = decode["live"]
+    nbytes = (need * hkv * (d + 2) * 4 + live_rows * decode["hq"] * d * 2
+              + nb * 4)
+    flops = 2.0 * need * hkv * (d + 1)
+    n_live = int(torch.clamp(live_n, max=n_split).sum())
+    dead_bytes = (n_live * hkv * rows * (d + 2) * 4 + nb * hkv * rows * d * 2
+                  + nb * 4 - nbytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    kernels.append(dict(
+        name="paged_combine", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:132",
+        launches=engine_facts["launches"]["bfloat16"]["paged_combine"],
+        max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None,
+        shape=f"decode-step workspace: {nb} q-blocks × {hkv} heads × "
+              f"{n_split} splits × {rows} rows × {d}, {n_live} live "
+              f"(q-block, split) pairs per head, {live_rows} live rows of "
+              f"{nb * rows}, bf16 out",
+        dead_row_bytes=dead_bytes))
+    log(f"[time] paged_combine: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+        f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.3f} MB of the "
+        f"live rows; the dead rows of block_q 8 add {dead_bytes / 1e6:.2f} MB,"
+        f" {dead_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate); "
+        f"max|Δ| {err:.3g} against the plain merge in f32 (atol 2e-5, rtol "
+        f"1e-4)")
 
     # LUT exp: every logit that call computes, as one tensor of s − m values
     n = sum(kv_lens) * HQ * 8

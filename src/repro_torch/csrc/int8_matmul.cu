@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 64;      // block tile; k bytes a step
@@ -78,22 +80,6 @@ __device__ __forceinline__ int b_off(int r, int c) {
   return r * BN + ((((c >> 4) ^ (((r >> 2) & 3) << 1))) << 4) + (c & 15);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Tile kt of x (rows m0.., k bytes kt·BK..) and of w (k rows kt·BK.., columns
 // n0..) into one stage; everything past M, N or K reads as 0.
 template <bool ALIGNED>
@@ -109,7 +95,7 @@ __device__ __forceinline__ void load_stage(const Params& p, uint8_t* st, int kt,
       const int r = c / (BK / 16), ch = c % (BK / 16);
       const bool ok = m0 + r < p.m && k0 + ch * 16 < p.k;
       const int8_t* src = ok ? p.x + (size_t)(m0 + r) * p.k + k0 + ch * 16 : p.x;
-      cp_async16(as + a_off(r, ch * 16), src, ok);
+      repro::cp_async16(as + a_off(r, ch * 16), src, ok);
     }
 #pragma unroll
     for (int i = 0; i < B_BYTES / 16 / THREADS; ++i) {
@@ -117,7 +103,7 @@ __device__ __forceinline__ void load_stage(const Params& p, uint8_t* st, int kt,
       const int r = c / (BN / 16), ch = c % (BN / 16);
       const bool ok = k0 + r < p.k && n0 + ch * 16 < p.n;
       const int8_t* src = ok ? p.w + (size_t)(k0 + r) * p.n + n0 + ch * 16 : p.w;
-      cp_async16(bs + b_off(r, ch * 16), src, ok);
+      repro::cp_async16(bs + b_off(r, ch * 16), src, ok);
     }
   } else {
     for (int i = tid; i < A_BYTES; i += THREADS) {
@@ -136,7 +122,7 @@ __device__ __forceinline__ void load_stage(const Params& p, uint8_t* st, int kt,
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* d, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(smem_addr(p)));
+               : "r"(repro::smem_u32(p)));
 }
 
 __device__ __forceinline__ void mma_s8(int32_t* c, const uint32_t* a, uint32_t b0,
@@ -180,17 +166,17 @@ __global__ void __launch_bounds__(THREADS, 2) int8_matmul_kernel(const Params p)
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < ktiles) load_stage<ALIGNED>(p, smem + s * STAGE_BYTES, s, m0, n0, tid);
-    cp_async_commit();
+    repro::cp_async_commit();
   }
 
   for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
+    repro::cp_async_wait<STAGES - 2>();
     __syncthreads();
     {   // refill the stage every warp finished with in the previous step
       const int nk = kt + STAGES - 1;
       if (nk < ktiles)
         load_stage<ALIGNED>(p, smem + (nk % STAGES) * STAGE_BYTES, nk, m0, n0, tid);
-      cp_async_commit();
+      repro::cp_async_commit();
     }
     const uint8_t* as = smem + (kt % STAGES) * STAGE_BYTES;
     const uint8_t* bs = as + A_BYTES;
@@ -218,7 +204,7 @@ __global__ void __launch_bounds__(THREADS, 2) int8_matmul_kernel(const Params p)
         for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[0][j], b[1][j]);
     }
   }
-  cp_async_wait<0>();
+  repro::cp_async_wait<0>();
 
   // Epilogue.  Tile j's fragment column 2t (+1) is physical column
   // 8t + j (+4): the thread holds columns cb .. cb + 7 of rows g and g + 8.

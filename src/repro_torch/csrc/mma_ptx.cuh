@@ -1,8 +1,7 @@
-// PTX wrappers for the bf16 tensor-core path of streaming_attention.cu:
-// cp.async (16-byte global → shared copies, zero-filled past a ragged
-// edge), ldmatrix (8×8 b16 fragments out of shared memory, optionally
-// transposed) and mma.sync m16n8k16 with bf16 operands and f32
-// accumulation.  Fragment layouts are those of the PTX ISA ("Matrix
+// PTX wrappers for the bf16 tensor-core path of streaming_attention.cu
+// (beside cp.async from cp_async.cuh): ldmatrix (8×8 b16 fragments out
+// of shared memory, optionally transposed) and mma.sync m16n8k16 with
+// bf16 operands and f32 accumulation.  Fragment layouts are those of the PTX ISA ("Matrix
 // Fragments for mma.m16n8k16"): with g = lane / 4 and t = lane % 4,
 //   A (16×16, row)  a0 = (g, 2t..2t+1)   a1 = (g+8, 2t..)   a2 = (g, 2t+8..)
 //                   a3 = (g+8, 2t+8..)
@@ -15,25 +14,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace repro {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from src to dst; with valid == false nothing is read and dst
-// is zero-filled (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Lanes 8i..8i+7 give the row addresses of matrix i; register i receives
 // matrix i's (g, 2t..2t+1) pair, or with .trans its (2t..2t+1, g) pair.

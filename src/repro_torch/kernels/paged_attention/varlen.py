@@ -122,14 +122,14 @@ def _tiled(q, token_pages, q_pos, cu, bq: int, attend) -> torch.Tensor:
 
 def _varlen(attend_4d: Attend, q, k_pool, v_pool, token_pages, q_pos, *,
             cu_seqlens, scale, cap, window, exp_mode, k_scale, v_scale,
-            block_q, block_pages, dequant) -> torch.Tensor:
+            block_q, block_pages, dequant, kv_split) -> torch.Tensor:
     t = q.shape[0]
     cu = (validate_cu_seqlens(cu_seqlens, t).to(q.device)
           if cu_seqlens is not None else None)
     q_pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32)
     kw = dict(scale=scale, cap=cap, window=window, exp_mode=exp_mode,
               k_scale=k_scale, v_scale=v_scale, block_pages=block_pages,
-              dequant=dequant)
+              dequant=dequant, kv_split=kv_split)
     bq = None if block_q is None else int(min(block_q, max(t, 1)))
     if cu is not None and bq is not None and bq > 1:
         return _tiled(q, token_pages, q_pos, cu, bq,
@@ -152,14 +152,16 @@ def paged_attention_varlen(q: torch.Tensor, k_pool: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None,
                            block_q: Optional[int] = None,
                            block_pages: Optional[int] = None,
-                           dequant: str = "block") -> torch.Tensor:
+                           dequant: str = "block",
+                           kv_split: Optional[int] = None) -> torch.Tensor:
     """Ragged paged attention over a packed (T,)-token stream → (T, Hq, D),
     through :func:`~repro_torch.kernels.paged_attention.ops.paged_attention`
     (the CUDA kernel on the card, the plain version on the CPU)."""
     return _varlen(paged_attention, q, k_pool, v_pool, token_pages, q_pos,
                    cu_seqlens=cu_seqlens, scale=scale, cap=cap, window=window,
                    exp_mode=exp_mode, k_scale=k_scale, v_scale=v_scale,
-                   block_q=block_q, block_pages=block_pages, dequant=dequant)
+                   block_q=block_q, block_pages=block_pages, dequant=dequant,
+                   kv_split=kv_split)
 
 
 def paged_attention_varlen_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -174,11 +176,13 @@ def paged_attention_varlen_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                      v_scale: Optional[torch.Tensor] = None,
                                      block_q: Optional[int] = None,
                                      block_pages: Optional[int] = None,
-                                     dequant: str = "block") -> torch.Tensor:
+                                     dequant: str = "block",
+                                     kv_split: Optional[int] = None
+                                     ) -> torch.Tensor:
     """The same reduction, always through the plain page-block scan — on any
     device (the card's comparison path)."""
     return _varlen(paged_attention_reference, q, k_pool, v_pool, token_pages,
                    q_pos, cu_seqlens=cu_seqlens, scale=scale, cap=cap,
                    window=window, exp_mode=exp_mode, k_scale=k_scale,
                    v_scale=v_scale, block_q=block_q, block_pages=block_pages,
-                   dequant=dequant)
+                   dequant=dequant, kv_split=kv_split)

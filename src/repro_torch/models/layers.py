@@ -5,7 +5,7 @@ and two branches of the attention layer: the cache-free full-sequence
 branch (``attn_apply``, through the attention registry) and the ragged
 (``token_pages``) branch of the paged serving step (``attn_apply_ragged``).
 Functions on tensors; parameters are plain tensors.  Projections, the MLP
-and the unembed stay ``torch.matmul``, as the reference leaves them to
+and the unembed stay PyTorch products, as the reference leaves them to
 XLA; attention goes through the port's kernels.
 """
 from __future__ import annotations
@@ -92,8 +92,16 @@ def embed_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final logits in f32, through ``lm_head`` or, for tied embeddings,
-    the token table."""
+    the token table.  On the card a bf16 ``x`` and head go through one
+    bf16 × bf16 GEMM with an f32 output (``aten::mm.dtype``), as the
+    reference's einsum with ``preferred_element_type=f32``: exact products
+    summed in f32, and no f32 copy of the head.  Elsewhere both operands
+    are widened to f32."""
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if x.device.type == "cuda" and x.dtype == head.dtype == torch.bfloat16:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], head.shape[-1])
     return torch.matmul(x.to(torch.float32), head.to(torch.float32))
 
 

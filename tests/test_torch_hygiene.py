@@ -163,6 +163,21 @@ def test_paged_attention_cuda_tensor_raises_without_toolchain(no_toolchain,
     assert pa_ops.paged_attention.launches == before
 
 
+def test_paged_combine_cuda_tensor_raises_without_toolchain(no_toolchain,
+                                                            monkeypatch):
+    _forbid(monkeypatch, pa_ops, "paged_combine_reference")
+    part = _fake(np.zeros((2, 2, 3, 4), np.float32))
+    acc = _fake(np.zeros((2, 2, 3, 4, 16), np.float32))
+    lens = _fake(np.ones(2, np.int32))
+    before = pa_ops.paged_attention.combine_launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pa_ops.paged_combine(part, part, acc, lens, page_size=8, kv_split=2)
+    with pytest.raises(ValueError, match="kv_len"):
+        pa_ops.paged_combine(part, part, acc, _fake(np.ones(3, np.int32)),
+                             page_size=8, kv_split=2)
+    assert pa_ops.paged_attention.combine_launches == before
+
+
 def test_streaming_attention_cuda_tensor_raises_without_toolchain(
         no_toolchain, monkeypatch):
     _forbid(monkeypatch, sa_ops, "attention_ref")
@@ -269,7 +284,7 @@ def test_wrappers_refuse_other_devices(monkeypatch):
 
 @pytest.mark.parametrize("bad", [
     dict(q_dtype=torch.float16), dict(cap=0.0), dict(window=0),
-    dict(exp_mode="exp2"), dict(ps=48)])
+    dict(exp_mode="exp2"), dict(ps=48), dict(kv_split=0)])
 def test_paged_attention_card_checks_raise(bad, no_toolchain, monkeypatch):
     """What the kernel does not take is refused before any launch."""
     _forbid(monkeypatch, pa_ops, "paged_attention_reference")

@@ -10,13 +10,17 @@ Tolerances: the LUT exponential is bit-exact (the kernel repeats the plain
 version's operations in order, each rounded once); f32 paged attention
 holds the reference suite's ``atol=2e-5, rtol=1e-4`` (the kernel walks one
 page at a time, the plain version 8 pages per step, so the online-softmax
-rescaling and the dot products round in another order); f32 streaming
+rescaling and the dot products round in another order; split-KV calls
+hold it against the plain version cut into the same splits, whose merge
+sums the splits in another order); f32 streaming
 attention holds the reference kernel suite's ``atol=3e-5, rtol=1e-4``
 (``tests/test_kernels.py``: an online softmax over 64-key tiles against
 the materialised-logits plain version); bf16 outputs lie within one bf16
 ulp of the plain version beyond the f32 atol (both round one f32 result);
 the int8 matmul is bit-exact, accumulators and outputs (an exact int32 sum,
-then the same two f32 products in the same order).
+then the same two f32 products in the same order); the bf16 unembed sits
+within 2·K·2^-24·(|x|·|h|) of the widened f32 product (each sums exact
+products in f32, in its own order).
 """
 import numpy as np
 import pytest
@@ -33,6 +37,10 @@ from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference, paged_attention_varlen,
     paged_attention_varlen_reference, varlen_positions)
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    default_kv_split, paged_combine)
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_combine_reference)
 from repro_torch.kernels.streaming_attention import (  # noqa: E402
     attention_ref, streaming_attention)
 from repro_torch.kernels.streaming_attention.ops import (  # noqa: E402
@@ -138,9 +146,10 @@ CASES = [
 
 # The order-0 LUT steps by 0.54% at table boundaries, so its result depends
 # on the online-softmax blocking and flips with a logit one rounding apart:
-# it is held against the plain version scanning one page per step, as the
-# kernel does (pages of up to 32 rows, which the kernel stages whole), over
-# integer q and k whose logits are exact on both sides.
+# it is held against the plain version scanning one page per step in the
+# kernel's splits, as the kernel does (pages of up to 32 rows, which the
+# kernel stages whole), over integer q and k whose logits are exact on both
+# sides.
 KWS = [dict(), dict(window=9, cap=20.0), dict(exp_mode="exact"),
        dict(exp_mode="lut0", block_pages=1)]
 MATRIX = [(c, kw) for c in CASES for kw in KWS
@@ -158,7 +167,9 @@ def test_paged_attention_kernel_matches_plain(cuda_device, case, kw):
     got = paged_attention(*args, **sc, **kw)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
-    want = paged_attention_reference(*args, **sc, **kw)
+    # the plain version cut into the kernel's default splits (its blocking)
+    want = paged_attention_reference(*args, **sc, **kw,
+                                     kv_split=default_kv_split(case["ps"]))
     torch.testing.assert_close(got, want, **TOL)
 
 
@@ -168,7 +179,7 @@ def test_paged_attention_kernel_bf16_within_one_ulp(cuda_device):
     args[0] = args[0].bfloat16()
     args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
     got = paged_attention(*args)
-    want = paged_attention_reference(*args)
+    want = paged_attention_reference(*args, kv_split=default_kv_split(16))
     # one bf16 ulp of the larger magnitude, over the f32 atol that bounds
     # the cancellation error of outputs near zero
     assert bf16_ulps(got, want, TOL["atol"]) <= 1.0
@@ -200,6 +211,146 @@ def test_varlen_kernel_matches_plain(cuda_device, block_q):
     got = paged_attention_varlen(*args, **kw)
     want = paged_attention_varlen_reference(*args, **kw)
     torch.testing.assert_close(got, want, **TOL)
+
+
+# Split-KV: the split pass and the combine against the plain version cut
+# into the same splits (so lut0 holds at the kernel's own blocking too):
+# one page per split, three (a ragged last split), and one split covering
+# the table.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_split", [1, 3, 6])
+@pytest.mark.parametrize("case,kw", MATRIX)
+def test_paged_split_kernel_matches_split_plain(cuda_device, case, kw,
+                                                kv_split):
+    lut0 = kw.get("exp_mode") == "lut0"
+    args, sc = make_case(23, cuda_device, exact_logits=lut0, **case)
+    before = paged_attention.launches, paged_attention.combine_launches
+    got = paged_attention(*args, **sc, **kw, kv_split=kv_split)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.combine_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = paged_attention_reference(*args, **sc, **kw, kv_split=kv_split)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_split", [1, 2, None])
+def test_paged_split_kernel_bf16_within_one_ulp(cuda_device, kv_split):
+    """bf16 q and pools, GQA 4:1, a prefill chunk of 8 rows."""
+    args, sc = make_case(5, cuda_device, group=4, ps=16, lq=8, d=128)
+    args[:3] = [t.bfloat16() for t in args[:3]]
+    got = paged_attention(*args, kv_split=kv_split)
+    want = paged_attention_reference(
+        *args, kv_split=kv_split or default_kv_split(16))
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulps(got, want, TOL["atol"]) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_split_window_masks_whole_splits(cuda_device, quant):
+    """Every lane full (6 pages of 4 rows) and a window of 5 at one page
+    per split: all splits but the last two see no key."""
+    args, sc = make_case(7, cuda_device, ps=4, lq=1, quant=quant)
+    args[4].fill_(6 * 4)
+    got = paged_attention(*args, **sc, window=5, kv_split=1)
+    want = paged_attention_reference(*args, **sc, window=5)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_split_dead_q_block(cuda_device):
+    """kv_len 1 with Lq 8 (the tiled path's dead q-blocks): one live split,
+    seven rows that see no key and emit zeros."""
+    args, sc = make_case(8, cuda_device, ps=8, lq=8)
+    args[4].fill_(1)
+    got = paged_attention(*args, kv_split=1)
+    assert not got[:, :, :7].any()
+    torch.testing.assert_close(got, paged_attention_reference(*args), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp_mode", ["lut", "lut0", "exact"])
+def test_paged_combine_kernel_matches_plain(cuda_device, exp_mode):
+    """Partials as the split pass leaves them, with the never-written
+    splits past each lane's live count filled with NaN: the combine reads
+    only live splits."""
+    g = torch.Generator().manual_seed(4)
+    b, hkv, s, rows, d, ps, kv_split = 3, 2, 4, 8, 128, 16, 2
+    m = torch.randn((b, hkv, s, rows), generator=g) * 3
+    l = torch.rand((b, hkv, s, rows), generator=g) * 40 + 1
+    acc = torch.randn((b, hkv, s, rows, d), generator=g) * l[..., None]
+    kv_len = torch.tensor([1, 40, 128], dtype=torch.int32)   # 1, 2, 4 splits
+    for i, n in enumerate([1, 2, 4]):
+        m[i, :, n:], l[i, :, n:], acc[i, :, n:] = (float("nan"),) * 3
+    part = [t.to(cuda_device) for t in (m, l, acc, kv_len)]
+    before = paged_attention.combine_launches
+    got = paged_combine(*part, page_size=ps, kv_split=kv_split,
+                        exp_mode=exp_mode)
+    torch.cuda.synchronize()
+    assert paged_attention.combine_launches == before + 1
+    want = paged_combine_reference(*part, page_size=ps, kv_split=kv_split,
+                                   exp_mode=exp_mode)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_attention_call_never_synchronises(cuda_device):
+    """With every input on the card, a call (split pass and combine) reads
+    no device value on the host: the step stays capturable as a graph."""
+    args, sc = make_case(9, cuda_device, ps=16, lq=8, d=128, quant=True)
+    want = paged_attention(*args, **sc)          # builds; places the LUT
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = paged_attention(*args, **sc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- unembed --
+
+def _unembed_case(cuda_device, tied, rows, d, v):
+    from repro_torch.configs import get_config
+    cfg = get_config("bert-large" if tied else "deepseek-7b")
+    assert cfg.tie_embeddings == tied
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    w = torch.randn((v, d) if tied else (d, v), generator=g,
+                    device=cuda_device).bfloat16()
+    x = torch.randn((2, rows // 2, d), generator=g, device=cuda_device)
+    return cfg, {"embed" if tied else "lm_head": w}, x.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+def test_unembed_bf16_never_widens_the_head(cuda_device, tied):
+    """deepseek-7b's 4096 × 102,400 head (and BERT's tied table, read
+    transposed): the logits come from one bf16 GEMM with an f32 output,
+    whose peak memory rise stays under an eighth of the f32 head's 1.68 GB
+    (a widened head alone would add all of it).  Both
+    it and the widened f32 product sum exact bf16 products in f32, each
+    within γ_K·(|x|·|h|) of the exact sum (γ_K = K·2^-24, any order), so
+    they differ by at most twice that."""
+    from repro_torch.device import configure_matmul_precision
+    from repro_torch.models.layers import unembed
+    d, v = 4096, 102_400
+    cfg, params, x = _unembed_case(cuda_device, tied, 64, d, v)
+    head = params["embed"].T if tied else params["lm_head"]
+    f32_head_bytes = head.numel() * 4
+    configure_matmul_precision()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = unembed(cfg, params, x)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert got.dtype == torch.float32 and got.shape == (2, 32, v)
+    assert rise < f32_head_bytes / 8, (rise, f32_head_bytes)
+    want = x.float() @ head.float()
+    bound = 2 * d * 2.0 ** -24 * (x.float().abs() @ head.float().abs())
+    assert bool(((got - want).abs() <= bound).all())
 
 
 # ------------------------------------------------- streaming attention --
