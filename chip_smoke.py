@@ -10,9 +10,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    sm_90a and print ptxas's registers / shared memory / spills; the bf16
    streaming-attention kernels' lines again, and their SASS HMMA counts
    (``cuobjdump``): each head-dim instantiation must hold tensor-core
-   instructions;
+   instructions; likewise the int8 matmul's wgmma kernels and their SASS
+   IGMMA counts;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
-   sweep shapes and edge values, orders 0/1, f32/bf16);
+   sweep shapes and edge values, orders 0/1, f32/bf16, and an unaligned
+   view);
 4. hold the paged-attention kernel (split pass + combine) to its plain
    version cut into the same splits, at full-width shapes (32 heads of 128,
    page size 16, ~1000 pages, 8 lanes with 37 to ~2000 live rows, shuffled
@@ -42,15 +44,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (one streaming-attention launch per layer: bf16 on the tensor-core
    kernel, f32 on the CUDA-core one) against the plain attention, in bf16
    and in f32;
-8. hold the int8 matmul kernel bit-exactly to its plain version,
-   accumulators and outputs: the reference suite's shapes, a batch, M = 1
-   and 8, ragged K and N, and all-±127 operands past 2^24;
+8. hold the activation quantisation kernel (``quantize_dynamic``)
+   bit-equal to its plain version, int8 values and scale, f32 and bf16:
+   ragged and unaligned sizes, all zeros, exact .5 ties, an outlier,
+   bits=4; hold both int8 matmul variants (wgmma, and mma.sync) bit-exactly
+   to their plain version on both weight layouts, accumulators and
+   outputs: the reference suite's shapes, a batch, M = 1 and 8, ragged M,
+   N and K, and all-±127 operands past 2^24;
 9. the INT8 path at BERT-large width and depth: quantise the 144 projection
    weights (wq, wk, wv, wo, up, down of 24 layers) with ``quantize(w,
-   axis=0)`` and push real activations of 8 × 512 tokens through
-   ``dense_maybe_quant`` (144 kernel launches): every output bit-equal to the
-   plain version, int32 accumulators included, and within 3% (relative) of
-   the bf16 product in f32;
+   axis=0)`` (K-major) and push real activations of 8 × 512 tokens through
+   ``dense_maybe_quant``: 144 quantisation launches, 144 wgmma launches, 0
+   mma.sync, 0 weight transposes; every output bit-equal to the plain
+   version, int32 accumulators included, and within 3% (relative) of the
+   bf16 product in f32; the pass timed whole, by part (quantisations,
+   products, GELUs) and by its host work alone;
 10. time each kernel at its main path's shapes (paged attention, its
    combine and the LUT exp at the engine's decode step, paged attention
    also at a mixed step of one 256-token prefill chunk and 7 decodes, and
@@ -58,9 +66,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    time alone and the host time per call, with a sweep over 4, 8 and 16
    pages per split; streaming attention at the BERT
    encode and deepseek scoring shapes, with exact exp and the f32 CUDA-core
-   kernel beside it; the int8 matmul at the BERT-large projections) beside
-   its plain version, a library yardstick and its roofline bound, and
-   print the ``{"kernels": [...]}`` line; the end-to-end times beside
+   kernel beside it; the int8 matmul at the BERT-large projections, device
+   alone too, with its mma.sync variant, each wgmma tile width and
+   ``_int_mm`` on both weight layouts; the quantisation kernel at the
+   pass's two input shapes; the LUT exp device alone and host per call)
+   beside its plain version, a library yardstick and its roofline bound,
+   and print the ``{"kernels": [...]}`` line; the end-to-end times beside
    the readings before the split-KV kernel and the bf16 unembed;
 11. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -283,7 +294,20 @@ def phase_build():
     if not tc or len(hmma) != len(tc) or not all(hmma.values()):
         fail(f"streaming attention: the bf16 kernels are not all on the tensor "
              f"cores (ptxas {len(tc)}, HMMA {hmma})")
-    return dict(ptxas=tc, sass_hmma=hmma)
+    wg_kernel = "wgmma_kernel"
+    wg = [line for line in report["int8_matmul"] if wg_kernel in line]
+    for line in wg:
+        log(f"[int8 wgmma kernel] {line}")
+    igmma = {fn: n for fn, n in sass_counts(libs["int8_matmul"],
+                                            "IGMMA").items()
+             if wg_kernel in fn}
+    log(f"[int8 wgmma kernel] SASS IGMMA instructions per tile width: "
+        f"{sorted(igmma.values())}")
+    if not wg or len(igmma) != len(wg) or not all(igmma.values()):
+        fail(f"int8 matmul: the wgmma kernels hold no wgmma instructions "
+             f"(ptxas {len(wg)}, IGMMA {igmma})")
+    return dict(ptxas=tc, sass_hmma=hmma, int8_wgmma_ptxas=wg,
+                int8_sass_igmma=igmma)
 
 
 def phase_lut_exp():
@@ -310,6 +334,13 @@ def phase_lut_exp():
                         fail(f"lut_exp not bit-equal: shape {shape} {dt} "
                              f"order {order}")
                     checked += 1
+    # a start off the 16-byte grid: the element-wise path
+    base = torch.from_numpy(rng.uniform(-20, 20, 4099).astype(np.float32)).to(DEV)
+    for dt in (torch.float32, torch.bfloat16):
+        xt = base.to(dt)[1:]
+        if not bits_equal(lut_exp(xt).float(), lut_exp_ref(xt).float()):
+            fail(f"lut_exp not bit-equal on an unaligned {dt} view")
+        checked += 1
     log(f"[lut_exp] bit-equal to the plain version in {checked} cases")
     # the form the tensor-core attention kernel inlines (lut_exp_nonpos):
     # bit-equal on x <= 0, with the floors where the table index turns
@@ -753,25 +784,92 @@ def bits_equal(a, b) -> bool:
 
 
 # (leading dims, K, N, x dtype): the reference kernel suite's shapes, its
-# batched case, M = 1 and 8 at BERT-large widths, ragged K (byte staging) and
-# N (masked and scalar stores)
+# batched case, M = 1 and 8 at BERT-large widths, ragged K (byte staging;
+# K % 16 ≠ 0 runs mma.sync only; 208 and 48 are whole TMA rows but not
+# whole 128-byte stages) and N (masked and scalar stores)
 INT8_CASES = [((64,), 256, 128, "float32"), ((17,), 300, 130, "float32"),
               ((4,), 128, 512, "float32"), ((257,), 1024, 384, "float32"),
               ((1,), 128, 128, "float32"), ((2, 3), 256, 64, "float32"),
               ((1,), 1024, 4096, "bfloat16"), ((8,), 4096, 1024, "bfloat16"),
               ((257,), 1024, 384, "bfloat16"), ((33,), 200, 96, "float32"),
-              ((130,), 256, 100, "bfloat16")]
+              ((130,), 256, 100, "bfloat16"), ((70,), 208, 260, "bfloat16"),
+              ((5,), 48, 20, "float32")]
+
+
+# the quantisation kernel's cases: (name, shape, bits); "ties" holds exact
+# .5 quotients (absmax 127 → scale 1), "outlier" one value 10^4 times the
+# rest, "unaligned" a start off the 16-byte grid (element-wise path)
+QUANT_CASES = [("ragged", (257, 131), 8), ("ragged", (7,), 8),
+               ("ragged", (3, 5, 11), 8), ("unaligned", (4098,), 8),
+               ("zeros", (64, 48), 8), ("ties", (96, 40), 8),
+               ("outlier", (512, 64), 8), ("bits4", (33, 77), 4),
+               ("bert", (8, 512, 1024), 8)]
+
+
+def quant_input(name, shape, dt, g):
+    import torch
+    if name == "zeros":
+        return torch.zeros(shape, device=DEV, dtype=dt)
+    if name == "ties":
+        x = torch.randint(-126, 126, shape, generator=g, device=DEV).float() + 0.5
+        x[0, 0] = 127.0
+        return x.to(dt)
+    x = torch.randn((shape[0] + 1,) if name == "unaligned" else shape,
+                    generator=g, device=DEV) * 3
+    if name == "outlier":
+        x[100, 7] = -3.0e4
+    x = x.to(dt)
+    return x[1:] if name == "unaligned" else x
+
+
+def phase_quantize_checks():
+    """The activation quantisation kernel against its plain version, bit
+    for bit (int8 values and the f32 scale), f32 and bf16."""
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device=DEV).manual_seed(23)
+    checked = 0
+    for name, shape, bits in QUANT_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = quant_input(name, shape, dt, g)
+            before = quant.quantize_dynamic.launches
+            got = quant.quantize_dynamic(x, bits=bits)
+            want = quant._quantize(x, torch.amax(torch.abs(x.to(torch.float32))),
+                                   bits)
+            torch.cuda.synchronize()
+            if quant.quantize_dynamic.launches != before + 1:
+                fail(f"quantize_dynamic {name} {shape}: kernel not launched")
+            if not (torch.equal(got.values, want.values) and got.scale.shape == ()
+                    and bits_equal(got.scale, want.scale)):
+                fail(f"quantize_dynamic {name} {shape} {dt} bits {bits}: not "
+                     f"bit-equal to the plain version (scale {float(got.scale)!r}"
+                     f" vs {float(want.scale)!r})")
+            if name == "ties" and float(got.scale) != 1.0:
+                fail(f"quantize_dynamic ties: scale {float(got.scale)} != 1")
+            checked += 1
+    log(f"[quantize_dynamic] bit-equal to the plain version (int8 values and "
+        f"scale) in {checked} cases: ragged and unaligned sizes, all zeros, "
+        f".5 ties, an outlier, bits=4, f32 and bf16")
+
+
+def int8_both_layouts(wv):
+    """w as ``quantize(w, axis=0)`` stores it (K-major) and row-major."""
+    return {"k_major": wv.t().contiguous().t(), "row": wv.contiguous()}
 
 
 def phase_int8_checks():
     """Kernel #4 against its plain version, bit for bit: the f32 output of
-    the public wrapper and, through the 2-D entry, the int32 accumulator."""
+    the public wrapper and, through the 2-D entry, the int32 accumulator;
+    each variant the shape allows (wgmma where K % 16 == 0, mma.sync
+    always), on both weight layouts."""
     import torch
     from repro_torch.core.quant import quantize, quantize_dynamic
     from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_2d,
                                                  int8_matmul_2d_ref,
                                                  int8_matmul_ref)
+    phase_quantize_checks()
     g = torch.Generator(device=DEV).manual_seed(13)
+    by_variant = {"wgmma": 0, "mma_sync": 0}
     for lead, k, n, dt in INT8_CASES:
         x = torch.randn((*lead, k), generator=g, device=DEV).to(getattr(torch, dt))
         wq = quantize(torch.randn((k, n), generator=g, device=DEV), axis=0)
@@ -780,17 +878,23 @@ def phase_int8_checks():
         torch.cuda.synchronize()
         if int8_matmul.launches != before + 1:
             fail(f"int8_matmul {lead}×{k}×{n}: kernel not launched")
+        if not bits_equal(got, int8_matmul_ref(x, wq)):
+            fail(f"int8_matmul {lead}×{k}×{n} {dt}: not bit-equal to the "
+                 f"plain version")
         xq = quantize_dynamic(x)
         xv = xq.values.reshape(-1, k)
-        out, acc = int8_matmul_2d(xv, wq.values, xq.scale, wq.scale,
-                                  with_acc=True)
         ref, ref_acc = int8_matmul_2d_ref(xv, wq.values, xq.scale, wq.scale,
                                           with_acc=True)
-        if not (torch.equal(acc, ref_acc) and bits_equal(out, ref)
-                and bits_equal(got, int8_matmul_ref(x, wq))):
-            fail(f"int8_matmul {lead}×{k}×{n} {dt}: not bit-equal to the "
-                 f"plain version (max|Δacc| "
-                 f"{int((acc.long() - ref_acc.long()).abs().max())})")
+        variants = ("wgmma", "mma_sync") if k % 16 == 0 else ("mma_sync",)
+        for variant in variants:
+            for lay, wv in int8_both_layouts(wq.values).items():
+                out, acc = int8_matmul_2d(xv, wv, xq.scale, wq.scale,
+                                          with_acc=True, variant=variant)
+                by_variant[variant] += 1
+                if not (torch.equal(acc, ref_acc) and bits_equal(out, ref)):
+                    fail(f"int8_matmul {lead}×{k}×{n} {dt} {variant}, w {lay}: "
+                         f"not bit-equal to the plain version (max|Δacc| "
+                         f"{int((acc.long() - ref_acc.long()).abs().max())})")
     # all-±127 operands: |acc| past 2^24, where int→f32 rounds
     k, n = 4096, 1024
     xv = torch.where(torch.rand((256, k), generator=g, device=DEV) < 0.9, 127,
@@ -799,32 +903,42 @@ def phase_int8_checks():
         0.5, 1.0, n, device=DEV), 127, -127).to(torch.int8)
     xs = torch.full((), 0.01, device=DEV)
     ws = torch.rand((1, n), generator=g, device=DEV) + 0.5
-    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True)
     ref, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
     big = int(ref_acc.abs().max())
-    if big <= 2 ** 24 or not (torch.equal(acc, ref_acc) and bits_equal(out, ref)):
-        fail(f"int8_matmul ±127: max|acc| {big}, not bit-equal to the plain "
-             f"version")
+    for variant in ("wgmma", "mma_sync"):
+        for lay, w in int8_both_layouts(wv).items():
+            out, acc = int8_matmul_2d(xv, w, xs, ws, with_acc=True,
+                                      variant=variant)
+            by_variant[variant] += 1
+            if big <= 2 ** 24 or not (torch.equal(acc, ref_acc)
+                                      and bits_equal(out, ref)):
+                fail(f"int8_matmul ±127 {variant}, w {lay}: max|acc| {big}, "
+                     f"not bit-equal to the plain version")
     log(f"[int8_matmul] bit-equal to the plain version (accumulators and f32 "
-        f"outputs) in {len(INT8_CASES) + 1} cases; ±127 operands reach "
-        f"|acc| = {big} > 2^24")
+        f"outputs) in {len(INT8_CASES) + 1} cases, {by_variant} calls per "
+        f"variant over both weight layouts; ±127 operands reach |acc| = "
+        f"{big} > 2^24")
 
 
 def phase_int8_bert():
     """The INT8 path at BERT-large width and depth: the 144 projection
-    weights quantised per output channel, real activations of 8 × 512
-    tokens (the layer-norm'd embeddings for the K = 1024 products, the GELU
-    of up's int8 output for down) through ``dense_maybe_quant``.  Counts
-    zeroed just before the pass and read just after, also for each
-    (M, K, N); then every output held bit-exactly to the plain version
-    (through the 2-D entry for the int32 accumulators, launches outside the
-    counted pass) and against the bf16 product in f32.  The pass is timed
-    whole, and split: its 144 launches on activations quantised beforehand,
-    and its GELUs (one a layer); the rest is the wrapper's
-    ``quantize_dynamic``."""
+    weights quantised per output channel (K-major values), real activations
+    of 8 × 512 tokens (the layer-norm'd embeddings for the K = 1024
+    products, the GELU of up's int8 output for down) through
+    ``dense_maybe_quant``.  Counts zeroed just before the pass and read just
+    after: the quantisation kernel, #4 by variant and by (M, K, N), and the
+    weight transposes; then every output held bit-exactly to the plain
+    version (through the 2-D entry for the int32 accumulators, launches
+    outside the counted pass) and against the bf16 product in f32.  The
+    pass is timed whole and by part (host clock around work that ends in a
+    sync, medians of 5): the 144 quantisations alone on the pass's own
+    activations, the 144 products alone on activations quantised
+    beforehand, and the 24 GELUs; and its host time alone (``host_ms``: the
+    pass enqueued behind a spin, no sync)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.core import quant
     from repro_torch.core.quant import dense_maybe_quant, quantize, quantize_dynamic
     from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_2d,
                                                  int8_matmul_2d_ref)
@@ -837,6 +951,8 @@ def phase_int8_bert():
           for i in range(cfg.num_layers) for key in INT8_PROJ}
     torch.cuda.synchronize()
     quant_ms = (time.perf_counter() - t0) * 1e3
+    if not all(q.values.stride() == (1, q.values.shape[0]) for q in qw.values()):
+        fail("int8 bert: quantize(w, axis=0) did not store the weights K-major")
     b, l = INT8_TOKENS
     rng = np.random.default_rng(13)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, l))
@@ -866,16 +982,27 @@ def phase_int8_bert():
     torch.cuda.synchronize()
     by_shape = {}
     int8_matmul.launches = 0
+    int8_matmul.launches_by_variant.update(wgmma=0, mma_sync=0)
+    int8_matmul.transposes = 0
+    quant.quantize_dynamic.launches = 0
     t0 = time.perf_counter()
     outs = forward_projections(by_shape)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = int8_matmul.launches
-    if launches != len(qw) or sum(by_shape.values()) != launches:
-        fail(f"int8 bert pass: int8_matmul launched {launches} times "
-             f"({by_shape}), expected {len(qw)}")
+    counts = dict(int8_matmul=launches,
+                  by_variant=dict(int8_matmul.launches_by_variant),
+                  transposes=int8_matmul.transposes,
+                  quantize_dynamic=quant.quantize_dynamic.launches)
+    if (launches != len(qw) or sum(by_shape.values()) != launches
+            or counts["by_variant"] != {"wgmma": len(qw), "mma_sync": 0}
+            or counts["transposes"] != 0
+            or counts["quantize_dynamic"] != len(qw)):
+        fail(f"int8 bert pass: launches {counts} ({by_shape}), expected "
+             f"{len(qw)} quantisations, {len(qw)} wgmma products, 0 mma.sync, "
+             f"0 transposes")
 
-    def host_ms(fn):                                  # host clock, synced
+    def synced_ms(fn):                                # host clock, synced
         fn()
         torch.cuda.synchronize()
         walls = []
@@ -886,16 +1013,20 @@ def phase_int8_bert():
             walls.append((time.perf_counter() - t0) * 1e3)
         return walls
 
-    walls = host_ms(forward_projections)
-    # the same 144 launches on activations quantised outside the timed pass
-    pre = [(quantize_dynamic(inp), qw[k]) for k, (inp, _) in outs.items()]
+    walls = synced_ms(forward_projections)
+    pass_host_ms = host_ms(forward_projections, calls=1)
+    inputs = [(inp, qw[k]) for k, (inp, _) in outs.items()]
+    quant_walls = synced_ms(lambda: [quantize_dynamic(inp) for inp, _ in inputs])
+    pre = [(quantize_dynamic(inp), wq) for inp, wq in inputs]
     pre = [(xq.values.reshape(-1, wq.shape[0]), xq.scale, wq) for xq, wq in pre]
-    kernel_walls = host_ms(lambda: [int8_matmul_2d(xv, wq.values, xs, wq.scale)
-                                    for xv, xs, wq in pre])
+    kernel_walls = synced_ms(lambda: [int8_matmul_2d(xv, wq.values, xs, wq.scale)
+                                      for xv, xs, wq in pre])
     ups = [outs["up", i][1] for i in range(cfg.num_layers)]
-    gelu_walls = host_ms(lambda: [F.gelu(u, approximate="tanh").to(dt)
-                                  for u in ups])
-    del pre, ups
+    gelu_walls = synced_ms(lambda: [F.gelu(u, approximate="tanh").to(dt)
+                                    for u in ups])
+    xd, wd = inputs[0]
+    call_host_ms = host_ms(lambda: dense_maybe_quant(xd, wd))
+    del pre, ups, inputs
 
     def forward_bf16():
         for i in range(cfg.num_layers):
@@ -903,7 +1034,7 @@ def phase_int8_bert():
                 y = dense_maybe_quant(x, params[key][i])
             dense_maybe_quant(F.gelu(y, approximate="tanh"), params["down"][i])
 
-    bf16_walls = host_ms(forward_bf16)
+    bf16_walls = synced_ms(forward_bf16)
 
     worst = {key: 0.0 for key in INT8_PROJ}
     for (key, i), (inp, y) in outs.items():
@@ -926,22 +1057,25 @@ def phase_int8_bert():
         fail(f"int8 bert: relative error to the bf16 product {worst} >= "
              f"{INT8_REL_TOL}")
     med = lambda w: float(np.median(w))  # noqa: E731
-    facts = dict(launches=launches, launches_by_shape=by_shape, weights=len(qw),
-                 quantize_ms=quant_ms, first_pass_ms=wall_ms, ms=med(walls),
-                 ms_all=walls, kernels_only_ms=med(kernel_walls),
-                 gelu_ms=med(gelu_walls), bf16_ms=med(bf16_walls),
+    facts = dict(launches=launches, launches_by_shape=by_shape, counts=counts,
+                 weights=len(qw), quantize_ms=quant_ms, first_pass_ms=wall_ms,
+                 ms=med(walls), ms_all=walls, host_ms=pass_host_ms,
+                 quantize_dynamic_ms=med(quant_walls),
+                 kernels_only_ms=med(kernel_walls), gelu_ms=med(gelu_walls),
+                 call_host_ms=call_host_ms, bf16_ms=med(bf16_walls),
                  rel_err_vs_bf16=worst)
-    facts["quantize_dynamic_ms_by_difference"] = (
-        facts["ms"] - facts["kernels_only_ms"] - facts["gelu_ms"])
-    log(f"[int8 bert] {len(qw)} projection weights quantised in "
-        f"{quant_ms:.0f} ms; {launches} int8_matmul launches over {b}×{l} "
-        f"tokens ({by_shape}), every output and accumulator bit-equal to the "
-        f"plain version; the {len(qw)} projections take {facts['ms']:.2f} ms "
-        f"(median of 5, host clock): the launches alone on pre-quantised "
-        f"inputs {facts['kernels_only_ms']:.2f} ms, the {cfg.num_layers} GELUs "
-        f"{facts['gelu_ms']:.2f} ms, quantize_dynamic the rest "
-        f"{facts['quantize_dynamic_ms_by_difference']:.2f} ms; bf16 "
-        f"{facts['bf16_ms']:.2f} ms; worst relative error to the bf16 product "
+    log(f"[int8 bert] {len(qw)} projection weights quantised (K-major) in "
+        f"{quant_ms:.0f} ms; over {b}×{l} tokens: {counts} "
+        f"({by_shape}), every output and accumulator bit-equal to the plain "
+        f"version; the {len(qw)} projections take {facts['ms']:.2f} ms "
+        f"(median of 5, host clock, synced), their host work alone "
+        f"{pass_host_ms:.2f} ms; by part (synced): the {len(qw)} "
+        f"quantisations {facts['quantize_dynamic_ms']:.2f} ms, the "
+        f"{len(qw)} products on pre-quantised inputs "
+        f"{facts['kernels_only_ms']:.2f} ms, the {cfg.num_layers} GELUs "
+        f"{facts['gelu_ms']:.2f} ms; one dense_maybe_quant call's host time "
+        f"{call_host_ms:.4f} ms; bf16 {facts['bf16_ms']:.2f} ms; worst "
+        f"relative error to the bf16 product "
         + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
         + f" (limit {INT8_REL_TOL})")
     del params, qw, outs, x
@@ -1416,9 +1550,13 @@ def phase_timing(engine_facts):
     x = (torch.rand(n, device=DEV) * -30.0).contiguous()
     got, want = lut_exp(x), lut_exp_ref(x)
     err = float((got - want).abs().max())
-    ms = cuda_ms(lambda: lut_exp(x), flush=flush)
+    med = interleaved_ms({
+        "ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush),
+        "device_ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush, spin=True),
+        "library_ms": lambda: cuda_ms(lambda: torch.exp(x), flush=flush)})
+    ms, lib = med["ms"], med["library_ms"]
+    lut_host = host_ms(lambda: lut_exp(x))
     plain = cuda_ms(lambda: lut_exp_ref(x), flush=flush)
-    lib = cuda_ms(lambda: torch.exp(x), flush=flush)
     t_bytes = 8.0 * n / HBM_BYTES_PER_S * 1e3
     t_ops = 12.0 * n / PEAK_FLOPS["float32"] * 1e3
     kernels.append(dict(
@@ -1428,33 +1566,38 @@ def phase_timing(engine_facts):
         on_main_path=False,
         inlined_in="paged_attention and streaming_attention "
                    "(csrc/lut_exp.cuh, every launch)",
-        max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
-        bound_ms=max(t_bytes, t_ops),
+        max_abs_err=err, ms=ms, kernel_ms=ms, device_ms=med["device_ms"],
+        host_ms=lut_host, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=lib, library="torch.exp (exact exp, not the same function)",
         shape=f"{n} f32 logits (the decode step's s − m values)"))
-    log(f"[time] lut_exp: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.exp "
-        f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({n} elements)")
+    log(f"[time] lut_exp: kernel {ms:.4f} ms, device alone "
+        f"{med['device_ms']:.4f} ms, host per call {lut_host:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.exp {lib:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({n} elements; medians of 5 "
+        f"interleaved rounds)")
     kernels.append(time_streaming(flush, engine_facts))
     kernels.append(time_int8(flush, engine_facts["int8_bert"]))
+    kernels.append(time_quantize(flush, engine_facts["int8_bert"]))
     return kernels
 
 
 def time_int8(flush, facts):
     """Kernel #4 at the BERT-large projection shapes of an 8 × 512 batch and
     at the reference microbenchmark's shape: the 2-D kernel (int8 in, f32
-    out, scales applied), its plain version, ``torch._int_mm`` alone and
-    plus the same scale multiply, each with w row-major and column-major
-    (the library yardstick is the faster with the scales; the port never
-    calls it), and for context a bf16 ``torch.matmul`` of the same shape and
-    the eager ``quantize_dynamic`` of a bf16 (M, K) input that the wrapper
-    runs before each launch.  Launches per forward are those counted for
-    each shape in the BERT-large pass.  Bytes: x, w, the scales read once
-    and the f32 output written once; operations: 2·M·N·K at the int8
-    tensor-core peak."""
+    out, scales applied) on a K-major w, as the pass calls it — as a caller
+    sees it, the device time alone (spin lead) and at each wgmma tile width
+    — beside the mma.sync variant on a row-major w (PR 16's design on the
+    same call), its plain version, ``torch._int_mm`` alone and plus the same
+    scale multiply, each with w row-major and column-major (the library
+    yardstick is the faster with the scales; the port never calls it), and
+    for context a bf16 ``torch.matmul`` of the same shape.  Launches per
+    forward are those counted for each shape in the BERT-large pass.  Bytes:
+    x, w, the scales read once and the f32 output written once; operations:
+    2·M·N·K at the int8 tensor-core peak."""
     import torch
-    from repro_torch.core.quant import quantize_dynamic
     from repro_torch.kernels.int8_matmul import int8_matmul_2d, int8_matmul_2d_ref
+    from repro_torch.kernels.int8_matmul.ops import TILE_N, default_tile_n
     g = torch.Generator(device=DEV).manual_seed(17)
     timed = {}
     for m, k, n, what in INT8_TIMED:
@@ -1462,56 +1605,132 @@ def time_int8(flush, facts):
                            dtype=torch.int8)
         wv = torch.randint(-127, 128, (k, n), generator=g, device=DEV,
                            dtype=torch.int8)
+        wk = wv.t().contiguous().t()                  # as quantize stores it
         xs = torch.rand((), generator=g, device=DEV) * 0.01
         ws = torch.rand((1, n), generator=g, device=DEV) * 0.01
-        got, want = int8_matmul_2d(xv, wv, xs, ws), int8_matmul_2d_ref(xv, wv, xs, ws)
+        got, want = int8_matmul_2d(xv, wk, xs, ws), int8_matmul_2d_ref(xv, wv, xs, ws)
         err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: int8_matmul_2d(xv, wv, xs, ws), flush=flush)
-        plain = cuda_ms(lambda: int8_matmul_2d_ref(xv, wv, xs, ws), iters=5,
-                        flush=flush)
-        layouts = {"row": wv, "col": wv.t().contiguous().t()}
-        int_mm, lib_by, lib_equal = {}, {}, {}
+        kernel = lambda: int8_matmul_2d(xv, wk, xs, ws)  # noqa: E731
+        timers = {
+            "ms": lambda: cuda_ms(kernel, flush=flush),
+            "device_ms": lambda: cuda_ms(kernel, flush=flush, spin=True),
+            "mma_sync_ms": lambda: cuda_ms(lambda: int8_matmul_2d(
+                xv, wv, xs, ws, variant="mma_sync"), flush=flush),
+            "mma_sync_device_ms": lambda: cuda_ms(lambda: int8_matmul_2d(
+                xv, wv, xs, ws, variant="mma_sync"), flush=flush, spin=True)}
+        for tile in TILE_N:
+            timers[f"tile_{tile}"] = lambda tile=tile: cuda_ms(
+                lambda: int8_matmul_2d(xv, wk, xs, ws, tile_n=tile),
+                flush=flush, spin=True)
+        layouts = {"row": wv, "col": wk}
+        lib_equal = {}
         for lay, w in layouts.items():
             lib_equal[lay] = bits_equal(torch._int_mm(xv, w).float() * (xs * ws), got)
-            int_mm[lay] = cuda_ms(lambda: torch._int_mm(xv, w), flush=flush)
-            lib_by[lay] = cuda_ms(lambda: torch._int_mm(xv, w).float() * (xs * ws),
-                                  flush=flush)
+            timers[f"int_mm_{lay}"] = lambda w=w: cuda_ms(
+                lambda: torch._int_mm(xv, w), flush=flush)
+            timers[f"lib_{lay}"] = lambda w=w: cuda_ms(
+                lambda: torch._int_mm(xv, w).float() * (xs * ws), flush=flush)
+        med = interleaved_ms(timers)
+        plain = cuda_ms(lambda: int8_matmul_2d_ref(xv, wv, xs, ws), iters=5,
+                        flush=flush)
+        lib_by = {lay: med[f"lib_{lay}"] for lay in layouts}
+        int_mm = {lay: med[f"int_mm_{lay}"] for lay in layouts}
         best = min(lib_by, key=lib_by.get)
-        lib = lib_by[best]
         xb, wb = xv.bfloat16(), wv.bfloat16()
         bf16 = cuda_ms(lambda: torch.matmul(xb, wb), flush=flush)
-        qd = cuda_ms(lambda: quantize_dynamic(xb), flush=flush)
         nbytes = m * k + k * n + 4 * n + 4 + 4 * m * n
         ops = 2.0 * m * n * k
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+        bound = max(t_bytes, t_ops)
+        ms, dev = med["ms"], med["device_ms"]
         label = f"{m}x{k}x{n}"
         timed[label] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+            max_abs_err=err, ms=ms, device_ms=dev, tops=ops / ms / 1e9,
+            bound_share=bound / ms, plain_ms=plain, bound_ms=bound,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib, library_w_layout=best, library_bit_equal=lib_equal,
-            library_ms_by_w_layout=lib_by, int_mm_alone_ms_by_w_layout=int_mm,
-            bf16_matmul_ms=bf16, quantize_dynamic_ms=qd,
+            library_ms=lib_by[best], library_w_layout=best,
+            library_bit_equal=lib_equal, library_ms_by_w_layout=lib_by,
+            int_mm_alone_ms_by_w_layout=int_mm,
+            mma_sync_ms=med["mma_sync_ms"],
+            mma_sync_device_ms=med["mma_sync_device_ms"],
+            wgmma_device_ms_by_tile_n={t: med[f"tile_{t}"] for t in TILE_N},
+            tile_n=default_tile_n(m, n), bf16_matmul_ms=bf16,
             launches_per_forward=facts["launches_by_shape"].get(label, 0),
-            shape=f"M {m} × K {k} × N {n} ({what})")
-        log(f"[time] int8_matmul {label} ({what}): kernel {ms:.4f} ms, plain "
-            f"{plain:.3f} ms, _int_mm alone row/col-major w {int_mm['row']:.4f}/"
+            shape=f"M {m} × K {k} × N {n} ({what}), w K-major")
+        tiles = ", ".join(f"{t}: {med[f'tile_{t}']:.4f}" for t in TILE_N)
+        log(f"[time] int8_matmul {label} ({what}): wgmma kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s, {bound / ms:.0%} of the bound), "
+            f"device alone {dev:.4f} ms (by tile width, device alone: "
+            f"{tiles}; default {default_tile_n(m, n)}); mma.sync variant "
+            f"{med['mma_sync_ms']:.4f} ms (device alone "
+            f"{med['mma_sync_device_ms']:.4f}); plain {plain:.3f} ms; "
+            f"_int_mm alone row/col-major w {int_mm['row']:.4f}/"
             f"{int_mm['col']:.4f} ms, +scale {lib_by['row']:.4f}/"
-            f"{lib_by['col']:.4f} ms (bit-equal {lib_equal}), launches per "
-            f"forward {timed[label]['launches_per_forward']}, bf16 matmul "
-            f"{bf16:.4f} ms, "
-            f"quantize_dynamic of a bf16 (M, K) input {qd:.4f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.1f} GOP; {ops / ms / 1e9:.1f} TOP/s)")
-        del xv, wv, xb, wb, got, want, layouts
+            f"{lib_by['col']:.4f} ms (bit-equal {lib_equal}); launches per "
+            f"forward {timed[label]['launches_per_forward']}; bf16 matmul "
+            f"{bf16:.4f} ms; bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} GOP) (medians of 5 interleaved rounds)")
+        del xv, wv, wk, xb, wb, got, want, layouts
     first = timed.pop(f"{INT8_TIMED[0][0]}x{INT8_TIMED[0][1]}x{INT8_TIMED[0][2]}")
     return dict(
         name="int8_matmul", route="cuda", source="src/repro_torch/csrc/int8_matmul.cu",
         replaces="src/repro/kernels/int8_matmul/kernel.py:49",
-        launches=facts["launches"], **first,
+        launches=facts["launches"],
+        launches_by_variant=facts["counts"]["by_variant"], **first,
         library="torch._int_mm + the same scale multiply, w in the faster "
                 "of row- and column-major",
         bert_int8_projections=facts, **timed)
+
+
+# (M, K) bf16 activations of the BERT-large pass: the K = 1024 inputs and
+# the K = 4096 GELU outputs
+QUANT_TIMED = [(4096, 1024), (4096, 4096)]
+
+
+def time_quantize(flush, facts):
+    """The activation quantisation kernel at the pass's two input shapes
+    (bf16): as a caller sees it, device alone, host per call, beside the
+    plain version (the eager chain it replaces).  Bytes: x read once, the
+    int8 values and the scale written once; no PyTorch call computes the
+    same function (``torch.quantize_per_tensor_dynamic`` is affine, with a
+    zero point), so ``library_ms`` is null."""
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device=DEV).manual_seed(29)
+    timed = {}
+    for m, k in QUANT_TIMED:
+        x = (torch.randn((m, k), generator=g, device=DEV) * 2).bfloat16()
+        plain = lambda: quant._quantize(  # noqa: E731
+            x, torch.amax(torch.abs(x.to(torch.float32))), 8)
+        got, want = quant.quantize_dynamic(x), plain()
+        err = float((got.values.float() - want.values.float()).abs().max())
+        if err != 0 or not bits_equal(got.scale, want.scale):
+            fail(f"quantize_dynamic ({m}, {k}): not bit-equal when timed")
+        kernel = lambda: quant.quantize_dynamic(x)  # noqa: E731
+        med = interleaved_ms({
+            "ms": lambda: cuda_ms(kernel, flush=flush),
+            "device_ms": lambda: cuda_ms(kernel, flush=flush, spin=True),
+            "plain_ms": lambda: cuda_ms(plain, flush=flush)})
+        nbytes = 2 * m * k + m * k + 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        timed[f"{m}x{k}"] = dict(
+            max_abs_err=err, **med, host_ms=host_ms(kernel), bound_ms=bound,
+            bound_by="bytes", library_ms=None, bound_share=bound / med["ms"],
+            shape=f"({m}, {k}) bf16 → int8 + one f32 scale")
+        log(f"[time] quantize_dynamic ({m}, {k}) bf16: kernel {med['ms']:.4f} "
+            f"ms ({bound / med['ms']:.0%} of the bound), device alone "
+            f"{med['device_ms']:.4f} ms, host per call "
+            f"{timed[f'{m}x{k}']['host_ms']:.4f} ms, plain "
+            f"{med['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB) (medians of 5 interleaved rounds)")
+    first = timed.pop(f"{QUANT_TIMED[0][0]}x{QUANT_TIMED[0][1]}")
+    return dict(
+        name="quantize_dynamic", route="cuda",
+        source="src/repro_torch/csrc/quantize.cu",
+        replaces="src/repro/core/quant.py:45 (jnp, outside the Pallas kernel)",
+        launches=facts["counts"]["quantize_dynamic"], **first,
+        library=None, **timed)
 
 
 def streaming_shapes():

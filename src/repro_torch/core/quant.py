@@ -14,12 +14,22 @@ divides in f32), ``torch.round`` rounds half to even as ``jnp.round`` does,
 and the clip comes before the cast.
 Scales stay device tensors: nothing here synchronises the stream.
 
+``quantize_dynamic`` on CUDA tensors launches ``csrc/quantize.cu`` (absmax
+and quantise, bit-equal to the plain version below; counted in
+``quantize_dynamic.launches``) or raises; CPU tensors take the plain
+version.  ``quantize(w, axis=0)`` of a 2-D weight returns its int8 values
+as a (K, N) view of an (N, K)-contiguous tensor, stride (1, K): the layout
+the int8 kernel's ``wgmma`` variant reads (K-major for both operands), paid
+once when the weight is quantised.  Values and scales are the same as in
+any other layout.
+
 ``int8_matmul`` on CPU tensors is the reference core's function; on CUDA
 tensors it launches the int8 tensor-core kernel
 (``kernels/int8_matmul``, ``csrc/int8_matmul.cu``) or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple, Union
 
 import numpy as np
@@ -41,11 +51,16 @@ class QTensor(NamedTuple):
         return self.values.to(torch.float32) * self.scale
 
 
-def _quantize(x: torch.Tensor, absmax: torch.Tensor, bits: int) -> QTensor:
+def _qmax(bits: int) -> Tuple[float, float]:
+    """qmax and, as the compiled reference forms ``absmax / qmax`` (XLA
+    turns the division by a constant into a product with its f32
+    reciprocal), the f32 reciprocal of qmax."""
     qmax = 2.0 ** (bits - 1) - 1.0
-    # ``absmax / qmax`` as the compiled reference computes it: XLA turns the
-    # division by a constant into a product with its f32 reciprocal.
-    inv_qmax = float(np.float32(1.0) / np.float32(qmax))
+    return qmax, float(np.float32(1.0) / np.float32(qmax))
+
+
+def _quantize(x: torch.Tensor, absmax: torch.Tensor, bits: int) -> QTensor:
+    qmax, inv_qmax = _qmax(bits)
     scale = torch.clamp_min(absmax, 1e-12) * inv_qmax
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -qmax - 1, qmax)
     return QTensor(q.to(torch.int8), scale)
@@ -53,14 +68,69 @@ def _quantize(x: torch.Tensor, absmax: torch.Tensor, bits: int) -> QTensor:
 
 def quantize(w: torch.Tensor, axis: Union[int, Tuple[int, ...]] = -1, *,
              bits: int = 8) -> QTensor:
-    """Symmetric per-channel quantisation.  ``axis``: reduced (input) dims."""
+    """Symmetric per-channel quantisation.  ``axis``: reduced (input) dims.
+    A 2-D weight reduced over its rows (``axis`` 0 or −2: one scale per
+    output column) keeps its values K-major, stride (1, K)."""
     absmax = torch.amax(torch.abs(w.to(torch.float32)), dim=axis, keepdim=True)
-    return _quantize(w, absmax, bits)
+    q = _quantize(w, absmax, bits)
+    if w.dim() == 2 and axis in (0, -2):
+        q = QTensor(q.values.t().contiguous().t(), q.scale)
+    return q
+
+
+_DYNAMIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_QMAX = {b: _qmax(b) for b in range(2, 9)}
 
 
 def quantize_dynamic(x: torch.Tensor, *, bits: int = 8) -> QTensor:
     """Per-tensor dynamic activation quantisation; the scale is 0-d."""
-    return _quantize(x, torch.amax(torch.abs(x.to(torch.float32))), bits)
+    dev = x.device
+    if dev.type == "cpu":
+        return _quantize(x, torch.amax(torch.abs(x.to(torch.float32))), bits)
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_dynamic: unsupported device {dev}")
+    code = _DYNAMIC_DTYPES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"quantize_dynamic kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if bits not in _QMAX:
+        raise ValueError(f"quantize_dynamic: bits in [2, 8], got {bits}")
+    n = x.numel()
+    if n == 0 or not x.is_contiguous():
+        raise ValueError("quantize_dynamic kernel needs a contiguous, "
+                         "non-empty input")
+    lib, build = _quantize_library()
+    qmax, inv_qmax = _QMAX[bits]
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    buf = torch.empty(2, dtype=torch.float32, device=dev)  # scale, scratch
+    ptr = buf.data_ptr()
+    err = lib.quantize_dynamic_launch(x.data_ptr(), n, code, inv_qmax, qmax,
+                                      q.data_ptr(), ptr, ptr + 4,
+                                      build.stream(dev))
+    if err:
+        build.check(lib, err, "quantize_dynamic launch")
+    quantize_dynamic.launches += 1
+    return QTensor(q, buf[0])
+
+
+quantize_dynamic.launches = 0
+_quantize_lib = None
+
+
+def _quantize_library():
+    """The quantisation kernel's ctypes handle (built on first use) and the
+    build module (imported here: ``repro_torch.kernels`` imports this
+    module)."""
+    global _quantize_lib
+    if _quantize_lib is None:
+        from repro_torch.kernels import build
+        lib = build.load("quantize")
+        fn = lib.quantize_dynamic_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_float] + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+        _quantize_lib = lib, build
+    return _quantize_lib
 
 
 def int8_accumulate(xv: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
@@ -81,8 +151,8 @@ def int8_matmul(x: torch.Tensor, wq: QTensor) -> torch.Tensor:
     in the last bits).
     """
     if x.device.type == "cuda":
-        from repro_torch.kernels.int8_matmul.ops import int8_matmul as kernel
-        return kernel(x, wq)
+        from repro_torch.kernels.int8_matmul import ops
+        return ops.int8_matmul(x, wq)
     if x.device.type != "cpu":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     xq = quantize_dynamic(x)

@@ -302,7 +302,8 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"-O3", "-shared", "-std=c++17"} <= set(build.NVCC_FLAGS)
     assert set(build.sources()) == {"int8_matmul", "lut_exp",
-                                    "paged_attention", "streaming_attention"}
+                                    "paged_attention", "quantize",
+                                    "streaming_attention"}
     assert len(build.source_hash()) == 16
 
 
@@ -371,6 +372,39 @@ def test_variant_tool_edits_match_the_shipped_kernel(name, tmp_path):
         tool.variant_sources(name, tmp_path)
 
 
+INT8_VARIANT_TOOL = ROOT / "tools" / "int8_matmul_variants.py"
+
+
+def _int8_variant_tool():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("i8_variants",
+                                                  INT8_VARIANT_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_int8_variant_tool_imports_no_jax_and_no_reference_package():
+    names = _imports(INT8_VARIANT_TOOL)
+    assert {"chip_smoke", "repro_torch.kernels"} <= names
+    assert not _jax_or_reference(names)
+
+
+@pytest.mark.parametrize("name", ["no_stores", "loads_only", "products_only",
+                                  "stages_2", "wait_0"])
+def test_int8_variant_tool_edits_match_the_shipped_kernel(name):
+    """Each diagnostic variant's replacements find their lines in the
+    shipped int8 kernel exactly once, and change nothing else."""
+    tool = _int8_variant_tool()
+    shipped = {p.name: p.read_text() for p in build.CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    files = tool.variant_sources(name, build.CSRC)
+    assert set(files) == set(shipped)
+    assert {f for f in files if files[f] != shipped[f]} == {"int8_matmul.cu"}
+    for f, old, new in tool.VARIANTS[name][1]:
+        assert old not in files[f] or old in new
+
+
 def _fake_qtensor(k=64, n=32):
     return quant.QTensor(_fake(np.ones((k, n), np.int8)),
                          _fake(np.ones((1, n), np.float32)))
@@ -418,8 +452,8 @@ def test_int8_matmul_card_checks_raise(bad, no_toolchain, monkeypatch):
         w = np.ones((48, 32), np.int8)
     elif bad == "scale_flat":
         ws = ws[0]
-    elif bad == "w_strided":
-        w = np.ones((32, 64), np.int8).T
+    elif bad == "w_strided":       # neither row-major nor K-major
+        w = np.ones((64, 64), np.int8)[:, ::2]
     elif bad == "k_too_large":
         x = np.ones((1, i8_ops.MAX_K + 1), np.float32)
         w = np.ones((i8_ops.MAX_K + 1, 1), np.int8)

@@ -17,8 +17,11 @@ attention holds the reference kernel suite's ``atol=3e-5, rtol=1e-4``
 (``tests/test_kernels.py``: an online softmax over 64-key tiles against
 the materialised-logits plain version); bf16 outputs lie within one bf16
 ulp of the plain version beyond the f32 atol (both round one f32 result);
-the int8 matmul is bit-exact, accumulators and outputs (an exact int32 sum,
-then the same two f32 products in the same order); the bf16 unembed sits
+the int8 matmul is bit-exact, accumulators and outputs, on both variants
+and both weight layouts (an exact int32 sum, then the same two f32
+products in the same order); the activation quantisation is bit-exact,
+values and scale (the same rounded f32 operations, and an absmax that
+does not depend on order); the bf16 unembed sits
 within 2·K·2^-24·(|x|·|h|) of the widened f32 product (each sums exact
 products in f32, in its own order).
 """
@@ -645,3 +648,181 @@ def test_int8_core_entry_points_launch_the_kernel(cuda_device):
                                                     wq.scale.cpu()))
     ulps = (a.cpu().view(torch.int32).long() - core.view(torch.int32).long())
     assert int(ulps.abs().max()) <= 2
+
+
+# ------------------------------------------------- activation quantisation --
+
+def quantize_inputs(case, dtype, dev):
+    """The quantisation kernel's edge cases (phase 8 of ``chip_smoke.py``
+    holds the same): ragged sizes whose bytes are not a multiple of 16, a
+    start off the 16-byte grid, all zeros (the 1e-12 floor), exact .5 ties
+    after the division (absmax 127 → scale 1), one outlier, and bits=4."""
+    g = torch.Generator().manual_seed(5)
+    bits = 8
+    if case == "ragged":
+        x = torch.randn((257, 131), generator=g) * 3
+    elif case == "unaligned":
+        x = (torch.randn(4099, generator=g) * 3)[1:]
+    elif case == "zeros":
+        x = torch.zeros((64, 48))
+    elif case == "ties":
+        x = torch.randint(-126, 126, (96, 40), generator=g).float() + 0.5
+        x[0, 0] = 127.0
+    elif case == "outlier":
+        x = torch.randn((512, 64), generator=g)
+        x[100, 7] = -3.0e4
+    else:                                        # "bits4"
+        x = torch.randn((33, 77), generator=g) * 2
+        bits = 4
+    x = x.to(dtype)
+    if case == "ties":
+        assert ((x.float() - 0.5) % 1 == 0).sum() > 1000   # odd halves
+    return x.to(dev), bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["ragged", "unaligned", "zeros", "ties",
+                                  "outlier", "bits4"])
+def test_quantize_dynamic_kernel_bit_exact(cuda_device, case, dtype):
+    x, bits = quantize_inputs(case, getattr(torch, dtype), cuda_device)
+    before = quant.quantize_dynamic.launches
+    got = quant.quantize_dynamic(x, bits=bits)
+    torch.cuda.synchronize()
+    assert quant.quantize_dynamic.launches == before + 1
+    want = quant.quantize_dynamic(x.cpu(), bits=bits)
+    assert got.values.shape == x.shape and got.scale.shape == ()
+    assert torch.equal(got.values.cpu(), want.values)
+    assert torch.equal(got.scale.cpu().view(torch.int32),
+                       want.scale.view(torch.int32))
+    if case == "zeros":
+        assert float(got.scale) == np.float32(1e-12) * (np.float32(1) / np.float32(127))
+
+
+# (M, K, N): one tile and one k-step, M = 1 and 8 at BERT-large widths, a
+# BERT-large projection, ragged M, N and K (K a multiple of 16 but not of
+# the 128-byte stage; N not a multiple of 4: scalar stores)
+WGMMA_SHAPES = [(64, 128, 128), (1, 1024, 4096), (8, 4096, 1024),
+                (4096, 1024, 1024), (257, 1024, 384), (130, 208, 100),
+                (33, 48, 260), (5, 64, 20)]
+
+
+def int8_operands(m, k, n, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xv = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    wv = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand((), generator=g) * 0.01
+    ws = torch.rand((1, n), generator=g) * 0.01
+    return xv.to(dev), wv.to(dev), xs.to(dev), ws.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [128, 256])
+@pytest.mark.parametrize("layout", ["k_major", "row"])
+@pytest.mark.parametrize("mkn", WGMMA_SHAPES)
+def test_int8_matmul_wgmma_bit_exact(cuda_device, mkn, layout, tile_n):
+    """The wgmma variant, accumulators and outputs, on either weight
+    layout (a row-major w is transposed once, and counted), at each tile
+    width."""
+    from repro_torch.kernels.int8_matmul import ops
+    xv, wv, xs, ws = int8_operands(*mkn, cuda_device)
+    if layout == "k_major":
+        wv = wv.t().contiguous().t()
+    before = dict(int8_matmul.launches_by_variant)
+    transposes = int8_matmul.transposes
+    assert ops.kernel_variant(xv, wv) == "wgmma"
+    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches_by_variant["wgmma"] == before["wgmma"] + 1
+    assert int8_matmul.launches_by_variant["mma_sync"] == before["mma_sync"]
+    assert int8_matmul.transposes == transposes + (layout == "row")
+    ref_out, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
+    assert torch.equal(acc, ref_acc)
+    assert_bits_equal(out, ref_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["k_major", "row"])
+@pytest.mark.parametrize("mkn", [(64, 300, 130), (17, 200, 96), (5, 72, 20)])
+def test_int8_matmul_mma_sync_variant_both_layouts(cuda_device, mkn, layout):
+    """K % 16 ≠ 0 runs the mma.sync variant, on either layout in place (no
+    transpose); pinned to mma.sync, an aligned call does the same."""
+    from repro_torch.kernels.int8_matmul import ops
+    xv, wv, xs, ws = int8_operands(*mkn, cuda_device, seed=1)
+    if layout == "k_major":
+        wv = wv.t().contiguous().t()
+    before = dict(int8_matmul.launches_by_variant)
+    transposes = int8_matmul.transposes
+    assert ops.kernel_variant(xv, wv) == "mma_sync"
+    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches_by_variant["mma_sync"] == before["mma_sync"] + 1
+    assert int8_matmul.launches_by_variant["wgmma"] == before["wgmma"]
+    assert int8_matmul.transposes == transposes
+    ref_out, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
+    assert torch.equal(acc, ref_acc)
+    assert_bits_equal(out, ref_out)
+    xv, wv, xs, ws = int8_operands(256, 512, 384, cuda_device, seed=2)
+    if layout == "k_major":
+        wv = wv.t().contiguous().t()
+    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True, variant="mma_sync")
+    ref_out, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
+    assert torch.equal(acc, ref_acc)
+    assert_bits_equal(out, ref_out)
+    assert int8_matmul.transposes == transposes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [128, 256])
+def test_int8_matmul_wgmma_accumulator_past_2_24(cuda_device, tile_n):
+    """All-±127 operands drive |acc| past 2^24 on the wgmma variant."""
+    k, n = 4096, 384
+    g = torch.Generator().manual_seed(4)
+    xv = torch.where(torch.rand((200, k), generator=g) < 0.9, 127, -127)
+    wv = torch.where(torch.rand((k, n), generator=g) < torch.linspace(
+        0.5, 1.0, n), 127, -127)
+    xv = xv.to(torch.int8).to(cuda_device)
+    wv = wv.to(torch.int8).t().contiguous().t().to(cuda_device)
+    xs = torch.full((), 0.01, device=cuda_device)
+    ws = torch.rand((1, n), generator=g).to(cuda_device) + 0.5
+    out, acc = int8_matmul_2d(xv, wv, xs, ws, with_acc=True, tile_n=tile_n)
+    ref_out, ref_acc = int8_matmul_2d_ref(xv, wv, xs, ws, with_acc=True)
+    assert ref_acc.abs().max() > 2 ** 24 and (ref_acc % 4 != 0).any()
+    assert torch.equal(acc, ref_acc)
+    assert_bits_equal(out, ref_out)
+
+
+@pytest.mark.cuda
+def test_int8_launches_never_synchronise(cuda_device):
+    """Quantisation and both matmul variants read no device value on the
+    host: the scale stays on the card."""
+    x, wq = int8_case((4, 64), 1024, 512, cuda_device, dtype=torch.bfloat16)
+    xr, wr = int8_case((9,), 200, 64, cuda_device, seed=3)
+    want = (int8_matmul(x, wq), int8_matmul(xr, wr))   # builds both
+    torch.cuda.synchronize()
+    before = dict(int8_matmul.launches_by_variant)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (int8_matmul(x, wq), int8_matmul(xr, wr))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int8_matmul.launches_by_variant == {
+        "wgmma": before["wgmma"] + 1, "mma_sync": before["mma_sync"] + 1}
+    for a, b in zip(got, want):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_row_major_weight_counts_one_transpose(cuda_device):
+    """A QTensor from ``quantize(w, axis=0)`` is K-major and goes to wgmma
+    as it lies; the same values row-major cost one transpose a call."""
+    x, wq = int8_case((16,), 512, 256, cuda_device)
+    assert wq.values.stride() == (1, 512)
+    row = quant.QTensor(wq.values.contiguous(), wq.scale)
+    transposes = int8_matmul.transposes
+    a = int8_matmul(x, wq)
+    assert int8_matmul.transposes == transposes
+    b = int8_matmul(x, row)
+    torch.cuda.synchronize()
+    assert int8_matmul.transposes == transposes + 1
+    assert_bits_equal(a, b)
