@@ -35,9 +35,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    through the kernel held against the same forward through the plain
    attention, in bf16 and f32 (f32: all 24 on the CUDA-core kernel);
 7. serve 8 requests of deepseek-7b at full width and full depth through
-   ``EngineCore`` with a bf16 pool, then an int8 pool; count kernel
-   launches over each run (paged attention's split pass and its combine,
-   each = layers × steps); hold one
+   ``EngineCore`` with a bf16 pool, then an int8 pool, each in two arms:
+   the eager arm (``capture=False``, the step dispatched op by op) and
+   the captured arm (``capture=True``, the default: one CUDA graph per
+   (stream width, table width), replayed).  The captured arm's first
+   pass runs in lockstep with an eager twin (equal plans; equal picks on
+   every lane save a near-tie shown by PR 11's margin rule), warm passes
+   repeat until one captures nothing new (at most 3), then
+   ``obs.mark_warm()`` and a measured pass (step p50/p99, tokens/s, peak
+   memory, TTFT/TPOT from the registry, ``step_retraces_total``); every
+   pass's greedy streams equal the eager arm's.  Kernel launches are
+   counted over each timed pass (paged attention's split pass and its
+   combine, each = layers × steps, replayed steps included).  Profiler
+   windows (``obs.arm_profiler``) over one mixed and one pure-decode step
+   of each arm print ``profile_summary`` (device time by kernel and by
+   group, kernels launched, host launch calls, device idle share) and
+   keep the traces gzipped under ``chiprun_out/traces/``.  Then hold one
    full-width ragged step's logits through the kernel against the same
    step through the plain attention, in bf16 on the served pool and in
    f32; score 2 × 1024 tokens causally through ``build_model(cfg).loss``
@@ -58,7 +71,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    mma.sync, 0 weight transposes; every output bit-equal to the plain
    version, int32 accumulators included, and within 3% (relative) of the
    bf16 product in f32; the pass timed whole, by part (quantisations,
-   products, GELUs) and by its host work alone;
+   products, GELUs) and by its host work alone; the pass captured once as
+   a CUDA graph (a measurement), its replay bit-equal to the eager pass
+   and timed beside it;
 10. time each kernel at its main path's shapes (paged attention, its
    combine and the LUT exp at the engine's decode step, paged attention
    also at a mixed step of one 256-token prefill chunk and 7 decodes, and
@@ -119,6 +134,8 @@ EARLIER_MS = {"bert 8x512": 24.1, "bert 1x4096": 33.7, "scoring bf16": 104.0,
               "scoring f32": 584.2, "step p50 bf16": 70.78,
               "step p50 int8": 91.61}
 KV_SPLIT_SWEEP = (4, 8, 16)        # pages per split timed at the decode shape
+WARM_PASSES = 3                    # the captured arm's warm passes, at most,
+                                   # the lockstep pass included
 MIXED_CHUNK = (256, 512)           # the mixed step's chunk: (tokens, live rows)
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
@@ -944,6 +961,7 @@ def phase_int8_bert():
                                                  int8_matmul_2d_ref)
     from repro_torch.models.layers import embed_full, layer_norm_apply
     from repro_torch.params import init_params
+    from repro_torch.serving.graphs import CapturedCall
     cfg = get_config(BERT)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1), DEV)
     t0 = time.perf_counter()
@@ -1056,6 +1074,30 @@ def phase_int8_bert():
     if max(worst.values()) >= INT8_REL_TOL:
         fail(f"int8 bert: relative error to the bf16 product {worst} >= "
              f"{INT8_REL_TOL}")
+    # The same pass captured once as a CUDA graph (a measurement: no model
+    # path replays it), its replay held bit-equal to the eager outputs and
+    # its launches counted through the capture's recorded counts.
+    t0 = time.perf_counter()
+    cap = CapturedCall(forward_projections, torch.device(DEV))
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    int8_matmul.launches = 0
+    int8_matmul.launches_by_variant.update(wgmma=0, mma_sync=0)
+    quant.quantize_dynamic.launches = 0
+    replayed = cap.replay()
+    torch.cuda.synchronize()
+    graph_counts = dict(int8_matmul=int8_matmul.launches,
+                        by_variant=dict(int8_matmul.launches_by_variant),
+                        quantize_dynamic=quant.quantize_dynamic.launches)
+    if graph_counts != dict(int8_matmul=len(qw), quantize_dynamic=len(qw),
+                            by_variant={"wgmma": len(qw), "mma_sync": 0}):
+        fail(f"int8 bert graph: one replay counted {graph_counts}")
+    for key, (_, y) in outs.items():
+        if not bits_equal(replayed[key][1], y):
+            fail(f"int8 bert graph {key}: the replay is not bit-equal to the "
+                 f"eager pass")
+    graph_walls = synced_ms(cap.replay)
+    del cap, replayed
     med = lambda w: float(np.median(w))  # noqa: E731
     facts = dict(launches=launches, launches_by_shape=by_shape, counts=counts,
                  weights=len(qw), quantize_ms=quant_ms, first_pass_ms=wall_ms,
@@ -1063,7 +1105,9 @@ def phase_int8_bert():
                  quantize_dynamic_ms=med(quant_walls),
                  kernels_only_ms=med(kernel_walls), gelu_ms=med(gelu_walls),
                  call_host_ms=call_host_ms, bf16_ms=med(bf16_walls),
-                 rel_err_vs_bf16=worst)
+                 rel_err_vs_bf16=worst, graph_ms=med(graph_walls),
+                 graph_ms_all=graph_walls, graph_capture_ms=capture_ms,
+                 graph_counts=graph_counts)
     log(f"[int8 bert] {len(qw)} projection weights quantised (K-major) in "
         f"{quant_ms:.0f} ms; over {b}×{l} tokens: {counts} "
         f"({by_shape}), every output and accumulator bit-equal to the plain "
@@ -1077,7 +1121,10 @@ def phase_int8_bert():
         f"{call_host_ms:.4f} ms; bf16 {facts['bf16_ms']:.2f} ms; worst "
         f"relative error to the bf16 product "
         + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
-        + f" (limit {INT8_REL_TOL})")
+        + f" (limit {INT8_REL_TOL}); captured as one CUDA graph "
+        f"({capture_ms:.0f} ms to capture): a replay takes "
+        f"{facts['graph_ms']:.2f} ms (median of 5, synced) against the eager "
+        f"pass's {facts['ms']:.2f}, bit-equal, counting {graph_counts}")
     del params, qw, outs, x
     torch.cuda.empty_cache()
     return facts
@@ -1127,41 +1174,54 @@ def phase_scoring(cfg, params, label, floor):
                 warm_ms_all=walls, **held)
 
 
-def phase_engine(cfg, params, kv_quant: bool, prompts):
-    """Serve the requests; → facts of the run (counts read around it)."""
-    import torch
+def zero_paged_counts():
     from repro_torch.kernels.lut_exp import lut_exp
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.serving import EngineCore, Request
-    c = cfg.replace(kv_quant=kv_quant)
-    eng = EngineCore(c, params, device=DEV, **ENGINE)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(uid=i, prompt=p, max_new=MAX_NEW))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     paged_attention.launches = 0
     paged_attention.combine_launches = 0
     lut_exp.launches = 0
-    step_ms, model_steps = [], 0
+
+
+def read_paged_counts():
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.kernels.paged_attention import paged_attention
+    return dict(paged_attention=paged_attention.launches,
+                paged_combine=paged_attention.combine_launches,
+                lut_exp=lut_exp.launches)
+
+
+def submit_all(eng, prompts, uid0=0):
+    from repro_torch.serving import Request
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=uid0 + i, prompt=p, max_new=MAX_NEW))
+    return list(range(uid0, uid0 + len(prompts)))
+
+
+def timed_pass(eng, cfg, prompts, uid0, tag):
+    """Serve the requests once; counts zeroed just before the pass and read
+    just after → facts of the pass (streams in request order)."""
+    import torch
+    uids = submit_all(eng, prompts, uid0)
+    eng.finished.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_paged_counts()
+    step_ms, kinds, model_steps = [], [], 0
     t0 = time.perf_counter()
     while eng.scheduler.has_work():
         s0 = time.perf_counter()
         out = eng.step()
         step_ms.append((time.perf_counter() - s0) * 1e3)
+        kinds.append((out.prefill_tokens, out.decode_tokens, out.lanes))
         model_steps += out.lanes > 0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(paged_attention=paged_attention.launches,
-                    paged_combine=paged_attention.combine_launches,
-                    lut_exp=lut_exp.launches)
+    launches = read_paged_counts()
     peak = torch.cuda.max_memory_allocated()
-    gen = sum(len(r.tokens) for r in eng.finished)
-    prompt_toks = sum(len(p) for p in prompts)
-    tag = "int8" if kv_quant else "bf16"
-    if len(eng.finished) != len(prompts) or any(
-            len(r.tokens) != MAX_NEW for r in eng.finished):
+    done = {r.uid: r.tokens for r in eng.finished}
+    if sorted(done) != uids or any(len(done[u]) != MAX_NEW for u in uids):
         fail(f"engine {tag}: not every request produced {MAX_NEW} tokens")
-    if any(not 0 <= t < cfg.vocab_size for r in eng.finished for t in r.tokens):
+    if any(not 0 <= t < cfg.vocab_size for u in uids for t in done[u]):
         fail(f"engine {tag}: token outside the vocab")
     for kernel in ("paged_attention", "paged_combine"):
         if launches[kernel] != cfg.num_layers * model_steps:
@@ -1169,20 +1229,284 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
                  f"expected layers × steps = {cfg.num_layers} × {model_steps}")
     if eng.pages_in_use != 0:
         fail(f"engine {tag}: {eng.pages_in_use} pages leaked")
-    facts = dict(pool=tag, steps=model_steps, launches=launches,
-                 generated=gen, prompt_tokens=prompt_toks, wall_s=wall,
-                 tok_s=gen / wall, all_tok_s=(gen + prompt_toks) / wall,
-                 step_ms_p50=float(np.percentile(step_ms, 50)),
-                 step_ms_p99=float(np.percentile(step_ms, 99)),
-                 peak_gib=peak / 2 ** 30,
-                 streams={r.uid: r.tokens[:8] for r in eng.finished})
-    log(f"[engine {tag}] {model_steps} steps, {gen} tokens generated, "
-        f"{prompt_toks} prompt tokens in {wall:.2f} s → {facts['tok_s']:.1f} "
-        f"generated tok/s ({facts['all_tok_s']:.1f} incl. prompt); step ms "
-        f"p50 {facts['step_ms_p50']:.2f} (earlier: "
-        f"{EARLIER_MS[f'step p50 {tag}']}) p99 {facts['step_ms_p99']:.2f}; peak "
-        f"{facts['peak_gib']:.2f} GiB; launches {launches}")
+    gen = sum(len(done[u]) for u in uids)
+    prompt_toks = sum(len(p) for p in prompts)
+    return dict(steps=model_steps, launches=launches, generated=gen,
+                prompt_tokens=prompt_toks, wall_s=wall, tok_s=gen / wall,
+                all_tok_s=(gen + prompt_toks) / wall,
+                step_ms_p50=float(np.percentile(step_ms, 50)),
+                step_ms_p99=float(np.percentile(step_ms, 99)),
+                peak_gib=peak / 2 ** 30, kinds=kinds,
+                streams=[done[u] for u in uids])
+
+
+def phase_engine(cfg, params, kv_quant: bool, prompts):
+    """The eager arm: serve the requests with ``capture=False`` (the step
+    dispatched op by op); → (engine, facts of the run)."""
+    from repro_torch.serving import EngineCore
+    c = cfg.replace(kv_quant=kv_quant)
+    eng = EngineCore(c, params, device=DEV, capture=False, **ENGINE)
+    tag = "int8" if kv_quant else "bf16"
+    facts = dict(pool=tag, **timed_pass(eng, c, prompts, 0, f"eager {tag}"))
+    log(f"[engine {tag}] eager: {facts['steps']} steps, {facts['generated']} "
+        f"tokens generated, {facts['prompt_tokens']} prompt tokens in "
+        f"{facts['wall_s']:.2f} s → {facts['tok_s']:.1f} generated tok/s "
+        f"({facts['all_tok_s']:.1f} incl. prompt); step ms p50 "
+        f"{facts['step_ms_p50']:.2f} (earlier: "
+        f"{EARLIER_MS[f'step p50 {tag}']}) p99 {facts['step_ms_p99']:.2f}; "
+        f"peak {facts['peak_gib']:.2f} GiB; launches {facts['launches']}")
     return eng, facts
+
+
+def step_logits(eng, batch):
+    """The live lanes' (lanes, V) f32 logits of ``batch`` through ``eng``'s
+    pool, eagerly, after the engine ran it (the step rewrites its own KV
+    rows with the same values, so it reads the history the step read)."""
+    import torch
+    from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged
+    a = {k: torch.from_numpy(v).to(DEV)
+         for k, v in eng.step_arrays(batch).items()}
+    lg = lm_step_ragged(eng.cfg, eng.params, a["tokens"], eng.kv.pool,
+                        a["table"], a["pos"], a["last_idx"], a["cu"],
+                        KERNEL_CONFIG)
+    return lg[:len(batch.plans)].cpu().numpy()
+
+
+def spy_batches(eng, seen):
+    inner = eng.scheduler.batch_for
+
+    def spy(wants):
+        batch, pre = inner(wants)
+        seen[eng] = batch
+        return batch, pre
+    eng.scheduler.batch_for = spy
+
+
+def lockstep_pass(ce, twin, prompts, tag, windows):
+    """The captured engine and an eager twin serve the same requests step
+    by step: equal plans every step, and the same greedy pick on every lane
+    unless PR 11's margin rule shows a near-tie (the eager logits' top-2
+    margin at that lane below the largest logit gap between the two
+    engines on that step), which forks the request: its later tokens are
+    not compared.  ``windows`` {step index: logdir} arms the twin's
+    profiler on those steps (the eager arm's trace) → (forks, traces)."""
+    seen, forks, traces = {}, [], {}
+    for eng in (ce, twin):
+        spy_batches(eng, seen)
+        submit_all(eng, prompts, uid0=100)
+        eng.finished.clear()
+    i = 0
+    while ce.scheduler.has_work() or twin.scheduler.has_work():
+        if i in windows:
+            twin.obs.arm_profiler(1, windows[i])
+        oc, oe = ce.step(), twin.step()
+        bc, be = seen[ce], seen[twin]
+        plan = [(p.run.req.uid, p.q_len) for p in be.plans]
+        if plan != [(p.run.req.uid, p.q_len) for p in bc.plans]:
+            fail(f"compiled {tag}: step {i} planned differently from the eager "
+                 f"twin")
+        forked = {f["uid"] for f in forks}
+        diff = [u for u in oe.tokens if u not in forked
+                and oc.tokens.get(u) != oe.tokens[u]]
+        if diff:
+            lc, le = step_logits(ce, bc), step_logits(twin, be)
+            gap = float(np.abs(lc - le).max())
+            for u in diff:
+                lane = [uid for uid, _ in plan].index(u)
+                top2 = np.sort(le[lane])[-2:]
+                margin = float(top2[1] - top2[0])
+                fork = dict(uid=u, step=i, margin=margin, gap=gap,
+                            captured=oc.tokens.get(u), eager=oe.tokens[u])
+                log(f"[compiled {tag}] lane of request {u} differs at step {i}: "
+                    f"{fork}")
+                if not margin < gap:
+                    fail(f"compiled {tag}: request {u} differs from the eager "
+                         f"twin at step {i} with a top-2 margin {margin} not "
+                         f"below the logit gap {gap}")
+                forks.append(fork)
+        if i in windows:
+            traces[i] = twin.obs.last_trace
+        i += 1
+    for eng in (ce, twin):
+        del eng.scheduler.batch_for                 # the spy
+    return forks, traces
+
+
+def step_kind_indices(kinds):
+    """Step indices of the pass's first mixed step and first step in which
+    every lane decodes and none prefills."""
+    mixed = next(i for i, (pf, dc, _) in enumerate(kinds) if pf and dc)
+    decode = next(i for i, (pf, dc, n) in enumerate(kinds)
+                  if not pf and dc == n == ENGINE["lanes"])
+    return {"mixed": mixed, "decode": decode}
+
+
+KERNEL_GROUPS = (("paged_attention_kernel", "paged split pass"),
+                 ("paged_combine", "paged combine"),
+                 ("gemm", "GEMM"), ("gemv", "GEMM"), ("xmma", "GEMM"),
+                 ("nvjet", "GEMM"),
+                 ("cutlass", "GEMM"), ("Memcpy", "copy"), ("Memset", "copy"),
+                 ("index", "index / gather / scatter"),
+                 ("scatter", "index / gather / scatter"),
+                 ("gather", "index / gather / scatter"),
+                 ("reduce", "reduce"), ("elementwise", "elementwise"),
+                 ("vectorized", "elementwise"))
+
+
+def kernel_group(name):
+    low = name.lower()
+    for key, group in KERNEL_GROUPS:
+        if key.lower() in low:
+            return group
+    return "other"
+
+
+def read_window(path, label):
+    """Summarise a profiler window's trace (``profile_summary``), print it,
+    and keep the trace gzipped beside it; fails when the window wrote no
+    trace."""
+    import gzip
+    import os
+    from repro_torch.serving.tracing import profile_summary
+    if path is None or not os.path.exists(path):
+        fail(f"profiler window {label} wrote no trace")
+    s = profile_summary(path, top=None)
+    groups = {}
+    for name, ms in s["by_name"].items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    top = dict(list(s["by_name"].items())[:8])
+    with open(path, "rb") as f_in, gzip.open(path + ".gz", "wb") as f_out:
+        f_out.write(f_in.read())
+    os.remove(path)
+    out = dict(launches=s["launches"], device_ms=s["device_ms"],
+               window_ms=s["window_ms"], busy_ms=s["busy_ms"],
+               idle_share=s["idle_share"],
+               kernel_span_ms=s["kernel_span_ms"],
+               kernel_span_idle_share=s["kernel_span_idle_share"],
+               host_launch_calls=s["host_launch_calls"],
+               launch_call_ms=s["launch_call_ms"],
+               by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+               top=top, trace=os.path.relpath(path + ".gz", ROOT))
+    log(f"[profile {label}] {s['launches']} kernels on the device, "
+        f"{s['device_ms']:.3f} ms device time in a {s['window_ms']:.3f} ms "
+        f"window: idle share {s['idle_share']:.3f}, "
+        f"{s['kernel_span_idle_share']:.3f} between the first and the last "
+        f"kernel ({s['kernel_span_ms']:.3f} ms apart); host launch calls "
+        f"{s['host_launch_calls']}, {s['launch_call_ms']:.3f} ms of host "
+        f"time; by group (ms) "
+        + json.dumps({k: round(v, 4) for k, v in out["by_group"].items()})
+        + "; top kernels (ms) "
+        + json.dumps({k[:60]: round(v, 4) for k, v in top.items()})
+        + f"; trace {out['trace']}")
+    if not s["launches"]:
+        log(f"[profile {label}] the trace holds no device event: device "
+            f"times, launches and idle share of this window not measured")
+    return out
+
+
+def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
+    """The captured arm: one engine with ``capture=True`` (one CUDA graph per
+    (T, P), replayed) serves the same requests.
+
+    Pass 1 runs in lockstep with a fresh eager twin (``lockstep_pass``),
+    whose profiler takes the eager arm's windows; warm passes repeat until
+    one captures nothing new (at most ``WARM_PASSES``, pass 1 included);
+    then ``obs.mark_warm()`` and a measured pass (``timed_pass``: launches equal
+    layers × model steps on replayed steps); then a pass with the replayed
+    arm's profiler windows.  Every pass's greedy streams must equal the
+    eager arm's, save a lane the lockstep showed to be a near-tie."""
+    import torch
+    from repro_torch.serving import EngineCore
+    c = cfg.replace(kv_quant=kv_quant)
+    tag = "int8" if kv_quant else "bf16"
+    kinds = step_kind_indices(eager["kinds"])
+    ce = EngineCore(c, params, device=DEV, **ENGINE)
+    twin = EngineCore(c, params, device=DEV, capture=False, **ENGINE)
+    tdir = ROOT / "chiprun_out" / "traces"
+    forks, traces = lockstep_pass(
+        ce, twin, prompts, tag,
+        {i: str(tdir / f"{tag}_eager_{k}") for k, i in kinds.items()})
+    windows = {f"eager {k}": read_window(traces[i], f"{tag} eager {k} step {i}")
+               for k, i in kinds.items()}
+    del twin
+    torch.cuda.empty_cache()
+    excused = {f["uid"] - 100 for f in forks}
+
+    def check_streams(streams, label):
+        for j, (got, want) in enumerate(zip(streams, eager["streams"])):
+            if j not in excused and got != want:
+                fail(f"compiled {tag} {label}: request {j}'s greedy stream "
+                     f"differs from the eager arm's")
+
+    check_streams([r.tokens for r in sorted(ce.finished, key=lambda r: r.uid)],
+                  "pass 1")
+    captures = [ce.graphs.captures]
+    ms_at = [len(ce.graphs.capture_ms)]
+    uid0 = 200
+    while captures[-1] and len(captures) < WARM_PASSES:
+        before = ce.graphs.captures
+        f = timed_pass(ce, c, prompts, uid0, f"compiled {tag} warm")
+        check_streams(f["streams"], f"warm pass {len(captures) + 1}")
+        captures.append(ce.graphs.captures - before)
+        ms_at.append(len(ce.graphs.capture_ms))
+        uid0 += 100
+    cap_ms = ce.graphs.capture_ms
+    per_pass_ms = [cap_ms[a:b] for a, b in zip([0] + ms_at[:-1], ms_at)]
+    ce.obs.mark_warm()
+    reg = ce.obs.registry
+    win, snap = ce.obs.engine_window(), reg.snapshot()
+    measured = timed_pass(ce, c, prompts, uid0, f"compiled {tag}")
+    check_streams(measured["streams"], "measured pass")
+    lat = ce.obs.engine_latency_summary(win)
+    delta = reg.delta(snap)
+    retraces = int(reg.value("step_retraces_total"))
+    uid0 += 100
+    submit_all(ce, prompts, uid0)                    # the replayed windows
+    ce.finished.clear()
+    at = {i: k for k, i in kinds.items()}
+    i = 0
+    while ce.scheduler.has_work():
+        if i in at:
+            ce.obs.arm_profiler(1, str(tdir / f"{tag}_replayed_{at[i]}"))
+        ce.step()
+        if i in at:
+            windows[f"replayed {at[i]}"] = read_window(
+                ce.obs.last_trace, f"{tag} replayed {at[i]} step {i}")
+        i += 1
+    check_streams([r.tokens for r in sorted(ce.finished, key=lambda r: r.uid)],
+                  "profiled pass")
+    if ce.obs.registry.value("step_retraces_total") != retraces:
+        fail(f"compiled {tag}: the profiled pass captured again")
+    facts = dict(
+        pool=tag, captures_per_pass=captures,
+        capture_ms=[float(np.median(m)) if m else 0.0 for m in per_pass_ms],
+        capture_ms_all=cap_ms, keys=sorted(ce.graphs.keys),
+        step_retraces_total=retraces,
+        step_traces_total=int(reg.value("step_traces_total")),
+        forks=forks, ttft_ms_p50=lat["ttft_ms_p50"],
+        ttft_ms_p99=lat["ttft_ms_p99"], tpot_ms=lat["tpot_ms"],
+        registry_delta={k: v for k, v in delta.items() if v},
+        windows=windows, step_kinds=kinds,
+        **{k: v for k, v in measured.items() if k not in ("streams", "kinds")})
+    log(f"[compiled {tag}] captures per pass {captures} (pass 1 in lockstep "
+        f"with the eager twin), median ms per capture "
+        f"{[round(m, 1) for m in facts['capture_ms']]}; keys (T, P) "
+        f"{facts['keys']}; after mark_warm(): step_retraces_total {retraces}; "
+        f"measured pass: {measured['steps']} steps, step ms p50 "
+        f"{measured['step_ms_p50']:.2f} p99 {measured['step_ms_p99']:.2f} "
+        f"(eager {eager['step_ms_p50']:.2f} / {eager['step_ms_p99']:.2f}); "
+        f"{measured['tok_s']:.1f} generated tok/s ({measured['all_tok_s']:.1f} "
+        f"incl. prompt; eager {eager['tok_s']:.1f}); peak "
+        f"{measured['peak_gib']:.2f} GiB (eager {eager['peak_gib']:.2f}); "
+        f"TTFT p50 {lat['ttft_ms_p50']:.1f} p99 {lat['ttft_ms_p99']:.1f} ms, "
+        f"TPOT {lat['tpot_ms']:.2f} ms (registry); launches "
+        f"{measured['launches']} = layers × steps; greedy streams equal the "
+        f"eager arm's on all {len(prompts)} requests"
+        + (f" save near-tie forks {forks}" if forks else ""))
+    del ce
+    torch.cuda.empty_cache()
+    return facts
 
 
 def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
@@ -1842,16 +2166,21 @@ def main() -> int:
     log(f"[requests] 8 prompts of {sorted(int(n) for n in lens)} tokens, "
         f"max_new {MAX_NEW}")
 
-    facts = {"launches": {}}
+    facts = {"launches": {}, "eager_launches": {}}
+    compiled = {}
     for kv_quant in (False, True):
+        tag, pool = ("int8", "int8") if kv_quant else ("bf16", "bfloat16")
         eng, f = phase_engine(cfg, params, kv_quant, prompts)
-        facts["launches"]["int8" if kv_quant else "bfloat16"] = f["launches"]
-        facts["int8" if kv_quant else "bf16"] = f
+        facts[tag] = f
+        facts["eager_launches"][pool] = f["launches"]
         if not kv_quant:
             steps = {"bf16": phase_step_vs_plain(cfg, params, eng.kv.pool,
                                                  "bf16", floor=1e-2)}
         del eng
         torch.cuda.empty_cache()
+        compiled[tag] = phase_compiled(cfg, params, kv_quant, prompts, f)
+        # the main path: the engine as a user builds it, capture on
+        facts["launches"][pool] = compiled[tag]["launches"]
     scoring = {"bf16": phase_scoring(cfg, params, "bf16", floor=1e-2)}
     steps["f32"] = phase_step_f32(cfg, params)       # widens params to f32
     scoring["f32"] = phase_scoring(cfg.replace(dtype="float32"), params,
@@ -1864,8 +2193,9 @@ def main() -> int:
     facts["build"] = built
     kernels = phase_timing(facts)
 
-    summary = {k: {kk: vv for kk, vv in facts[k].items() if kk != "streams"}
-               for k in ("bf16", "int8")}
+    summary = {k: {kk: vv for kk, vv in facts[k].items()
+                   if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
+    summary["compiled"] = compiled
     summary["step_vs_plain"] = steps
     summary["streaming_attention_checks"] = sa_worst
     summary["bert"] = bert

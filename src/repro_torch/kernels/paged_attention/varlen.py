@@ -18,7 +18,7 @@ attention itself is the kernel's.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,11 +107,33 @@ def q_block_layout(cu: torch.Tensor, q_pos: torch.Tensor, t: int, bq: int
 Attend = Callable[..., torch.Tensor]
 
 
-def _tiled(q, token_pages, q_pos, cu, bq: int, attend) -> torch.Tensor:
+class VarlenLayout(NamedTuple):
+    """One step's q-block layout (``q_block_layout``'s four arrays), or
+    ``None`` for an untiled call — the same for every layer, so a step
+    computes it once (``varlen_layout``) and hands it to each."""
+    blocks: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]]
+
+
+def varlen_layout(cu_seqlens, q_pos, t: int, block_q: Optional[int],
+                  device) -> VarlenLayout:
+    """Validate ``cu_seqlens`` against the stream width ``t`` and, when the
+    call is tiled (``block_q > 1`` with lane boundaries), cut the stream
+    into q-blocks → :class:`VarlenLayout` on ``device``."""
+    cu = (validate_cu_seqlens(cu_seqlens, t).to(device)
+          if cu_seqlens is not None else None)
+    bq = None if block_q is None else int(min(block_q, max(t, 1)))
+    if cu is None or bq is None or bq <= 1:
+        return VarlenLayout(None)
+    q_pos = torch.as_tensor(q_pos).to(device=device, dtype=torch.int32)
+    return VarlenLayout(q_block_layout(cu, q_pos, t, bq))
+
+
+def _tiled(q, token_pages, blocks, attend) -> torch.Tensor:
     """Regather (T,)-stream → (NB, Hq, Bq, D) blocks, attend, scatter back."""
     t, hq, d = q.shape
-    rows, start, kv_len, slot = q_block_layout(cu, q_pos, t, bq)
-    nb = rows.shape[0]
+    rows, start, kv_len, slot = blocks
+    nb, bq = rows.shape
     qb = q[rows.reshape(-1).long()].reshape(nb, bq, hq, d)
     qb = qb.transpose(1, 2).contiguous()                 # (NB, Hq, bq, D)
     tbl = token_pages[start.long()].contiguous()         # (NB, P)
@@ -122,19 +144,18 @@ def _tiled(q, token_pages, q_pos, cu, bq: int, attend) -> torch.Tensor:
 
 def _varlen(attend_4d: Attend, q, k_pool, v_pool, token_pages, q_pos, *,
             cu_seqlens, scale, cap, window, exp_mode, k_scale, v_scale,
-            block_q, block_pages, dequant, kv_split) -> torch.Tensor:
+            block_q, block_pages, dequant, kv_split, layout) -> torch.Tensor:
     t = q.shape[0]
-    cu = (validate_cu_seqlens(cu_seqlens, t).to(q.device)
-          if cu_seqlens is not None else None)
-    q_pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32)
+    if layout is None:
+        layout = varlen_layout(cu_seqlens, q_pos, t, block_q, q.device)
     kw = dict(scale=scale, cap=cap, window=window, exp_mode=exp_mode,
               k_scale=k_scale, v_scale=v_scale, block_pages=block_pages,
               dequant=dequant, kv_split=kv_split)
-    bq = None if block_q is None else int(min(block_q, max(t, 1)))
-    if cu is not None and bq is not None and bq > 1:
-        return _tiled(q, token_pages, q_pos, cu, bq,
+    if layout.blocks is not None:
+        return _tiled(q, token_pages, layout.blocks,
                       lambda qb, tbl, kv_len: attend_4d(
                           qb, k_pool, v_pool, tbl, kv_len, **kw))
+    q_pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32)
     out = attend_4d(q.reshape(t, q.shape[1], 1, q.shape[2]), k_pool, v_pool,
                     token_pages, q_pos + 1, **kw)
     return out[:, :, 0, :]
@@ -153,15 +174,19 @@ def paged_attention_varlen(q: torch.Tensor, k_pool: torch.Tensor,
                            block_q: Optional[int] = None,
                            block_pages: Optional[int] = None,
                            dequant: str = "block",
-                           kv_split: Optional[int] = None) -> torch.Tensor:
+                           kv_split: Optional[int] = None,
+                           layout: Optional[VarlenLayout] = None
+                           ) -> torch.Tensor:
     """Ragged paged attention over a packed (T,)-token stream → (T, Hq, D),
     through :func:`~repro_torch.kernels.paged_attention.ops.paged_attention`
-    (the CUDA kernel on the card, the plain version on the CPU)."""
+    (the CUDA kernel on the card, the plain version on the CPU).
+    ``layout`` is the step's :func:`varlen_layout`, computed here when the
+    caller passes none."""
     return _varlen(paged_attention, q, k_pool, v_pool, token_pages, q_pos,
                    cu_seqlens=cu_seqlens, scale=scale, cap=cap, window=window,
                    exp_mode=exp_mode, k_scale=k_scale, v_scale=v_scale,
                    block_q=block_q, block_pages=block_pages, dequant=dequant,
-                   kv_split=kv_split)
+                   kv_split=kv_split, layout=layout)
 
 
 def paged_attention_varlen_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -177,7 +202,8 @@ def paged_attention_varlen_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                      block_q: Optional[int] = None,
                                      block_pages: Optional[int] = None,
                                      dequant: str = "block",
-                                     kv_split: Optional[int] = None
+                                     kv_split: Optional[int] = None,
+                                     layout: Optional[VarlenLayout] = None
                                      ) -> torch.Tensor:
     """The same reduction, always through the plain page-block scan — on any
     device (the card's comparison path)."""
@@ -185,4 +211,4 @@ def paged_attention_varlen_reference(q: torch.Tensor, k_pool: torch.Tensor,
                    q_pos, cu_seqlens=cu_seqlens, scale=scale, cap=cap,
                    window=window, exp_mode=exp_mode, k_scale=k_scale,
                    v_scale=v_scale, block_q=block_q, block_pages=block_pages,
-                   dequant=dequant, kv_split=kv_split)
+                   dequant=dequant, kv_split=kv_split, layout=layout)

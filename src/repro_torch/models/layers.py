@@ -130,8 +130,8 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       cache: Dict[str, torch.Tensor],
                       token_pages: torch.Tensor,
                       cu_seqlens: Optional[torch.Tensor],
-                      kernel_config: Dict, attend: Callable = None
-                      ) -> torch.Tensor:
+                      kernel_config: Dict, attend: Callable = None,
+                      layout=None) -> torch.Tensor:
     """The ragged branch of the reference ``attn_apply`` (layers.py:238-349).
 
     ``x`` is one (1, T, d_model) packed stream, ``pos`` (T,) each token's
@@ -144,7 +144,8 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
     The reference donates the pool buffer to the jitted step; here the
     write updates the pool in place (``index_put_`` on the layer's view of
-    the stacked pool).
+    the stacked pool).  ``layout`` is the step's q-block layout
+    (``varlen_layout``), computed once per step rather than per layer.
     """
     attend = attend or paged_attention_varlen
     _, t, _ = x.shape
@@ -181,7 +182,7 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         put(cache["v"], v)
     qt = q[0].transpose(0, 1).contiguous()                      # (T, Hq, Dh)
     out = attend(qt, cache["k"], cache["v"], token_pages, pos,
-                 cu_seqlens=cu_seqlens, **kw)                   # (T, Hq, Dh)
+                 cu_seqlens=cu_seqlens, layout=layout, **kw)    # (T, Hq, Dh)
     return dense_apply(p["wo"], out.reshape(1, t, cfg.num_heads * cfg.d_head))
 
 

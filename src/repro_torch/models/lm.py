@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import configure_matmul_precision
+from repro_torch.kernels.paged_attention.varlen import varlen_layout
 from repro_torch.models import layers as L
 
 Params = Dict[str, torch.Tensor]
@@ -152,14 +153,18 @@ def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                        cu_seqlens: Optional[torch.Tensor],
                        kernel_config: Dict,
                        attend: Optional[Callable] = None) -> torch.Tensor:
-    """Every layer over the packed stream, writing its pool rows in place."""
+    """Every layer over the packed stream, writing its pool rows in place.
+    The lane boundaries are validated and cut into q-blocks once, here, for
+    all layers (the reference's ``jit`` hoists the same work)."""
+    layout = varlen_layout(cu_seqlens, pos, x.shape[1],
+                           kernel_config["block_q"], x.device)
     for i in range(_ragged_family(cfg)):
         p = _layer(cfg, params, i)
         cache = {k: v[i] for k, v in caches.items()}
         x = x + L.attn_apply_ragged(
             cfg, p, L.norm_apply(p["ln1"], x), pos=pos, cache=cache,
             token_pages=token_pages, cu_seqlens=cu_seqlens,
-            kernel_config=kernel_config, attend=attend)
+            kernel_config=kernel_config, attend=attend, layout=layout)
         x = x + L.mlp_apply(cfg, p, L.norm_apply(p["ln2"], x))
     return x
 

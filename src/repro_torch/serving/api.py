@@ -57,6 +57,9 @@ class StepOutput:
     decode_tokens: int                 # sampling-step lanes
     live_rows: int = 0                 # live token rows in the stream
     padded_rows: int = 0               # bucketed stream width
+    # speculative telemetry: always 0 until the speculative-decoding slice
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
 
     @property
     def mixed(self) -> bool:

@@ -7,7 +7,8 @@ Pages are handed out lowest id first, so the physical layout is
 deterministic under any release order.  Every page carries a refcount (one
 per page table naming it); ``release`` returns a page to the heap only when
 its last reference drops.  Copy-on-write and prefix-cache reclaim belong to
-the prefix-cache slice.
+the prefix-cache slice; ``obs`` (the engine's ``ServingObservability``) is
+held for its copy-on-write counter, as the reference's pool holds it.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ from repro_torch.models.lm import trunk_cache_init
 
 class PagedKVCache:
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int, *,
-                 device=None):
+                 device=None, obs=None):
         self.num_pages = num_pages
+        self.obs = obs                              # ServingObservability
         self.page_size = page_size
         self.scratch = num_pages                    # sink page for dead rows
         self.pool = trunk_cache_init(cfg, num_pages + 1, page_size, device)

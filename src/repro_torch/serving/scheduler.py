@@ -16,6 +16,10 @@ reference:
   trimmed (youngest first) so live work lands on a bucket edge, and the
   page-table width is held at its high-water mark.
 
+Every lifecycle event goes to ``obs`` (the engine's
+``ServingObservability``) at the reference's points: submitted, finished,
+aborted, preempted and admitted (or resumed).
+
 The prefix-cache and speculative-draft branches of the reference belong to
 later slices.
 """
@@ -30,6 +34,7 @@ import numpy as np
 from repro_torch.serving.api import Request, RequestState
 from repro_torch.serving.paged import PagedKVCache
 from repro_torch.serving.sampling import InvalidRequest
+from repro_torch.serving.tracing import ServingObservability
 
 
 def default_token_buckets(max_tokens: int) -> Tuple[int, ...]:
@@ -101,8 +106,10 @@ class RaggedBatch:
 class Scheduler:
     def __init__(self, kv: PagedKVCache, *, lanes: int = 4,
                  chunk_size: int = 16, step_tokens: Optional[int] = None,
-                 token_buckets: Optional[Sequence[int]] = None):
+                 token_buckets: Optional[Sequence[int]] = None, obs=None):
         assert chunk_size >= 1
+        self.obs = obs if obs is not None else ServingObservability(
+            enabled=False)
         self.kv = kv
         self.lanes = lanes
         self.chunk_size = chunk_size
@@ -118,6 +125,7 @@ class Scheduler:
         self._table_pages = 1                       # table-width high-water mark
         self._ticket = 0
         self._evicted_now: List[int] = []
+        self.trimmed_prefill_step = 0               # tokens, this step
 
     # ------------------------------------------------------------ lifecycle
     def submit(self, req: Request) -> None:
@@ -133,6 +141,8 @@ class Scheduler:
         req.state = RequestState.WAITING
         self.waiting.append(RunningRequest(req, self._ticket))
         self._ticket += 1
+        self.obs.request_submitted(req.uid, prompt_len=len(req.prompt),
+                                   max_new=req.max_new)
 
     def finish(self, run: RunningRequest) -> None:
         """Release a completed request's lane and pages."""
@@ -140,6 +150,7 @@ class Scheduler:
         self.kv.release(run.pages)
         run.pages = []
         run.req.state = RequestState.FINISHED
+        self.obs.request_finished(run.req.uid, generated=len(run.req.tokens))
 
     def abort(self, uid: int) -> bool:
         """Cancel a waiting or running request by uid → True if found."""
@@ -148,6 +159,8 @@ class Scheduler:
                 self.waiting.remove(run)
                 run.req.done = True
                 run.req.state = RequestState.ABORTED
+                self.obs.request_finished(uid, aborted=True,
+                                          generated=len(run.req.tokens))
                 return True
         for run in self.running:
             if run.req.uid == uid:
@@ -157,6 +170,8 @@ class Scheduler:
                 run.pages = []
                 run.req.done = True
                 run.req.state = RequestState.ABORTED
+                self.obs.request_finished(uid, aborted=True,
+                                          generated=len(run.req.tokens))
                 return True
         return False
 
@@ -177,6 +192,7 @@ class Scheduler:
         victim.rows = 0
         victim.req.state = RequestState.PREEMPTED
         self._evicted_now.append(victim.req.uid)
+        self.obs.request_preempted(victim.req.uid)
         bisect.insort(self.waiting, victim, key=lambda r: r.ticket)
         return True
 
@@ -197,8 +213,10 @@ class Scheduler:
             if self.kv.pages_needed(cand.known() + 1) > self.kv.available_pages:
                 break                     # FCFS: the head blocks the queue
             self.waiting.pop(0)
+            resumed = cand.req.state is RequestState.PREEMPTED
             cand.rows = 0
             cand.req.state = RequestState.PREFILL
+            self.obs.request_admitted(cand.req.uid, resumed=resumed)
             bisect.insort(self.running, cand, key=lambda r: r.ticket)
 
     def _plan_wants(self) -> Dict[int, int]:
@@ -233,6 +251,7 @@ class Scheduler:
     def begin_step(self) -> Dict[int, int]:
         """Admit waiters and split the token budget → ticket → q_len."""
         self._evicted_now = []
+        self.trimmed_prefill_step = 0
         self._admit()
         return self._plan_wants()
 
@@ -268,6 +287,7 @@ class Scheduler:
             take = min(cut, wants[tkt] - 1)
             wants[tkt] -= take
             cut -= take
+            self.trimmed_prefill_step += take
         return wants
 
     def pack(self, plans: List[LanePlan]) -> RaggedBatch:

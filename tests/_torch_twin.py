@@ -82,8 +82,10 @@ def _spy_logits(je, jc, logits, monkeypatch):
     monkeypatch.setattr(t_core, "lm_step_ragged", t_spy)
 
 
-def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw):
-    """Drive both engines to completion → dict of per-run facts."""
+def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
+              on_step=None):
+    """Drive both engines to completion → dict of per-run facts.
+    ``on_step(je, te, step)`` runs after every step's checks."""
     jc, tc, jparams, tparams = build(dtype, kv_quant)
     je = JEngine(jc, jparams, **engine_kw)
     te = TEngine(tc, tparams, device="cpu", **engine_kw)
@@ -134,6 +136,8 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw):
                                   f"above the measured logit gap {gap}")
             near_ties.append((uid, steps, margin, gap))
             forked.add(uid)
+        if on_step is not None:
+            on_step(je, te, steps)
     assert not te.scheduler.has_work()
     streams = ({r.uid: r.tokens for r in je.finished},
                {r.uid: r.tokens for r in te.finished})

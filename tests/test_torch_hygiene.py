@@ -49,6 +49,24 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert n_modules >= 20, out.stdout        # every submodule was imported
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serving.metrics",
+                                    "repro_torch.serving.tracing",
+                                    "repro_torch.serving.graphs"])
+def test_serving_obs_modules_import_no_jax(module):
+    """Each module of the serving observability and the captured step,
+    imported alone in a fresh process, pulls in neither JAX nor the
+    reference package (whose ``serving/metrics.py`` it copies)."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            f"bad = sorted(n for n in sys.modules if n.startswith('jax')"
+            f" or n.split('.')[0] == 'repro')\n"
+            f"assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

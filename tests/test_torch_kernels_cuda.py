@@ -826,3 +826,123 @@ def test_int8_matmul_row_major_weight_counts_one_transpose(cuda_device):
     torch.cuda.synchronize()
     assert int8_matmul.transposes == transposes + 1
     assert_bits_equal(a, b)
+
+
+# ---------------------------------------------------- the captured step --
+#
+# The serving step captured as a CUDA graph per (T, P) (serving/graphs.py)
+# against the same step dispatched op by op: same kernels on the same
+# inputs, so picks and pool bytes agree bit for bit.  The scratch page
+# (the pool's last) is left out: every dead stream row writes its K/V
+# there, at one (page, offset), and which of those writes lands last is
+# not defined.
+
+def _smoke_engine(cuda_device, kv_quant, capture, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore
+    cfg = get_config("deepseek-7b-smoke").replace(dtype="bfloat16",
+                                                  kv_quant=kv_quant)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    return EngineCore(cfg, params, lanes=3, page_size=8, num_pages=24,
+                      chunk_size=8, device=cuda_device, capture=capture, **kw)
+
+
+def _smoke_requests(eng, seed=13, lens=(3, 21, 9, 14, 6),
+                    news=(7, 5, 9, 4, 6)):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    for i, (lp, mn) in enumerate(zip(lens, news)):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, eng.cfg.vocab_size, lp).astype(np.int32), max_new=mn))
+
+
+def _pool_bits(eng):
+    out = {}
+    for name, t in eng.kv.pool.items():
+        live = t[:, :-1].contiguous()                # all but the scratch page
+        out[name] = live.view(torch.int16 if t.dtype == torch.bfloat16
+                              else torch.int8 if t.dtype == torch.int8
+                              else torch.int32)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_captured_step_bit_equal_to_eager(cuda_device, kv_quant):
+    """After every step of the mixed trace, the captured engine's picks and
+    pool bytes equal the eager engine's; the sentinel counted one capture
+    per (T, P) key and each key's graph was replayed."""
+    eager = _smoke_engine(cuda_device, kv_quant, capture=False)
+    graph = _smoke_engine(cuda_device, kv_quant, capture=True)
+    for eng in (eager, graph):
+        _smoke_requests(eng)
+    steps = 0
+    while eager.scheduler.has_work():
+        oe, og = eager.step(), graph.step()
+        assert oe.tokens == og.tokens, steps
+        for name, bits in _pool_bits(eager).items():
+            assert torch.equal(bits, _pool_bits(graph)[name]), (steps, name)
+        steps += 1
+    assert not graph.scheduler.has_work()
+    assert graph.trace_count == graph.graphs.captures > 0
+    assert graph.trace_count < steps                 # keys were replayed
+    assert eager.trace_count == 0
+
+
+@pytest.mark.cuda
+def test_replay_never_synchronises_and_counts_launches(cuda_device):
+    """A replayed step reads no device value on the host (staging through
+    pinned memory, the replay), and N replays advance the kernel counters
+    by N × the step's launches: one split pass and one combine per layer."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    eng = _smoke_engine(cuda_device, False, capture=True)
+    _smoke_requests(eng, lens=(5, 6, 7), news=(4, 4, 4))
+    eng.step()
+    eng.step()
+    batch, _ = eng.scheduler.batch_for(eng.scheduler.begin_step())
+    arrays = eng.step_arrays(batch)
+    eng.graphs.run(**arrays)                         # may capture this key
+    torch.cuda.synchronize()
+    captures = eng.graphs.captures
+    want = eng.graphs.run(**arrays).clone()
+    torch.cuda.synchronize()
+    n, layers = 5, eng.cfg.num_layers
+    before = (paged_attention.launches, paged_attention.combine_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            got = eng.graphs.run(**arrays)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert eng.graphs.captures == captures           # replays only
+    assert torch.equal(got, want)
+    assert (paged_attention.launches - before[0],
+            paged_attention.combine_launches - before[1]) == (n * layers,
+                                                             n * layers)
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_read_raises(cuda_device):
+    """A step function that reads a device value on the host cannot be
+    captured: the capture raises, and nothing runs the step eagerly in its
+    place (no key is kept, the counters are put back)."""
+    from repro_torch.serving.graphs import StepGraphs, launch_counts
+
+    def step_fn(tokens, pos, table, last_idx, cu):
+        if int(tokens.sum()) < 0:                     # a host read
+            return last_idx
+        return last_idx + 1
+
+    g = StepGraphs(step_fn, lanes=2, device=cuda_device)
+    arrays = dict(tokens=np.ones(4, np.int32), pos=np.arange(4, dtype=np.int32),
+                  table=np.zeros((4, 1), np.int32),
+                  last_idx=np.zeros(2, np.int32),
+                  cu=np.array([0, 4, 4, 4], np.int32))
+    before = launch_counts()
+    with pytest.raises(RuntimeError):
+        g.run(**arrays)
+    torch.cuda.synchronize()
+    assert not g.keys and launch_counts() == before
