@@ -57,6 +57,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (one streaming-attention launch per layer: bf16 on the tensor-core
    kernel, f32 on the CUDA-core one) against the plain attention, in bf16
    and in f32;
+7a. the prefix cache at the same width, bf16 and int8 pools: 8 requests
+   share a 520-token system prompt, each with its own tail of 32·(i + 1)
+   tokens, 32 new each; request 0 runs alone and publishes (page 32 holds
+   8 prompt rows and 8 of its tail), requests 1–7 run together and each
+   takes a partial-page hit copied on write in place, then all 8 are
+   served again (hits up to len − 1).  A cached captured engine, a cached
+   eager one and an uncached captured one: captured = eager bit for bit
+   (streams, cache stats, pool bytes), streams = the uncached arm's by the
+   near-tie margin rule (a fork is read again with both arms' logits), every
+   copied original keeps its bits, only cached pages in use after the
+   drain; hit and prefill tokens, CoW copies, steps, step p50/p99, TTFT
+   of requests 1–7, #2 launches (= layers × steps), peak memory;
+7b. speculative decoding at k = 4, bf16 pool: (a) a scripted proposer
+   replays phase 7's captured streams of the same 8 prompts, corrupting
+   position i % 5 − 1 of its i-th proposal (full, partial and no
+   acceptance all occur): streams = phase 7's by the margin rule, one
+   capture per (T, P) key it saw, a never-drafting speculative engine
+   captures as many keys as phase 7's plain engine, the pool drained, 30
+   split passes and 30 combines per step; (b) the default
+   ``NGramProposer`` on prompts of a repeated 32-token phrase beside the
+   plain engine (warm pass, then a measured one): acceptance, committed
+   tokens per step, step p50, tokens/s;
 8. hold the activation quantisation kernel (``quantize_dynamic``)
    bit-equal to its plain version, int8 values and scale, f32 and bf16:
    ragged and unaligned sizes, all zeros, exact .5 ties, an outlier,
@@ -77,7 +99,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 10. time each kernel at its main path's shapes (paged attention, its
    combine and the LUT exp at the engine's decode step, paged attention
    also at a mixed step of one 256-token prefill chunk and 7 decodes, and
-   at both shapes beside SDPA three ways: as a caller sees it, the device
+   at a verify step of 8 lanes × (1 + 4) rows, and at the three shapes
+   beside SDPA three ways: as a caller sees it, the device
    time alone and the host time per call, with a sweep over 4, 8 and 16
    pages per split; streaming attention at the BERT
    encode and deepseek scoring shapes, with exact exp and the f32 CUDA-core
@@ -137,6 +160,9 @@ KV_SPLIT_SWEEP = (4, 8, 16)        # pages per split timed at the decode shape
 WARM_PASSES = 3                    # the captured arm's warm passes, at most,
                                    # the lockstep pass included
 MIXED_CHUNK = (256, 512)           # the mixed step's chunk: (tokens, live rows)
+PREFIX_SHARED, PREFIX_TAIL = 520, 32  # the prefix phase: system prompt, tail unit
+SPEC_K = 4                         # drafts per decode lane, speculative phase
+SPEC_PHRASE = 32                   # the repeated phrase of its NGram prompts
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -1190,6 +1216,14 @@ def read_paged_counts():
                 lut_exp=lut_exp.launches)
 
 
+def set_paged_counts(counts):
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.kernels.paged_attention import paged_attention
+    paged_attention.launches = counts["paged_attention"]
+    paged_attention.combine_launches = counts["paged_combine"]
+    lut_exp.launches = counts["lut_exp"]
+
+
 def submit_all(eng, prompts, uid0=0):
     from repro_torch.serving import Request
     for i, p in enumerate(prompts):
@@ -1236,6 +1270,9 @@ def timed_pass(eng, cfg, prompts, uid0, tag):
                 all_tok_s=(gen + prompt_toks) / wall,
                 step_ms_p50=float(np.percentile(step_ms, 50)),
                 step_ms_p99=float(np.percentile(step_ms, 99)),
+                decode_step_ms_p50=float(np.median(
+                    [t for t, (pf, dc, n) in zip(step_ms, kinds)
+                     if not pf and dc == n == ENGINE["lanes"]])),
                 peak_gib=peak / 2 ** 30, kinds=kinds,
                 streams=[done[u] for u in uids])
 
@@ -1487,7 +1524,7 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
         forks=forks, ttft_ms_p50=lat["ttft_ms_p50"],
         ttft_ms_p99=lat["ttft_ms_p99"], tpot_ms=lat["tpot_ms"],
         registry_delta={k: v for k, v in delta.items() if v},
-        windows=windows, step_kinds=kinds,
+        windows=windows, step_kinds=kinds, streams=measured["streams"],
         **{k: v for k, v in measured.items() if k not in ("streams", "kinds")})
     log(f"[compiled {tag}] captures per pass {captures} (pass 1 in lockstep "
         f"with the eager twin), median ms per capture "
@@ -1507,6 +1544,524 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
     del ce
     torch.cuda.empty_cache()
     return facts
+
+
+# --------------------------------------------- prefix cache, speculation --
+
+class ScriptedProposer:
+    """Drafts by replaying known greedy continuations (the design of
+    ``tests/test_spec_decode.py``'s proposer): ``truth`` maps each prompt
+    to its stream; ``corrupt(i, n)`` names the position of the i-th
+    proposal (of n drafts) to put off by one, or None."""
+
+    def __init__(self, truth, vocab, corrupt):
+        self.truth = {tuple(int(t) for t in p): list(s)
+                      for p, s in truth.items()}
+        self.vocab = vocab
+        self.corrupt = corrupt
+        self.calls = 0
+        self.log = []                         # (drafts, true continuation)
+
+    def __call__(self, stream, k):
+        s = [int(t) for t in stream]
+        for prompt, toks in self.truth.items():
+            lp = len(prompt)
+            if tuple(s[:lp]) == prompt and s[lp:] == toks[:len(s) - lp]:
+                cont = toks[len(s) - lp:len(s) - lp + k]
+                drafts = list(cont)
+                m = self.corrupt(self.calls, len(drafts))
+                if m is not None and m < len(drafts):
+                    drafts[m] = (drafts[m] + 1) % self.vocab
+                self.calls += 1
+                if drafts:
+                    self.log.append((drafts, cont))
+                return drafts
+        return []
+
+
+def acceptance_kinds(log):
+    """How each logged proposal fared: every draft accepted, none, or a
+    proper prefix."""
+    kinds = {"full": 0, "none": 0, "partial": 0}
+    for drafts, cont in log:
+        n = len(drafts)
+        acc = next((j for j in range(n) if drafts[j] != cont[j]), n)
+        kinds["full" if acc == n else "none" if acc == 0 else "partial"] += 1
+    return kinds
+
+
+def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
+    """Serve ``waves`` (lists of (uid, prompt)), each submitted once the
+    engine drained the one before; kernel counts zeroed just before and
+    read just after → facts of the run and of each wave, and the logits
+    row of every (uid, token index) in ``targets`` (the eager step re-run
+    on the engine's pool right after the step that committed the token;
+    its launches are not counted).  ``profile_at`` {step index: logdir}
+    arms the engine's profiler on those steps and reads each window."""
+    import torch
+    from repro_torch.serving import Request
+    seen, reqs, logits, keys = {}, {}, {}, set()
+    step_log, windows, profile_at = [], {}, profile_at or {}
+    spy_batches(eng, seen)
+    eng.finished.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_paged_counts()
+    t0 = time.perf_counter()
+    per_wave = []
+    for wave in waves:
+        w = dict(step_ms=[], steps=0, prefill_tokens=0, hit_tokens=0,
+                 drafted=0, accepted=0, ttft_ms={},
+                 captures=eng.graphs.captures)
+        t_sub = time.perf_counter()
+        for uid, prompt in wave:
+            reqs[uid] = Request(uid=uid, prompt=prompt, max_new=MAX_NEW)
+            eng.submit(reqs[uid])
+        while eng.scheduler.has_work():
+            before = {u: len(r.tokens) for u, r in reqs.items()}
+            n0, c0 = read_paged_counts()["paged_attention"], eng.graphs.captures
+            if len(step_log) in profile_at:
+                eng.obs.arm_profiler(1, profile_at[len(step_log)])
+            s0 = time.perf_counter()
+            out = eng.step()
+            now = time.perf_counter()
+            if len(step_log) in profile_at:
+                windows[len(step_log)] = read_window(
+                    eng.obs.last_trace, f"step {len(step_log)}")
+            step_log.append(dict(
+                prefill=out.prefill_tokens, decode=out.decode_tokens,
+                lanes=out.lanes, drafted=out.drafted_tokens,
+                width=out.padded_rows, ms=(now - s0) * 1e3,
+                captures=eng.graphs.captures - c0,
+                launches=read_paged_counts()["paged_attention"] - n0))
+            w["step_ms"].append((now - s0) * 1e3)
+            w["steps"] += out.lanes > 0
+            w["prefill_tokens"] += out.prefill_tokens
+            w["hit_tokens"] += out.prefix_hit_tokens
+            w["drafted"] += out.drafted_tokens
+            w["accepted"] += out.accepted_tokens
+            if out.lanes:
+                keys.add(seen[eng].table.shape)
+            for u in out.tokens:
+                w["ttft_ms"].setdefault(u, (now - t_sub) * 1e3)
+            lg = None
+            for i, plan in enumerate(seen[eng].plans if out.lanes else ()):
+                u = plan.run.req.uid
+                for j in range(before[u], len(reqs[u].tokens)):
+                    if (u, j) in targets:
+                        if lg is None:          # not the engine's launches
+                            counts = read_paged_counts()
+                            lg = step_logits(eng, seen[eng])
+                            set_paged_counts(counts)
+                        logits[u, j] = (lg[i] if lg.ndim == 2
+                                        else lg[i, j - before[u]])
+        w["wall_s"] = time.perf_counter() - t_sub
+        w["captures"] = eng.graphs.captures - w["captures"]
+        w["generated"] = sum(len(reqs[u].tokens) for u, _ in wave)
+        per_wave.append(w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_paged_counts()
+    del eng.scheduler.batch_for                     # the spy
+    streams = {u: list(r.tokens) for u, r in reqs.items()}
+    steps = sum(w["steps"] for w in per_wave)
+    step_ms = [t for w in per_wave for t in w["step_ms"]]
+    gen = sum(len(t) for t in streams.values())
+    if any(len(t) != MAX_NEW or not all(0 <= x < eng.cfg.vocab_size for x in t)
+           for t in streams.values()):
+        fail("a request did not produce MAX_NEW in-vocab tokens")
+    for kernel in ("paged_attention", "paged_combine"):
+        if launches[kernel] != eng.cfg.num_layers * steps:
+            odd = [(i, st) for i, st in enumerate(step_log) if st["launches"]
+                   != eng.cfg.num_layers * (st["lanes"] > 0)]
+            fail(f"{kernel} launched {launches[kernel]} times, expected "
+                 f"layers × steps = {eng.cfg.num_layers} × {steps}; steps off "
+                 f"the rule: {odd}")
+    return dict(streams=streams, logits=logits, waves=per_wave, steps=steps,
+                keys=sorted(keys), step_log=step_log, windows=windows,
+                launches=launches, wall_s=wall, generated=gen,
+                tok_s=gen / wall, step_ms_p50=float(np.percentile(step_ms, 50)),
+                step_ms_p99=float(np.percentile(step_ms, 99)),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def fresh_run(make_eng, serve):
+    """→ a function of targets that serves them on a fresh engine
+    (``serve(eng, targets)``) and frees it: one arm run again."""
+    def run(targets):
+        import torch
+        eng = make_eng()
+        try:
+            return serve(eng, targets)
+        finally:
+            del eng
+            torch.cuda.empty_cache()
+    return run
+
+
+def hold_by_margin(label, got, want, rerun_got, rerun_want):
+    """Hold streams ``got`` against ``want`` ({uid: tokens}) by the near-tie
+    margin rule: where a request's tokens first differ, both arms are run
+    again (they are deterministic: the rerun must repeat the stream) and
+    the logits row of that token read from each; the fork stands only if
+    ``want``'s top-2 margin there lies below the largest logit gap between
+    the two rows.  → the forks, each with its margin and gap."""
+    forks = {}
+    for u, w in want.items():
+        j = next((i for i, (a, b) in enumerate(zip(got[u], w)) if a != b),
+                 None)
+        if j is not None:
+            forks[u] = j
+    if not forks:
+        return []
+    targets = frozenset(forks.items())
+    out = []
+    lg, lw = rerun_got(targets), rerun_want(targets)
+    for (rerun, ref, side) in ((lg, got, "got"), (lw, want, "want")):
+        if {u: rerun["streams"][u] for u in ref} != ref:
+            fail(f"{label}: the {side} arm's rerun served other streams")
+    for u, j in sorted(forks.items()):
+        a, b = lg["logits"][u, j], lw["logits"][u, j]
+        top2 = np.sort(b)[-2:]
+        margin = float(top2[1] - top2[0])
+        gap = float(np.abs(a - b).max())
+        fork = dict(uid=u, token=j, margin=margin, gap=gap)
+        log(f"[{label}] request {u} forks at token {j}: {fork}")
+        if not margin < gap:
+            fail(f"{label}: request {u} differs at token {j} with a top-2 "
+                 f"margin {margin} not below the logit gap {gap}")
+        out.append(fork)
+    return out
+
+
+def prefix_traffic(cfg, seed=19, uid0=0):
+    """8 requests: one 520-token system prompt, each with its own tail of
+    32·(i + 1) tokens; waves: request 0 alone, then 1–7 together, then all
+    8 again (uids + 8)."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX_SHARED)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, PREFIX_TAIL * (i + 1))]).astype(np.int32)
+        for i in range(8)]
+    return [[(uid0, prompts[0])],
+            [(uid0 + i, prompts[i]) for i in range(1, 8)],
+            [(uid0 + 8 + i, p) for i, p in enumerate(prompts)]]
+
+
+def spy_cow(eng, originals):
+    """Record every copy-on-write's original page and its bits at the copy
+    (a device clone, no sync)."""
+    inner = eng.kv.cow
+
+    def cow(page):
+        if eng.kv.ref[page] > 1:
+            originals.append((page, {k: t[:, page].clone()
+                                     for k, t in eng.kv.pool.items()}))
+        return inner(page)
+    eng.kv.cow = cow
+
+
+def pools_equal(a, b):
+    """Bit-equality of two engines' pools, the scratch page left out (dead
+    rows all write there, in no defined order)."""
+    import torch
+    for name, t in a.kv.pool.items():
+        u, v = t[:, :-1], b.kv.pool[name][:, :-1]
+        if t.dtype == torch.bfloat16:
+            u, v = u.view(torch.int16), v.view(torch.int16)
+        elif t.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        if not torch.equal(u, v):
+            return False
+    return True
+
+
+def phase_prefix(cfg, params, kv_quant: bool):
+    """The prefix cache at full width: ``prefix_traffic`` through a cached
+    captured engine (the main path), a cached eager engine and an uncached
+    captured engine, each warmed first by the same traffic on another
+    system prompt (its (T, P) keys captured, its pages cached apart).
+    Request 0 publishes 36 pages; page 32 of its table holds 8 prompt rows
+    and 8 of its tail, so requests 1–7 hit 520 tokens with a partial page,
+    copied before their first cold row; the re-served wave hits up to
+    len − 1.  Gates: captured = eager bit for bit (streams, stats, pools);
+    streams = the uncached arm's by the margin rule; every copied original
+    keeps its bits; after the drain only cached pages stay in use."""
+    import torch
+    from repro_torch.serving import EngineCore
+    c = cfg.replace(kv_quant=kv_quant)
+    tag = "int8" if kv_quant else "bf16"
+    waves = prefix_traffic(c)
+    warm = prefix_traffic(c, seed=20, uid0=100)
+    make = lambda **kw: EngineCore(c, params, device=DEV, **ENGINE, **kw)  # noqa: E731
+
+    def served(eng, targets=frozenset(), originals=None):
+        serve_waves(eng, warm)
+        before = dict(eng.prefix_stats)
+        if originals is not None:
+            spy_cow(eng, originals)
+        facts = serve_waves(eng, waves, targets)
+        if originals is not None:
+            del eng.kv.cow                           # the spy
+        facts["stats"] = {k: v - before.get(k, 0)
+                          for k, v in eng.prefix_stats.items()}
+        facts["captures"] = eng.graphs.captures
+        if eng.pages_in_use != eng.prefix_stats.get("cached_pages", 0):
+            fail(f"prefix {tag}: {eng.pages_in_use} pages in use after the "
+                 f"drain, {eng.prefix_stats.get('cached_pages', 0)} cached")
+        return facts
+
+    originals = []
+    ce = make(prefix_cache=True)
+    cf = served(ce, originals=originals)
+    ee = make(prefix_cache=True, capture=False)
+    ef = served(ee)
+    if cf["streams"] != ef["streams"] or ce.prefix_stats != ee.prefix_stats:
+        fail(f"prefix {tag}: the captured arm's streams or cache stats differ "
+             f"from the eager arm's")
+    if not pools_equal(ce, ee):
+        fail(f"prefix {tag}: the captured arm's pool bytes differ from the "
+             f"eager arm's")
+    for page, bits in originals:
+        if not ce.prefix_cache.holds(page):
+            fail(f"prefix {tag}: copied original page {page} left the cache")
+        for k, t in ce.kv.pool.items():
+            if not torch.equal(t[:, page], bits[k]):
+                fail(f"prefix {tag}: original page {page} ({k}) changed after "
+                     f"its copy")
+    cow_pages = sorted({p for p, _ in originals})
+    cached = ce.prefix_stats["cached_pages"]
+    del ce, ee, originals
+    torch.cuda.empty_cache()
+    eng = make()
+    off = served(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    forks = hold_by_margin(
+        f"prefix {tag}", cf["streams"], off["streams"],
+        fresh_run(lambda: make(prefix_cache=True), served),
+        fresh_run(make, served))
+    stats = cf["stats"]
+    w1, w2, w3 = cf["waves"]
+    ttft = [w2["ttft_ms"][u] for u in range(1, 8)]
+    facts = dict(
+        pool=tag, hit_tokens=stats["hit_tokens"],
+        hit_tokens_by_wave=[w["hit_tokens"] for w in cf["waves"]],
+        partial_hits=stats["partial_hits"], cow_copies=stats["cow_copies"],
+        cow_pages=cow_pages, cached_pages=cached,
+        prefill_tokens=[w["prefill_tokens"] for w in cf["waves"]],
+        prefill_tokens_off=[w["prefill_tokens"] for w in off["waves"]],
+        steps=cf["steps"], steps_off=off["steps"],
+        steps_by_wave=[w["steps"] for w in cf["waves"]],
+        captures=cf["captures"], captures_off=off["captures"],
+        captures_by_wave=[w["captures"] for w in cf["waves"]],
+        step_ms_p50=cf["step_ms_p50"], step_ms_p99=cf["step_ms_p99"],
+        eager_step_ms_p50=ef["step_ms_p50"],
+        eager_step_ms_p99=ef["step_ms_p99"],
+        off_step_ms_p50=off["step_ms_p50"], off_step_ms_p99=off["step_ms_p99"],
+        ttft_ms_1_7=ttft, ttft_ms_1_7_off=[off["waves"][1]["ttft_ms"][u]
+                                           for u in range(1, 8)],
+        wave_s=[w["wall_s"] for w in cf["waves"]],
+        wave_s_off=[w["wall_s"] for w in off["waves"]],
+        tok_s=cf["tok_s"], tok_s_off=off["tok_s"],
+        launches=cf["launches"], launches_off=off["launches"],
+        peak_gib=cf["peak_gib"], peak_gib_off=off["peak_gib"], forks=forks)
+    if stats["partial_hits"] < 7 or stats["cow_copies"] < 7:
+        fail(f"prefix {tag}: requests 1–7 did not all take a partial hit and "
+             f"a copy: {stats}")
+    if w2["hit_tokens"] != 7 * PREFIX_SHARED:
+        fail(f"prefix {tag}: wave 2 hit {w2['hit_tokens']} tokens, expected "
+             f"7 × {PREFIX_SHARED}")
+    if w3["hit_tokens"] != sum(len(p) - 1 for _, p in waves[2]):
+        fail(f"prefix {tag}: the re-served wave hit {w3['hit_tokens']} "
+             f"tokens, not every prompt up to len − 1")
+    log(f"[prefix {tag}] cached = eager bit for bit (streams, stats, pools); "
+        f"hit tokens by wave {facts['hit_tokens_by_wave']} "
+        f"({facts['partial_hits']} partial hits), {facts['cow_copies']} CoW "
+        f"copies of pages {cow_pages}, originals unchanged; prefill tokens "
+        f"streamed by wave {facts['prefill_tokens']} against "
+        f"{facts['prefill_tokens_off']} uncached; steps {cf['steps']} "
+        f"{facts['steps_by_wave']} against {off['steps']}; step ms p50 "
+        f"{cf['step_ms_p50']:.2f} p99 {cf['step_ms_p99']:.2f} (eager "
+        f"{ef['step_ms_p50']:.2f} / {ef['step_ms_p99']:.2f}; uncached "
+        f"{off['step_ms_p50']:.2f} / {off['step_ms_p99']:.2f}); captures in "
+        f"the measured traffic {sum(facts['captures_by_wave'])}, "
+        f"{cf['captures']} with the warm-up's; TTFT of requests 1–7 (ms, "
+        f"host clock from their submission) {[round(t, 1) for t in ttft]} "
+        f"against {[round(t, 1) for t in facts['ttft_ms_1_7_off']]} uncached; "
+        f"waves {[round(t, 3) for t in facts['wave_s']]} s against "
+        f"{[round(t, 3) for t in facts['wave_s_off']]}; {cf['tok_s']:.1f} "
+        f"generated tok/s against {off['tok_s']:.1f}; #2 launches "
+        f"{cf['launches']} ({off['launches']} uncached); peak "
+        f"{cf['peak_gib']:.2f} GiB ({off['peak_gib']:.2f}); {cached} pages "
+        f"cached after the drain; streams = uncached"
+        + (f" save {len(forks)} near-tie forks {forks}" if forks else ""))
+    return facts
+
+
+def phrase_prompts(cfg):
+    """8 prompts, each a 32-token phrase of its own repeated 8 times."""
+    rng = np.random.default_rng(23)
+    return [np.tile(rng.integers(0, cfg.vocab_size, SPEC_PHRASE), 8)
+            .astype(np.int32) for _ in range(8)]
+
+
+def phase_spec(cfg, params, prompts, want, plain):
+    """Speculative decoding at full width, k = ``SPEC_K``, bf16 pool.
+
+    (a) A scripted proposer drafts from phase 7's captured streams of the
+    same 8 prompts, corrupting position i % 5 − 1 of its i-th proposal:
+    full accepts, full rejects and partial accepts; three passes with the
+    proposer's count reset between them, the second measured (it must
+    capture nothing and repeat the first's streams), the third with a
+    profiler window over its widest verify step.  Gates: the streams
+    equal phase 7's by the margin rule; one split pass and one combine per
+    layer per step; the pool drained; a speculative engine that never
+    drafts captures as many (T, P) keys as the plain engine on the same
+    traffic (k is no key), and the scripted engine one capture per key it
+    saw.  (b) The default ``NGramProposer`` on prompts of a repeated
+    phrase, a warm pass then a measured pass, beside the plain engine."""
+    import torch
+    from repro_torch.serving import EngineCore
+    make = lambda **kw: EngineCore(cfg, params, device=DEV, **ENGINE, **kw)  # noqa: E731
+    plain_captures = plain["captures_per_pass"][0]
+    wave = [[(i, p) for i, p in enumerate(prompts)]]
+    corrupt = lambda i, n: None if i % (SPEC_K + 1) == 0 else i % (SPEC_K + 1) - 1  # noqa: E731
+    truth = {tuple(p): want[i] for i, p in enumerate(prompts)}
+
+    def spec_engine():
+        return make(speculative=True, spec_k=SPEC_K, proposer=ScriptedProposer(
+            truth, cfg.vocab_size, corrupt))
+
+    silent = lambda: make(speculative=True, spec_k=SPEC_K,  # noqa: E731
+                          proposer=lambda s, k: [])
+    eng = spec_engine()
+    a0 = serve_waves(eng, wave)                      # captures every key
+    kinds = acceptance_kinds(eng.proposer.log)
+    eng.proposer.calls, eng.proposer.log = 0, []     # the same proposals again
+    verify = [i for i, st in enumerate(a0["step_log"])
+              if st["drafted"] and not st["prefill"]]
+    if not verify:
+        fail("spec (a): no step verified drafts without a prefill chunk")
+    verify_at = max(verify, key=lambda i: (a0["step_log"][i]["lanes"], -i))
+    a = serve_waves(eng, [[(100 + i, p) for i, p in wave[0]]])
+    verify_ms = [st["ms"] for st in a["step_log"]
+                 if st["drafted"] and not st["prefill"]]
+    stats, traces = eng.spec_stats, eng.trace_count  # of the first two passes
+    eng.proposer.calls, eng.proposer.log = 0, []     # a third, profiled pass
+    window = serve_waves(eng, [[(200 + i, p) for i, p in wave[0]]], profile_at={
+        verify_at: str(ROOT / "chiprun_out" / "traces" / "bf16_replayed_verify")
+    })["windows"][verify_at]
+    decode_window = plain["windows"]["replayed decode"]
+    keys = sorted(set(a0["keys"]) | set(a["keys"]))
+    if eng.pages_in_use:
+        fail(f"spec (a): {eng.pages_in_use} pages in use after the drain")
+    if traces != len(keys) or a["waves"][0]["captures"]:
+        fail(f"spec (a): {traces} captures for {len(keys)} (T, P) keys, "
+             f"{a['waves'][0]['captures']} in the second pass")
+    if {u - 100: t for u, t in a["streams"].items()} != a0["streams"]:
+        fail("spec (a): the second pass served other streams than the first")
+    if min(kinds.values()) == 0:
+        fail(f"spec (a): not every acceptance kind occurred: {kinds}")
+    del eng
+    torch.cuda.empty_cache()
+    eng = silent()
+    s0 = serve_waves(eng, wave)
+    silent_captures = eng.trace_count
+    if silent_captures != plain_captures:
+        fail(f"spec: a never-drafting engine captured {silent_captures} keys, "
+             f"the plain engine {plain_captures}")
+    del eng
+    torch.cuda.empty_cache()
+
+    serve = lambda eng, targets: serve_waves(eng, wave, targets)  # noqa: E731
+    rerun = lambda make_eng: fresh_run(make_eng, serve)  # noqa: E731
+    want = dict(enumerate(want))
+    forks = hold_by_margin("spec (a)", a0["streams"], want,
+                           rerun(spec_engine), rerun(make))
+    silent_forks = hold_by_margin("spec (a) never drafting", s0["streams"],
+                                  want, rerun(silent), rerun(make))
+    fa = dict(steps=a["steps"], launches=a["launches"], spec_stats=stats,
+              acceptance_kinds=kinds, captures=traces, keys=keys,
+              drafted=a["waves"][0]["drafted"],
+              accepted=a["waves"][0]["accepted"],
+              plain_captures=plain_captures, plain_steps=plain["steps"],
+              plain_step_ms_p50=plain["step_ms_p50"],
+              step_ms_p50=a["step_ms_p50"],
+              step_ms_p99=a["step_ms_p99"], tok_s=a["tok_s"],
+              peak_gib=a["peak_gib"], forks=forks, silent_forks=silent_forks,
+              verify_steps=len(verify_ms),
+              verify_step_ms_p50=float(np.median(verify_ms)),
+              decode_step_ms_p50=plain["decode_step_ms_p50"],
+              verify_window=window, verify_step=a["step_log"][verify_at])
+    log(f"[spec (a)] scripted proposer, k {SPEC_K}: {a['steps']} steps "
+        f"(phase 7: {plain['steps']}) in the second pass, "
+        f"{a['waves'][0]['accepted']} of {a['waves'][0]['drafted']} drafts "
+        f"accepted; both passes {stats}; proposals by outcome {kinds}; "
+        f"streams = "
+        f"phase 7's" + (f" save near-tie forks {forks}" if forks else "")
+        + f"; captures {traces} for {len(keys)} keys {keys}, none in the "
+        f"second pass; a "
+        f"never-drafting engine {silent_captures} = the plain engine's"
+        + (f" (near-tie forks {silent_forks})" if silent_forks else "")
+        + f"; launches "
+        f"{a['launches']} = layers × steps; step ms p50 "
+        f"{a['step_ms_p50']:.2f} p99 {a['step_ms_p99']:.2f} (phase 7 p50 "
+        f"{plain['step_ms_p50']:.2f}); {a['tok_s']:.1f} generated tok/s "
+        f"(phase 7 {plain['tok_s']:.1f}); peak {a['peak_gib']:.2f} GiB; "
+        f"{len(verify_ms)} verify steps (drafts, no prefill): host ms p50 "
+        f"{np.median(verify_ms):.2f} against phase 7's 8-lane decode steps "
+        f"{plain['decode_step_ms_p50']:.2f}; the profiled verify step "
+        f"{a['step_log'][verify_at]}: {window['launches']} kernels, "
+        f"{window['device_ms']:.3f} ms of device time (phase 7's replayed "
+        f"decode step {decode_window['launches']}, "
+        f"{decode_window['device_ms']:.3f} ms), by group "
+        + json.dumps({k: round(v, 4) for k, v in window["by_group"].items()})
+        + " against "
+        + json.dumps({k: round(v, 4) for k, v in
+                      decode_window["by_group"].items()}))
+
+    phrases = phrase_prompts(cfg)
+    waves = [[(i, p) for i, p in enumerate(phrases)],
+             [(100 + i, p) for i, p in enumerate(phrases)]]
+    fb = {}
+    for arm, kw in (("ngram", dict(speculative=True, spec_k=SPEC_K)),
+                    ("plain", {})):
+        eng = make(**kw)
+        r = serve_waves(eng, waves)
+        m = r["waves"][1]
+        fb[arm] = dict(
+            steps=m["steps"], generated=m["generated"],
+            drafted=m["drafted"], accepted=m["accepted"],
+            acceptance=m["accepted"] / max(m["drafted"], 1),
+            tokens_per_step=m["generated"] / m["steps"],
+            step_ms_p50=float(np.percentile(m["step_ms"], 50)),
+            step_ms_p99=float(np.percentile(m["step_ms"], 99)),
+            tok_s=m["generated"] / m["wall_s"], captures=m["captures"],
+            launches=r["launches"], streams=r["streams"],
+            spec_stats=eng.spec_stats)
+        del eng
+        torch.cuda.empty_cache()
+
+    serve = lambda eng, targets: serve_waves(eng, waves, targets)  # noqa: E731
+    fb["forks"] = hold_by_margin(
+        "spec (b)", fb["ngram"].pop("streams"), fb["plain"].pop("streams"),
+        fresh_run(lambda: make(speculative=True, spec_k=SPEC_K), serve),
+        fresh_run(make, serve))
+    ng, pl = fb["ngram"], fb["plain"]
+    log(f"[spec (b)] NGramProposer, k {SPEC_K}, 8 prompts of a 32-token phrase "
+        f"× 8, measured pass: {ng['accepted']} of {ng['drafted']} drafts "
+        f"accepted ({ng['acceptance']:.3f}); "
+        f"{ng['tokens_per_step']:.3f} committed tokens per step "
+        f"({ng['steps']} steps) against {pl['tokens_per_step']:.3f} "
+        f"({pl['steps']}); step ms p50 {ng['step_ms_p50']:.2f} against "
+        f"{pl['step_ms_p50']:.2f}, p99 {ng['step_ms_p99']:.2f} / "
+        f"{pl['step_ms_p99']:.2f}; {ng['tok_s']:.1f} generated tok/s against "
+        f"{pl['tok_s']:.1f}; captures in the measured pass {ng['captures']} / "
+        f"{pl['captures']}; streams = the plain arm's"
+        + (f" save near-tie forks {fb['forks']}" if fb["forks"] else ""))
+    return dict(scripted=fa, ngram=fb)
 
 
 def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
@@ -1704,7 +2259,8 @@ def phase_timing(engine_facts):
     import torch.nn.functional as F
     from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
     from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_reference)
+        paged_attention, paged_attention_reference, paged_attention_varlen,
+        paged_attention_varlen_reference)
     from repro_torch.kernels.paged_attention.ops import (default_kv_split,
                                                          paged_combine)
     from repro_torch.kernels.paged_attention.ref import paged_combine_reference
@@ -1740,6 +2296,8 @@ def phase_timing(engine_facts):
         name = "paged_attention" if pool == "bfloat16" else "paged_attention_int8"
         entry = dict(
             launches=engine_facts["launches"][pool]["paged_attention"],
+            launches_by_path={k: v["paged_attention"] for k, v in
+                              engine_facts["paths"].items()},
             max_abs_err=err, **entry, kernel_ms=entry["ms"], plain_ms=plain,
             bound_ms=bound, bound_by=bound_by, kv_split=split,
             shape=f"decode step: 8 lanes, kv {kv_lens}, block_q 8, "
@@ -1802,6 +2360,58 @@ def phase_timing(engine_facts):
         f"): {paged_times(mixed)}; plain {mixed_plain:.3f} ms, bound "
         f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.2f} GFLOP); max|Δ| {mixed_err:.3g}")
+
+    # the verify step: each of the 8 decode lanes streams its decode row and
+    # SPEC_K drafts, 1 + SPEC_K rows in one q-block, at the decode shape's
+    # lengths (the rows sit at kv − 1 … kv + SPEC_K − 1), bf16 pool
+    rows = 1 + SPEC_K
+    spec = [(rows, kv + SPEC_K) for kv in kv_lens]
+    width = min(w for w in default_token_buckets(
+        ENGINE["lanes"] + ENGINE["chunk_size"]) if w >= rows * len(spec))
+    s = make_stream(spec, pool="bfloat16", n_pages=ENGINE["num_pages"],
+                    seed=14, width=width)
+    a, kw = q_blocks(s)
+    split = default_kv_split(s["k"].shape[2])
+    plain_kw = dict(kw, block_pages=8, kv_split=split)
+    vkw = dict(cu_seqlens=s["cu"], block_q=8, block_pages=8, kv_split=split,
+               k_scale=None, v_scale=None)
+    varg = (s["q"], s["k"], s["v"], s["table"], s["pos"])
+    live = slice(0, s["live"])
+    got = paged_attention_varlen(*varg, **vkw)[live]
+    want = paged_attention_varlen_reference(*varg, **vkw)[live]
+    verify_err = float((got.float() - want.float()).abs().max())
+    verify_ulps = bf16_ulps(got, want)
+    if not verify_ulps <= 1.0:
+        fail(f"paged_attention at the verify shape: {verify_ulps:.2f} bf16 "
+             f"ulp beyond atol 2e-5 (limit 1)")
+    verify_plain = cuda_ms(lambda: paged_attention_reference(*a, **plain_kw),
+                           iters=5, flush=flush)
+    lmax = max(kv for _, kv in spec)
+    views = lane_views(s, range(len(spec)))
+    kv_ = torch.tensor([kv for _, kv in spec], device=DEV)
+    kg = torch.cat([F.pad(k, (0, 0, 0, lmax - k.shape[2])) for k, _ in views])
+    vg = torch.cat([F.pad(v, (0, 0, 0, lmax - v.shape[2])) for _, v in views])
+    qv = s["q"][:rows * len(spec)].reshape(len(spec), rows, s["hq"], s["d"])
+    qv = qv.transpose(1, 2).contiguous()
+    seen_to = kv_[:, None] - rows + 1 + torch.arange(rows, device=DEV)[None]
+    vmask = (torch.arange(lmax, device=DEV)[None, None, :]
+             < seen_to[:, :, None])[:, None]
+    verify = time_paged(a, kw, lambda: F.scaled_dot_product_attention(
+        qv, kg, vg, attn_mask=vmask), flush)
+    bound, bound_by, nbytes, flops = paged_bound(s, 2)
+    kernels[0]["verify_step"] = dict(
+        **verify, plain_ms=verify_plain, bound_ms=bound, bound_by=bound_by,
+        max_abs_err=verify_err, kv_split=split,
+        library="scaled_dot_product_attention on gathered bf16 views, each "
+                "lane's 1 + k rows with their causal mask",
+        shape=f"{len(spec)} lanes × {rows} rows (decode row + {SPEC_K} "
+              f"drafts) at kv {[kv for _, kv in spec]}, stream width {width}, "
+              f"{s['table'].shape[1]} table slots, block_q 8, bf16 pool")
+    log(f"[time] paged_attention verify step ({kernels[0]['verify_step']['shape']}"
+        f"): {paged_times(verify)}; plain {verify_plain:.3f} ms, bound "
+        f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP); max|Δ| {verify_err:.3g}, "
+        f"{verify_ulps:.2f} bf16 ulp beyond atol 2e-5 (limit 1)")
 
     # the combine alone, at the decode step's workspace shape: partials as
     # the split pass leaves them, never-written splits NaN
@@ -2181,6 +2791,14 @@ def main() -> int:
         compiled[tag] = phase_compiled(cfg, params, kv_quant, prompts, f)
         # the main path: the engine as a user builds it, capture on
         facts["launches"][pool] = compiled[tag]["launches"]
+    prefix = {tag: phase_prefix(cfg, params, kv_quant)
+              for tag, kv_quant in (("bf16", False), ("int8", True))}
+    spec = phase_spec(cfg, params, prompts, compiled["bf16"].pop("streams"),
+                      compiled["bf16"])
+    compiled["int8"].pop("streams")
+    facts["paths"] = {"prefix bf16": prefix["bf16"]["launches"],
+                      "prefix int8": prefix["int8"]["launches"],
+                      "spec (a)": spec["scripted"]["launches"]}
     scoring = {"bf16": phase_scoring(cfg, params, "bf16", floor=1e-2)}
     steps["f32"] = phase_step_f32(cfg, params)       # widens params to f32
     scoring["f32"] = phase_scoring(cfg.replace(dtype="float32"), params,
@@ -2196,6 +2814,8 @@ def main() -> int:
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
     summary["compiled"] = compiled
+    summary["prefix"] = prefix
+    summary["spec"] = spec
     summary["step_vs_plain"] = steps
     summary["streaming_attention_checks"] = sa_worst
     summary["bert"] = bert

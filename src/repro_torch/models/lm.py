@@ -179,12 +179,18 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """The token-level (ragged) serving step over one packed (T,) stream.
 
     ``tokens``/``pos`` (T,), ``token_pages`` (T, P), ``last_idx`` (lanes,)
-    stream index of each lane's last token.  Writes every token's KV rows
-    into ``caches`` in place and returns the (lanes, V) f32 logits of the
-    ``last_idx`` rows — or, with ``greedy=True``, the (lanes,) int32 greedy
-    picks, chosen on the device so only the picks leave it.  ``attend``
-    replaces the varlen attention (default: through the kernel wrapper).
+    stream index of each lane's last token, or (lanes, 1 + k) for a
+    speculative verify step: row j of a lane is its decode row plus its
+    j-th drafted row.  Writes every token's KV rows into ``caches`` in
+    place and returns the f32 logits of the ``last_idx`` rows, (lanes, V)
+    or (lanes, 1 + k, V) — or, with ``greedy=True``, the int32 greedy picks
+    of ``last_idx``'s shape, chosen on the device so only the picks leave
+    it.  ``attend`` replaces the varlen attention (default: through the
+    kernel wrapper).
     """
+    if last_idx.dim() not in (1, 2):
+        raise ValueError(f"last_idx must be (lanes,) or (lanes, 1 + k), got "
+                         f"shape {tuple(last_idx.shape)}")
     pos = pos.to(torch.int32)
     x = L.embed_apply(params["embed"], tokens)[None]            # (1, T, D)
     x = trunk_apply_ragged(cfg, params, x, pos=pos, caches=caches,
@@ -192,7 +198,7 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                            kernel_config=kernel_config or KERNEL_CONFIG,
                            attend=attend)
     x = L.norm_apply(params["final_norm"], x)
-    # (lanes,) gather before unembedding: only each lane's last row is needed
+    # gather before unembedding: only the picked rows are needed
     x = x[0][last_idx.long()]
     logits = L.unembed(cfg, params, x)
     if greedy:

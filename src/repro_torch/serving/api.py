@@ -45,6 +45,13 @@ class Request:
             raise InvalidRequest("max_new", f"must be >= 1, got "
                                  f"{self.max_new}", uid=self.uid)
 
+    def known_tokens(self) -> np.ndarray:
+        """prompt ⊕ generated: every token whose KV row must eventually be
+        resident."""
+        return np.concatenate(
+            [np.asarray(self.prompt, np.int64),
+             np.asarray(self.tokens, np.int64)]).astype(np.int32)
+
 
 @dataclasses.dataclass(frozen=True)
 class StepOutput:
@@ -57,7 +64,9 @@ class StepOutput:
     decode_tokens: int                 # sampling-step lanes
     live_rows: int = 0                 # live token rows in the stream
     padded_rows: int = 0               # bucketed stream width
-    # speculative telemetry: always 0 until the speculative-decoding slice
+    prefix_hit_tokens: int = 0         # known tokens granted from the cache
+    # speculative accounting (0 unless the engine drafts): drafted tokens
+    # streamed this step and those the verify accepted
     drafted_tokens: int = 0
     accepted_tokens: int = 0
 

@@ -19,10 +19,21 @@ checks' eager arm.  Every step is recorded in ``obs``
 (``ServingObservability``: the reference's registry, request spans, step
 ring and profiler window); ``metrics=False`` makes every hook a no-op.
 
+Shared-prefix reuse (``prefix_cache=True``): admission probes a radix
+cache of page-aligned token blocks (``serving/prefix_cache.py``) and
+grants the hit's resident pages; chunked prefill starts at the first cold
+token, and a partial page is copy-on-written in place before the step
+(``PagedKVCache.cow``).  Speculative decoding (``speculative=True``): a
+host proposer (``serving/spec.py``) drafts up to ``spec_k`` tokens per
+greedy decode lane, the drafted rows ride the same packed stream, the step
+picks greedily at every drafted position through a (lanes, 1 + spec_k)
+``last_idx``, and ``_finish`` commits the longest accepted prefix and
+rolls the rest back through ``PagedKVCache.uncommit``.  Streams are
+identical with either feature on or off.
+
 Later slices of the port bring the rest of the reference engine: seeded
-sampling (``temperature > 0``), speculative decoding, the prefix cache,
-tensor-parallel meshes and the padded oracle mode; asking for any of them
-raises ``NotImplementedError`` here.
+sampling (``temperature > 0``), tensor-parallel meshes and the padded
+oracle mode; asking for any of them raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -40,16 +51,19 @@ from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged
 from repro_torch.serving.api import Request, RequestState, StepOutput
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.paged import PagedKVCache
+from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.sampling import (InvalidRequest, stop_hit,
                                           validate_stop_tokens)
 from repro_torch.serving.scheduler import RaggedBatch, Scheduler
+from repro_torch.serving.spec import NGramProposer
 from repro_torch.serving.tracing import ServingObservability
 
 
 def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  kv: PagedKVCache, tokens, pos, table, last_idx,
                  cu) -> torch.Tensor:
-    """One ragged step on device tensors → the (lanes,) greedy picks."""
+    """One ragged step on device tensors → the greedy picks, of
+    ``last_idx``'s shape."""
     return lm_step_ragged(cfg, params, tokens, kv.pool, table, pos, last_idx,
                           cu, KERNEL_CONFIG, greedy=True)
 
@@ -71,7 +85,9 @@ class EngineCore:
                  chunk_size: int = 16, max_len: Optional[int] = None,
                  step_tokens: Optional[int] = None, mode: str = "ragged",
                  token_buckets: Optional[Sequence[int]] = None,
-                 prefix_cache: bool = False, speculative: bool = False,
+                 prefix_cache: bool = False,
+                 cache_pages: Optional[int] = None,
+                 speculative: bool = False, spec_k: int = 4, proposer=None,
                  mesh=None, device: DeviceLike = None, metrics: bool = True,
                  registry=None, trace_ring: int = 512, capture: bool = True):
         if mode == "padded":
@@ -79,10 +95,9 @@ class EngineCore:
                          "other-families and contiguous-path")
         if mode != "ragged":
             raise ValueError(f"unknown EngineCore mode {mode!r}")
-        if prefix_cache:
-            raise _later("prefix_cache", "prefix-cache and copy-on-write")
-        if speculative:
-            raise _later("speculative decoding", "speculative-decoding")
+        if speculative and spec_k < 1:
+            raise ValueError(f"speculative decoding needs spec_k >= 1, "
+                             f"got {spec_k}")
         if mesh not in (None, 1):
             raise _later("a tensor-parallel mesh", "TP-serving")
         self.device = resolve_device(device)
@@ -102,17 +117,33 @@ class EngineCore:
                                         ring_capacity=trace_ring)
         self.kv = PagedKVCache(cfg, num_pages, page_size, device=self.device,
                                obs=self.obs)
+        self.prefix_cache = (RadixPrefixCache(self.kv, max_pages=cache_pages,
+                                              obs=self.obs)
+                             if prefix_cache else None)
+        self.speculative = speculative
+        self.spec_k = spec_k if speculative else 0
+        self.proposer = ((proposer if proposer is not None
+                          else NGramProposer(obs=self.obs))
+                         if speculative else None)
         self.scheduler = Scheduler(self.kv, lanes=lanes, chunk_size=chunk_size,
                                    step_tokens=step_tokens,
-                                   token_buckets=token_buckets, obs=self.obs)
+                                   token_buckets=token_buckets,
+                                   prefix_cache=self.prefix_cache,
+                                   spec_k=self.spec_k, proposer=self.proposer,
+                                   obs=self.obs)
         self.finished: List[Request] = []
+        self.drafted_total = 0          # speculative accounting, lifetime
+        self.accepted_total = 0
+        self.spec_steps = 0             # steps that carried >= 1 draft
         self.capture = capture
         # The step closes over the config, weights and pool, never over the
         # engine: an engine holds no reference cycle, so dropping it frees
         # its pool and graphs at once.
         self._step = functools.partial(_ragged_step, cfg, params, self.kv)
-        self.graphs = StepGraphs(self._step, lanes=lanes, device=self.device,
-                                 on_capture=self.obs.step_traced)
+        self.graphs = StepGraphs(
+            self._step, lanes=lanes, device=self.device,
+            verify_rows=self.spec_k + 1 if speculative else None,
+            on_capture=self.obs.step_traced)
         self.obs.g_mesh.set(1)
         self.obs.g_coll_per_tok.set(0)
 
@@ -152,8 +183,9 @@ class EngineCore:
         s = self.scheduler
         self.obs.record_step(
             out, dur_ms=(time.perf_counter() - t0) * 1e3, sched=s,
-            kv=self.kv, table_pages=s._table_pages,
-            trimmed_prefill=s.trimmed_prefill_step, width=out.padded_rows)
+            kv=self.kv, cache=self.prefix_cache, table_pages=s._table_pages,
+            trimmed_prefill=s.trimmed_prefill_step,
+            trimmed_drafts=s.trimmed_draft_step, width=out.padded_rows)
         return out
 
     def _step_ragged(self) -> StepOutput:
@@ -165,9 +197,20 @@ class EngineCore:
         """The step function's host inputs for ``batch``: its packed
         ``tokens``, ``pos`` and ``table``, and two static-shape arrays."""
         # Stream index of each plan's final token; idle tail lanes point at
-        # row 0 (their pick is computed and never read).
-        last_idx = np.zeros((self.lanes,), np.int32)
-        last_idx[:len(batch.plans)] = batch.cu_seqlens[1:] - 1
+        # row 0 (their pick is computed and never read).  A speculative
+        # engine always passes (lanes, 1 + spec_k): row j of lane i is the
+        # lane's decode row plus its j-th draft, clamped to its last draft,
+        # so a step's draft count never changes a shape.
+        if self.speculative:
+            last_idx = np.zeros((self.lanes, self.spec_k + 1), np.int32)
+            ramp = np.arange(self.spec_k + 1, dtype=np.int32)
+            for i, p in enumerate(batch.plans):
+                d = len(p.drafts)
+                base = int(batch.cu_seqlens[i + 1]) - 1 - d
+                last_idx[i] = base + np.minimum(ramp, d)
+        else:
+            last_idx = np.zeros((self.lanes,), np.int32)
+            last_idx[:len(batch.plans)] = batch.cu_seqlens[1:] - 1
         # Lane boundaries, static (lanes + 2,) shape: the plans' boundaries,
         # the dead padding rows as one trailing pseudo-segment ending at T,
         # then zero-width repeats.  Validated here, on the host copy.
@@ -181,8 +224,10 @@ class EngineCore:
         """Execute a RaggedBatch as one packed token stream."""
         plans = batch.plans
         if not plans:
-            return StepOutput(tokens={}, finished=(), preempted=preempted,
-                              lanes=0, prefill_tokens=0, decode_tokens=0)
+            return StepOutput(
+                tokens={}, finished=(), preempted=preempted, lanes=0,
+                prefill_tokens=0, decode_tokens=0,
+                prefix_hit_tokens=self.scheduler.prefix_hit_tokens_step)
         arrays = self.step_arrays(batch)
         if self.capture:
             picks = self.graphs.run(**arrays)
@@ -194,50 +239,89 @@ class EngineCore:
 
     def _finish(self, plans, preempted, *, picks: np.ndarray, live: int,
                 padded: int) -> StepOutput:
-        """Advance cursors, commit each sampling lane's token, check stop
-        sequences / eos / max_new, retire finished requests."""
+        """Advance cursors, commit or verify each sampling lane's tokens,
+        check stop sequences / eos / max_new after every committed token,
+        retire finished requests.
+
+        A drafting lane streamed ``1 + d`` rows; its picks ``g[0..d]`` are
+        the greedy tokens at every drafted position, and it commits
+        ``g[0..acc]``, ``acc`` the longest prefix with ``g[j] ==
+        drafts[j]``: the tokens sequential greedy decode would produce.
+        The cursor advances by ``base + committed − 1`` (the last committed
+        token's row is next step's write) and ``uncommit`` returns every
+        page that holds only rejected rows."""
         out_tokens = {}
         finished = []
         n_prefill = sum(p.q_len for p in plans
                         if p.run.req.state is RequestState.PREFILL)
         n_decode = sum(1 for p in plans
                        if p.run.req.state is RequestState.DECODE)
+        drafted = sum(len(p.drafts) for p in plans)
+        accepted = 0
         for i, p in enumerate(plans):
             run, req = p.run, p.run.req
-            sample = p.sample
-            run.rows += p.q_len
-            if not sample:
+            if not p.sample:
+                run.rows += p.q_len
                 continue
-            tok = int(picks[i])
+            base = p.q_len - len(p.drafts)
+            if p.drafts:
+                g = picks[i, :len(p.drafts) + 1]
+                acc = 0
+                while acc < len(p.drafts) and int(g[acc]) == p.drafts[acc]:
+                    acc += 1
+                commit = [int(t) for t in g[:acc + 1]]
+            else:
+                commit = [int(picks[i, 0] if picks.ndim == 2 else picks[i])]
+            done = stopped = False
+            n = 0
             start = len(req.tokens)
-            req.tokens.append(tok)
-            out_tokens[req.uid] = tok
-            self.obs.tokens_committed(req.uid, 1, first=(start == 0))
-            done = False
-            cut = stop_hit(req.tokens, req.sampling.stop)
-            if cut is not None:
-                # The match never surfaces; it may swallow earlier tokens,
-                # so report the last survivor of this step, or nothing, and
-                # clamp the cursor to the surviving known tokens.
-                del req.tokens[cut:]
-                done = True
+            for tok in commit:        # eos / max_new / stop can cut it short
+                req.tokens.append(tok)
+                out_tokens[req.uid] = tok
+                n += 1
+                cut = stop_hit(req.tokens, req.sampling.stop)
+                if cut is not None:
+                    del req.tokens[cut:]     # the match never surfaces
+                    done = stopped = True
+                    break
+                if (len(req.tokens) >= req.max_new
+                        or (req.eos_id is not None and tok == req.eos_id)):
+                    done = True
+                    break
+            run.rows += base + n - 1
+            if stopped:
+                # The cut may swallow earlier tokens: report the last
+                # survivor of this step, or nothing, and clamp the cursor to
+                # the surviving known tokens.
                 if len(req.tokens) > start:
                     out_tokens[req.uid] = req.tokens[-1]
                 else:
                     out_tokens.pop(req.uid, None)
                 run.rows = min(run.rows, run.known())
-            elif (len(req.tokens) >= req.max_new
-                  or (req.eos_id is not None and tok == req.eos_id)):
-                done = True
+            self.obs.tokens_committed(req.uid, n, first=(start == 0))
+            if p.drafts:
+                accepted += n - 1
+                self.obs.spec_verify(req.uid, len(p.drafts), n - 1)
+                run.pages = self.kv.uncommit(run.pages, run.rows)
             if done:
                 req.done = True
                 finished.append(req.uid)
                 self.finished.append(req)
+                if self.proposer is not None and \
+                        hasattr(self.proposer, "observe"):
+                    self.proposer.observe(req.known_tokens())
                 self.scheduler.finish(run)
+        self.drafted_total += drafted
+        self.accepted_total += accepted
+        if drafted:
+            self.spec_steps += 1
         return StepOutput(tokens=out_tokens, finished=tuple(finished),
                           preempted=preempted, lanes=len(plans),
                           prefill_tokens=n_prefill, decode_tokens=n_decode,
-                          live_rows=live, padded_rows=padded)
+                          live_rows=live, padded_rows=padded,
+                          prefix_hit_tokens=(
+                              self.scheduler.prefix_hit_tokens_step),
+                          drafted_tokens=drafted, accepted_tokens=accepted)
 
     def run(self, max_steps: int = 100_000) -> List[Request]:
         steps = 0
@@ -252,3 +336,30 @@ class EngineCore:
     @property
     def pages_in_use(self) -> int:
         return self.kv.num_pages - len(self.kv.free)
+
+    @property
+    def prefix_stats(self) -> dict:
+        """Prefix-cache telemetry (empty when the cache is off)."""
+        return self.prefix_cache.stats() if self.prefix_cache else {}
+
+    @property
+    def spec_stats(self) -> dict:
+        """Speculative-decoding telemetry (empty when not drafting):
+        ``acceptance`` is accepted / drafted, ``accepted_per_spec_step`` the
+        extra tokens each drafting step committed."""
+        if not self.speculative:
+            return {}
+        return {
+            "drafted_tokens": self.drafted_total,
+            "accepted_tokens": self.accepted_total,
+            "spec_steps": self.spec_steps,
+            "acceptance": (self.accepted_total / self.drafted_total
+                           if self.drafted_total else 0.0),
+            "accepted_per_spec_step": (self.accepted_total / self.spec_steps
+                                       if self.spec_steps else 0.0),
+        }
+
+    @property
+    def page_tables(self) -> List[List[int]]:
+        """Live page table per resident request (scheduler ticket order)."""
+        return [list(r.pages) for r in self.scheduler.running]

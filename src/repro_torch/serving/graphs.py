@@ -7,8 +7,12 @@ one compile per input shape).
 the page table's width, exactly the shapes the reference retraces on.  The
 scheduler buckets T and holds P at its power-of-two high-water mark, so the
 keys stay few.  Each key owns static input buffers — tokens and pos (T,),
-the table (T, P), last_idx (lanes,), cu (lanes + 2,) — and the (lanes,)
-int32 picks output.  A step copies the scheduler's numpy arrays into them
+the table (T, P), last_idx, cu (lanes + 2,) — and the int32 picks output.
+``last_idx`` and the picks have one shape fixed per engine, never part of
+the key: (lanes,), or (lanes, 1 + spec_k) for a speculative engine, whose
+row j of a lane is its decode row plus its j-th draft (the reference
+likewise compiles the verify step once, whatever a step's draft count).
+A step copies the scheduler's numpy arrays into them
 through pinned host staging (``non_blocking``) and replays the key's graph;
 reusing the staging is safe because the engine reads the picks on the host
 every step, which waits for the copies.
@@ -118,12 +122,13 @@ class _Key:
     """One (T, P) key: static inputs, host staging, the picks output and,
     on the card, the captured step."""
 
-    def __init__(self, t: int, p: int, lanes: int, device: torch.device):
+    def __init__(self, t: int, p: int, pick_shape: Tuple[int, ...],
+                 device: torch.device):
         shapes = dict(tokens=(t,), pos=(t,), table=(t, p),
-                      last_idx=(lanes,), cu=(lanes + 2,))
+                      last_idx=pick_shape, cu=(pick_shape[0] + 2,))
         self.bufs = {k: torch.zeros(s, dtype=torch.int32, device=device)
                      for k, s in shapes.items()}
-        self.picks = torch.zeros((lanes,), dtype=torch.int32, device=device)
+        self.picks = torch.zeros(pick_shape, dtype=torch.int32, device=device)
         self.host = ({k: torch.zeros(s, dtype=torch.int32).pin_memory()
                       for k, s in shapes.items()}
                      if device.type == "cuda" else None)
@@ -142,17 +147,21 @@ class StepGraphs:
     """The engine's per-(T, P) cache of captured ragged steps.
 
     ``step_fn(tokens, pos, table, last_idx, cu)`` runs one step on device
-    tensors and returns the (lanes,) int32 picks; ``on_capture()`` is
-    called on every capture (the retrace sentinel).  ``run`` stages one
+    tensors and returns the int32 picks, of ``last_idx``'s shape:
+    ``(lanes,)``, or ``(lanes, verify_rows)`` when ``verify_rows`` is given
+    (a speculative engine's 1 + spec_k); ``on_capture()`` is called on
+    every capture (the retrace sentinel).  ``run`` stages one
     step's arrays and returns the picks on the device, without reading
     them.  ``capture_ms`` holds each card capture's host time: the warm-up
     step, the wait for it, the capture and the graph's instantiation."""
 
     def __init__(self, step_fn: Callable[..., torch.Tensor], *, lanes: int,
-                 device: torch.device,
+                 device: torch.device, verify_rows: Optional[int] = None,
                  on_capture: Callable[[], None] = lambda: None):
         self.step_fn = step_fn
         self.lanes = lanes
+        self.pick_shape = ((lanes,) if verify_rows is None
+                           else (lanes, verify_rows))
         self.device = device
         self.on_capture = on_capture
         self.keys: Dict[Tuple[int, int], _Key] = {}
@@ -169,6 +178,9 @@ class StepGraphs:
     def run(self, tokens: np.ndarray, pos: np.ndarray, table: np.ndarray,
             last_idx: np.ndarray, cu: np.ndarray) -> torch.Tensor:
         t, p = table.shape
+        if last_idx.shape != self.pick_shape:
+            raise ValueError(f"last_idx of shape {last_idx.shape}; this "
+                             f"engine's steps pick {self.pick_shape}")
         key = self.keys.get((t, p))
         arrays = dict(tokens=tokens, pos=pos, table=table, last_idx=last_idx,
                       cu=cu)
@@ -178,7 +190,7 @@ class StepGraphs:
                 return key.call.replay()
             return self._step_into(key)()       # the CPU's replay
         widest = max((pp for _, pp in self.keys), default=p)
-        key = _Key(t, p, self.lanes, self.device)
+        key = _Key(t, p, self.pick_shape, self.device)
         key.stage(arrays)
         self.captures += 1
         self.on_capture()

@@ -4,15 +4,25 @@
 The pool is the model's ``trunk_cache_init(num_pages + 1, page_size)``:
 page ``num_pages`` is the scratch page that dead stream rows write to.
 Pages are handed out lowest id first, so the physical layout is
-deterministic under any release order.  Every page carries a refcount (one
-per page table naming it); ``release`` returns a page to the heap only when
-its last reference drops.  Copy-on-write and prefix-cache reclaim belong to
-the prefix-cache slice; ``obs`` (the engine's ``ServingObservability``) is
-held for its copy-on-write counter, as the reference's pool holds it.
+deterministic under any release order.  Every page carries a refcount: one
+per page table naming it, plus one while the prefix cache
+(``serving/prefix_cache.py``) holds it; ``release`` returns a page to the
+heap only when its last reference drops.  When the heap runs dry,
+``alloc`` reclaims least-recently-used cached pages that no request
+references, through the attached prefix cache.
+
+Writing into a shared page goes through ``cow``: the writer gets a copy
+and drops its reference on the original.  The copy is made in place, page
+``dst`` of every pool leaf overwritten from page ``src`` on the current
+stream: the pool's tensors are never rebound, because every captured step
+graph (``serving/graphs.py``) reads them by address, and stream order puts
+the copy ahead of the step that reads it.  ``obs`` (the engine's
+``ServingObservability``) counts the copies.
 """
 from __future__ import annotations
 
 import heapq
+import weakref
 from typing import List
 
 from repro_torch.configs import ModelConfig
@@ -29,20 +39,34 @@ class PagedKVCache:
         self.pool = trunk_cache_init(cfg, num_pages + 1, page_size, device)
         self.free: List[int] = list(range(num_pages))   # min-heap by page id
         self.ref: List[int] = [0] * num_pages
+        self.cow_copies = 0                         # lifetime CoW page copies
+        self._cache = None              # weak ref to a RadixPrefixCache
 
     def pages_needed(self, tokens: int) -> int:
         return -(-tokens // self.page_size)
 
     @property
     def available_pages(self) -> int:
-        """Pages an ``alloc`` can obtain without preempting anyone."""
-        return len(self.free)
+        """Pages an ``alloc`` can obtain without preempting anyone: the free
+        heap plus cached pages no request references."""
+        cache = self._cache and self._cache()
+        return len(self.free) + (cache.reclaimable_pages
+                                 if cache is not None else 0)
+
+    def attach_cache(self, cache) -> None:
+        """Wire a prefix cache in as the reclaim source for ``alloc``.  The
+        pool holds it weakly: the cache holds the pool, and a cycle would
+        keep the pool's device memory alive after its engine is dropped,
+        until the next collection."""
+        self._cache = weakref.ref(cache)
 
     def alloc(self) -> int:
-        if not self.free:
-            raise RuntimeError(
-                "page pool exhausted: no free pages (scheduler must check "
-                "available_pages before alloc)")
+        while not self.free:
+            cache = self._cache and self._cache()
+            if cache is None or not cache.evict_one():
+                raise RuntimeError(
+                    "page pool exhausted: no free or reclaimable pages "
+                    "(scheduler must check available_pages before alloc)")
         p = heapq.heappop(self.free)
         self.ref[p] = 1
         return p
@@ -67,10 +91,30 @@ class PagedKVCache:
 
     def uncommit(self, pages: List[int], rows: int) -> List[int]:
         """Shrink a page table to what ``rows`` committed rows need,
-        releasing the surplus tail pages → the trimmed table."""
+        releasing the surplus tail pages → the trimmed table.  Speculative
+        decoding's rollback: pages that hold only rejected draft rows were
+        allocated this step at the table's tail, so releasing them restores
+        the heap and refcounts as if the drafts were never granted."""
         keep = self.pages_needed(rows)
         assert keep <= len(pages), (
             f"uncommit: {rows} rows need {keep} pages but table has "
             f"{len(pages)}")
         self.release(pages[keep:])
         return pages[:keep]
+
+    def cow(self, page: int) -> int:
+        """Copy-on-write: make ``page`` writable for one holder → the page
+        to write.  An exclusive page (ref 1) comes back as it is; a shared
+        one is copied into a freshly allocated page (the caller checked
+        ``available_pages``), the caller's reference moves to the copy and
+        the original stays as it was for its other holders."""
+        if self.ref[page] <= 1:
+            return page
+        fresh = self.alloc()
+        for t in self.pool.values():                # page axis is dim 1
+            t[:, fresh].copy_(t[:, page])
+        self.release_one(page)
+        self.cow_copies += 1
+        if self.obs is not None:
+            self.obs.cow_copy()
+        return fresh

@@ -12,16 +12,22 @@ reference:
   first, ``step_tokens`` per step;
 - preemption by eviction: when the pool runs dry the youngest resident is
   evicted, its cursor rewinds to zero and it re-queues by its ticket;
-- the packed stream is bucketed to a few widths, prefill chunk tails
-  trimmed (youngest first) so live work lands on a bucket edge, and the
-  page-table width is held at its high-water mark.
+- prefix reuse (``prefix_cache``): admission probes the radix cache with
+  the request's known tokens, grants the hit's resident pages shared and
+  starts the cursor at the first cold token; full pages are published back
+  on finish, abort and eviction, and a shared page the coming rows would
+  write into is copy-on-written before the step runs;
+- speculative drafts (``spec_k``, ``proposer``): decode lanes may stream
+  up to ``spec_k`` drafted tokens after their decode token, paid from
+  leftover step budget only, shrunk before anyone is preempted and trimmed
+  first at the bucket edge;
+- the packed stream is bucketed to a few widths, drafts and then prefill
+  chunk tails trimmed (youngest first) so live work lands on a bucket
+  edge, and the page-table width is held at its high-water mark.
 
 Every lifecycle event goes to ``obs`` (the engine's
 ``ServingObservability``) at the reference's points: submitted, finished,
-aborted, preempted and admitted (or resumed).
-
-The prefix-cache and speculative-draft branches of the reference belong to
-later slices.
+aborted, preempted, admitted (or resumed) and copy-on-write.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import numpy as np
 
 from repro_torch.serving.api import Request, RequestState
 from repro_torch.serving.paged import PagedKVCache
+from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.sampling import InvalidRequest
 from repro_torch.serving.tracing import ServingObservability
 
@@ -55,6 +62,9 @@ class RunningRequest:
     ticket: int
     pages: List[int] = dataclasses.field(default_factory=list)
     rows: int = 0                     # KV rows already resident
+    # memoised admission probe (cache.version, PrefixHit); cleared on
+    # eviction, where replayed generation grows the known stream
+    probe: Optional[tuple] = None
 
     def known(self) -> int:
         return len(self.req.prompt) + len(self.req.tokens)
@@ -76,16 +86,24 @@ class RunningRequest:
 
 @dataclasses.dataclass(frozen=True)
 class LanePlan:
-    """One lane of one step: stream ``q_len`` tokens of ``run``'s cursor."""
+    """One lane of one step: stream ``q_len`` tokens of ``run``'s cursor,
+    the last ``len(drafts)`` of them drafted (past the known stream,
+    verified in the same step)."""
     run: RunningRequest
     q_len: int
+    drafts: Tuple[int, ...] = ()
 
     @property
     def sample(self) -> bool:
-        return self.run.rows + self.q_len == self.run.known()
+        return (self.run.rows + self.q_len - len(self.drafts)
+                == self.run.known())
 
     def stream_tokens(self) -> np.ndarray:
-        return self.run.next_tokens(self.q_len)
+        """The q_len tokens this lane streams: known-stream chunk ⊕ drafts."""
+        base = self.run.next_tokens(self.q_len - len(self.drafts))
+        if not self.drafts:
+            return base
+        return np.concatenate([base, np.asarray(self.drafts, np.int32)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,13 +124,19 @@ class RaggedBatch:
 class Scheduler:
     def __init__(self, kv: PagedKVCache, *, lanes: int = 4,
                  chunk_size: int = 16, step_tokens: Optional[int] = None,
-                 token_buckets: Optional[Sequence[int]] = None, obs=None):
+                 token_buckets: Optional[Sequence[int]] = None,
+                 prefix_cache: Optional[RadixPrefixCache] = None,
+                 spec_k: int = 0, proposer=None, obs=None):
         assert chunk_size >= 1
         self.obs = obs if obs is not None else ServingObservability(
             enabled=False)
         self.kv = kv
+        self.cache = prefix_cache
         self.lanes = lanes
         self.chunk_size = chunk_size
+        self.spec_k = spec_k
+        self.proposer = proposer
+        self._drafts: Dict[int, Tuple[int, ...]] = {}   # ticket → drafts
         self.step_tokens = step_tokens or (lanes + chunk_size)
         self.token_buckets: Tuple[int, ...] = tuple(sorted(
             set(token_buckets) | {1} if token_buckets
@@ -125,7 +149,9 @@ class Scheduler:
         self._table_pages = 1                       # table-width high-water mark
         self._ticket = 0
         self._evicted_now: List[int] = []
+        self.prefix_hit_tokens_step = 0             # granted this step
         self.trimmed_prefill_step = 0               # tokens, this step
+        self.trimmed_draft_step = 0                 # tokens, this step
 
     # ------------------------------------------------------------ lifecycle
     def submit(self, req: Request) -> None:
@@ -145,12 +171,16 @@ class Scheduler:
                                    max_new=req.max_new)
 
     def finish(self, run: RunningRequest) -> None:
-        """Release a completed request's lane and pages."""
+        """Release a completed request's lane and pages, its full pages
+        published to the prefix cache first."""
         self.running.remove(run)
+        self._publish(run)
         self.kv.release(run.pages)
         run.pages = []
         run.req.state = RequestState.FINISHED
         self.obs.request_finished(run.req.uid, generated=len(run.req.tokens))
+        if self.cache is not None:
+            self.cache.enforce_budget()
 
     def abort(self, uid: int) -> bool:
         """Cancel a waiting or running request by uid → True if found."""
@@ -165,13 +195,19 @@ class Scheduler:
         for run in self.running:
             if run.req.uid == uid:
                 self.running.remove(run)
+                # A drafting lane's table may still cover its drafts: trim
+                # to the committed rows before publishing, so no page past
+                # the cursor reaches the cache.
                 run.pages = self.kv.uncommit(run.pages, run.rows)
+                self._publish(run)
                 self.kv.release(run.pages)
                 run.pages = []
                 run.req.done = True
                 run.req.state = RequestState.ABORTED
                 self.obs.request_finished(uid, aborted=True,
                                           generated=len(run.req.tokens))
+                if self.cache is not None:
+                    self.cache.enforce_budget()
                 return True
         return False
 
@@ -179,30 +215,88 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     # ------------------------------------------------------------- internal
+    def _publish(self, run: RunningRequest) -> None:
+        """Publish ``run``'s full resident pages into the prefix cache, keyed
+        by the tokens whose rows they hold.  Clamped to the cursor: only
+        pages whose every row the engine committed are eligible, so a
+        mid-prefill abort never publishes granted-but-unwritten rows."""
+        if self.cache is None or run.rows < self.kv.page_size:
+            return
+        full = run.rows // self.kv.page_size
+        self.cache.insert(run.req.known_tokens()[:run.rows],
+                          run.pages[:full])
+
     def _preempt_youngest(self, older_than: int) -> bool:
-        """Evict the youngest resident with ticket > ``older_than``; its
-        cursor rewinds and it re-queues by ticket.  → False if none."""
+        """Evict the youngest resident with ticket > ``older_than``, its full
+        pages published first; its cursor rewinds and it re-queues by
+        ticket.  → False if none."""
         victims = [r for r in self.running if r.ticket > older_than]
         if not victims:
             return False
         victim = max(victims, key=lambda r: r.ticket)
         self.running.remove(victim)
+        self._publish(victim)
         self.kv.release(victim.pages)
         victim.pages = []
         victim.rows = 0
+        victim.probe = None               # known tokens grew: stale match
         victim.req.state = RequestState.PREEMPTED
         self._evicted_now.append(victim.req.uid)
         self.obs.request_preempted(victim.req.uid)
         bisect.insort(self.waiting, victim, key=lambda r: r.ticket)
+        if self.cache is not None:
+            self.cache.enforce_budget()
         return True
+
+    def _cow_credit(self, page: int) -> bool:
+        """True when copy-on-writing ``page`` hands its original straight
+        back to the reclaimable pool (its only other holder is the cache)."""
+        return (self.kv.ref[page] == 2 and self.cache is not None
+                and self.cache.holds(page))
+
+    def _page_demand(self, run: RunningRequest, rows_after: int):
+        """→ (new pages, indices of shared pages to copy, copies whose
+        original returns to the reclaimable pool) for ``rows_after``."""
+        ps = self.kv.page_size
+        lo = run.rows // ps
+        hi = min((rows_after - 1) // ps + 1, len(run.pages))
+        need = self.kv.pages_needed(rows_after) - len(run.pages)
+        cow = [i for i in range(lo, hi) if self.kv.ref[run.pages[i]] > 1]
+        credit = sum(1 for i in cow if self._cow_credit(run.pages[i]))
+        return need, cow, credit
+
+    def _fits_unforced(self, run: RunningRequest, rows_after: int) -> bool:
+        """Would ``_grant_pages(run, rows_after)`` succeed without evicting
+        anyone?"""
+        need, cow, credit = self._page_demand(run, rows_after)
+        avail = self.kv.available_pages
+        return need + len(cow) - credit <= avail and (not cow or avail >= 1)
 
     def _grant_pages(self, run: RunningRequest, rows_after: int) -> bool:
         """Extend ``run``'s table to cover ``rows_after`` rows, evicting
-        younger residents if the pool runs dry → False if ``run`` lost."""
-        need = self.kv.pages_needed(rows_after) - len(run.pages)
-        while need > self.kv.available_pages:
-            if not self._preempt_youngest(older_than=run.ticket):
-                return False              # run is the youngest: it waits
+        younger residents if the pool runs dry; shared pages the coming rows
+        write into (a partial hit's page) are copy-on-written here, before
+        the step runs.  The budget counts each copy and credits originals
+        that return to the reclaimable pool.  → False if ``run`` lost."""
+        while not self._fits_unforced(run, rows_after):
+            if self._preempt_youngest(older_than=run.ticket):
+                continue
+            # No victim left: take sole ownership of a cache-only shared
+            # page (a leaf eviction, no copy) before wedging the lane.
+            _, cow, _ = self._page_demand(run, rows_after)
+            if self.cache is not None and any(
+                    self.kv.ref[run.pages[i]] == 2
+                    and self.cache.release_hold(run.pages[i]) for i in cow):
+                continue
+            return False                  # run is the youngest: it waits
+        need, cow, _ = self._page_demand(run, rows_after)
+        # credit-yielding copies first: each returns its original to the
+        # reclaimable pool before the next copy draws on it
+        for i in sorted(cow, key=lambda i: not self._cow_credit(run.pages[i])):
+            old = run.pages[i]
+            run.pages[i] = self.kv.cow(old)
+            if run.pages[i] != old:
+                self.obs.request_cow(run.req.uid)
         for _ in range(need):
             run.pages.append(self.kv.alloc())
         return True
@@ -210,19 +304,49 @@ class Scheduler:
     def _admit(self) -> None:
         while self.waiting and len(self.running) < self.lanes:
             cand = self.waiting[0]
-            if self.kv.pages_needed(cand.known() + 1) > self.kv.available_pages:
+            # Probe the cache with the known tokens (prompt ⊕ replayed
+            # generation), memoised against the tree's version while the
+            # head waits; nothing is granted until admission passes.
+            hit = None
+            if self.cache is not None:
+                if cand.probe is not None and \
+                        cand.probe[0] == self.cache.version:
+                    hit = cand.probe[1]
+                else:
+                    hit = self.cache.match(cand.req.known_tokens())
+                    cand.probe = (self.cache.version, hit)
+            # The pool must hold the known tokens plus one decode row, less
+            # the hit's resident pages; granting pins the hit's cache-only
+            # pages, so they leave the available side.
+            need = self.kv.pages_needed(cand.known() + 1)
+            avail = self.kv.available_pages
+            if hit is not None:
+                need -= len(hit.pages)
+                avail -= sum(1 for p in hit.pages if self.kv.ref[p] == 1)
+            if need > avail:
                 break                     # FCFS: the head blocks the queue
             self.waiting.pop(0)
             resumed = cand.req.state is RequestState.PREEMPTED
-            cand.rows = 0
+            if hit is not None:
+                self.cache.grant(hit, cand.known())
+                cand.pages = list(hit.pages)
+                cand.rows = hit.tokens
+                self.prefix_hit_tokens_step += hit.tokens
+            else:
+                cand.rows = 0
             cand.req.state = RequestState.PREFILL
-            self.obs.request_admitted(cand.req.uid, resumed=resumed)
+            self.obs.request_admitted(
+                cand.req.uid, hit_tokens=hit.tokens if hit is not None else 0,
+                resumed=resumed)
             bisect.insort(self.running, cand, key=lambda r: r.ticket)
 
     def _plan_wants(self) -> Dict[int, int]:
-        """Split the step's token budget: ticket → q_len, decodes first."""
+        """Split the step's token budget: ticket → q_len.  Decode lanes
+        first, then prefill chunks oldest first; only leftover budget funds
+        drafts (oldest greedy decode lane first, up to ``spec_k`` each)."""
         budget = self.step_tokens
         wants: Dict[int, int] = {}
+        decodes: List[RunningRequest] = []
         for run in sorted(self.running,
                           key=lambda r: (r.remaining() > 1, r.ticket)):
             q = min(self.chunk_size, run.remaining(), budget)
@@ -230,10 +354,39 @@ class Scheduler:
                 continue
             budget -= q
             wants[run.ticket] = q
+            if run.remaining() == 1:
+                decodes.append(run)
+        if self.spec_k > 0 and self.proposer is not None and budget > 0:
+            for run in sorted(decodes, key=lambda r: r.ticket):
+                if budget <= 0:
+                    break
+                if run.req.temperature > 0.0:
+                    continue    # acceptance is argmax equality: greedy only
+                # d accepted drafts commit d + 1 tokens: never draft past
+                # max_new
+                cap = min(self.spec_k, budget,
+                          run.req.max_new - len(run.req.tokens) - 1)
+                if cap <= 0:
+                    continue
+                drafts = tuple(
+                    int(t) for t in
+                    self.proposer(run.req.known_tokens(), cap))[:cap]
+                if not drafts:
+                    continue
+                self._drafts[run.ticket] = drafts
+                wants[run.ticket] += len(drafts)
+                budget -= len(drafts)
         return wants
 
+    @property
+    def drafting(self) -> bool:
+        """True while the current step carries speculative drafts."""
+        return bool(self._drafts)
+
     def _grant_plans(self, wants: Dict[int, int]) -> List[LanePlan]:
-        """Grant pages in strict ticket order, only for budgeted tokens."""
+        """Grant pages in strict ticket order, only for budgeted tokens.
+        When a drafted chunk would need a preemption, its drafts shrink
+        until the grant fits unforced: only a mandatory token evicts."""
         plans: List[LanePlan] = []
         for run in list(sorted(self.running, key=lambda r: r.ticket)):
             if run not in self.running:
@@ -241,17 +394,30 @@ class Scheduler:
             q = wants.get(run.ticket)
             if q is None:
                 continue
+            drafts = orig = self._drafts.get(run.ticket, ())
+            while drafts and not self._fits_unforced(run, run.rows + q):
+                drafts = drafts[:-1]                  # degrade, don't evict
+                q -= 1
+            if len(drafts) != len(orig):
+                self.trimmed_draft_step += len(orig) - len(drafts)
+                if drafts:
+                    self._drafts[run.ticket] = drafts
+                else:
+                    del self._drafts[run.ticket]
             if not self._grant_pages(run, run.rows + q):
                 continue
             run.req.state = (RequestState.DECODE if run.remaining() == 1
                              else RequestState.PREFILL)
-            plans.append(LanePlan(run, q))
+            plans.append(LanePlan(run, q, tuple(drafts)))
         return plans
 
     def begin_step(self) -> Dict[int, int]:
         """Admit waiters and split the token budget → ticket → q_len."""
         self._evicted_now = []
+        self.prefix_hit_tokens_step = 0
         self.trimmed_prefill_step = 0
+        self.trimmed_draft_step = 0
+        self._drafts = {}
         self._admit()
         return self._plan_wants()
 
@@ -263,9 +429,9 @@ class Scheduler:
         return self.token_buckets[-1]
 
     def _trim_to_bucket(self, wants: Dict[int, int]) -> Dict[int, int]:
-        """Trim prefill chunk tails (youngest first, never a decode, every
-        lane keeps >= 1 token) so the live stream lands on a bucket edge;
-        pad up when the edge is unreachable."""
+        """Trim drafts, then prefill chunk tails (each youngest first, never
+        a decode token, every lane keeps >= 1 token) so the live stream
+        lands on a bucket edge; pad up when the edge is unreachable."""
         total = sum(wants.values())
         if total == 0 or total in self.token_buckets:
             return wants
@@ -275,10 +441,24 @@ class Scheduler:
         if not below:
             return wants                              # decode-bound: pad up
         cut = total - below[-1]
-        trimmable = sum(q - 1 for t, q in wants.items()
-                        if runs[t].remaining() > 1)
+        trimmable = (sum(len(d) for d in self._drafts.values())
+                     + sum(q - 1 for t, q in wants.items()
+                           if runs[t].remaining() > 1))
         if cut > trimmable:
             return wants                              # would starve: pad up
+        for tkt in sorted(self._drafts, reverse=True):  # drafts: youngest 1st
+            if cut == 0:
+                break
+            if tkt not in wants:
+                continue
+            take = min(cut, len(self._drafts[tkt]))
+            self._drafts[tkt] = self._drafts[tkt][:len(self._drafts[tkt])
+                                                  - take]
+            if not self._drafts[tkt]:
+                del self._drafts[tkt]
+            wants[tkt] -= take
+            cut -= take
+            self.trimmed_draft_step += take
         for tkt in sorted(wants, reverse=True):       # prefill: youngest 1st
             if cut == 0:
                 break

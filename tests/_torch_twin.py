@@ -1,13 +1,20 @@
 """Twin-engine harness: the JAX ``EngineCore`` and the PyTorch port's
 ``EngineCore(device="cpu")`` driven step by step on one request trace.
 
-After every step the harness asserts equal plans and packed streams, equal
-page tables, cursors, free heaps and refcounts, and equal greedy tokens.
+After every step the harness asserts equal plans (with each lane's
+drafts) and packed streams, equal page tables, cursors, free heaps and
+refcounts, equal prefix-cache trees (page → block path and LRU stamp,
+version, stats, CoW copies), equal speculative statistics, equal step
+captures (the port's ``trace_count`` against JAX's), and equal greedy
+tokens, every committed one.
 For int8 pools a token may differ only at a genuine near-tie: JAX's top-2
-logit margin at that lane lies below the logit gap measured between the two
+logit margin at that lane (and, for a verify lane, at the row of the
+first differing token) lies below the logit gap measured between the two
 engines on that very step.  Such a request is then marked forked and its
 later token values are not compared; since no request has an eos id,
 scheduling never depends on token values, so every other check continues.
+A speculative engine's schedule does depend on them (acceptance), so a
+fork there fails the run.
 """
 import numpy as np
 
@@ -51,6 +58,21 @@ def _spy_batches(eng, log):
     eng.scheduler.batch_for = spy
 
 
+def cache_tree(cache):
+    """A prefix cache as plain data: page → (block path, LRU stamp), its
+    version and its stats; None when the cache is off."""
+    if cache is None:
+        return None
+    tree = {}
+    for page, node in cache._nodes.items():
+        path, n = [], node
+        while n.parent is not None:
+            path.append(n.block)
+            n = n.parent
+        tree[page] = (tuple(reversed(path)), node.stamp)
+    return tree, cache.version, cache.stats()
+
+
 def _state(eng):
     s = eng.scheduler
     return dict(
@@ -58,7 +80,9 @@ def _state(eng):
                  for r in s.running],
         waiting=[(r.req.uid, r.ticket, r.rows) for r in s.waiting],
         free=list(eng.kv.free), ref=list(eng.kv.ref),
-        finished=[r.uid for r in eng.finished])
+        finished=[r.uid for r in eng.finished],
+        cache=cache_tree(eng.prefix_cache), cow_copies=eng.kv.cow_copies,
+        spec=eng.spec_stats, traces=eng.trace_count)
 
 
 def _spy_logits(je, jc, logits, monkeypatch):
@@ -83,12 +107,19 @@ def _spy_logits(je, jc, logits, monkeypatch):
 
 
 def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
-              on_step=None):
+              on_step=None, waves=None, proposer=None, built=None):
     """Drive both engines to completion → dict of per-run facts.
-    ``on_step(je, te, step)`` runs after every step's checks."""
-    jc, tc, jparams, tparams = build(dtype, kv_quant)
-    je = JEngine(jc, jparams, **engine_kw)
-    te = TEngine(tc, tparams, device="cpu", **engine_kw)
+    ``on_step(je, te, step)`` runs after every step's checks.  ``waves``
+    lists the request indices submitted together, each wave once both
+    engines drained the one before (default: all at once); ``proposer()``
+    makes each engine's own draft proposer; ``built`` is ``build``'s
+    result when the caller already has it."""
+    jc, tc, jparams, tparams = built or build(dtype, kv_quant)
+    kw = dict(engine_kw)
+    je = JEngine(jc, jparams, **kw, **(
+        {} if proposer is None else dict(proposer=proposer())))
+    te = TEngine(tc, tparams, device="cpu", **kw, **(
+        {} if proposer is None else dict(proposer=proposer())))
     jb, tb = [], []
     _spy_batches(je, jb)
     _spy_batches(te, tb)
@@ -98,46 +129,68 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
     if kv_quant:
         _spy_logits(je, jc, logits, monkeypatch)
 
-    for i, p in enumerate(prompts):
-        je.submit(JRequest(uid=i, prompt=p, max_new=max_new[i]))
-        te.submit(TRequest(uid=i, prompt=p, max_new=max_new[i]))
-
+    reqs = {}
     forked, near_ties, steps, preempted, mixed = set(), [], 0, [], False
-    while je.scheduler.has_work():
-        oj, ot = je.step(), te.step()
-        steps += 1
-        a, b = jb[-1], tb[-1]
-        plan = [(p.run.req.uid, p.q_len) for p in a.plans]
-        assert plan == [(p.run.req.uid, p.q_len) for p in b.plans], steps
-        live = np.array([a.plans[i].run.req.uid not in forked
-                         if i >= 0 else True for i in a.lane_id])
-        np.testing.assert_array_equal(a.tokens[live], b.tokens[live])
-        for f in ("pos", "lane_id", "table", "cu_seqlens"):
-            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
-        assert (a.live, a.width) == (b.live, b.width)
-        assert _state(je) == _state(te), steps
-        assert oj.preempted == ot.preempted and oj.finished == ot.finished
-        preempted += list(oj.preempted)
-        mixed |= oj.mixed
-        for uid in set(oj.tokens) | set(ot.tokens):
-            if uid in forked or oj.tokens.get(uid) == ot.tokens.get(uid):
-                continue
-            assert kv_quant, (f"{dtype} float pool: token of request {uid} "
-                              f"differs at step {steps}: {oj.tokens[uid]} vs "
-                              f"{ot.tokens[uid]}")
-            lane = plan.index((uid, dict(plan)[uid]))
-            lj = logits["jax"][lane]
-            top2 = np.sort(lj)[-2:]
-            margin = float(top2[1] - top2[0])
-            gap = float(np.abs(logits["torch"][:len(plan)]
-                               - logits["jax"][:len(plan)]).max())
-            assert margin < gap, (f"int8 pool: request {uid} forked at step "
-                                  f"{steps} with a JAX top-2 margin {margin} "
-                                  f"above the measured logit gap {gap}")
-            near_ties.append((uid, steps, margin, gap))
-            forked.add(uid)
-        if on_step is not None:
-            on_step(je, te, steps)
+    outs = []
+    for wave in (waves or [range(len(prompts))]):
+        for i in wave:
+            reqs[i] = (JRequest(uid=i, prompt=prompts[i], max_new=max_new[i]),
+                       TRequest(uid=i, prompt=prompts[i], max_new=max_new[i]))
+            je.submit(reqs[i][0])
+            te.submit(reqs[i][1])
+        while je.scheduler.has_work() or te.scheduler.has_work():
+            before = {u: len(r[0].tokens) for u, r in reqs.items()}
+            oj, ot = je.step(), te.step()
+            outs.append((oj, ot))
+            steps += 1
+            a, b = jb[-1], tb[-1]
+            plan = [(p.run.req.uid, p.q_len, tuple(p.drafts))
+                    for p in a.plans]
+            assert plan == [(p.run.req.uid, p.q_len, tuple(p.drafts))
+                            for p in b.plans], steps
+            live = np.array([a.plans[i].run.req.uid not in forked
+                             if i >= 0 else True for i in a.lane_id])
+            np.testing.assert_array_equal(a.tokens[live], b.tokens[live])
+            for f in ("pos", "lane_id", "table", "cu_seqlens"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+            assert (a.live, a.width) == (b.live, b.width)
+            assert _state(je) == _state(te), steps
+            for f in ("preempted", "finished", "prefix_hit_tokens",
+                      "drafted_tokens", "accepted_tokens"):
+                assert getattr(oj, f) == getattr(ot, f), (steps, f)
+            preempted += list(oj.preempted)
+            mixed |= oj.mixed
+            for uid, (jr, tr) in reqs.items():
+                if uid in forked or jr.tokens == tr.tokens:
+                    continue
+                assert kv_quant, (f"{dtype} float pool: tokens of request "
+                                  f"{uid} differ at step {steps}: "
+                                  f"{jr.tokens} vs {tr.tokens}")
+                lane = [u for u, _, _ in plan].index(uid)
+                first = next(j for j, (x, y) in enumerate(
+                    zip(jr.tokens + [None], tr.tokens + [None])) if x != y)
+                lj = logits["jax"][lane]
+                if lj.ndim == 2:                   # a verify lane's rows
+                    lj = lj[first - before[uid]]
+                top2 = np.sort(lj)[-2:]
+                margin = float(top2[1] - top2[0])
+                gap = float(np.abs(logits["torch"][:len(plan)]
+                                   - logits["jax"][:len(plan)]).max())
+                assert margin < gap, (f"int8 pool: request {uid} forked at "
+                                      f"step {steps} with a JAX top-2 margin "
+                                      f"{margin} above the measured logit "
+                                      f"gap {gap}")
+                assert not te.speculative, (
+                    f"int8 near-tie fork of request {uid} at step {steps} "
+                    f"(margin {margin} < gap {gap}) in a speculative run: "
+                    f"the two schedules part here")
+                near_ties.append((uid, steps, margin, gap))
+                forked.add(uid)
+            for uid in set(oj.tokens) | set(ot.tokens):
+                if uid not in forked:
+                    assert oj.tokens.get(uid) == ot.tokens.get(uid), steps
+            if on_step is not None:
+                on_step(je, te, steps)
     assert not te.scheduler.has_work()
     streams = ({r.uid: r.tokens for r in je.finished},
                {r.uid: r.tokens for r in te.finished})
@@ -146,4 +199,5 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
             assert streams[0][uid] == streams[1][uid], uid
     return dict(streams=streams, forked=forked, near_ties=near_ties,
                 steps=steps, preempted=preempted, mixed=mixed,
-                pages_in_use=(je.pages_in_use, te.pages_in_use))
+                pages_in_use=(je.pages_in_use, te.pages_in_use),
+                engines=(je, te), outs=outs)

@@ -104,12 +104,24 @@ def test_engine_without_device_raises_without_card(no_card):
     EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mode="padded"), dict(prefix_cache=True),
-                                dict(speculative=True), dict(mesh=2)])
+@pytest.mark.parametrize("kw", [dict(mode="padded"), dict(mesh=2)])
 def test_later_slices_raise_not_implemented(kw):
     cfg = get_config("deepseek-7b-smoke")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="slice"):
+        EngineCore(cfg, params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(speculative=True, spec_k=0), "spec_k"),
+    (dict(prefix_cache=True, cache_pages=0), "max_pages")])
+def test_feature_arguments_raise_the_reference_errors(kw, match):
+    """The prefix cache and speculative decoding are ported: their bad
+    arguments raise the reference's own ``ValueError``s
+    (``src/repro/serving/core.py:182``, ``prefix_cache.py:98``)."""
+    cfg = get_config("deepseek-7b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match=match):
         EngineCore(cfg, params, device="cpu", **kw)
 
 

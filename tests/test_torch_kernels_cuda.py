@@ -946,3 +946,130 @@ def test_capture_of_a_host_read_raises(cuda_device):
         g.run(**arrays)
     torch.cuda.synchronize()
     assert not g.keys and launch_counts() == before
+
+
+# ------------------------------- prefix cache and speculation, captured --
+#
+# The copy-on-write of a partial prefix hit is a device copy into the pool
+# in place (``PagedKVCache.cow``), and a speculative engine's steps pick at
+# (lanes, 1 + spec_k) rows; both must replay through the captured step.
+
+def _pool_ptrs(eng):
+    return {name: t.data_ptr() for name, t in eng.kv.pool.items()}
+
+
+def _cow_trace(eng):
+    """Request 0 (21 tokens, 2⅝ pages of 8) publishes; request 1, its first
+    14 tokens, hits one full page and 5 rows of the next: a partial hit
+    whose page is copied before its first cold row lands."""
+    from repro_torch.serving import Request
+    base = np.random.default_rng(1).integers(
+        0, eng.cfg.vocab_size, 21).astype(np.int32)
+    return [Request(uid=0, prompt=base, max_new=8),
+            Request(uid=1, prompt=base[:14], max_new=8)]
+
+
+@pytest.mark.cuda
+def test_cow_between_replays_keeps_the_pool_in_place(cuda_device):
+    """Cached serving, captured against eager: after every step picks and
+    pool bytes are equal; the step that copies a page keeps every pool
+    tensor's ``data_ptr()``, leaves the original page's bits as they were,
+    and is itself a replay (no new capture) that reads the copy."""
+    eager = _smoke_engine(cuda_device, False, capture=False, prefix_cache=True)
+    graph = _smoke_engine(cuda_device, False, capture=True, prefix_cache=True)
+    ptrs = _pool_ptrs(graph)
+    cow_steps = 0
+    for wave in ([0], [1]):
+        for eng in (eager, graph):
+            eng.submit(_cow_trace(eng)[wave[0]])
+        while eager.scheduler.has_work():
+            copies, captures = graph.kv.cow_copies, graph.graphs.captures
+            cached = {n.page: {k: t[:, n.page].clone()
+                               for k, t in graph.kv.pool.items()}
+                      for n in graph.prefix_cache._nodes.values()}
+            oe, og = eager.step(), graph.step()
+            assert oe.tokens == og.tokens
+            for name, bits in _pool_bits(eager).items():
+                assert torch.equal(bits, _pool_bits(graph)[name]), name
+            assert _pool_ptrs(graph) == ptrs
+            if graph.kv.cow_copies > copies:
+                cow_steps += 1
+                assert graph.graphs.captures == captures, \
+                    "the copying step captured instead of replaying"
+                for page, leaves in cached.items():      # originals intact
+                    for k, t in graph.kv.pool.items():
+                        assert torch.equal(t[:, page], leaves[k]), (page, k)
+    assert cow_steps == 1 and eager.kv.cow_copies == graph.kv.cow_copies == 1
+    assert graph.prefix_stats["partial_hits"] == 1
+
+
+def _repeat_last(stream, k):
+    """Drafts the stream's last token k times: deterministic, mostly
+    rejected, sometimes accepted."""
+    return [int(stream[-1])] * k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_verify_shaped_captured_step_bit_equal_to_eager(cuda_device,
+                                                       kv_quant):
+    """Speculative engines (k = 4): the captured step's (lanes, 5) picks and
+    the pool bytes equal the eager step's after every step, drafting steps
+    replayed, and the captures stay those of the (T, P) keys."""
+    kw = dict(speculative=True, spec_k=4, proposer=_repeat_last)
+    eager = _smoke_engine(cuda_device, kv_quant, capture=False, **kw)
+    graph = _smoke_engine(cuda_device, kv_quant, capture=True, **kw)
+    for eng in (eager, graph):
+        _smoke_requests(eng)
+    replayed_drafts = 0
+    while eager.scheduler.has_work():
+        captures = graph.graphs.captures
+        oe, og = eager.step(), graph.step()
+        assert (oe.tokens, oe.drafted_tokens, oe.accepted_tokens) == \
+            (og.tokens, og.drafted_tokens, og.accepted_tokens)
+        for name, bits in _pool_bits(eager).items():
+            assert torch.equal(bits, _pool_bits(graph)[name]), name
+        if og.drafted_tokens and graph.graphs.captures == captures:
+            replayed_drafts += 1
+    assert graph.graphs.pick_shape == (3, 5)
+    assert {r.uid: r.tokens for r in eager.finished} == \
+        {r.uid: r.tokens for r in graph.finished}
+    assert replayed_drafts > 0 and graph.drafted_total > 0
+    assert graph.trace_count == graph.graphs.captures < graph.obs.registry \
+        .value("steps_total")
+
+
+@pytest.mark.cuda
+def test_step_with_cow_and_drafts_replays_without_a_sync(cuda_device):
+    """A replayed step whose schedule copies a page and carries drafts
+    reads no device value on the host: the scheduler's CoW copy, the
+    staging and the replay all run under ``set_sync_debug_mode("error")``;
+    the streams equal an eager engine's."""
+    kw = dict(prefix_cache=True, speculative=True, spec_k=4,
+              proposer=_repeat_last)
+    graph = _smoke_engine(cuda_device, False, capture=True, **kw)
+    eager = _smoke_engine(cuda_device, False, capture=False, **kw)
+    reqs = {id(e): _cow_trace(e) for e in (graph, eager)}
+    for eng in (graph, eager):
+        eng.submit(reqs[id(eng)][0])
+        eng.run()
+        eng.submit(reqs[id(eng)][1])
+    s = graph.scheduler
+    captures, copies = graph.graphs.captures, graph.kv.cow_copies
+    wants = s.begin_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch, pre = s.batch_for(wants)
+        picks = graph.graphs.run(**graph.step_arrays(batch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert graph.kv.cow_copies == copies + 1
+    assert any(p.drafts for p in batch.plans)
+    assert graph.graphs.captures == captures         # a replay
+    graph._finish(batch.plans, pre, picks=picks.cpu().numpy(),
+                  live=batch.live, padded=batch.width)
+    graph.run()
+    eager.run()
+    assert {r.uid: r.tokens for r in graph.finished} == \
+        {r.uid: r.tokens for r in eager.finished}
