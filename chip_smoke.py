@@ -79,6 +79,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``NGramProposer`` on prompts of a repeated 32-token phrase beside the
    plain engine (warm pass, then a measured one): acceptance, committed
    tokens per step, step p50, tokens/s;
+7c. seeded sampling at the same width, bf16 and int8 pools: phase 7's
+   prompts, requests 0–3 greedy, 4–6 at temperature 0.8, top_k 50, top_p
+   0.95, seeds 1000 + i, 7 at temperature 1.0.  A captured engine (two
+   passes capture the (T, P) keys and its one sampler graph, then
+   ``mark_warm()`` and a measured pass: 0 captures, two LUT-exp launches
+   on every step that samples and none on any other), an eager engine
+   (captured = eager bit for bit), each sampled request served alone, a
+   pool that forces preemptions and an all-greedy pass (no sampler run):
+   greedy streams = phase 7's, alone = batched and preempted = roomy, each
+   save near-tie forks (``scores + g`` for a sampled token); the sampler
+   on the card against its CPU version on one step's logits (key words,
+   bits, uniforms and the LUT exponential bit for bit); step p50/p99,
+   tokens/s, the sampler graph's time and its device time by kernel group;
+7d. the async front door (``AsyncLMServer``) on 7c's warm bf16 engine: 8
+   clients at once stream exactly the batch streams; staggered arrivals
+   with one client cancelled after 4 tokens (its pages free before the
+   next step): TTFT p50/p99, TPOT, req/s from ``summary()``; one scrape of
+   ``/metrics`` on 127.0.0.1;
 8. hold the activation quantisation kernel (``quantize_dynamic``)
    bit-equal to its plain version, int8 values and scale, f32 and bf16:
    ragged and unaligned sizes, all zeros, exact .5 ties, an outlier,
@@ -96,8 +114,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    products, GELUs) and by its host work alone; the pass captured once as
    a CUDA graph (a measurement), its replay bit-equal to the eager pass
    and timed beside it;
-10. time each kernel at its main path's shapes (paged attention, its
-   combine and the LUT exp at the engine's decode step, paged attention
+10. time each kernel at its main path's shapes (paged attention and its
+   combine at the engine's decode step, the LUT exp at the sampler's
+   (lanes, V) scores and at the decode step's logits, paged attention
    also at a mixed step of one 256-token prefill chunk and 7 decodes, and
    at a verify step of 8 lanes × (1 + 4) rows, and at the three shapes
    beside SDPA three ways: as a caller sees it, the device
@@ -1310,11 +1329,15 @@ def step_logits(eng, batch):
 
 
 def spy_batches(eng, seen):
+    """Record each step's batch in ``seen[eng]``, and in ``seen[eng,
+    "sampled"]`` whether the step runs the sampler (read before the step
+    moves the cursors)."""
     inner = eng.scheduler.batch_for
 
     def spy(wants):
         batch, pre = inner(wants)
         seen[eng] = batch
+        seen[eng, "sampled"] = eng._sampling_inputs(batch.plans) is not None
         return batch, pre
     eng.scheduler.batch_for = spy
 
@@ -1591,7 +1614,8 @@ def acceptance_kinds(log):
 
 
 def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
-    """Serve ``waves`` (lists of (uid, prompt)), each submitted once the
+    """Serve ``waves`` (lists of (uid, prompt) or (uid, prompt, sampling
+    params)), each submitted once the
     engine drained the one before; kernel counts zeroed just before and
     read just after → facts of the run and of each wave, and the logits
     row of every (uid, token index) in ``targets`` (the eager step re-run
@@ -1614,8 +1638,9 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
                  drafted=0, accepted=0, ttft_ms={},
                  captures=eng.graphs.captures)
         t_sub = time.perf_counter()
-        for uid, prompt in wave:
-            reqs[uid] = Request(uid=uid, prompt=prompt, max_new=MAX_NEW)
+        for uid, prompt, *sp in wave:
+            reqs[uid] = Request(uid=uid, prompt=prompt, max_new=MAX_NEW,
+                                sampling=sp[0] if sp else None)
             eng.submit(reqs[uid])
         while eng.scheduler.has_work():
             before = {u: len(r.tokens) for u, r in reqs.items()}
@@ -1631,6 +1656,8 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
             step_log.append(dict(
                 prefill=out.prefill_tokens, decode=out.decode_tokens,
                 lanes=out.lanes, drafted=out.drafted_tokens,
+                preempted=len(out.preempted),
+                sampled=bool(out.lanes) and seen[eng, "sampled"],
                 width=out.padded_rows, ms=(now - s0) * 1e3,
                 captures=eng.graphs.captures - c0,
                 launches=read_paged_counts()["paged_attention"] - n0))
@@ -1657,7 +1684,7 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
                                         else lg[i, j - before[u]])
         w["wall_s"] = time.perf_counter() - t_sub
         w["captures"] = eng.graphs.captures - w["captures"]
-        w["generated"] = sum(len(reqs[u].tokens) for u, _ in wave)
+        w["generated"] = sum(len(reqs[u].tokens) for u, *_ in wave)
         per_wave.append(w)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1699,13 +1726,85 @@ def fresh_run(make_eng, serve):
     return run
 
 
-def hold_by_margin(label, got, want, rerun_got, rerun_want):
+def sampled_fork(label, u, j, rows, toks, sp):
+    """Hold a fork of sampled request ``u`` at its token ``j`` (arms "got"
+    and "want": their logits rows and tokens) to the logits gap between the
+    arms.  The draw, re-run on each arm's row with the request's own key
+    ``fold_in(PRNGKey(seed), j)``, must give that arm's token: key, counter
+    and params agree, only the logits part the arms.  With x = (logits −
+    max) / t, a logits gap moves every difference of x by at most
+    ``shift`` = 4·gap / t.  So where "got" kept "want"'s token, "want"'s
+    lead (x + g)[want] − (x + g)[got] must be at most ``shift``; and a
+    token kept by one arm and masked by the other must lie within it of
+    the masking arm's boundary: below the k-th largest x by at most
+    ``shift``, or a mass before it below p·e^shift.  The launches of the
+    check are the caller's to put back.  → (lead, shift)."""
+    import math
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.lut_softmax import lut_softmax
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.serving.sampling import (_masked_scores, _request_keys,
+                                              sample_rows)
+    one = lambda v, dt: torch.tensor([v], dtype=dt, device=DEV)  # noqa: E731
+    t, k = sp.temperature, sp.top_k or 0
+    p = 1.0 if sp.top_p is None else sp.top_p
+    params = dict(temperature=one(t, torch.float32),
+                  top_k=one(k, torch.int32), top_p=one(p, torch.float32),
+                  seed=one(sp.seed or 0, torch.int64),
+                  counter=one(j, torch.int64))
+    arm = {}
+    for side in ("got", "want"):
+        lg = torch.as_tensor(rows[side], device=DEV,
+                             dtype=torch.float32)[None]
+        if int(sample_rows(lg, **params)[0]) != toks[side]:
+            fail(f"{label}: request {u}'s draw at token {j} on the {side} "
+                 f"arm's logits is not its token {toks[side]}")
+        x, keep = _masked_scores(lg, params["temperature"], params["top_k"],
+                                 params["top_p"], lut_exp)
+        order = torch.argsort(-x, dim=-1, stable=True)
+        probs = lut_softmax(x, exp=lut_exp).gather(-1, order)
+        before = torch.empty_like(probs).scatter_(
+            -1, order, torch.cumsum(probs, -1) - probs)
+        xu = (lg - lg.amax()) / t
+        kth = (float(torch.sort(xu, descending=True).values[0, k - 1])
+               if k else -math.inf)
+        arm[side] = dict(xu=xu[0].cpu().numpy(), keep=keep[0].cpu().numpy(),
+                         before=before[0].cpu().numpy(), kth=kth, lg=lg)
+    g = prng.gumbel(*_request_keys(params["seed"], params["counter"]),
+                    arm["got"]["lg"].shape[-1])[0].cpu().numpy()
+    gap = float((arm["got"]["lg"] - arm["want"]["lg"]).abs().max())
+    shift = 4 * gap / t
+    for tok in toks.values():
+        kept = {side: bool(a["keep"][tok]) for side, a in arm.items()}
+        if kept["got"] == kept["want"]:
+            continue
+        m = arm["got" if not kept["got"] else "want"]
+        if k and m["xu"][tok] < m["kth"]:
+            near = m["kth"] - m["xu"][tok] <= shift
+        else:
+            near = m["before"][tok] < p * math.exp(shift)
+        if not near:
+            fail(f"{label}: request {u}'s token {tok} at {j} is kept by one "
+                 f"arm and masked by the other beyond the logits gap {gap}")
+    w, o = toks["want"], toks["got"]
+    xw = arm["want"]["xu"]
+    lead = float((xw[w] + g[w]) - (xw[o] + g[o]))
+    if arm["got"]["keep"][w] and not lead <= shift:
+        fail(f"{label}: request {u} differs at token {j} with a draw lead "
+             f"{lead} above the {shift} a logits gap of {gap} can move")
+    return lead, shift
+
+
+def hold_by_margin(label, got, want, rerun_got, rerun_want, sampling=None):
     """Hold streams ``got`` against ``want`` ({uid: tokens}) by the near-tie
     margin rule: where a request's tokens first differ, both arms are run
     again (they are deterministic: the rerun must repeat the stream) and
     the logits row of that token read from each; the fork stands only if
     ``want``'s top-2 margin there lies below the largest logit gap between
-    the two rows.  → the forks, each with its margin and gap."""
+    the two rows.  A sampled request ({uid: params} in ``sampling``) is
+    held by ``sampled_fork`` instead.  The fork check's launches are put
+    back out of the counts.  → the forks, each with its margin and gap."""
     forks = {}
     for u, w in want.items():
         j = next((i for i, (a, b) in enumerate(zip(got[u], w)) if a != b),
@@ -1720,17 +1819,26 @@ def hold_by_margin(label, got, want, rerun_got, rerun_want):
     for (rerun, ref, side) in ((lg, got, "got"), (lw, want, "want")):
         if {u: rerun["streams"][u] for u in ref} != ref:
             fail(f"{label}: the {side} arm's rerun served other streams")
+    counts = read_paged_counts()
     for u, j in sorted(forks.items()):
         a, b = lg["logits"][u, j], lw["logits"][u, j]
-        top2 = np.sort(b)[-2:]
-        margin = float(top2[1] - top2[0])
-        gap = float(np.abs(a - b).max())
-        fork = dict(uid=u, token=j, margin=margin, gap=gap)
+        sp = (sampling or {}).get(u)
+        if sp is not None and not sp.greedy:
+            lead, shift = sampled_fork(
+                label, u, j, dict(got=a, want=b),
+                dict(got=got[u][j], want=want[u][j]), sp)
+            fork = dict(uid=u, token=j, lead=lead, shift=shift)
+        else:
+            top2 = np.sort(b)[-2:]
+            margin = float(top2[1] - top2[0])
+            gap = float(np.abs(a - b).max())
+            fork = dict(uid=u, token=j, margin=margin, gap=gap)
+            if not margin < gap:
+                fail(f"{label}: request {u} differs at token {j} with a top-2 "
+                     f"margin {margin} not below the logit gap {gap}")
         log(f"[{label}] request {u} forks at token {j}: {fork}")
-        if not margin < gap:
-            fail(f"{label}: request {u} differs at token {j} with a top-2 "
-                 f"margin {margin} not below the logit gap {gap}")
         out.append(fork)
+    set_paged_counts(counts)
     return out
 
 
@@ -2064,6 +2172,379 @@ def phase_spec(cfg, params, prompts, want, plain):
     return dict(scripted=fa, ngram=fb)
 
 
+def sampled_traffic(prompts):
+    """Phase 7's prompts as (index, prompt, params): requests 0–3 greedy,
+    4–6 temperature 0.8, top_k 50, top_p 0.95, seed 1000 + i, 7
+    temperature 1.0 with no mask."""
+    from repro_torch.serving import SamplingParams
+    sps = {i: SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                             seed=1000 + i) for i in (4, 5, 6)}
+    sps[7] = SamplingParams(temperature=1.0)
+    return [(i, p, sps.get(i)) for i, p in enumerate(prompts)], sps
+
+
+SAMPLER_GROUPS = (("lut_exp", "#1 lut_exp"), ("sort", "sort"),
+                  ("scan", "scan"), ("cumsum", "scan"),
+                  ("elementwise", "elementwise"),
+                  ("vectorized", "elementwise"), ("reduce", "reduce"),
+                  ("index", "gather / scatter"), ("gather", "gather / scatter"),
+                  ("scatter", "gather / scatter"), ("Memcpy", "copy"),
+                  ("Memset", "copy"))
+
+
+def sampler_window(sampler, label):
+    """One replay of the sampler graph under ``torch.profiler`` → its device
+    time by kernel group (sort, scan, elementwise, #1, …); the replay's
+    launch counts are put back."""
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.tracing import profile_summary
+    counts = read_paged_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sampler.call.replay()
+        torch.cuda.synchronize()
+    set_paged_counts(counts)
+    tdir = ROOT / "chiprun_out" / "traces"
+    os.makedirs(tdir, exist_ok=True)
+    path = str(tdir / f"{label}_sampler.json")
+    prof.export_chrome_trace(path)
+    s = profile_summary(path, top=None)
+    groups = {}
+    for name, ms in s["by_name"].items():
+        low = name.lower()
+        g = next((grp for key, grp in SAMPLER_GROUPS if key.lower() in low),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    os.remove(path)
+    return dict(launches=s["launches"], device_ms=s["device_ms"],
+                kernel_span_ms=s["kernel_span_ms"],
+                by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                top={k[:70]: v for k, v in list(s["by_name"].items())[:8]})
+
+
+def sampler_vs_plain(logits, label):
+    """The sampler at the engine's shape on the card against the same code
+    on the CPU, on one step's real logits with phase 7c's params on 8
+    lanes: key words, bits and uniforms bit for bit, the LUT exponential of
+    the masked scores bit for bit, picks equal save near-ties of
+    ``scores + g``.  Launches put back."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.lut_softmax import lut_log_softmax
+    from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
+    from repro_torch.serving.sampling import (_masked_scores, _request_keys,
+                                              sample_rows)
+    counts = read_paged_counts()
+    n, v = logits.shape
+    cpu = dict(
+        temperature=torch.tensor([0.0] * 4 + [0.8] * 3 + [1.0]),
+        top_k=torch.tensor([0] * 4 + [50] * 3 + [0], dtype=torch.int32),
+        top_p=torch.tensor([1.0] * 4 + [0.95] * 3 + [1.0]),
+        seed=torch.tensor([0, 0, 0, 0, 1004, 1005, 1006, 0]),
+        counter=torch.arange(16, 16 + n, dtype=torch.int64))
+    dev = {k: t.to(DEV) for k, t in cpu.items()}
+    kc = _request_keys(cpu["seed"], cpu["counter"])
+    kd = _request_keys(dev["seed"], dev["counter"])
+    bc, bd = prng.random_bits(*kc, v), prng.random_bits(*kd, v)
+    uc, ud = (prng.uniform(b, prng.F32_TINY) for b in (bc, bd))
+    if not (all(torch.equal(a, b.cpu()) for a, b in zip(kc, kd))
+            and torch.equal(bc, bd.cpu())
+            and torch.equal(uc.view(torch.int32), ud.cpu().view(torch.int32))):
+        fail(f"sampled {label}: the card's key words, bits or uniforms differ "
+             f"from the CPU's")
+    x, _ = _masked_scores(logits, dev["temperature"], dev["top_k"],
+                          dev["top_p"], lut_exp)
+    if not torch.equal(lut_exp(x).view(torch.int32).cpu(),
+                       lut_exp_ref(x.cpu()).view(torch.int32)):
+        fail(f"sampled {label}: lut_exp at the sampler shape differs from its "
+             f"plain version")
+    got = sample_rows(logits, **dev).cpu()
+    want = sample_rows(logits.cpu(), **cpu)
+    forks = []
+    for i in (got != want).nonzero().flatten().tolist():
+        if cpu["temperature"][i] <= 0:
+            fail(f"sampled {label}: greedy lane {i} differs card vs CPU")
+        z = {}
+        for side, row, dev_, exp in (("card", logits[i:i + 1], DEV, lut_exp),
+                                     ("cpu", logits[i:i + 1].cpu(), "cpu",
+                                      lut_exp_ref)):
+            p = {k: t[i:i + 1].to(dev_) for k, t in cpu.items()}
+            x, keep = _masked_scores(row, p["temperature"], p["top_k"],
+                                     p["top_p"], exp)
+            z[side] = ((lut_log_softmax(x, where=keep, exp=exp)
+                        + prng.gumbel(*_request_keys(p["seed"], p["counter"]),
+                                      v))[0].cpu().numpy(),
+                       keep[0].cpu().numpy())
+        (zd, kd_), (zc, kc_) = z["card"], z["cpu"]
+        both = kc_ & kd_
+        lead = float(zc[want[i]] - zc[got[i]])
+        gap = 2 * float(np.abs(zc - zd)[both].max())
+        if not 0 <= lead < gap:
+            fail(f"sampled {label}: lane {i} draws {int(got[i])} on the card, "
+                 f"{int(want[i])} on the CPU, lead {lead} not below {gap}")
+        forks.append(dict(lane=i, lead=lead, gap=gap))
+    set_paged_counts(counts)
+    return forks
+
+
+def phase_sampled(cfg, params, kv_quant: bool, prompts, greedy_streams,
+                  plain):
+    """Seeded sampling through the captured step at full width (phase 7c):
+    ``sampled_traffic`` through a captured engine (the main path: two
+    passes capture the (T, P) keys and the one sampler graph, then
+    ``mark_warm()`` and a measured pass), an eager engine, each sampled
+    request served alone, a pool small enough to force preemptions, and an
+    all-greedy pass.  Gates: captured = eager bit for bit; the greedy
+    requests' streams equal phase 7's, the sampled ones alone equal them
+    batched, and the preempted pass's equal the roomy one's, each save a
+    near-tie fork (``hold_by_margin``); two LUT-exp launches on every step
+    that samples and none on any other; no capture after ``mark_warm()``;
+    the sampler on the card equals its CPU version on the same logits.
+    → (facts, the captured engine)."""
+    import torch
+    from repro_torch.serving import EngineCore
+    c = cfg.replace(kv_quant=kv_quant)
+    tag = "int8" if kv_quant else "bf16"
+    label = f"sampled {tag}"
+    make = lambda **kw: EngineCore(c, params, device=DEV, **dict(ENGINE, **kw))  # noqa: E731
+    traffic, sps = sampled_traffic(prompts)
+    wave = lambda uid0=0: [[(uid0 + i, p, sp) for i, p, sp in traffic]]  # noqa: E731
+    ce = make()
+    first = serve_waves(ce, wave())
+    second = serve_waves(ce, wave(100))
+    if second["waves"][0]["captures"] or ce.graphs.sampler_captures != 1:
+        fail(f"{label}: the second pass captured {second['waves'][0]['captures']}"
+             f" step keys; {ce.graphs.sampler_captures} sampler captures")
+    if {u - 100: t for u, t in second["streams"].items()} != first["streams"]:
+        fail(f"{label}: the second pass served other streams than the first")
+    ce.obs.mark_warm()
+    m = serve_waves(ce, wave(200))     # the main path: counts zeroed around it
+    retraces = int(ce.obs.registry.value("step_retraces_total"))
+    if retraces or ce.graphs.sampler_captures != 1:
+        fail(f"{label}: {retraces} step captures after mark_warm(), "
+             f"{ce.graphs.sampler_captures} sampler captures")
+    if {u - 200: t for u, t in m["streams"].items()} != first["streams"]:
+        fail(f"{label}: the measured pass served other streams")
+    sampled_steps = sum(st["sampled"] for st in m["step_log"])
+    if not sampled_steps or m["launches"]["lut_exp"] != 2 * sampled_steps:
+        fail(f"{label}: {m['launches']['lut_exp']} LUT-exp launches over "
+             f"{sampled_steps} sampling steps (expected 2 each, and none on "
+             f"the {m['steps'] - sampled_steps} steps that sample nothing)")
+    sampled_ms = [st["ms"] for st in m["step_log"]
+                  if st["sampled"] and not st["prefill"]
+                  and st["decode"] == ENGINE["lanes"]]
+    window = sampler_window(ce.graphs.sampler, tag)
+    counts = read_paged_counts()
+    sampler_ms = cuda_ms(lambda: ce.graphs.sampler.call.replay())
+    set_paged_counts(counts)
+    card_forks = sampler_vs_plain(ce.graphs.logits.clone(), tag)
+    g = serve_waves(ce, [[(400 + i, p) for i, p in enumerate(prompts[:4])]])
+    if g["launches"]["lut_exp"] or any(st["sampled"] for st in g["step_log"]):
+        fail(f"{label}: an all-greedy pass ran the sampler "
+             f"({g['launches']['lut_exp']} LUT-exp launches)")
+    if ce.pages_in_use:
+        fail(f"{label}: {ce.pages_in_use} pages in use after the drain")
+
+    ee = make(capture=False)
+    eager = serve_waves(ee, wave())
+    del ee
+    torch.cuda.empty_cache()
+    if eager["streams"] != first["streams"]:
+        fail(f"{label}: the captured arm's streams differ from the eager arm's")
+
+    serve = lambda waves: lambda eng, targets: serve_waves(eng, waves, targets)  # noqa: E731
+    greedy_wave = [[(i, p) for i, p in enumerate(prompts)]]
+    greedy_forks = hold_by_margin(
+        f"{label} greedy vs phase 7",
+        {u: first["streams"][u] for u in range(4)},
+        {u: greedy_streams[u] for u in range(4)},
+        fresh_run(make, serve(wave())), fresh_run(make, serve(greedy_wave)))
+    alone_waves = [[(i, p, sp)] for i, p, sp in traffic if sp is not None]
+    alone = serve_waves(make(), alone_waves)["streams"]
+    torch.cuda.empty_cache()
+    alone_forks = hold_by_margin(
+        f"{label} alone vs batched", alone,
+        {u: first["streams"][u] for u in alone},
+        fresh_run(make, serve(alone_waves)), fresh_run(make, serve(wave())),
+        sampling=sps)
+    need = sum(-(-(len(p) + MAX_NEW) // ENGINE["page_size"]) for p in prompts)
+    tight_pages = max(need // 2, max(-(-(len(p) + MAX_NEW)
+                                       // ENGINE["page_size"])
+                                     for p in prompts) + 2)
+    tight = serve_waves(make(num_pages=tight_pages), wave())
+    torch.cuda.empty_cache()
+    preempted = sum(st["preempted"] for st in tight["step_log"])
+    if not preempted:
+        fail(f"{label}: a pool of {tight_pages} pages forced no preemption")
+    tight_forks = hold_by_margin(
+        f"{label} preempted vs roomy", tight["streams"], first["streams"],
+        fresh_run(lambda: make(num_pages=tight_pages), serve(wave())),
+        fresh_run(make, serve(wave())), sampling=sps)
+    facts = dict(
+        pool=tag, steps=m["steps"], sampled_steps=sampled_steps,
+        launches=m["launches"], step_ms_p50=m["step_ms_p50"],
+        step_ms_p99=m["step_ms_p99"], tok_s=m["tok_s"],
+        peak_gib=m["peak_gib"],
+        greedy_step_ms_p50=plain["step_ms_p50"],
+        greedy_step_ms_p99=plain["step_ms_p99"], greedy_tok_s=plain["tok_s"],
+        sampled_decode_step_ms_p50=(float(np.median(sampled_ms))
+                                    if sampled_ms else None),
+        greedy_decode_step_ms_p50=plain["decode_step_ms_p50"],
+        sampler_replay_ms=sampler_ms, sampler_window=window,
+        step_retraces_total=retraces, captures=ce.graphs.captures,
+        sampler_captures=ce.graphs.sampler_captures,
+        greedy_forks=greedy_forks, alone_forks=alone_forks,
+        tight_pages=tight_pages, preemptions=preempted,
+        tight_forks=tight_forks, card_vs_cpu_forks=card_forks,
+        streams=first["streams"])
+    log(f"[sampled {tag}] requests 4–7 sampled: captured = eager bit for "
+        f"bit; greedy requests = phase 7's"
+        + (f" save near-tie forks {greedy_forks}" if greedy_forks else "")
+        + f"; each sampled request alone = batched"
+        + (f" save forks {alone_forks}" if alone_forks else "")
+        + f"; a {tight_pages}-page pool: {preempted} preemptions, streams "
+        f"unchanged" + (f" save forks {tight_forks}" if tight_forks else "")
+        + f"; card = CPU sampler on one step's logits"
+        + (f" save forks {card_forks}" if card_forks else "")
+        + f"; measured pass: {m['steps']} steps ({sampled_steps} sampling), "
+        f"LUT-exp launches {m['launches']['lut_exp']} = 2 × sampling steps, "
+        f"none in an all-greedy pass; captures {ce.graphs.captures} + 1 "
+        f"sampler, 0 after mark_warm(); step ms p50 {m['step_ms_p50']:.2f} "
+        f"p99 {m['step_ms_p99']:.2f} (phase 7 greedy "
+        f"{plain['step_ms_p50']:.2f} / {plain['step_ms_p99']:.2f}); 8-lane "
+        f"decode steps that sample: host ms p50 "
+        + (f"{np.median(sampled_ms):.2f}" if sampled_ms else "n/a")
+        + f" (phase 7 {plain['decode_step_ms_p50']:.2f}); "
+        f"{m['tok_s']:.1f} generated tok/s (phase 7 {plain['tok_s']:.1f}); "
+        f"peak {m['peak_gib']:.2f} GiB; the sampler graph alone "
+        f"{sampler_ms:.4f} ms (CUDA events, median of 20), one replay's "
+        f"{window['launches']} kernels {window['device_ms']:.4f} ms of device "
+        f"time by group "
+        + json.dumps({k: round(v, 4) for k, v in window["by_group"].items()})
+        + "; top " + json.dumps({k: round(v, 4)
+                                 for k, v in window["top"].items()}))
+    return facts, ce
+
+
+def phase_front_door(eng, prompts, want):
+    """The async front door on the warm bf16 engine of phase 7c (phase 7d):
+    8 clients at once stream exactly the batch streams; a second pass with
+    staggered arrivals and one client cancelled after 4 tokens (its pages
+    free before the next step) read through ``summary()``; one scrape of
+    ``/metrics`` on 127.0.0.1."""
+    import asyncio
+    from repro_torch.serving import (AsyncLMServer, Request,
+                                     start_metrics_server)
+    traffic, _ = sampled_traffic(prompts)
+    cancel_uid, cancel_after = 605, 4
+    seen = {"aborted": None, "violations": []}
+    inner_step, inner_abort = eng.step, eng.abort
+
+    def resident():
+        s = eng.scheduler
+        return {r.req.uid for r in s.running} | {r.req.uid for r in s.waiting}
+
+    def step():
+        if seen["aborted"] in resident():
+            seen["violations"].append(eng.obs.registry.value("steps_total"))
+        return inner_step()
+
+    def abort(uid):
+        out = inner_abort(uid)
+        seen["aborted"] = uid
+        return out
+
+    eng.step, eng.abort = step, abort
+
+    async def consume(server, req, delay=0.0, cancel=None):
+        await asyncio.sleep(delay)
+        toks, agen = [], server.generate(req)
+        try:
+            async for tok in agen:
+                toks.append(tok)
+                if cancel is not None and len(toks) >= cancel:
+                    break
+        finally:
+            await agen.aclose()
+        return toks
+
+    def reqs(uid0):
+        return [Request(uid=uid0 + i, prompt=p, max_new=MAX_NEW, sampling=sp)
+                for i, p, sp in traffic]
+
+    async def burst():
+        async with AsyncLMServer(eng) as server:
+            outs = await asyncio.gather(*[consume(server, r)
+                                          for r in reqs(500)])
+        return outs, server.summary()
+
+    async def staggered():
+        server = AsyncLMServer(eng)
+        exporter = await start_metrics_server(server.obs.registry, port=0)
+        try:
+            async with server:
+                outs = await asyncio.gather(*[
+                    consume(server, r, delay=0.02 * i,
+                            cancel=cancel_after if r.uid == cancel_uid
+                            else None)
+                    for i, r in enumerate(reqs(600))])
+                tpot = server.obs.h_stream_tpot_ms.percentile(
+                    0.50, skip=int(server._window["tpot_n"]))
+            port = exporter.sockets[0].getsockname()[1]
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(b"GET /metrics HTTP/1.0\r\n\r\n")
+            await writer.drain()
+            body = await reader.read()
+            writer.close()
+            await writer.wait_closed()
+        finally:
+            exporter.close()
+            await exporter.wait_closed()
+        return outs, server.summary(), tpot, body
+
+    t0 = time.perf_counter()
+    outs, s1 = asyncio.run(burst())
+    t_burst = time.perf_counter() - t0
+    if {i: t for i, t in enumerate(outs)} != want:
+        fail("front door: the streamed tokens differ from EngineCore.run's")
+    t0 = time.perf_counter()
+    outs, s2, tpot_p50, body = asyncio.run(staggered())
+    t_stag = time.perf_counter() - t0
+    del eng.step, eng.abort          # the spies (and their cycle through eng)
+    if seen["aborted"] != cancel_uid or seen["violations"]:
+        fail(f"front door: the cancelled request was aborted as "
+             f"{seen['aborted']}, resident at steps {seen['violations']}")
+    if len(outs[cancel_uid - 600]) != cancel_after or s2["cancelled"] != 1:
+        fail(f"front door: the cancelled client saw "
+             f"{len(outs[cancel_uid - 600])} tokens, summary {s2}")
+    for i, t in enumerate(outs):
+        if i != cancel_uid - 600 and t != want[i]:
+            fail(f"front door: staggered client {i} streamed another stream")
+    if eng.pages_in_use:
+        fail(f"front door: {eng.pages_in_use} pages in use after the drain")
+    head = body.split(b"\r\n", 1)[0]
+    if b"200" not in head or b"stream_requests_total" not in body:
+        fail(f"front door: /metrics answered {head!r}")
+    facts = dict(burst=s1, burst_s=t_burst, staggered=s2,
+                 staggered_s=t_stag, tpot_ms_p50=tpot_p50,
+                 metrics_bytes=len(body))
+    log(f"[front door] 8 clients at once: streams = EngineCore.run's, "
+        f"{s1['requests']} requests in {t_burst:.2f} s, {s1['req_s']:.2f} "
+        f"req/s, TTFT p50 {s1['ttft_ms_p50']:.1f} p99 {s1['ttft_ms_p99']:.1f} "
+        f"ms, TPOT mean {s1['tpot_ms']:.2f} ms; staggered (20 ms apart, "
+        f"request {cancel_uid} cancelled after {cancel_after} tokens, its "
+        f"pages free before the next step): {s2['requests']} finished, "
+        f"{s2['cancelled']} cancelled in {t_stag:.2f} s, {s2['req_s']:.2f} "
+        f"req/s, TTFT p50 {s2['ttft_ms_p50']:.1f} p99 "
+        f"{s2['ttft_ms_p99']:.1f} ms, TPOT p50 {tpot_p50:.2f} ms (mean "
+        f"{s2['tpot_ms']:.2f}), {s2['steps']} steps; /metrics on 127.0.0.1: "
+        f"{head.decode()}, {len(body)} bytes")
+    return facts
+
+
 def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
     """One full-width ragged step (7 decode lanes + a prefill chunk) over
     ``pool``, through the kernel and through the plain attention (passed
@@ -2249,7 +2730,7 @@ def paged_times(t) -> str:
             f"interleaved rounds)")
 
 
-def phase_timing(engine_facts):
+def phase_timing(engine_facts, vocab):
     """Each kernel at the engine's decode-step shape (8 lanes decoding at
     the served requests' mid-decode lengths, block_q 8), beside its plain
     version, a library call and its bound; paged attention also at 4, 8
@@ -2479,37 +2960,57 @@ def phase_timing(engine_facts):
         f"max|Δ| {err:.3g} against the plain merge in f32 (atol 2e-5, rtol "
         f"1e-4)")
 
-    # LUT exp: every logit that call computes, as one tensor of s − m values
+    # LUT exp: standalone on the main path in the sampler, twice a sampling
+    # step, over the (lanes, V) f32 shifted scores (values <= 0); beside it
+    # the earlier yardstick, every logit of the paged decode call
+    def lut_entry(x):
+        got, want = lut_exp(x), lut_exp_ref(x)
+        med = interleaved_ms({
+            "ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush),
+            "device_ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush,
+                                         spin=True),
+            "library_ms": lambda: cuda_ms(lambda: torch.exp(x), flush=flush)})
+        t_bytes = 8.0 * x.numel() / HBM_BYTES_PER_S * 1e3
+        t_ops = 12.0 * x.numel() / PEAK_FLOPS["float32"] * 1e3
+        return dict(
+            max_abs_err=float((got - want).abs().max()), ms=med["ms"],
+            kernel_ms=med["ms"], device_ms=med["device_ms"],
+            host_ms=host_ms(lambda: lut_exp(x)),
+            plain_ms=cuda_ms(lambda: lut_exp_ref(x), flush=flush),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=med["library_ms"])
+
+    g = torch.Generator(device=DEV).manual_seed(15)
+    scores = torch.randn((ENGINE["lanes"], vocab), generator=g,
+                         device=DEV) * 3
+    scores = (scores - scores.amax(-1, keepdim=True)).contiguous()
     n = sum(kv_lens) * HQ * 8
-    x = (torch.rand(n, device=DEV) * -30.0).contiguous()
-    got, want = lut_exp(x), lut_exp_ref(x)
-    err = float((got - want).abs().max())
-    med = interleaved_ms({
-        "ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush),
-        "device_ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush, spin=True),
-        "library_ms": lambda: cuda_ms(lambda: torch.exp(x), flush=flush)})
-    ms, lib = med["ms"], med["library_ms"]
-    lut_host = host_ms(lambda: lut_exp(x))
-    plain = cuda_ms(lambda: lut_exp_ref(x), flush=flush)
-    t_bytes = 8.0 * n / HBM_BYTES_PER_S * 1e3
-    t_ops = 12.0 * n / PEAK_FLOPS["float32"] * 1e3
+    decode_x = (torch.rand(n, device=DEV) * -30.0).contiguous()
+    entry = lut_entry(scores)
+    decode_entry = dict(lut_entry(decode_x),
+                        shape=f"{n} f32 logits (the paged decode call's s − m "
+                              f"values)")
+    sampled = engine_facts["sampled"]
     kernels.append(dict(
         name="lut_exp", route="cuda", source="src/repro_torch/csrc/lut_exp.cu",
         replaces="src/repro/kernels/lut_exp/kernel.py:95",
-        launches=engine_facts["launches"]["bfloat16"]["lut_exp"],
-        on_main_path=False,
+        launches=sampled["bf16"]["launches"]["lut_exp"],
+        launches_by_path={k: v["lut_exp"] for k, v in
+                          engine_facts["paths"].items()},
+        on_main_path=True,
         inlined_in="paged_attention and streaming_attention "
                    "(csrc/lut_exp.cuh, every launch)",
-        max_abs_err=err, ms=ms, kernel_ms=ms, device_ms=med["device_ms"],
-        host_ms=lut_host, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=lib, library="torch.exp (exact exp, not the same function)",
-        shape=f"{n} f32 logits (the decode step's s − m values)"))
-    log(f"[time] lut_exp: kernel {ms:.4f} ms, device alone "
-        f"{med['device_ms']:.4f} ms, host per call {lut_host:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.exp {lib:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({n} elements; medians of 5 "
-        f"interleaved rounds)")
+        **entry, library="torch.exp (exact exp, not the same function)",
+        shape=f"({ENGINE['lanes']}, {vocab}) f32 shifted scores: the "
+              f"sampler's two exponentials of a sampling step",
+        decode_logits=decode_entry))
+    for label, e in (("sampler shape", entry), ("decode logits", decode_entry)):
+        log(f"[time] lut_exp at the {label}: kernel {e['ms']:.4f} ms, device "
+            f"alone {e['device_ms']:.4f} ms, host per call {e['host_ms']:.4f} "
+            f"ms, plain {e['plain_ms']:.4f} ms, torch.exp "
+            f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"(medians of 5 interleaved rounds)")
     kernels.append(time_streaming(flush, engine_facts))
     kernels.append(time_int8(flush, engine_facts["int8_bert"]))
     kernels.append(time_quantize(flush, engine_facts["int8_bert"]))
@@ -2793,12 +3294,26 @@ def main() -> int:
         facts["launches"][pool] = compiled[tag]["launches"]
     prefix = {tag: phase_prefix(cfg, params, kv_quant)
               for tag, kv_quant in (("bf16", False), ("int8", True))}
-    spec = phase_spec(cfg, params, prompts, compiled["bf16"].pop("streams"),
+    greedy_streams = {tag: compiled[tag].pop("streams")
+                      for tag in ("bf16", "int8")}
+    spec = phase_spec(cfg, params, prompts, greedy_streams["bf16"],
                       compiled["bf16"])
-    compiled["int8"].pop("streams")
+    sampled = {}
+    for tag, kv_quant in (("bf16", False), ("int8", True)):
+        f, eng = phase_sampled(cfg, params, kv_quant, prompts,
+                               greedy_streams[tag], compiled[tag])
+        if tag == "bf16":
+            door = phase_front_door(eng, prompts, f["streams"])
+        f.pop("streams")
+        sampled[tag] = f
+        del eng
+        torch.cuda.empty_cache()
     facts["paths"] = {"prefix bf16": prefix["bf16"]["launches"],
                       "prefix int8": prefix["int8"]["launches"],
-                      "spec (a)": spec["scripted"]["launches"]}
+                      "spec (a)": spec["scripted"]["launches"],
+                      "sampled bf16": sampled["bf16"]["launches"],
+                      "sampled int8": sampled["int8"]["launches"]}
+    facts["sampled"] = sampled
     scoring = {"bf16": phase_scoring(cfg, params, "bf16", floor=1e-2)}
     steps["f32"] = phase_step_f32(cfg, params)       # widens params to f32
     scoring["f32"] = phase_scoring(cfg.replace(dtype="float32"), params,
@@ -2809,13 +3324,15 @@ def main() -> int:
     facts["bert"], facts["scoring"] = bert, scoring
     facts["int8_bert"] = int8_bert
     facts["build"] = built
-    kernels = phase_timing(facts)
+    kernels = phase_timing(facts, cfg.vocab_size)
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
     summary["compiled"] = compiled
     summary["prefix"] = prefix
     summary["spec"] = spec
+    summary["sampled"] = sampled
+    summary["front_door"] = door
     summary["step_vs_plain"] = steps
     summary["streaming_attention_checks"] = sa_worst
     summary["bert"] = bert

@@ -1,7 +1,7 @@
 """Softmax built on the LUT exponential (port of
 ``src/repro/core/lut_softmax.py``): the mask value, logit soft-capping, the
-masked five-step softmax of paper §III-B, and the exponential each
-``exp_mode`` names."""
+masked five-step softmax of paper §III-B, its log-softmax, and the
+exponential each ``exp_mode`` names."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -54,3 +54,21 @@ def lut_softmax(x: torch.Tensor, dim: int = -1, *,
         e = torch.where(where, e, 0.0)
     s = torch.sum(e, dim=dim, keepdim=True)
     return e / torch.clamp(s, min=1e-30)
+
+
+def lut_log_softmax(x: torch.Tensor, dim: int = -1, *,
+                    where: Optional[torch.Tensor] = None,
+                    exp: Optional[ExpFn] = None) -> torch.Tensor:
+    """log-softmax through the LUT sum (``exp``, default ``exp_fn("lut")``);
+    ``where`` False positions score ``NEG_INF - m - log(s)``, so a masked
+    token never wins the sampler's Gumbel-max draw."""
+    exp = exp or exp_fn("lut", x.device)
+    if where is not None:
+        x = torch.where(where, x, NEG_INF)
+    m = torch.amax(x, dim=dim, keepdim=True)
+    m = torch.where(m <= NEG_INF, 0.0, m)
+    e = exp(x - m)
+    if where is not None:
+        e = torch.where(where, e, 0.0)
+    s = torch.clamp(torch.sum(e, dim=dim, keepdim=True), min=1e-30)
+    return x - m - torch.log(s)

@@ -175,6 +175,7 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    cu_seqlens: Optional[torch.Tensor] = None,
                    kernel_config: Optional[Dict] = None, *,
                    greedy: bool = False,
+                   sampling: Optional[Dict[str, torch.Tensor]] = None,
                    attend: Optional[Callable] = None) -> torch.Tensor:
     """The token-level (ragged) serving step over one packed (T,) stream.
 
@@ -185,8 +186,11 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     place and returns the f32 logits of the ``last_idx`` rows, (lanes, V)
     or (lanes, 1 + k, V) — or, with ``greedy=True``, the int32 greedy picks
     of ``last_idx``'s shape, chosen on the device so only the picks leave
-    it.  ``attend`` replaces the varlen attention (default: through the
-    kernel wrapper).
+    it.  ``sampling`` — per-lane tensors ``{temperature, top_k, top_p, seed,
+    counter}``, each (lanes,) — returns the picks of the in-step sampler
+    instead (``serving/sampling.py::sample_in_step``; a verify lane's rows
+    ≥ 1 greedy).  ``attend`` replaces the varlen attention (default:
+    through the kernel wrapper).
     """
     if last_idx.dim() not in (1, 2):
         raise ValueError(f"last_idx must be (lanes,) or (lanes, 1 + k), got "
@@ -201,6 +205,10 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     # gather before unembedding: only the picked rows are needed
     x = x[0][last_idx.long()]
     logits = L.unembed(cfg, params, x)
+    # Deferred import: repro_torch.serving imports this module.
+    if sampling is not None:
+        from repro_torch.serving.sampling import sample_in_step
+        return sample_in_step(logits, **sampling)
     if greedy:
         from repro_torch.serving.sampling import greedy_rows
         return greedy_rows(logits)

@@ -5,9 +5,18 @@ Each step the scheduler packs chunked prefill and decodes into one dense
 ``(T,)`` token stream (``RaggedBatch``), bucketed to a few widths; the
 model's ragged step writes every token's KV rows into the page pool in
 place, runs the q-block-tiled varlen paged attention (the CUDA kernel on
-the card), gathers each lane's last row, unembeds it and picks the greedy
+the card), gathers each lane's last row, unembeds it and picks each lane's
 token on the device.  Only the (lanes,) picks come back to the host, which
 commits them, advances cursors and retires finished requests.
+
+Sampling runs on the device too (``serving/sampling.py``): each lane's
+(temperature, top_k, top_p, seed, counter) ride in as five (lanes,)
+arrays (``_sampling_inputs``), the draw's key is
+``fold_in(PRNGKey(seed), #generated)`` of the request alone, so a sampled
+stream does not change with batching, the prefix cache or preemption, and
+temperature ≤ 0 lanes keep the greedy pick bit for bit.  A step in which
+no sampling lane has a temperature > 0 skips the draw, decided on the
+host from the requests' params (the reference's ``lax.cond``).
 
 The step runs through ``StepGraphs`` (``serving/graphs.py``): on the card
 one CUDA graph per (stream width, table width), captured on the key's
@@ -15,7 +24,8 @@ first step and replayed after — the port's counterpart of the reference's
 ``jax.jit`` of the step, counted by the same retrace sentinel
 (``trace_count``, ``step_traces_total``).  ``capture=False`` runs the step
 eagerly, op by op, as ``jax.disable_jit`` does for the reference: the
-checks' eager arm.  Every step is recorded in ``obs``
+checks' eager arm, which runs the draw eagerly when a lane samples.  Every
+step is recorded in ``obs``
 (``ServingObservability``: the reference's registry, request spans, step
 ring and profiler window); ``metrics=False`` makes every hook a no-op.
 
@@ -31,9 +41,9 @@ picks greedily at every drafted position through a (lanes, 1 + spec_k)
 rolls the rest back through ``PagedKVCache.uncommit``.  Streams are
 identical with either feature on or off.
 
-Later slices of the port bring the rest of the reference engine: seeded
-sampling (``temperature > 0``), tensor-parallel meshes and the padded
-oracle mode; asking for any of them raises ``NotImplementedError`` here.
+Later slices of the port bring the rest of the reference engine:
+tensor-parallel meshes and the padded oracle mode; asking for either
+raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -60,12 +70,13 @@ from repro_torch.serving.tracing import ServingObservability
 
 
 def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                 kv: PagedKVCache, tokens, pos, table, last_idx,
-                 cu) -> torch.Tensor:
-    """One ragged step on device tensors → the greedy picks, of
-    ``last_idx``'s shape."""
+                 kv: PagedKVCache, tokens, pos, table, last_idx, cu, *,
+                 greedy: bool = False, sampling=None) -> torch.Tensor:
+    """One ragged step on device tensors → the ``last_idx`` rows' f32
+    logits, or the picks, of ``last_idx``'s shape, with ``greedy`` (the
+    greedy ones) or ``sampling`` (the sampler's)."""
     return lm_step_ragged(cfg, params, tokens, kv.pool, table, pos, last_idx,
-                          cu, KERNEL_CONFIG, greedy=True)
+                          cu, KERNEL_CONFIG, greedy=greedy, sampling=sampling)
 
 
 def _later(feature: str, slice_name: str) -> NotImplementedError:
@@ -141,7 +152,7 @@ class EngineCore:
         # its pool and graphs at once.
         self._step = functools.partial(_ragged_step, cfg, params, self.kv)
         self.graphs = StepGraphs(
-            self._step, lanes=lanes, device=self.device,
+            self._step, lanes=lanes, vocab=cfg.vocab_size, device=self.device,
             verify_rows=self.spec_k + 1 if speculative else None,
             on_capture=self.obs.step_traced)
         self.obs.g_mesh.set(1)
@@ -154,10 +165,7 @@ class EngineCore:
 
     # ------------------------------------------------------------------ API
     def validate(self, req: Request) -> None:
-        """Budget vs ``max_len``, empty prompt, stop ids vs the vocab; a
-        sampled request (temperature > 0) is a later slice."""
-        if not req.sampling.greedy:
-            raise _later("temperature > 0 sampling", "seeded-sampling")
+        """Budget vs ``max_len``, empty prompt, stop ids vs the vocab."""
         if len(req.prompt) + req.max_new > self.max_len:
             raise InvalidRequest(
                 "max_new", f"prompt {len(req.prompt)} + max_new "
@@ -229,13 +237,40 @@ class EngineCore:
                 prefill_tokens=0, decode_tokens=0,
                 prefix_hit_tokens=self.scheduler.prefix_hit_tokens_step)
         arrays = self.step_arrays(batch)
+        sampling = self._sampling_inputs(plans)
         if self.capture:
-            picks = self.graphs.run(**arrays)
+            picks = self.graphs.run(**arrays, sampling=sampling)
         else:
-            picks = self._step(**{k: torch.from_numpy(a).to(self.device)
-                                  for k, a in arrays.items()})
+            dev = lambda a: {k: torch.from_numpy(v).to(self.device)  # noqa: E731
+                             for k, v in a.items()}
+            picks = self._step(**dev(arrays), greedy=True,
+                               sampling=sampling and dev(sampling))
         return self._finish(plans, preempted, picks=picks.cpu().numpy(),
                             live=batch.live, padded=batch.width)
+
+    def _sampling_inputs(self, plans) -> Optional[Dict[str, np.ndarray]]:
+        """Per-lane sampling arrays for the in-step draw, all (lanes,), or
+        None when no lane samples a token with a temperature > 0 this step
+        (the draw is skipped).  Idle tail lanes get temperature 0;
+        ``counter`` is the request's generated-token count, which with
+        ``seed`` fixes the lane's key."""
+        if all(not p.sample or p.run.req.sampling.greedy for p in plans):
+            return None
+        n = self.lanes
+        temp = np.zeros((n,), np.float32)
+        top_k = np.zeros((n,), np.int32)       # 0 = off
+        top_p = np.ones((n,), np.float32)      # 1 = off
+        seed = np.zeros((n,), np.int64)        # uint32 values
+        counter = np.zeros((n,), np.int64)
+        for i, p in enumerate(plans):
+            sp = p.run.req.sampling
+            temp[i] = max(sp.temperature, 0.0)
+            top_k[i] = sp.top_k or 0
+            top_p[i] = 1.0 if sp.top_p is None else sp.top_p
+            seed[i] = sp.seed or 0
+            counter[i] = len(p.run.req.tokens)
+        return dict(temperature=temp, top_k=top_k, top_p=top_p, seed=seed,
+                    counter=counter)
 
     def _finish(self, plans, preempted, *, picks: np.ndarray, live: int,
                 padded: int) -> StepOutput:

@@ -14,8 +14,8 @@ snapshot, or windowed through ``snapshot()``/``delta()``.
   histograms count-offset percentiles, so one lifetime registry serves
   per-pass windows without ever being reset.
 
-The reference's ``start_metrics_server`` (the HTTP ``/metrics`` endpoint)
-belongs to the port's front-door slice.
+``start_metrics_server`` serves the registry over HTTP (``/metrics`` and
+``/metrics.json``) off the caller's asyncio loop.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "start_metrics_server",
     "write_metrics_json",
 ]
 
@@ -287,3 +288,53 @@ def write_metrics_json(registry: MetricsRegistry, path: str) -> None:
     with open(path, "w") as f:
         f.write(registry.json_text())
         f.write("\n")
+
+
+# ------------------------------------------------------- HTTP endpoint --
+
+async def start_metrics_server(registry: MetricsRegistry,
+                               port: int = 0, host: str = "127.0.0.1"):
+    """Serve ``GET /metrics`` (Prometheus text) and ``GET /metrics.json``
+    off the caller's asyncio loop.  Returns the ``asyncio.Server``; read
+    the bound port from ``server.sockets[0].getsockname()[1]`` (handy
+    with ``port=0`` in tests).  Deliberately minimal: one-shot HTTP/1.0
+    responses, connection closed after each request — enough for a
+    scraper, zero dependencies.
+    """
+    import asyncio
+
+    async def handle(reader, writer):
+        try:
+            request = await reader.readline()
+            parts = request.decode("latin-1").split()
+            path = parts[1] if len(parts) >= 2 else "/"
+            # drain headers
+            while True:
+                line = await reader.readline()
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            if path.startswith("/metrics.json"):
+                body = registry.json_text().encode()
+                ctype = "application/json"
+                status = "200 OK"
+            elif path.startswith("/metrics"):
+                body = registry.prometheus_text().encode()
+                ctype = "text/plain; version=0.0.4"
+                status = "200 OK"
+            else:
+                body = b"not found\n"
+                ctype = "text/plain"
+                status = "404 Not Found"
+            writer.write(
+                f"HTTP/1.0 {status}\r\nContent-Type: {ctype}\r\n"
+                f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            await writer.drain()
+        except (ConnectionError, asyncio.CancelledError):
+            pass
+        finally:
+            try:
+                writer.close()
+            except Exception:
+                pass
+
+    return await asyncio.start_server(handle, host=host, port=port)

@@ -549,7 +549,7 @@ class ServingObservability:
                        span: Tuple[Optional[float], Optional[float]],
                        ) -> Dict[str, float]:
         """The registry view behind the front door's ``summary()``
-        (``AsyncLMServer`` in the reference; a later slice of the port)."""
+        (``serving/server.py::AsyncLMServer``)."""
         w = window or {"requests": 0, "tokens": 0, "ttft_n": 0, "tpot_n": 0}
         n = int(self.c_stream_requests.value() - w["requests"])
         if n == 0:

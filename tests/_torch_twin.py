@@ -26,12 +26,14 @@ from repro.models import build_model
 from repro.models import lm as j_lm
 from repro.serving import EngineCore as JEngine
 from repro.serving import Request as JRequest
+from repro.serving import SamplingParams as JSamplingParams
 import repro_torch.serving.core as t_core
 from repro_torch.configs import get_config
 from repro_torch.params import from_flat
 from repro_torch.serving import EngineCore as TEngine
 from repro_torch.serving import Request as TRequest
-from repro_torch.serving.sampling import greedy_rows
+from repro_torch.serving import SamplingParams as TSamplingParams
+from repro_torch.serving.sampling import greedy_rows, sample_in_step
 
 
 def build(dtype: str, kv_quant: bool):
@@ -99,21 +101,25 @@ def _spy_logits(je, jc, logits, monkeypatch):
     je._ragged = j_spy
     t_inner = t_core.lm_step_ragged
 
-    def t_spy(*args, greedy=False, **kw):
-        out = t_inner(*args, greedy=False, **kw)
+    def t_spy(*args, greedy=False, sampling=None, **kw):
+        out = t_inner(*args, **kw)
         logits["torch"] = out.numpy()
+        if sampling is not None:
+            return sample_in_step(out, **sampling)
         return greedy_rows(out) if greedy else out
     monkeypatch.setattr(t_core, "lm_step_ragged", t_spy)
 
 
 def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
-              on_step=None, waves=None, proposer=None, built=None):
+              on_step=None, waves=None, proposer=None, built=None,
+              sampling=None):
     """Drive both engines to completion → dict of per-run facts.
     ``on_step(je, te, step)`` runs after every step's checks.  ``waves``
     lists the request indices submitted together, each wave once both
     engines drained the one before (default: all at once); ``proposer()``
     makes each engine's own draft proposer; ``built`` is ``build``'s
-    result when the caller already has it."""
+    result when the caller already has it; ``sampling`` lists each
+    request's ``SamplingParams`` keyword arguments (None: greedy)."""
     jc, tc, jparams, tparams = built or build(dtype, kv_quant)
     kw = dict(engine_kw)
     je = JEngine(jc, jparams, **kw, **(
@@ -134,8 +140,11 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
     outs = []
     for wave in (waves or [range(len(prompts))]):
         for i in wave:
-            reqs[i] = (JRequest(uid=i, prompt=prompts[i], max_new=max_new[i]),
-                       TRequest(uid=i, prompt=prompts[i], max_new=max_new[i]))
+            sp = sampling[i] if sampling else None
+            reqs[i] = (JRequest(uid=i, prompt=prompts[i], max_new=max_new[i],
+                                sampling=sp and JSamplingParams(**sp)),
+                       TRequest(uid=i, prompt=prompts[i], max_new=max_new[i],
+                                sampling=sp and TSamplingParams(**sp)))
             je.submit(reqs[i][0])
             te.submit(reqs[i][1])
         while je.scheduler.has_work() or te.scheduler.has_work():

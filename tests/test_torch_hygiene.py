@@ -125,14 +125,19 @@ def test_feature_arguments_raise_the_reference_errors(kw, match):
         EngineCore(cfg, params, device="cpu", **kw)
 
 
-def test_sampled_request_raises_not_implemented():
+def test_sampled_request_is_served():
+    """Seeded sampling is ported: a temperature > 0 request is accepted and
+    served, its tokens inside the vocab."""
     cfg = get_config("deepseek-7b-smoke")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     eng = EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
-                           max_new=2, temperature=0.7))
+    req = Request(uid=0, prompt=np.arange(4, dtype=np.int32), max_new=2,
+                  temperature=0.7)
+    eng.submit(req)
+    eng.run()
+    assert len(req.tokens) == 2
+    assert all(0 <= t < cfg.vocab_size for t in req.tokens)
 
 
 def test_engine_rejects_params_on_another_device():

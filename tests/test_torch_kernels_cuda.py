@@ -23,7 +23,10 @@ products in the same order); the activation quantisation is bit-exact,
 values and scale (the same rounded f32 operations, and an absmax that
 does not depend on order); the bf16 unembed sits
 within 2·K·2^-24·(|x|·|h|) of the widened f32 product (each sums exact
-products in f32, in its own order).
+products in f32, in its own order); the sampler's key words, random bits
+and uniforms are bit-equal on the card and the CPU (integer operations),
+its picks equal save near-ties of ``scores + g`` (the card's ``log``,
+sums and scan round apart from the CPU's).
 """
 import numpy as np
 import pytest
@@ -932,11 +935,12 @@ def test_capture_of_a_host_read_raises(cuda_device):
     from repro_torch.serving.graphs import StepGraphs, launch_counts
 
     def step_fn(tokens, pos, table, last_idx, cu):
+        logits = torch.nn.functional.one_hot(last_idx.long(), 4).float()
         if int(tokens.sum()) < 0:                     # a host read
-            return last_idx
-        return last_idx + 1
+            return -logits
+        return logits
 
-    g = StepGraphs(step_fn, lanes=2, device=cuda_device)
+    g = StepGraphs(step_fn, lanes=2, vocab=4, device=cuda_device)
     arrays = dict(tokens=np.ones(4, np.int32), pos=np.arange(4, dtype=np.int32),
                   table=np.zeros((4, 1), np.int32),
                   last_idx=np.zeros(2, np.int32),
@@ -1073,3 +1077,201 @@ def test_step_with_cow_and_drafts_replays_without_a_sync(cuda_device):
     eager.run()
     assert {r.uid: r.tokens for r in graph.finished} == \
         {r.uid: r.tokens for r in eager.finished}
+
+
+# ------------------------------------------------- sampling on the card --
+#
+# The in-step sampler (serving/sampling.py) on the card against the same
+# code on the CPU, and its one graph per engine beside the step graphs
+# (serving/graphs.py): captured on the first sampled step, replayed only on
+# steps in which a lane samples, two LUT-exp launches per replay.
+
+def _sampling_case(n, v, seed=3):
+    rng = np.random.default_rng(seed)
+    lg = (rng.normal(size=(n, v)) * 3).astype(np.float32)
+    params = dict(
+        temperature=rng.choice([0.0, 0.7, 1.0], n).astype(np.float32),
+        top_k=rng.choice([0, 1, 50], n).astype(np.int32),
+        top_p=rng.choice([1.0, 0.95, 0.5], n).astype(np.float32),
+        seed=rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64),
+        counter=rng.integers(0, 2 ** 31, n).astype(np.int64))
+    return lg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, v", [(8, 102400), (40, 4099)])
+def test_sampler_on_card_equals_cpu(cuda_device, n, v):
+    """Key words, bits and uniforms bit for bit; picks equal save a near-tie
+    of ``scores + g`` (the CPU's winner ahead of the card's by less than
+    twice their largest gap); two LUT-exp launches per draw."""
+    from repro_torch.core import prng
+    from repro_torch.core.lut_softmax import lut_log_softmax
+    from repro_torch.serving.sampling import (_masked_scores, _request_keys,
+                                              sample_rows)
+    lg, params = _sampling_case(n, v)
+    cpu = {k: torch.from_numpy(a) for k, a in params.items()}
+    dev = {k: t.to(cuda_device) for k, t in cpu.items()}
+    kc = _request_keys(cpu["seed"], cpu["counter"])
+    kd = _request_keys(dev["seed"], dev["counter"])
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(kc, kd))
+    bc, bd = prng.random_bits(*kc, v), prng.random_bits(*kd, v)
+    assert torch.equal(bc, bd.cpu())
+    assert torch.equal(prng.uniform(bc, prng.F32_TINY).view(torch.int32),
+                       prng.uniform(bd, prng.F32_TINY).cpu().view(torch.int32))
+    before = lut_exp.launches
+    got = sample_rows(torch.from_numpy(lg).to(cuda_device), **dev)
+    torch.cuda.synchronize()
+    assert lut_exp.launches == before + 2
+    want = sample_rows(torch.from_numpy(lg), **cpu)
+
+    def z(logits, p, exp):
+        x, keep = _masked_scores(logits, p["temperature"], p["top_k"],
+                                 p["top_p"], exp)
+        return (lut_log_softmax(x, where=keep, exp=exp)
+                + prng.gumbel(*_request_keys(p["seed"], p["counter"]), v))
+
+    differ = (got.cpu() != want).nonzero().flatten().tolist()
+    if differ:
+        zc = z(torch.from_numpy(lg), cpu, lut_exp_ref)
+        zd = z(torch.from_numpy(lg).to(cuda_device), dev, lut_exp).cpu()
+        for i in differ:
+            assert params["temperature"][i] > 0, f"greedy row {i} differs"
+            both = torch.isfinite(zc[i]) & (zc[i] > -1e29) & (zd[i] > -1e29)
+            gap = float((zc[i] - zd[i])[both].abs().max())
+            lead = float(zc[i, want[i]] - zc[i, got[i]])
+            assert 0 <= lead <= 2 * gap, (i, lead, gap)
+
+
+def _sampled_requests(eng, seed=13, lens=(3, 21, 9, 14, 6),
+                      news=(7, 5, 9, 4, 6)):
+    """The mixed trace, requests 1 and 3 sampled."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    sps = {1: SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=1),
+           3: SamplingParams(temperature=1.0, seed=2)}
+    for i, (lp, mn) in enumerate(zip(lens, news)):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, eng.cfg.vocab_size, lp).astype(np.int32), max_new=mn,
+            sampling=sps.get(i)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_captured_sampled_step_bit_equal_to_eager(cuda_device, kv_quant):
+    """Greedy and sampled requests: the captured engine's picks equal the
+    eager engine's after every step; one sampler capture, step captures
+    those of the (T, P) keys."""
+    eager = _smoke_engine(cuda_device, kv_quant, capture=False)
+    graph = _smoke_engine(cuda_device, kv_quant, capture=True)
+    for eng in (eager, graph):
+        _sampled_requests(eng)
+    while eager.scheduler.has_work():
+        assert eager.step().tokens == graph.step().tokens
+    assert graph.graphs.sampler_captures == 1
+    assert graph.trace_count == graph.graphs.captures
+    assert {r.uid: r.tokens for r in eager.finished} == \
+        {r.uid: r.tokens for r in graph.finished}
+
+
+def _sampled_arrays(eng):
+    s = eng.scheduler
+    batch, _ = s.batch_for(s.begin_step())
+    return eng.step_arrays(batch), eng._sampling_inputs(batch.plans)
+
+
+@pytest.mark.cuda
+def test_sampled_replay_never_synchronises_and_counts_launches(cuda_device):
+    """A replayed sampled step (the step graph, then the sampler graph)
+    reads no device value on the host, and N replays add 2N LUT-exp
+    launches; an all-greedy replay adds none: the sampler does not run."""
+    eng = _smoke_engine(cuda_device, False, capture=True)
+    _sampled_requests(eng, lens=(5, 6, 7), news=(6, 6, 6))
+    eng.step()
+    eng.step()
+    arrays, sampling = _sampled_arrays(eng)
+    assert sampling is not None
+    eng.graphs.run(**arrays, sampling=sampling)      # may capture
+    want = eng.graphs.run(**arrays, sampling=sampling).clone()
+    torch.cuda.synchronize()
+    captures = (eng.graphs.captures, eng.graphs.sampler_captures)
+    n = 4
+    before = lut_exp.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            got = eng.graphs.run(**arrays, sampling=sampling)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (eng.graphs.captures, eng.graphs.sampler_captures) == captures
+    assert torch.equal(got, want)
+    assert lut_exp.launches - before == 2 * n
+    before = lut_exp.launches
+    greedy = eng.graphs.run(**arrays)
+    torch.cuda.synchronize()
+    assert lut_exp.launches == before
+    assert greedy.data_ptr() != got.data_ptr()
+
+
+@pytest.mark.cuda
+def test_all_greedy_steps_never_replay_the_sampler(cuda_device):
+    """Serving greedy traffic only: no sampler capture and no standalone
+    LUT-exp launch; then one sampled request: one capture, two launches
+    per step that samples it."""
+    from repro_torch.serving import Request, SamplingParams
+    eng = _smoke_engine(cuda_device, False, capture=True)
+    _smoke_requests(eng)
+    before = lut_exp.launches
+    eng.run()
+    assert lut_exp.launches == before
+    assert eng.graphs.sampler is None and eng.graphs.sampler_captures == 0
+    req = Request(uid=9, prompt=np.arange(5, dtype=np.int32), max_new=4,
+                  sampling=SamplingParams(temperature=0.9, seed=3))
+    eng.submit(req)
+    eng.run()
+    assert eng.graphs.sampler_captures == 1
+    assert lut_exp.launches - before == 2 * len(req.tokens)
+
+
+@pytest.mark.cuda
+def test_speculative_engine_with_a_sampled_lane(cuda_device):
+    """k = 4 with a sampled lane among drafting greedy lanes: the sampler's
+    picks keep the engine's (lanes, 5) shape, captured equals eager, and
+    the drafting steps that sample replay both graphs."""
+    kw = dict(speculative=True, spec_k=4, proposer=_repeat_last)
+    eager = _smoke_engine(cuda_device, False, capture=False, **kw)
+    graph = _smoke_engine(cuda_device, False, capture=True, **kw)
+    for eng in (eager, graph):
+        _sampled_requests(eng)
+    while eager.scheduler.has_work():
+        oe, og = eager.step(), graph.step()
+        assert (oe.tokens, oe.drafted_tokens, oe.accepted_tokens) == \
+            (og.tokens, og.drafted_tokens, og.accepted_tokens)
+    assert graph.graphs.sampler.picks.shape == (3, 5)
+    assert graph.graphs.sampler_captures == 1 and graph.drafted_total > 0
+    assert {r.uid: r.tokens for r in eager.finished} == \
+        {r.uid: r.tokens for r in graph.finished}
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dropped_engine_held_by_a_cycle(cuda_device):
+    """An engine dropped while a reference cycle holds it keeps its graphs
+    until the cyclic collector runs; that must not happen inside another
+    engine's capture (destroying a graph there invalidates the capture).
+    The collector is made to run at nearly every allocation."""
+    import gc
+    old = _smoke_engine(cuda_device, False, capture=True)
+    _smoke_requests(old)
+    old.run()
+    old.step = old.step                  # old → its bound method → old
+    del old
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = _smoke_engine(cuda_device, False, capture=True)
+        _sampled_requests(eng)
+        eng.run()
+    finally:
+        gc.set_threshold(*threshold)
+    assert eng.graphs.captures > 0 and eng.graphs.sampler_captures == 1
+    assert eng.pages_in_use == 0

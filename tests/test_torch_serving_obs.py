@@ -297,10 +297,12 @@ def test_step_graphs_keys_buffers_and_drops():
     def step_fn(tokens, pos, table, last_idx, cu):
         seen.append(tuple(t.data_ptr() for t in (tokens, pos, table,
                                                  last_idx, cu)))
-        return (tokens[:2] + table.sum()).to(torch.int32)
+        # logits whose greedy pick is tokens[i] + table.sum()
+        return torch.nn.functional.one_hot(
+            (tokens[:2] + table.sum()).long(), 64).float()
 
     captures = []
-    g = StepGraphs(step_fn, lanes=2, device=torch.device("cpu"),
+    g = StepGraphs(step_fn, lanes=2, vocab=64, device=torch.device("cpu"),
                    on_capture=lambda: captures.append(1))
     out = g.run(**_arrays(4, 2, fill=1))
     assert out.tolist() == [9, 9] and g.captures == 1
