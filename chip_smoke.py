@@ -21,6 +21,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    tables): decode and q-block-tiled steps over f32, bf16 and int8 pools,
    GQA, softcap, window, lut0 and exact exp, each at the default split and
    at one page per split;
+4a. the kernel-config tuner on the card: ``tune(geom_for(deepseek-7b, page
+   size 16), platform="cuda", measure=True)`` for the bf16 and the int8
+   pool over phase 7's own steps (packed by its scheduler in a dry run on
+   a smoke-width engine; the middle step of each kind — decode, mixed,
+   prefill — weighted by the number of steps of that kind, and phase 7's
+   passes held to the same steps), every candidate (block_q × pages per
+   split) timed on kernel #2 and held against the plain version at its
+   own config: each candidate's predicted and measured ms, the winner
+   against ``DEFAULT_CONFIG``, the bf16 winner on the int8 pool, and how
+   far the roofline's ranking agreed with the measured one;
 5. hold the streaming-attention kernel to its plain version at BERT-large
    widths (16 × 64, l 512 and 4096) and deepseek widths (32 × 128, causal,
    l 2048), f32 and bf16, with GQA 4:1, window, softcap, q_offset/kv_len,
@@ -44,7 +54,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    repeat until one captures nothing new (at most 3), then
    ``obs.mark_warm()`` and a measured pass (step p50/p99, tokens/s, peak
    memory, TTFT/TPOT from the registry, ``step_retraces_total``); every
-   pass's greedy streams equal the eager arm's.  Kernel launches are
+   pass's greedy streams equal the eager arm's.  Every engine resolves
+   the committed ``deepseek-7b::cuda`` row of the tuner's table
+   (``source == "tuned"``), and every step's ``StepOutput.kernel_config``
+   is the engine's.  Then (bf16) a captured engine at ``DEFAULT_CONFIG``
+   beside one on the tuned row, their measured passes interleaved: both
+   step p50s, streams equal by the margin rule.  Kernel launches are
    counted over each timed pass (paged attention's split pass and its
    combine, each = layers × steps, replayed steps included).  Profiler
    windows (``obs.arm_profiler``) over one mixed and one pure-decode step
@@ -97,6 +112,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with one client cancelled after 4 tokens (its pages free before the
    next step): TTFT p50/p99, TPOT, req/s from ``summary()``; one scrape of
    ``/metrics`` on 127.0.0.1;
+7e. a checkpoint round trip at 2 layers of deepseek-7b's full width: the
+   seeded parameters written in the reference store's layout
+   (``arrays.npz``, bf16 leaves as raw 2-byte values, ``manifest.json``
+   with sha256; the writer is a fixture here), read back through
+   ``checkpoint.restore_params`` onto the card bit for bit, one engine
+   step's logits equal bit for bit to an engine on the parameters in
+   memory, and a leaf that no longer matches its manifest raises
+   ``IOError``;
 8. hold the activation quantisation kernel (``quantize_dynamic``)
    bit-equal to its plain version, int8 values and scale, f32 and bf16:
    ragged and unaligned sizes, all zeros, exact .5 ties, an outlier,
@@ -120,8 +143,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    also at a mixed step of one 256-token prefill chunk and 7 decodes, and
    at a verify step of 8 lanes × (1 + 4) rows, and at the three shapes
    beside SDPA three ways: as a caller sees it, the device
-   time alone and the host time per call, with a sweep over 4, 8 and 16
-   pages per split; streaming attention at the BERT
+   time alone and the host time per call, at the engine's tuned config
+   and, device alone, at ``DEFAULT_CONFIG``; streaming attention at the BERT
    encode and deepseek scoring shapes, with exact exp and the f32 CUDA-core
    kernel beside it; the int8 matmul at the BERT-large projections, device
    alone too, with its mma.sync variant, each wgmma tile width and
@@ -175,7 +198,8 @@ INT8_REL_TOL = 0.03                  # the reference's own bound (test_quant.py)
 EARLIER_MS = {"bert 8x512": 24.1, "bert 1x4096": 33.7, "scoring bf16": 104.0,
               "scoring f32": 584.2, "step p50 bf16": 70.78,
               "step p50 int8": 91.61}
-KV_SPLIT_SWEEP = (4, 8, 16)        # pages per split timed at the decode shape
+TUNE_ITERS = 10                    # timed calls per tuner candidate and step (min)
+CKPT_LAYERS = 2                    # depth of the checkpoint round trip
 WARM_PASSES = 3                    # the captured arm's warm passes, at most,
                                    # the lockstep pass included
 MIXED_CHUNK = (256, 512)           # the mixed step's chunk: (tokens, live rows)
@@ -187,6 +211,11 @@ SPEC_PHRASE = 32                   # the repeated phrase of its NGram prompts
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
               (4096, 4096, 1024, "down"),
               (256, 1024, 1024, "benchmarks/microbench.py bench_int8")]
+
+
+#: the card's ``nvidia-smi`` name and power limit, printed beside the times
+#: of the phases this slice added
+CARD = ["card not read"]
 
 
 def log(*a):
@@ -309,6 +338,7 @@ def phase_card():
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    CARD[0] = smi_line
     log(f"[card] {name} | torch {torch.__version__} cuda {torch.version.cuda}")
     return name, smi_line
 
@@ -543,6 +573,185 @@ def phase_paged_attention():
             if not ok:
                 fail(f"paged attention {name} at {kv_split} pages per split "
                      f"disagrees with the plain version: {msg}")
+
+
+def phase7_lens():
+    """Phase 7's prompt lengths, drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    return rng, rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=8)
+
+
+def decode_kv_lens():
+    """Phase 7's lanes halfway through their decode: the decode shape."""
+    return [int(n) + MAX_NEW // 2 for n in phase7_lens()[1]]
+
+
+def step_kind(prefill_tokens, decode_tokens) -> str:
+    """A step's kind by its rows: decode only, prefill only, or mixed."""
+    if not prefill_tokens:
+        return "decode"
+    return "mixed" if decode_tokens else "prefill"
+
+
+def phase7_steps():
+    """Phase 7's model steps as its scheduler packs them → (kinds, segments):
+    per step its (prefill tokens, decode tokens, lanes), and its (new rows,
+    KV rows after) per lane.  The scheduler reads the prompts' lengths and
+    the engine's settings, never weights or token values (the prefix cache
+    is off), so a deepseek-7b-smoke engine with phase 7's settings packs the
+    same steps; ``main`` holds phase 7's own passes to these kinds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore, Request
+    cfg = get_config(MODEL + "-smoke")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    eng = EngineCore(cfg, params, device=DEV, capture=False, **ENGINE)
+    for i, n in enumerate(phase7_lens()[1]):
+        eng.submit(Request(uid=i, prompt=np.full(int(n), i, np.int32),
+                           max_new=MAX_NEW))
+    kinds, segments = [], []
+    inner = eng.scheduler.batch_for
+
+    def spy(wants):
+        batch, pre = inner(wants)
+        cu = batch.cu_seqlens
+        if batch.plans:
+            segments.append([(int(cu[i + 1] - cu[i]),
+                              int(batch.pos[cu[i + 1] - 1]) + 1)
+                             for i in range(len(batch.plans))])
+        return batch, pre
+    eng.scheduler.batch_for = spy
+    while eng.scheduler.has_work():
+        out = eng.step()
+        if out.lanes:
+            kinds.append((out.prefill_tokens, out.decode_tokens, out.lanes))
+    if len(kinds) != len(segments):
+        fail(f"phase 7's dry run: {len(kinds)} model steps, "
+             f"{len(segments)} packed batches")
+    return kinds, segments
+
+
+def tuner_workloads(steps):
+    """The tuner's traffic from phase 7's steps (``phase7_steps``): for each
+    step kind, its middle step's segments, weighted by the number of phase
+    7's steps of that kind → (workloads, weights)."""
+    by_kind = {}
+    for (pf, dc, _), seg in zip(*steps):
+        by_kind.setdefault(step_kind(pf, dc), []).append(seg)
+    return ({k: v[len(v) // 2] for k, v in by_kind.items()},
+            {k: len(v) for k, v in by_kind.items()})
+
+
+def spearman(a, b) -> float:
+    """Rank correlation of two equal-length sequences (no ties expected)."""
+    ra = np.argsort(np.argsort(a))
+    rb = np.argsort(np.argsort(b))
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def phase_tuner(steps):
+    """The kernel-config tuner on the card (phase 4a): for the bf16 and the
+    int8 pool, every candidate of ``candidate_space(platform="cuda")`` and
+    ``DEFAULT_CONFIG`` measured on kernel #2 (``tune(..., measure=True)``,
+    which prunes nothing on the card) over phase 7's step kinds weighted by
+    their counts (``tuner_workloads``), and held, step by step, against the
+    plain version at its own block_q and pages per split (f32 atol 2e-5 /
+    rtol 1e-4 → the bf16 output within one bf16 ulp beyond the atol, phase
+    4's rule).  → per pool: the report, the winner, the default's and the
+    winner's ms, the roofline's rank agreement; for the int8 pool also the
+    bf16 pool's winner's ms (the table has one row per model and platform,
+    as the reference's, so an int8 engine runs the bf16 winner)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.autotune import (DEFAULT_CONFIG, KernelConfig,
+                                              config_kwargs, geom_for,
+                                              synthetic_step, tune)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_varlen, paged_attention_varlen_reference)
+    from repro_torch.kernels.paged_attention.ops import default_kv_split
+    cfg = get_config(MODEL)
+    wl, weights = tuner_workloads(steps)
+    log(f"[tuner] phase 7's steps by kind {weights}; the middle step of "
+        f"each: " + "; ".join(f"{k} {len(v)} lanes, (rows, KV rows) {v}"
+                              for k, v in wl.items()))
+    ps = ENGINE["page_size"]
+    untagged = lambda d: {k: v for k, v in d.items() if k != "source"}  # noqa: E731
+    out = {}
+    for tag, quantized in (("bf16", False), ("int8", True)):
+        geom = geom_for(cfg, page_size=ps, quantized=quantized)
+        t0 = time.perf_counter()
+        winner, report = tune(geom, platform="cuda", workloads=wl,
+                              weights=weights, measure=True, iters=TUNE_ITERS)
+        tune_s = time.perf_counter() - t0
+        if any("measured_s" not in r for r in report):
+            fail(f"tuner {tag}: a candidate was not measured")
+        worst = 0.0
+        for r in report:
+            c = KernelConfig(**r["config"])
+            for name, seg in wl.items():
+                args, kw = synthetic_step(seg, geom, DEV)
+                kw.update(config_kwargs(c))
+                got = paged_attention_varlen(*args, **kw)
+                want = paged_attention_varlen_reference(
+                    *args, **dict(kw, kv_split=c.kv_split
+                                  or default_kv_split(ps)))
+                if not torch.isfinite(got).all():
+                    fail(f"tuner {tag} {c.describe()} {name}: non-finite")
+                ulps = bf16_ulps(got, want)
+                worst = max(worst, ulps)
+                if not ulps <= 1.0:
+                    fail(f"tuner {tag}: {c.describe()} at the {name} step "
+                         f"sits {ulps:.2f} bf16 ulp beyond atol 2e-5 from "
+                         f"the plain version (limit 1)")
+        pred = [r["predicted_s"] for r in report]
+        meas = [r["measured_s"] for r in report]
+        by_pred = int(np.argmin(pred))
+        by_meas = int(np.argmin(meas))
+        default = next(r for r in report
+                       if r["config"] == DEFAULT_CONFIG.describe())
+        rows = sorted(report, key=lambda r: r["measured_s"])
+        for r in rows:
+            c = r["config"]
+            log(f"[tuner {tag}] block_q {c['block_q']:>2} pages/split "
+                f"{str(c['kv_split']):>4}: predicted "
+                f"{r['predicted_s'] * 1e3:.4f} ms, measured "
+                f"{r['measured_s'] * 1e3:.4f} ms (sum over {weights}, min "
+                f"of {TUNE_ITERS})")
+        rank_of_pred_best = sorted(meas).index(meas[by_pred]) + 1
+        facts = dict(
+            winner=winner.describe(), tune_s=tune_s,
+            winner_ms=meas[by_meas] * 1e3,
+            default_ms=default["measured_s"] * 1e3,
+            predicted_winner=report[by_pred]["config"],
+            predicted_winner_measured_ms=meas[by_pred] * 1e3,
+            predicted_winner_measured_rank=rank_of_pred_best,
+            spearman=spearman(pred, meas), candidates=len(report),
+            worst_bf16_ulps=worst,
+            report=[dict(config=r["config"],
+                         predicted_ms=r["predicted_s"] * 1e3,
+                         measured_ms=r["measured_s"] * 1e3) for r in rows],
+            workloads=wl, weights=weights)
+        log(f"[tuner {tag}] winner {winner.describe()}: "
+            f"{facts['winner_ms']:.4f} ms against DEFAULT_CONFIG's "
+            f"{facts['default_ms']:.4f} ms "
+            f"({facts['default_ms'] / facts['winner_ms']:.3f}×); the "
+            f"roofline's pick {facts['predicted_winner']} measured "
+            f"{facts['predicted_winner_measured_ms']:.4f} ms, rank "
+            f"{rank_of_pred_best} of {len(report)}; Spearman ρ(predicted, "
+            f"measured) {facts['spearman']:.3f}; every candidate within "
+            f"{worst:.2f} bf16 ulp of its plain version (limit 1); "
+            f"{tune_s:.1f} s; {CARD[0]}")
+        out[tag] = facts
+    bf16_winner = untagged(out["bf16"]["winner"])
+    i8 = out["int8"]
+    i8["bf16_winner_ms"] = next(r["measured_ms"] for r in i8["report"]
+                                if untagged(r["config"]) == bf16_winner)
+    log(f"[tuner int8] the bf16 pool's winner {bf16_winner}, which the table "
+        f"gives int8 engines too: {i8['bf16_winner_ms']:.4f} ms against the "
+        f"int8 pool's own winner's {i8['winner_ms']:.4f} ms and "
+        f"DEFAULT_CONFIG's {i8['default_ms']:.4f} ms; {CARD[0]}")
+    return out
 
 
 def sa_inputs(shape, dtype, seed, integers=False):
@@ -1259,7 +1468,7 @@ def timed_pass(eng, cfg, prompts, uid0, tag):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_paged_counts()
-    step_ms, kinds, model_steps = [], [], 0
+    step_ms, kinds, model_steps, configs = [], [], 0, []
     t0 = time.perf_counter()
     while eng.scheduler.has_work():
         s0 = time.perf_counter()
@@ -1267,6 +1476,8 @@ def timed_pass(eng, cfg, prompts, uid0, tag):
         step_ms.append((time.perf_counter() - s0) * 1e3)
         kinds.append((out.prefill_tokens, out.decode_tokens, out.lanes))
         model_steps += out.lanes > 0
+        if out.lanes and out.kernel_config not in configs:
+            configs.append(out.kernel_config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_paged_counts()
@@ -1280,8 +1491,11 @@ def timed_pass(eng, cfg, prompts, uid0, tag):
         if launches[kernel] != cfg.num_layers * model_steps:
             fail(f"engine {tag}: {kernel} launched {launches[kernel]} times, "
                  f"expected layers × steps = {cfg.num_layers} × {model_steps}")
-    if eng.pages_in_use != 0:
+    if eng.pages_in_use != 0 or eng.kv.free_pages != eng.kv.num_pages:
         fail(f"engine {tag}: {eng.pages_in_use} pages leaked")
+    if configs != [eng.kernel_config.describe()]:
+        fail(f"engine {tag}: steps recorded kernel configs {configs}, the "
+             f"engine's is {eng.kernel_config.describe()}")
     gen = sum(len(done[u]) for u in uids)
     prompt_toks = sum(len(p) for p in prompts)
     return dict(steps=model_steps, launches=launches, generated=gen,
@@ -1293,7 +1507,7 @@ def timed_pass(eng, cfg, prompts, uid0, tag):
                     [t for t, (pf, dc, n) in zip(step_ms, kinds)
                      if not pf and dc == n == ENGINE["lanes"]])),
                 peak_gib=peak / 2 ** 30, kinds=kinds,
-                streams=[done[u] for u in uids])
+                kernel_config=configs[0], streams=[done[u] for u in uids])
 
 
 def phase_engine(cfg, params, kv_quant: bool, prompts):
@@ -1303,6 +1517,9 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
     c = cfg.replace(kv_quant=kv_quant)
     eng = EngineCore(c, params, device=DEV, capture=False, **ENGINE)
     tag = "int8" if kv_quant else "bf16"
+    if eng.kernel_config.source != "tuned":
+        fail(f"engine {tag}: resolved {eng.kernel_config.describe()}, not "
+             f"the tuner table's {MODEL}::cuda row")
     facts = dict(pool=tag, **timed_pass(eng, c, prompts, 0, f"eager {tag}"))
     log(f"[engine {tag}] eager: {facts['steps']} steps, {facts['generated']} "
         f"tokens generated, {facts['prompt_tokens']} prompt tokens in "
@@ -1310,7 +1527,8 @@ def phase_engine(cfg, params, kv_quant: bool, prompts):
         f"({facts['all_tok_s']:.1f} incl. prompt); step ms p50 "
         f"{facts['step_ms_p50']:.2f} (earlier: "
         f"{EARLIER_MS[f'step p50 {tag}']}) p99 {facts['step_ms_p99']:.2f}; "
-        f"peak {facts['peak_gib']:.2f} GiB; launches {facts['launches']}")
+        f"peak {facts['peak_gib']:.2f} GiB; launches {facts['launches']}; "
+        f"StepOutput.kernel_config {facts['kernel_config']}")
     return eng, facts
 
 
@@ -1319,12 +1537,12 @@ def step_logits(eng, batch):
     pool, eagerly, after the engine ran it (the step rewrites its own KV
     rows with the same values, so it reads the history the step read)."""
     import torch
-    from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged
+    from repro_torch.models.lm import lm_step_ragged
     a = {k: torch.from_numpy(v).to(DEV)
          for k, v in eng.step_arrays(batch).items()}
     lg = lm_step_ragged(eng.cfg, eng.params, a["tokens"], eng.kv.pool,
                         a["table"], a["pos"], a["last_idx"], a["cu"],
-                        KERNEL_CONFIG)
+                        eng.kernel_config)
     return lg[:len(batch.plans)].cpu().numpy()
 
 
@@ -1561,11 +1779,195 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
         f"{measured['peak_gib']:.2f} GiB (eager {eager['peak_gib']:.2f}); "
         f"TTFT p50 {lat['ttft_ms_p50']:.1f} p99 {lat['ttft_ms_p99']:.1f} ms, "
         f"TPOT {lat['tpot_ms']:.2f} ms (registry); launches "
-        f"{measured['launches']} = layers × steps; greedy streams equal the "
+        f"{measured['launches']} = layers × steps; StepOutput.kernel_config "
+        f"{measured['kernel_config']}; greedy streams equal the "
         f"eager arm's on all {len(prompts)} requests"
         + (f" save near-tie forks {forks}" if forks else ""))
     del ce
     torch.cuda.empty_cache()
+    return facts
+
+
+def phase_config_arms(cfg, params, prompts):
+    """Phase 7's bf16 traffic through two captured engines side by side:
+    one on the committed tuned row, one at ``DEFAULT_CONFIG``.  Each warms
+    until a pass captures nothing new (at most ``WARM_PASSES``); then their
+    measured passes interleave (tuned, default, tuned, default).  Each arm
+    repeats its own streams; the default arm's equal the tuned arm's by the
+    margin rule (``hold_by_margin``: another block_q or pages per split
+    rounds the attention apart, so near-ties may fork).  → both arms' step
+    p50s, tokens/s and forks."""
+    import torch
+    from repro_torch.kernels.autotune import DEFAULT_CONFIG, resolve_config
+    from repro_torch.serving import EngineCore
+    configs = {"tuned": resolve_config(cfg.name, "cuda"),
+               "default": DEFAULT_CONFIG}
+    make = {k: (lambda kc=kc: EngineCore(cfg, params, device=DEV,
+                                         kernel_config=kc, **ENGINE))
+            for k, kc in configs.items()}
+    wave = lambda uid0: [[(uid0 + i, p) for i, p in enumerate(prompts)]]  # noqa: E731
+    engs = {k: m() for k, m in make.items()}
+    warm, runs, uid0 = {}, {k: [] for k in engs}, 0
+    for k, eng in engs.items():
+        caps = []
+        while len(caps) < WARM_PASSES and (not caps or caps[-1]):
+            before = eng.graphs.captures
+            serve_waves(eng, wave(uid0))
+            caps.append(eng.graphs.captures - before)
+            uid0 += 100
+        warm[k] = caps
+    for _ in range(2):
+        for k, eng in engs.items():
+            r = serve_waves(eng, wave(uid0))
+            r["streams"] = {u - uid0: t for u, t in r["streams"].items()}
+            runs[k].append(r)
+            uid0 += 100
+    for k, rs in runs.items():
+        if rs[0]["streams"] != rs[1]["streams"]:
+            fail(f"config arm {k}: two passes served different streams")
+    streams = {k: rs[0]["streams"] for k, rs in runs.items()}
+    del engs
+    torch.cuda.empty_cache()
+    serve = lambda eng, t: serve_waves(eng, wave(0), targets=t)  # noqa: E731
+    forks = hold_by_margin("config arms", streams["default"],
+                           streams["tuned"],
+                           fresh_run(make["default"], serve),
+                           fresh_run(make["tuned"], serve))
+    facts = {k: dict(config=configs[k].describe(), warm_captures=warm[k],
+                     step_ms_p50=[r["step_ms_p50"] for r in rs],
+                     step_ms_p99=[r["step_ms_p99"] for r in rs],
+                     tok_s=[r["tok_s"] for r in rs], steps=rs[0]["steps"],
+                     launches=rs[0]["launches"])
+             for k, rs in runs.items()}
+    facts["forks"] = forks
+    t, d = facts["tuned"], facts["default"]
+    log(f"[config arms bf16] tuned {t['config']}: step ms p50 "
+        f"{[round(x, 2) for x in t['step_ms_p50']]}, tok/s "
+        f"{[round(x, 1) for x in t['tok_s']]}; DEFAULT_CONFIG: step ms p50 "
+        f"{[round(x, 2) for x in d['step_ms_p50']]}, tok/s "
+        f"{[round(x, 1) for x in d['tok_s']]} (passes interleaved; warm "
+        f"captures {warm}; {CARD[0]}); streams equal"
+        + (f" save near-tie forks {forks}" if forks else ""))
+    return facts
+
+
+def write_checkpoint(ckpt_dir, step, cfg, params):
+    """Write ``{"params": params}`` in the reference store's layout
+    (``src/repro/checkpoint/store.py::save``): ``step_<8 digits>/``
+    holding ``arrays.npz`` (leaf path → array; bf16 leaves as raw 2-byte
+    values, as ``np.savez`` stores an ml_dtypes bf16 array) and
+    ``manifest.json`` (shape, dtype and sha256 per leaf).  A fixture: the
+    package reads checkpoints and does not write them."""
+    import hashlib
+    import os
+    import torch
+    from repro_torch.params import param_paths
+    paths = param_paths(cfg)
+    flat, dtypes = {}, {}
+    for k, t in params.items():
+        t = t.detach().contiguous().cpu()
+        name = "params/" + paths[k]
+        if t.dtype == torch.bfloat16:
+            flat[name] = t.view(torch.int16).numpy().view("V2")
+            dtypes[name] = "bfloat16"
+        else:
+            flat[name] = t.numpy()
+            dtypes[name] = str(flat[name].dtype)
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "arrays.npz"), **flat)
+    manifest = {"step": step, "extra": {},
+                "leaves": {k: {"shape": list(v.shape), "dtype": dtypes[k],
+                               "sha256": hashlib.sha256(
+                                   np.ascontiguousarray(v).tobytes())
+                               .hexdigest()[:16]}
+                           for k, v in flat.items()}}
+    with open(os.path.join(d, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return d
+
+
+def phase_checkpoint(cfg, params, prompts):
+    """The checkpoint read path at ``CKPT_LAYERS`` layers of the model's
+    full width (phase 7e): the seeded parameters written by the fixture
+    (``write_checkpoint``), restored through ``checkpoint.restore_params``
+    onto the card (every leaf bit for bit, bf16 kept), then one engine
+    step on each set of parameters over phase 7's prompts: equal picks
+    and the step's logits equal bit for bit; a leaf that no longer matches
+    its manifest raises ``IOError``."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.checkpoint import latest_step, restore_params
+    from repro_torch.models.lm import layer_keys
+    from repro_torch.serving import EngineCore, Request
+    c = cfg.replace(num_layers=CKPT_LAYERS)
+    keys = set(layer_keys(cfg))
+    mem = {k: (v[:CKPT_LAYERS].contiguous() if k in keys else v)
+           for k, v in params.items()}
+    root = ROOT / "build" / "ckpt_roundtrip"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        d = write_checkpoint(str(root), 7, c, mem)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "arrays.npz"))
+        t0 = time.perf_counter()
+        restored, step, _ = restore_params(str(root), c, DEV)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        if step != 7 or latest_step(str(root)) != 7:
+            fail(f"checkpoint: restored step {step}, not 7")
+        for k, v in mem.items():
+            r = restored[k]
+            if r.dtype != v.dtype or r.shape != v.shape or r.device != v.device \
+                    or not torch.equal(r.view(torch.int16) if r.dtype ==
+                                       torch.bfloat16 else r,
+                                       v.view(torch.int16) if v.dtype ==
+                                       torch.bfloat16 else v):
+                fail(f"checkpoint: leaf {k} did not come back bit for bit")
+        picks, logits = [], []
+        for p in (mem, restored):
+            eng = EngineCore(c, p, device=DEV, capture=False, **ENGINE)
+            seen = {}
+            spy_batches(eng, seen)
+            for i, prompt in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=prompt, max_new=MAX_NEW))
+            out = eng.step()
+            picks.append(out.tokens)
+            logits.append(step_logits(eng, seen[eng]))
+            del eng
+        if picks[0] != picks[1] or not np.array_equal(logits[0], logits[1]):
+            fail("checkpoint: the restored parameters' step differs from the "
+                 "parameters in memory")
+        manifest = os.path.join(d, "manifest.json")
+        with open(manifest) as f:
+            m = json.load(f)
+        leaf = sorted(m["leaves"])[0]
+        m["leaves"][leaf]["sha256"] = "0" * 16
+        with open(manifest, "w") as f:
+            json.dump(m, f)
+        try:
+            restore_params(str(root), c, DEV)
+        except IOError as e:
+            caught = str(e)
+        else:
+            fail(f"checkpoint: a leaf that does not match its manifest "
+                 f"({leaf}) restored without an IOError")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del restored
+    torch.cuda.empty_cache()
+    facts = dict(layers=CKPT_LAYERS, bytes=nbytes, leaves=len(mem),
+                 write_s=write_s, restore_s=read_s,
+                 logits_shape=list(logits[0].shape), corrupt_leaf=leaf,
+                 error=caught)
+    log(f"[checkpoint] {len(mem)} leaves, {nbytes / 1e9:.2f} GB at "
+        f"{CKPT_LAYERS} layers of {cfg.name}'s width: written by the fixture "
+        f"in {write_s:.1f} s, restored onto the card in {read_s:.1f} s, every "
+        f"leaf bit for bit; one engine step's logits {tuple(logits[0].shape)} "
+        f"equal bit for bit, picks equal; a stale manifest entry for {leaf} "
+        f"raises IOError ({caught}); {CARD[0]}")
     return facts
 
 
@@ -1661,6 +2063,9 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
                 width=out.padded_rows, ms=(now - s0) * 1e3,
                 captures=eng.graphs.captures - c0,
                 launches=read_paged_counts()["paged_attention"] - n0))
+            if out.lanes and out.kernel_config != eng.kernel_config.describe():
+                fail(f"a step recorded kernel config {out.kernel_config}, "
+                     f"the engine's is {eng.kernel_config.describe()}")
             w["step_ms"].append((now - s0) * 1e3)
             w["steps"] += out.lanes > 0
             w["prefill_tokens"] += out.prefill_tokens
@@ -2559,9 +2964,10 @@ def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
     Greedy picks must agree on every lane whose top-2 margin exceeds twice
     the measured gap."""
     import torch
+    from repro_torch.kernels.autotune import resolve_config
     from repro_torch.kernels.paged_attention import (
         paged_attention_varlen_reference)
-    from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged
+    from repro_torch.models.lm import lm_step_ragged
     from repro_torch.serving.scheduler import default_token_buckets
     rng = np.random.default_rng(7)
     spec = [(1, kv) for kv in KV_LENS[1:]] + [(CHUNK, 3 * CHUNK)]
@@ -2588,7 +2994,7 @@ def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
     last_idx = (cu[1:] - 1).astype(np.int32)
     dev = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
     args = (cfg, params, dev(tokens), pool, dev(table), dev(pos),
-            dev(last_idx), dev(cu_full), KERNEL_CONFIG)
+            dev(last_idx), dev(cu_full), resolve_config(cfg.name, "cuda"))
     k_logits = lm_step_ragged(*args)
     p_logits = lm_step_ragged(*args, attend=paged_attention_varlen_reference)
     p1_logits = lm_step_ragged(*args, attend=lambda *a, **kw: (
@@ -2691,61 +3097,68 @@ def paged_bound(s, itemsize):
             nbytes, flops)
 
 
-def time_paged(a, kw, library, flush):
-    """Kernel #2 (both launches) on the tiled call ``a``/``kw`` beside the
-    library yardstick ``library``, in interleaved rounds: ``ms`` and
-    ``library_ms`` as a caller sees them (CUDA events from the host's call:
-    the wrapper's host work shows where it outlasts the card's), the same
-    two with a spin lead (``device_ms``, ``library_device_ms``: the card's
-    work alone), the host time of one call of each (``host_ms``,
-    ``library_host_ms``), and the device time at each pages-per-split
-    of ``KV_SPLIT_SWEEP`` (``kv_split_sweep_device_ms``)."""
+def time_paged(a, kw, library, flush, default):
+    """Kernel #2 (both launches) on the tiled call ``a``/``kw`` (the
+    engine's tuned config) beside the library yardstick ``library``, in
+    interleaved rounds: ``ms`` and ``library_ms`` as a caller sees them
+    (CUDA events from the host's call: the wrapper's host work shows where
+    it outlasts the card's), the same two with a spin lead (``device_ms``,
+    ``library_device_ms``: the card's work alone), the host time of one
+    call of each (``host_ms``, ``library_host_ms``), and the device time of
+    the same step at ``DEFAULT_CONFIG`` (``default``: its call's (a, kw);
+    ``default_config_device_ms``)."""
     from repro_torch.kernels.paged_attention import paged_attention
     kernel = lambda: paged_attention(*a, **kw)  # noqa: E731
-    timers = {
+    med = interleaved_ms({
         "ms": lambda: cuda_ms(kernel, flush=flush),
         "library_ms": lambda: cuda_ms(library, flush=flush),
         "device_ms": lambda: cuda_ms(kernel, flush=flush, spin=True),
-        "library_device_ms": lambda: cuda_ms(library, flush=flush, spin=True)}
-    for n in KV_SPLIT_SWEEP:
-        timers[n] = lambda n=n: cuda_ms(
-            lambda: paged_attention(*a, **kw, kv_split=n), flush=flush,
-            spin=True)
-    med = interleaved_ms(timers)
-    return dict(
-        **{k: med[k] for k in ("ms", "library_ms", "device_ms",
-                               "library_device_ms")},
-        host_ms=host_ms(kernel), library_host_ms=host_ms(library),
-        kv_split_sweep_device_ms={n: med[n] for n in KV_SPLIT_SWEEP})
+        "library_device_ms": lambda: cuda_ms(library, flush=flush, spin=True),
+        "default_config_device_ms": lambda: cuda_ms(
+            lambda: paged_attention(*default[0], **default[1]), flush=flush,
+            spin=True)})
+    return dict(med, host_ms=host_ms(kernel), library_host_ms=host_ms(library))
 
 
 def paged_times(t) -> str:
-    sweep = ", ".join(f"{n} pages {v:.4f}"
-                      for n, v in t["kv_split_sweep_device_ms"].items())
     return (f"kernel {t['ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms; device "
             f"alone (spin lead) kernel {t['device_ms']:.4f} ms, sdpa "
-            f"{t['library_device_ms']:.4f} ms; host per call kernel "
-            f"{t['host_ms']:.4f} ms, sdpa {t['library_host_ms']:.4f} ms; "
-            f"split sweep, device alone: {sweep} ms (medians of 5 "
-            f"interleaved rounds)")
+            f"{t['library_device_ms']:.4f} ms, DEFAULT_CONFIG "
+            f"{t['default_config_device_ms']:.4f} ms; host per call kernel "
+            f"{t['host_ms']:.4f} ms, sdpa {t['library_host_ms']:.4f} ms "
+            f"(medians of 5 interleaved rounds)")
+
+
+def tiled_calls(s, kc):
+    """The tiled call of stream ``s`` at config ``kc`` and at
+    ``DEFAULT_CONFIG``: ((a, kw) tuned, (a, kw) default, kc's pages per
+    split)."""
+    from repro_torch.kernels.paged_attention.ops import default_kv_split
+    split = kc.kv_split or default_kv_split(s["k"].shape[2])
+    a, kw = q_blocks(s, kc.block_q)
+    a0, kw0 = q_blocks(s)
+    return (a, dict(kw, kv_split=split)), (a0, kw0), split
 
 
 def phase_timing(engine_facts, vocab):
     """Each kernel at the engine's decode-step shape (8 lanes decoding at
-    the served requests' mid-decode lengths, block_q 8), beside its plain
-    version, a library call and its bound; paged attention also at 4, 8
-    and 16 pages per split and at a mixed step (one 256-token prefill chunk
-    and 7 decodes)."""
+    the served requests' mid-decode lengths), beside its plain version, a
+    library call and its bound; paged attention at the engine's tuned
+    config (its block_q and pages per split) and, device alone, at
+    ``DEFAULT_CONFIG``, also at a mixed step (one 256-token prefill chunk
+    and 7 decodes) and a verify step."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_reference, paged_attention_varlen,
         paged_attention_varlen_reference)
-    from repro_torch.kernels.paged_attention.ops import (default_kv_split,
-                                                         paged_combine)
+    from repro_torch.kernels.autotune import resolve_config
+    from repro_torch.kernels.paged_attention.ops import paged_combine
     from repro_torch.kernels.paged_attention.ref import paged_combine_reference
     from repro_torch.serving.scheduler import default_token_buckets
+    kc = resolve_config(MODEL, "cuda")
+    bq = kc.block_q
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     flush = lambda: flush_buf.zero_()  # noqa: E731
     kv_lens = engine_facts["decode_kv_lens"]
@@ -2754,9 +3167,8 @@ def phase_timing(engine_facts, vocab):
         s = make_stream([(1, kv) for kv in kv_lens], pool=pool,
                         n_pages=ENGINE["num_pages"], seed=11)
         hq, d, ps = s["hq"], s["d"], s["k"].shape[2]
-        a, kw = q_blocks(s)
-        split = default_kv_split(ps)
-        plain_kw = dict(kw, block_pages=8, kv_split=split)
+        (a, kw), default, split = tiled_calls(s, kc)
+        plain_kw = dict(kw, block_pages=8)
         got = paged_attention(*a, **kw)
         want = paged_attention_reference(*a, **plain_kw)
         err = float((got.float() - want.float()).abs().max())
@@ -2772,7 +3184,7 @@ def phase_timing(engine_facts, vocab):
         mask = (torch.arange(lmax, device=DEV)[None, :]
                 < torch.tensor(kv_lens, device=DEV)[:, None])[:, None, None]
         entry = time_paged(a, kw, lambda: F.scaled_dot_product_attention(
-            qd, kg, vg, attn_mask=mask), flush)
+            qd, kg, vg, attn_mask=mask), flush, default)
         bound, bound_by, nbytes, flops = paged_bound(s, 2)
         name = "paged_attention" if pool == "bfloat16" else "paged_attention_int8"
         entry = dict(
@@ -2780,8 +3192,9 @@ def phase_timing(engine_facts, vocab):
             launches_by_path={k: v["paged_attention"] for k, v in
                               engine_facts["paths"].items()},
             max_abs_err=err, **entry, kernel_ms=entry["ms"], plain_ms=plain,
-            bound_ms=bound, bound_by=bound_by, kv_split=split,
-            shape=f"decode step: 8 lanes, kv {kv_lens}, block_q 8, "
+            bound_ms=bound, bound_by=bound_by, kv_split=split, block_q=bq,
+            kernel_config=kc.describe(),
+            shape=f"decode step: 8 lanes, kv {kv_lens}, block_q {bq}, "
                   f"{hq} heads × {d}, ps {ps}, {s['table'].shape[1]} table "
                   f"slots, {pool} pool; both launches (split pass + combine)")
         if pool == "bfloat16":
@@ -2807,9 +3220,8 @@ def phase_timing(engine_facts, vocab):
         ENGINE["lanes"] + ENGINE["chunk_size"]) if w >= live)
     s = make_stream(spec, pool="bfloat16", n_pages=ENGINE["num_pages"],
                     seed=12, width=width)
-    a, kw = q_blocks(s)
-    split = default_kv_split(s["k"].shape[2])
-    plain_kw = dict(kw, block_pages=8, kv_split=split)
+    (a, kw), default, split = tiled_calls(s, kc)
+    plain_kw = dict(kw, block_pages=8)
     got = paged_attention(*a, **kw)
     want = paged_attention_reference(*a, **plain_kw)
     mixed_err = float((got.float() - want.float()).abs().max())
@@ -2828,15 +3240,17 @@ def phase_timing(engine_facts, vocab):
         [kv for _, kv in spec[1:]], device=DEV)[:, None])[:, None, None]
     mixed = time_paged(a, kw, lambda: (
         F.scaled_dot_product_attention(qc, *views[0], attn_mask=cmask),
-        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask)), flush)
+        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask)), flush,
+        default)
     bound, bound_by, nbytes, flops = paged_bound(s, 2)
     kernels[0]["mixed_step"] = dict(
         **mixed, plain_ms=mixed_plain, bound_ms=bound, bound_by=bound_by,
-        max_abs_err=mixed_err, kv_split=split,
+        max_abs_err=mixed_err, kv_split=split, block_q=bq,
         library="two scaled_dot_product_attention calls on gathered bf16 "
                 "views (the chunk with its causal mask; the 7 decodes)",
         shape=f"one {n_chunk}-token chunk at kv {kv_chunk} + 7 decodes at "
-              f"kv {kv_lens[:7]}, stream width {width}, block_q 8, bf16 pool")
+              f"kv {kv_lens[:7]}, stream width {width}, block_q {bq}, bf16 "
+              f"pool")
     log(f"[time] paged_attention mixed step ({kernels[0]['mixed_step']['shape']}"
         f"): {paged_times(mixed)}; plain {mixed_plain:.3f} ms, bound "
         f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
@@ -2851,10 +3265,9 @@ def phase_timing(engine_facts, vocab):
         ENGINE["lanes"] + ENGINE["chunk_size"]) if w >= rows * len(spec))
     s = make_stream(spec, pool="bfloat16", n_pages=ENGINE["num_pages"],
                     seed=14, width=width)
-    a, kw = q_blocks(s)
-    split = default_kv_split(s["k"].shape[2])
-    plain_kw = dict(kw, block_pages=8, kv_split=split)
-    vkw = dict(cu_seqlens=s["cu"], block_q=8, block_pages=8, kv_split=split,
+    (a, kw), default, split = tiled_calls(s, kc)
+    plain_kw = dict(kw, block_pages=8)
+    vkw = dict(cu_seqlens=s["cu"], block_q=bq, block_pages=8, kv_split=split,
                k_scale=None, v_scale=None)
     varg = (s["q"], s["k"], s["v"], s["table"], s["pos"])
     live = slice(0, s["live"])
@@ -2878,16 +3291,16 @@ def phase_timing(engine_facts, vocab):
     vmask = (torch.arange(lmax, device=DEV)[None, None, :]
              < seen_to[:, :, None])[:, None]
     verify = time_paged(a, kw, lambda: F.scaled_dot_product_attention(
-        qv, kg, vg, attn_mask=vmask), flush)
+        qv, kg, vg, attn_mask=vmask), flush, default)
     bound, bound_by, nbytes, flops = paged_bound(s, 2)
     kernels[0]["verify_step"] = dict(
         **verify, plain_ms=verify_plain, bound_ms=bound, bound_by=bound_by,
-        max_abs_err=verify_err, kv_split=split,
+        max_abs_err=verify_err, kv_split=split, block_q=bq,
         library="scaled_dot_product_attention on gathered bf16 views, each "
                 "lane's 1 + k rows with their causal mask",
         shape=f"{len(spec)} lanes × {rows} rows (decode row + {SPEC_K} "
               f"drafts) at kv {[kv for _, kv in spec]}, stream width {width}, "
-              f"{s['table'].shape[1]} table slots, block_q 8, bf16 pool")
+              f"{s['table'].shape[1]} table slots, block_q {bq}, bf16 pool")
     log(f"[time] paged_attention verify step ({kernels[0]['verify_step']['shape']}"
         f"): {paged_times(verify)}; plain {verify_plain:.3f} ms, bound "
         f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
@@ -2896,9 +3309,8 @@ def phase_timing(engine_facts, vocab):
 
     # the combine alone, at the decode step's workspace shape: partials as
     # the split pass leaves them, never-written splits NaN
-    a, _ = q_blocks(decode)
+    (a, _), _, split = tiled_calls(decode, kc)
     kvl, ps = a[4], decode["k"].shape[2]
-    split = default_kv_split(ps)
     nb, hkv, rows, d = a[0].shape[0], decode["hkv"], a[0].shape[2], decode["d"]
     n_split = -(-a[3].shape[1] // split)
     g = torch.Generator(device=DEV).manual_seed(13)
@@ -2925,7 +3337,7 @@ def phase_timing(engine_facts, vocab):
                     iters=5, flush=flush)
     # bytes and operations the step needs: each live row's partials of the
     # splits its own keys span and its output (the rule of attention_work);
-    # the block_q 8 tiling's dead rows of live q-blocks are counted apart
+    # the block_q tiling's dead rows of live q-blocks are counted apart
     row_splits = lambda vis: -(-(-(-vis // ps)) // split)  # noqa: E731
     need = decode["hq"] // hkv * sum(row_splits(kv - n + i + 1)
                                      for n, kv in decode["spec"]
@@ -2955,7 +3367,8 @@ def phase_timing(engine_facts, vocab):
         dead_row_bytes=dead_bytes))
     log(f"[time] paged_combine: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
         f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.3f} MB of the "
-        f"live rows; the dead rows of block_q 8 add {dead_bytes / 1e6:.2f} MB,"
+        f"live rows; the dead rows of block_q {bq} add "
+        f"{dead_bytes / 1e6:.2f} MB,"
         f" {dead_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate); "
         f"max|Δ| {err:.3g} against the plain merge in f32 (atol 2e-5, rtol "
         f"1e-4)")
@@ -3257,6 +3670,8 @@ def main() -> int:
     built = phase_build()
     phase_lut_exp()
     phase_paged_attention()
+    p7_steps = phase7_steps()
+    tuner = phase_tuner(p7_steps)
     sa_worst = phase_streaming_attention()
     bert = phase_bert()
     phase_int8_checks()
@@ -3270,8 +3685,7 @@ def main() -> int:
     log(f"[weights] {cfg.name}: {n_params / 1e9:.2f} B parameters, "
         f"{sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.1f}"
         f" GB {cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=8)
+    rng, lens = phase7_lens()
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
     log(f"[requests] 8 prompts of {sorted(int(n) for n in lens)} tokens, "
@@ -3282,6 +3696,11 @@ def main() -> int:
     for kv_quant in (False, True):
         tag, pool = ("int8", "int8") if kv_quant else ("bf16", "bfloat16")
         eng, f = phase_engine(cfg, params, kv_quant, prompts)
+        served = [k for k in f["kinds"] if k[2]]
+        if served != p7_steps[0]:
+            fail(f"engine {tag}: served steps {served}, not the "
+                 f"{len(p7_steps[0])} steps the tuner weighted "
+                 f"({p7_steps[0]})")
         facts[tag] = f
         facts["eager_launches"][pool] = f["launches"]
         if not kv_quant:
@@ -3292,6 +3711,8 @@ def main() -> int:
         compiled[tag] = phase_compiled(cfg, params, kv_quant, prompts, f)
         # the main path: the engine as a user builds it, capture on
         facts["launches"][pool] = compiled[tag]["launches"]
+        if not kv_quant:
+            arms = phase_config_arms(cfg, params, prompts)
     prefix = {tag: phase_prefix(cfg, params, kv_quant)
               for tag, kv_quant in (("bf16", False), ("int8", True))}
     greedy_streams = {tag: compiled[tag].pop("streams")
@@ -3308,6 +3729,7 @@ def main() -> int:
         sampled[tag] = f
         del eng
         torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(cfg, params, prompts)
     facts["paths"] = {"prefix bf16": prefix["bf16"]["launches"],
                       "prefix int8": prefix["int8"]["launches"],
                       "spec (a)": spec["scripted"]["launches"],
@@ -3320,11 +3742,15 @@ def main() -> int:
                                    "f32", floor=1e-3)
     del params
     torch.cuda.empty_cache()
-    facts["decode_kv_lens"] = [int(n) + MAX_NEW // 2 for n in lens]
+    facts["decode_kv_lens"] = decode_kv_lens()
     facts["bert"], facts["scoring"] = bert, scoring
     facts["int8_bert"] = int8_bert
     facts["build"] = built
     kernels = phase_timing(facts, cfg.vocab_size)
+    kernels[0]["tuner"] = {
+        tag: {k: t[k] for k in ("winner", "winner_ms", "default_ms",
+                                "predicted_winner", "spearman")}
+        for tag, t in tuner.items()}
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -3333,6 +3759,9 @@ def main() -> int:
     summary["spec"] = spec
     summary["sampled"] = sampled
     summary["front_door"] = door
+    summary["tuner"] = tuner
+    summary["config_arms"] = arms
+    summary["checkpoint"] = ckpt
     summary["step_vs_plain"] = steps
     summary["streaming_attention_checks"] = sa_worst
     summary["bert"] = bert

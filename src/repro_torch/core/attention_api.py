@@ -17,9 +17,12 @@ reference's names, so a config means the same in both packages:
   Pallas kernel on a TPU: static lengths, no position table, more than one
   query row, with platform ``cuda`` in place of ``tpu``.
 
-The paged backends of the serving step are called directly by the ragged
-branch of the model (``models/layers.py``) and are not registered here;
-the ring backend comes with the sharded slice.
+The ragged paged call of the serving step is not a registered backend
+here: the model's ragged branch (``models/layers.py``) calls
+:func:`ragged_attention`, the counterpart of the reference's
+``paged_varlen`` backend, whose block shapes come from a ``KernelConfig``
+(``kernels/autotune.py``) — the caller's, else the tuner's active config.
+The ring backend comes with the sharded slice.
 
 All backends share one signature: ``fn(q, k, v, **kwargs)`` with q
 ``(B, Hq, Lq, D)``, k/v ``(B, Hkv, Lkv, D)``, ``Hq % Hkv == 0``, returning
@@ -34,6 +37,9 @@ import torch
 
 from repro_torch.core.streaming_attention import (naive_attention,
                                                   streaming_attention)
+from repro_torch.kernels.autotune import (KernelConfig, active_config,
+                                         config_kwargs)
+from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
 from repro_torch.kernels.streaming_attention import (
     streaming_attention as streaming_attention_kernel)
 
@@ -224,3 +230,34 @@ def _pallas(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
         q, k, v, scale=scale, causal=causal, window=window, cap=cap,
         exp_mode=exp_mode, q_offset=int(q_offset),
         kv_len=None if kv_len is None else int(kv_len))
+
+
+# --------------------------------------------------------------------------
+# the ragged paged call
+# --------------------------------------------------------------------------
+
+def ragged_kernel_config(kernel_config: Optional[KernelConfig],
+                         platform: str) -> KernelConfig:
+    """The block shapes of a ragged call: ``kernel_config`` when given,
+    else the tuner's active config for ``platform`` (``cpu`` | ``cuda``),
+    as the reference's ``paged_varlen`` backend consults
+    ``active_config()``."""
+    return kernel_config if kernel_config is not None else active_config(
+        platform)
+
+
+def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, token_pages: torch.Tensor,
+                     q_pos: torch.Tensor, *,
+                     kernel_config: Optional[KernelConfig] = None,
+                     attend: Optional[AttentionFn] = None,
+                     **kw) -> torch.Tensor:
+    """Varlen paged attention over one packed (T, Hq, D) stream with the
+    block shapes of ``kernel_config`` (``ragged_kernel_config``):
+    ``block_q`` cuts the q-blocks, ``block_pages`` and ``dequant`` shape
+    the plain version, ``kv_split`` the card's kernel.  ``attend`` replaces
+    ``paged_attention_varlen`` (same signature); ``kw`` are its other
+    keywords."""
+    kc = ragged_kernel_config(kernel_config, q.device.type)
+    return (attend or paged_attention_varlen)(
+        q, k_pool, v_pool, token_pages, q_pos, **config_kwargs(kc), **kw)

@@ -30,8 +30,10 @@ _EXP_MODES = {"lut": 0, "lut0": 1, "exact": 2}
 MAX_HEAD_DIM = 256
 MAX_ROW_TILE = 16     # query rows per block
 MAX_KEY_TILE = 32     # pool rows staged per step
-# Keys per split of the kernel's default: the best of 64, 128 and 256 at
-# the deepseek-7b decode step on an H100 (4 pages at page size 16; PERF.md).
+# Keys per split of the kernel's default, for calls that name no split: the
+# best of 64, 128 and 256 at the deepseek-7b decode step on an H100 (4
+# pages at page size 16; PERF.md).  An engine's split comes from its
+# KernelConfig, tuned per model on the card (kernels/autotune.py).
 KV_SPLIT_KEYS = 64
 
 

@@ -7,9 +7,11 @@ streaming clients with per-request sampling params
 (``--temperature/--top-k/--top-p/--seed/--stop``), reporting sustained
 req/s, TTFT p50/p99 and time-per-output-token.  ``--batch`` runs the
 synchronous submit-all-then-drain driver instead.  Weights are drawn from
-a seed (``params.init_params``); loading a checkpoint (``--ckpt-dir``)
-belongs to the port's training slice and raises until then.  Runs on the
-card unless ``--device cpu`` is given.
+a seed (``params.init_params``), or with ``--ckpt-dir`` restored from the
+latest step of a checkpoint the reference's store wrote
+(``checkpoint.restore_params``).  The engine's kernel config is resolved
+from the port's tuner table (``kernels/autotune.json``) and printed beside
+the engine line.  Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore_params
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.params import init_params
@@ -175,16 +178,16 @@ def main(argv=None) -> None:
                     help="'cuda' (default) or 'cpu' (the plain PyTorch "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: loading a checkpoint is not ported yet; it lands "
-            "with the training slice of the PyTorch port (ROADMAP.md §1 "
-            "item 15)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
+    if args.ckpt_dir:
+        params, step, _ = restore_params(args.ckpt_dir, cfg, device)
+        print(f"restored checkpoint step {step}")
+    else:
+        params = init_params(cfg,
+                             torch.Generator(device=device).manual_seed(0),
+                             device)
     # ceil per lane: a --max-len request must always fit its worst case
     pages_per_lane = -(-args.max_len // args.page_size)
     eng = EngineCore(cfg, params, lanes=args.lanes,
@@ -199,6 +202,7 @@ def main(argv=None) -> None:
           f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
           f"speculative="
           f"{f'k={args.spec_k}' if args.speculative else 'off'})")
+    print(f"kernel_config: {eng.kernel_config.describe()}")
 
     if args.profile_steps:
         eng.obs.arm_profiler(args.profile_steps, args.profile_dir)

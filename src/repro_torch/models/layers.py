@@ -16,10 +16,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from repro_torch.core.attention_api import attention, backend_for_config
+from repro_torch.core.attention_api import (attention, backend_for_config,
+                                            ragged_attention)
 from repro_torch.core.streaming_attention import quantize_kv_rows
 from repro_torch.device import dense
-from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
+from repro_torch.kernels.autotune import KernelConfig
 
 Params = Dict[str, torch.Tensor]
 
@@ -130,7 +131,8 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       cache: Dict[str, torch.Tensor],
                       token_pages: torch.Tensor,
                       cu_seqlens: Optional[torch.Tensor],
-                      kernel_config: Dict, attend: Callable = None,
+                      kernel_config: Optional[KernelConfig] = None,
+                      attend: Callable = None,
                       layout=None) -> torch.Tensor:
     """The ragged branch of the reference ``attn_apply`` (layers.py:238-349).
 
@@ -145,9 +147,10 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     The reference donates the pool buffer to the jitted step; here the
     write updates the pool in place (``index_put_`` on the layer's view of
     the stacked pool).  ``layout`` is the step's q-block layout
-    (``varlen_layout``), computed once per step rather than per layer.
+    (``varlen_layout``), computed once per step rather than per layer, at
+    ``kernel_config``'s ``block_q``; ``None`` consults the tuner's active
+    config (``attention_api.ragged_attention``).
     """
-    attend = attend or paged_attention_varlen
     _, t, _ = x.shape
     q = _heads(dense_apply(p["wq"], x), cfg.num_heads)
     k = _heads(dense_apply(p["wk"], x), cfg.num_kv_heads)
@@ -165,10 +168,7 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         # val (1, H, T, …) → rows-major (T, H, …), one row per (page, offset)
         pool[pids, :, off] = val[0].transpose(0, 1).to(pool.dtype)
 
-    kw = dict(scale=cfg.d_head ** -0.5, exp_mode=cfg.exp_mode,
-              block_q=kernel_config["block_q"],
-              block_pages=kernel_config["block_pages"],
-              dequant=kernel_config["dequant"])
+    kw = dict(scale=cfg.d_head ** -0.5, exp_mode=cfg.exp_mode)
     if "ks" in cache:                       # int8 pool: values + row scales
         kq, ks = quantize_kv_rows(k)
         vq, vs = quantize_kv_rows(v)
@@ -181,8 +181,10 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         put(cache["k"], k)
         put(cache["v"], v)
     qt = q[0].transpose(0, 1).contiguous()                      # (T, Hq, Dh)
-    out = attend(qt, cache["k"], cache["v"], token_pages, pos,
-                 cu_seqlens=cu_seqlens, layout=layout, **kw)    # (T, Hq, Dh)
+    out = ragged_attention(qt, cache["k"], cache["v"], token_pages, pos,
+                           kernel_config=kernel_config, attend=attend,
+                           cu_seqlens=cu_seqlens, layout=layout,
+                           **kw)                                # (T, Hq, Dh)
     return dense_apply(p["wo"], out.reshape(1, t, cfg.num_heads * cfg.d_head))
 
 

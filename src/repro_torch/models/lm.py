@@ -22,7 +22,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.attention_api import ragged_kernel_config
 from repro_torch.device import configure_matmul_precision
+from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.paged_attention.varlen import varlen_layout
 from repro_torch.models import layers as L
 
@@ -43,10 +45,6 @@ def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
     if cfg.norm == "layernorm":
         keys += ["ln1_b", "ln2_b"]
     return tuple(keys)
-
-#: Block shapes of the tiled varlen dataflow — the reference autotuner's CPU
-#: row for deepseek-7b-smoke (``src/repro/configs/autotune.json``).
-KERNEL_CONFIG = {"block_q": 8, "block_pages": 8, "dequant": "block"}
 
 
 def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
@@ -151,13 +149,15 @@ def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                        pos: torch.Tensor, caches: Dict[str, torch.Tensor],
                        token_pages: torch.Tensor,
                        cu_seqlens: Optional[torch.Tensor],
-                       kernel_config: Dict,
+                       kernel_config: Optional[KernelConfig] = None,
                        attend: Optional[Callable] = None) -> torch.Tensor:
     """Every layer over the packed stream, writing its pool rows in place.
-    The lane boundaries are validated and cut into q-blocks once, here, for
-    all layers (the reference's ``jit`` hoists the same work)."""
+    The lane boundaries are validated and cut into q-blocks of
+    ``kernel_config.block_q`` rows once, here, for all layers (the
+    reference's ``jit`` hoists the same work)."""
+    kernel_config = ragged_kernel_config(kernel_config, x.device.type)
     layout = varlen_layout(cu_seqlens, pos, x.shape[1],
-                           kernel_config["block_q"], x.device)
+                           kernel_config.block_q, x.device)
     for i in range(_ragged_family(cfg)):
         p = _layer(cfg, params, i)
         cache = {k: v[i] for k, v in caches.items()}
@@ -173,7 +173,7 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    caches: Dict[str, torch.Tensor], token_pages: torch.Tensor,
                    pos: torch.Tensor, last_idx: torch.Tensor,
                    cu_seqlens: Optional[torch.Tensor] = None,
-                   kernel_config: Optional[Dict] = None, *,
+                   kernel_config: Optional[KernelConfig] = None, *,
                    greedy: bool = False,
                    sampling: Optional[Dict[str, torch.Tensor]] = None,
                    attend: Optional[Callable] = None) -> torch.Tensor:
@@ -189,8 +189,10 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     it.  ``sampling`` — per-lane tensors ``{temperature, top_k, top_p, seed,
     counter}``, each (lanes,) — returns the picks of the in-step sampler
     instead (``serving/sampling.py::sample_in_step``; a verify lane's rows
-    ≥ 1 greedy).  ``attend`` replaces the varlen attention (default:
-    through the kernel wrapper).
+    ≥ 1 greedy).  ``kernel_config`` is the varlen attention's block shapes
+    (``kernels/autotune.py``; ``None`` consults the tuner's active config).
+    ``attend`` replaces the varlen attention (default: through the kernel
+    wrapper).
     """
     if last_idx.dim() not in (1, 2):
         raise ValueError(f"last_idx must be (lanes,) or (lanes, 1 + k), got "
@@ -199,7 +201,7 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = L.embed_apply(params["embed"], tokens)[None]            # (1, T, D)
     x = trunk_apply_ragged(cfg, params, x, pos=pos, caches=caches,
                            token_pages=token_pages, cu_seqlens=cu_seqlens,
-                           kernel_config=kernel_config or KERNEL_CONFIG,
+                           kernel_config=kernel_config,
                            attend=attend)
     x = L.norm_apply(params["final_norm"], x)
     # gather before unembedding: only the picked rows are needed

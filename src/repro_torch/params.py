@@ -36,9 +36,11 @@ _LAYER_PATHS = {
 }
 
 
-def _to_torch(arr: np.ndarray) -> torch.Tensor:
-    """numpy → torch, exactly.  bf16 leaves (ml_dtypes arrays) cross by bit
-    view: int16 bits → ``torch.bfloat16``."""
+def _to_torch(arr) -> torch.Tensor:
+    """numpy → torch, exactly (a tensor passes as it is).  bf16 leaves
+    (ml_dtypes arrays) cross by bit view: int16 bits → ``torch.bfloat16``."""
+    if torch.is_tensor(arr):
+        return arr
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(arr).view(np.int16)).view(
             torch.bfloat16)
@@ -62,7 +64,8 @@ def param_paths(cfg: ModelConfig) -> Dict[str, str]:
 
 def from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The reference's flat parameter dict → the port's parameters on
+    """The reference's flat parameter dict (numpy arrays, or CPU tensors as
+    ``checkpoint.restore_flat`` gives them) → the port's parameters on
     ``device`` (default: the card)."""
     dev = resolve_device(device)
     paths = param_paths(cfg)

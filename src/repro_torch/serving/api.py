@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -69,6 +69,10 @@ class StepOutput:
     # streamed this step and those the verify accepted
     drafted_tokens: int = 0
     accepted_tokens: int = 0
+    # the varlen attention's block shapes the step ran with: the engine's
+    # ``KernelConfig.describe()`` (block_q, block_pages, dequant, source,
+    # kv_split), recorded on every step that ran the model
+    kernel_config: Optional[Dict[str, Any]] = None
 
     @property
     def mixed(self) -> bool:

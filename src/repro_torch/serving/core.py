@@ -41,6 +41,12 @@ picks greedily at every drafted position through a (lanes, 1 + spec_k)
 rolls the rest back through ``PagedKVCache.uncommit``.  Streams are
 identical with either feature on or off.
 
+The varlen attention's block shapes (``block_q``, and ``kv_split``, the
+card kernel's pages per split) come from a ``KernelConfig``: the
+``kernel_config=`` argument, else the tuner's table
+(``kernels/autotune.py``) for (model, platform), resolved once at
+construction and recorded in every step's ``StepOutput.kernel_config``.
+
 Later slices of the port bring the rest of the reference engine:
 tensor-parallel meshes and the padded oracle mode; asking for either
 raises ``NotImplementedError`` here.
@@ -57,7 +63,8 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, configure_matmul_precision, resolve_device
 from repro_torch.kernels.paged_attention.varlen import validate_cu_seqlens
-from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged
+from repro_torch.kernels.autotune import KernelConfig, resolve_config
+from repro_torch.models.lm import lm_step_ragged
 from repro_torch.serving.api import Request, RequestState, StepOutput
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.paged import PagedKVCache
@@ -70,13 +77,14 @@ from repro_torch.serving.tracing import ServingObservability
 
 
 def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                 kv: PagedKVCache, tokens, pos, table, last_idx, cu, *,
-                 greedy: bool = False, sampling=None) -> torch.Tensor:
+                 kv: PagedKVCache, kernel_config: KernelConfig, tokens, pos,
+                 table, last_idx, cu, *, greedy: bool = False,
+                 sampling=None) -> torch.Tensor:
     """One ragged step on device tensors → the ``last_idx`` rows' f32
     logits, or the picks, of ``last_idx``'s shape, with ``greedy`` (the
     greedy ones) or ``sampling`` (the sampler's)."""
     return lm_step_ragged(cfg, params, tokens, kv.pool, table, pos, last_idx,
-                          cu, KERNEL_CONFIG, greedy=greedy, sampling=sampling)
+                          cu, kernel_config, greedy=greedy, sampling=sampling)
 
 
 def _later(feature: str, slice_name: str) -> NotImplementedError:
@@ -89,6 +97,12 @@ class EngineCore:
     """Request-level serving engine: ``submit(Request)`` → repeated
     ``step()`` → finished requests accumulate in ``finished``; ``run()``
     drains everything.  Runs on ``cuda`` unless ``device`` says otherwise.
+
+    ``kernel_config`` pins the varlen attention's block shapes; by default
+    the engine resolves them once, here, from the tuner's table for
+    (``cfg.name``, the device's platform: ``cpu`` | ``cuda``), as the
+    reference does.  ``seed`` is accepted and ignored, as the reference
+    ignores it: seeds are per request (``SamplingParams.seed``).
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor], *,
@@ -97,8 +111,9 @@ class EngineCore:
                  step_tokens: Optional[int] = None, mode: str = "ragged",
                  token_buckets: Optional[Sequence[int]] = None,
                  prefix_cache: bool = False,
-                 cache_pages: Optional[int] = None,
+                 cache_pages: Optional[int] = None, seed: int = 0,
                  speculative: bool = False, spec_k: int = 4, proposer=None,
+                 kernel_config: Optional[KernelConfig] = None,
                  mesh=None, device: DeviceLike = None, metrics: bool = True,
                  registry=None, trace_ring: int = 512, capture: bool = True):
         if mode == "padded":
@@ -147,10 +162,18 @@ class EngineCore:
         self.accepted_total = 0
         self.spec_steps = 0             # steps that carried >= 1 draft
         self.capture = capture
+        del seed   # per-request (SamplingParams.seed), as in the reference
+        # Static for the engine's lifetime: every captured (T, P) key bakes
+        # in its block_q and kv_split, and no two engines share a graph or
+        # a graph pool (each StepGraphs owns its pool), so another config
+        # means another engine.
+        self.kernel_config = (kernel_config if kernel_config is not None
+                              else resolve_config(cfg.name, self.device.type))
         # The step closes over the config, weights and pool, never over the
         # engine: an engine holds no reference cycle, so dropping it frees
         # its pool and graphs at once.
-        self._step = functools.partial(_ragged_step, cfg, params, self.kv)
+        self._step = functools.partial(_ragged_step, cfg, params, self.kv,
+                                       self.kernel_config)
         self.graphs = StepGraphs(
             self._step, lanes=lanes, vocab=cfg.vocab_size, device=self.device,
             verify_rows=self.spec_k + 1 if speculative else None,
@@ -356,7 +379,8 @@ class EngineCore:
                           live_rows=live, padded_rows=padded,
                           prefix_hit_tokens=(
                               self.scheduler.prefix_hit_tokens_step),
-                          drafted_tokens=drafted, accepted_tokens=accepted)
+                          drafted_tokens=drafted, accepted_tokens=accepted,
+                          kernel_config=self.kernel_config.describe())
 
     def run(self, max_steps: int = 100_000) -> List[Request]:
         steps = 0
@@ -370,7 +394,7 @@ class EngineCore:
     # -------------------------------------------------------- introspection
     @property
     def pages_in_use(self) -> int:
-        return self.kv.num_pages - len(self.kv.free)
+        return self.kv.num_pages - self.kv.free_pages
 
     @property
     def prefix_stats(self) -> dict:

@@ -46,6 +46,13 @@ class PagedKVCache:
         return -(-tokens // self.page_size)
 
     @property
+    def free_pages(self) -> int:
+        """Pages on the free heap: never allocated or fully released.
+        Cached pages no request references are not counted (they are in
+        ``available_pages``)."""
+        return len(self.free)
+
+    @property
     def available_pages(self) -> int:
         """Pages an ``alloc`` can obtain without preempting anyone: the free
         heap plus cached pages no request references."""

@@ -1,12 +1,15 @@
 """Twin-engine harness: the JAX ``EngineCore`` and the PyTorch port's
 ``EngineCore(device="cpu")`` driven step by step on one request trace.
 
-After every step the harness asserts equal plans (with each lane's
-drafts) and packed streams, equal page tables, cursors, free heaps and
-refcounts, equal prefix-cache trees (page → block path and LRU stamp,
-version, stats, CoW copies), equal speculative statistics, equal step
-captures (the port's ``trace_count`` against JAX's), and equal greedy
-tokens, every committed one.
+Both engines are built with the same non-zero ``seed=`` (each accepts and
+ignores it: seeds are per request).  After every step the harness asserts
+equal plans (with each lane's drafts) and packed streams, equal page
+tables, cursors, free heaps and refcounts, equal prefix-cache trees (page
+→ block path and LRU stamp, version, stats, CoW copies), equal
+speculative statistics, equal step captures (the port's ``trace_count``
+against JAX's), equal ``StepOutput.kernel_config`` (the port's without its
+card-only ``kv_split``), and equal greedy tokens, every committed one;
+after the drain, equal ``kv.free_pages``.
 For int8 pools a token may differ only at a genuine near-tie: JAX's top-2
 logit margin at that lane (and, for a verify lane, at the row of the
 first differing token) lies below the logit gap measured between the two
@@ -87,6 +90,14 @@ def _state(eng):
         spec=eng.spec_stats, traces=eng.trace_count)
 
 
+def _shapes(kernel_config):
+    """A port step's ``kernel_config`` without the card's ``kv_split``:
+    the reference's four keys."""
+    if kernel_config is None:
+        return None
+    return {k: v for k, v in kernel_config.items() if k != "kv_split"}
+
+
 def _spy_logits(je, jc, logits, monkeypatch):
     """Record each step's (lanes, V) logits of both engines."""
     j_logits = jax.jit(lambda p, pool, tbl, toks, pos, idx, cu:
@@ -121,7 +132,7 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
     result when the caller already has it; ``sampling`` lists each
     request's ``SamplingParams`` keyword arguments (None: greedy)."""
     jc, tc, jparams, tparams = built or build(dtype, kv_quant)
-    kw = dict(engine_kw)
+    kw = dict(engine_kw, seed=7)
     je = JEngine(jc, jparams, **kw, **(
         {} if proposer is None else dict(proposer=proposer())))
     te = TEngine(tc, tparams, device="cpu", **kw, **(
@@ -167,6 +178,8 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
             for f in ("preempted", "finished", "prefix_hit_tokens",
                       "drafted_tokens", "accepted_tokens"):
                 assert getattr(oj, f) == getattr(ot, f), (steps, f)
+            assert _shapes(ot.kernel_config) == oj.kernel_config, steps
+            assert (ot.kernel_config is None) == (ot.lanes == 0), steps
             preempted += list(oj.preempted)
             mixed |= oj.mixed
             for uid, (jr, tr) in reqs.items():
@@ -201,6 +214,7 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
             if on_step is not None:
                 on_step(je, te, steps)
     assert not te.scheduler.has_work()
+    assert te.kv.free_pages == je.kv.free_pages
     streams = ({r.uid: r.tokens for r in je.finished},
                {r.uid: r.tokens for r in te.finished})
     for uid in streams[0]:

@@ -51,11 +51,16 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.metrics",
                                     "repro_torch.serving.tracing",
-                                    "repro_torch.serving.graphs"])
+                                    "repro_torch.serving.graphs",
+                                    "repro_torch.perfmodel",
+                                    "repro_torch.kernels.autotune",
+                                    "repro_torch.checkpoint.store"])
 def test_serving_obs_modules_import_no_jax(module):
-    """Each module of the serving observability and the captured step,
-    imported alone in a fresh process, pulls in neither JAX nor the
-    reference package (whose ``serving/metrics.py`` it copies)."""
+    """Each module of the serving observability and the captured step, and
+    of the tuner and the checkpoint reader, imported alone in a fresh
+    process, pulls in neither JAX nor the reference package (whose
+    ``serving/metrics.py``, ``perfmodel/model.py``, ``kernels/autotune.py``
+    and ``checkpoint/store.py`` it copies)."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"bad = sorted(n for n in sys.modules if n.startswith('jax')"
@@ -421,6 +426,14 @@ def _int8_variant_tool():
 
 def test_int8_variant_tool_imports_no_jax_and_no_reference_package():
     names = _imports(INT8_VARIANT_TOOL)
+    assert {"chip_smoke", "repro_torch.kernels"} <= names
+    assert not _jax_or_reference(names)
+
+
+def test_tune_tool_imports_no_jax_and_no_reference_package():
+    """The card's tuning script (``tools/tune_kernels.py``) runs where there
+    is no JAX, and writes the port's table, never the reference's."""
+    names = _imports(ROOT / "tools" / "tune_kernels.py")
     assert {"chip_smoke", "repro_torch.kernels"} <= names
     assert not _jax_or_reference(names)
 

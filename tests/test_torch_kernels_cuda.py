@@ -1275,3 +1275,86 @@ def test_capture_survives_a_dropped_engine_held_by_a_cycle(cuda_device):
         gc.set_threshold(*threshold)
     assert eng.graphs.captures > 0 and eng.graphs.sampler_captures == 1
     assert eng.pages_in_use == 0
+
+
+# The kernel-config tuner on the card (kernels/autotune.py): the measured
+# path is kernel #2, an engine launches it at its resolved config, and a
+# config changes only the blocking — the f32 engine's logits hold #2's
+# tolerance against the default config's.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_measure_step_s_times_the_kernel(cuda_device, quantized):
+    from repro_torch.kernels.autotune import (DEFAULT_CONFIG, KernelConfig,
+                                              KernelGeom, default_workloads,
+                                              measure_step_s)
+    geom = KernelGeom(hq=8, hkv=2, head_dim=64, page_size=16,
+                      kv_bytes=1 if quantized else 2, q_bytes=2)
+    wl = default_workloads(lanes=4, chunk=32, decode_ctx=300)
+    for config in (DEFAULT_CONFIG, KernelConfig(block_q=16, kv_split=2)):
+        before = paged_attention.launches
+        s = measure_step_s(config, geom, wl, device=cuda_device, iters=3)
+        assert np.isfinite(s) and 0 < s < 1.0
+        # per workload: the building call, the capture's eager warm-up and
+        # the captured call, each counted as the wrapper runs; the tuner
+        # keeps no counts of its own, so its replays add nothing
+        assert paged_attention.launches == before + 3 * 3
+
+
+@pytest.mark.cuda
+def test_engine_resolves_the_cuda_row(cuda_device):
+    from repro_torch.kernels.autotune import load_table, resolve_config
+    eng = _smoke_engine(cuda_device, False, capture=True)
+    row = load_table()["default::cuda"]
+    assert eng.kernel_config == resolve_config("deepseek-7b-smoke", "cuda")
+    assert eng.kernel_config.describe() == row
+    _smoke_requests(eng)
+    outs = []
+    while eng.scheduler.has_work():
+        outs.append(eng.step())
+    assert all(o.kernel_config == row for o in outs if o.lanes)
+    assert eng.kv.free_pages == eng.kv.num_pages
+
+
+def _f32_step_logits(cuda_device, kernel_config):
+    """One mixed ragged step of an f32 smoke engine at ``kernel_config``:
+    its (lanes, V) logits, with the picks of the whole trace."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import lm_step_ragged
+    from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore
+    cfg = get_config("deepseek-7b-smoke").replace(dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    eng = EngineCore(cfg, params, lanes=3, page_size=8, num_pages=24,
+                     chunk_size=8, device=cuda_device,
+                     kernel_config=kernel_config)
+    _smoke_requests(eng)
+    seen, logits = [], []
+    inner = eng.scheduler.batch_for
+
+    def spy(wants):
+        batch, pre = inner(wants)
+        seen.append(batch)
+        return batch, pre
+    eng.scheduler.batch_for = spy
+    while eng.scheduler.has_work():
+        eng.step()
+        a = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in eng.step_arrays(seen[-1]).items()}
+        logits.append(lm_step_ragged(
+            cfg, params, a["tokens"], eng.kv.pool, a["table"], a["pos"],
+            a["last_idx"], a["cu"], eng.kernel_config)[:len(seen[-1].plans)])
+    return logits, {r.uid: r.tokens for r in eng.finished}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_split", [2, 8])
+def test_engine_split_config_holds_the_default(cuda_device, kv_split):
+    from repro_torch.kernels.autotune import DEFAULT_CONFIG, KernelConfig
+    want, want_streams = _f32_step_logits(cuda_device, DEFAULT_CONFIG)
+    got, got_streams = _f32_step_logits(
+        cuda_device, KernelConfig(block_q=8, kv_split=kv_split))
+    assert got_streams == want_streams
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)

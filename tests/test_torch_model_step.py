@@ -23,10 +23,14 @@ from repro.kernels.autotune import KernelConfig  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro.models import lm as j_lm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models.lm import KERNEL_CONFIG, lm_step_ragged, trunk_cache_init  # noqa: E402
+from repro_torch.kernels.autotune import (  # noqa: E402
+    KernelConfig as TKernelConfig)
+from repro_torch.models.lm import lm_step_ragged, trunk_cache_init  # noqa: E402
 from repro_torch.params import from_flat  # noqa: E402
 
 NUM_PAGES, PS = 12, 8
+#: the block shapes of the tuner's CPU row, in both packages
+KERNEL_CONFIG = dict(block_q=8, block_pages=8)
 
 
 def build(dtype, kv_quant):
@@ -93,7 +97,7 @@ def run_step(dtype, kv_quant):
     tlogits = lm_step_ragged(tc, tparams, torch.from_numpy(tokens), tpool,
                              torch.from_numpy(table), torch.from_numpy(pos),
                              torch.from_numpy(last_idx), torch.from_numpy(cu),
-                             KERNEL_CONFIG)
+                             TKernelConfig(**KERNEL_CONFIG))
     live_pages = slice(0, NUM_PAGES)                 # the scratch page is
     jleaves = {k: np.asarray(v[:, live_pages].astype(jnp.float32))  # garbage
                for k, v in jcaches["periods"]["0"].items()}

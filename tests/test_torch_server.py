@@ -362,8 +362,38 @@ def test_serve_cli_runs_on_the_cpu(extra):
             or "batch driver: served 3 requests, 12 tokens" in out.stdout)
 
 
-def test_serve_cli_checkpoint_is_a_later_slice():
-    from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="training slice"):
-        main(["--arch", "deepseek-7b-smoke", "--device", "cpu",
-              "--ckpt-dir", "ckpt"])
+def test_serve_cli_checkpoint_is_a_later_slice(tmp_path, capsys):
+    """The checkpoint read path came with the kernel-config slice: the CLI
+    restores a checkpoint the reference's store wrote, with the parameters
+    bit for bit, and serves it (it raised ``NotImplementedError`` before)."""
+    import jax
+    from repro.checkpoint.store import flatten_tree, save
+    from repro.configs import get_config as j_get_config
+    from repro.models import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.params import from_flat
+    params = build_model(j_get_config("deepseek-7b-smoke")).init(
+        jax.random.PRNGKey(1))
+    save(str(tmp_path), 2, {"params": params})
+    seen = {}
+    inner = serve.EngineCore
+
+    def spy(cfg, p, **kw):
+        seen["params"] = p
+        return inner(cfg, p, **kw)
+    serve.EngineCore = spy
+    try:
+        serve.main(["--arch", "deepseek-7b-smoke", "--device", "cpu",
+                    "--batch", "--requests", "1", "--max-new", "2",
+                    "--ckpt-dir", str(tmp_path)])
+    finally:
+        serve.EngineCore = inner
+    out = capsys.readouterr().out
+    assert "restored checkpoint step 2" in out
+    assert "batch driver: served 1 requests, 2 tokens" in out
+    want = from_flat(flatten_tree(params), get_config("deepseek-7b-smoke"),
+                     "cpu")
+    for k, w in want.items():
+        assert torch.equal(seen["params"][k].view(torch.int16),
+                           w.view(torch.int16)), k

@@ -39,8 +39,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.autotune import KernelConfig  # noqa: E402
 from repro.models import lm as j_lm  # noqa: E402
 from repro.serving import NGramProposer as JProposer  # noqa: E402
-from repro_torch.models.lm import (KERNEL_CONFIG, lm_step_ragged,  # noqa: E402
-                                   trunk_cache_init)
+from repro_torch.kernels.autotune import (  # noqa: E402
+    KernelConfig as TKernelConfig)
+from repro_torch.models.lm import lm_step_ragged, trunk_cache_init  # noqa: E402
 from repro_torch.serving import EngineCore, NGramProposer, Request  # noqa: E402
 from tests._torch_twin import build, run_twins  # noqa: E402
 from tests.test_spec_decode import ScriptedProposer  # noqa: E402
@@ -48,6 +49,8 @@ from tests.test_torch_model_step import NUM_PAGES, history_pool  # noqa: E402
 
 LANES, PS, PAGES, CHUNK, MAX_NEW = 2, 8, 32, 8, 8
 ENGINE = dict(lanes=LANES, page_size=PS, num_pages=PAGES, chunk_size=CHUNK)
+#: the block shapes of the tuner's CPU row, in both packages
+KERNEL_CONFIG = dict(block_q=8, block_pages=8)
 
 
 def _prompts(n=4, shared=2 * PS, tail=4, seed=11):
@@ -242,7 +245,7 @@ def test_verify_shaped_step_matches_reference():
         for n, v in pool.items():
             tpool[n].copy_(torch.from_numpy(v))
         return lm_step_ragged(tc, tparams, args[0], tpool, *args[1:],
-                              KERNEL_CONFIG, greedy=greedy)
+                              TKernelConfig(**KERNEL_CONFIG), greedy=greedy)
 
     got = step(False)
     assert got.shape == np.shape(want) == (2, k + 1, 512)
