@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    page size 16, ~1000 pages, 8 lanes with 37 to ~2000 live rows, shuffled
    tables): decode and q-block-tiled steps over f32, bf16 and int8 pools,
    GQA, softcap, window, lut0 and exact exp, each at the default split and
-   at one page per split;
+   at one page per split; and at phase 11's shapes over bf16 and int8
+   pools (lanes of 37 to 4,200 rows, a 128-row chunk): gemma2's 16 × 8
+   heads of 256 with softcap 50 and window 4,096 (its edge inside a page),
+   gemma3's local layers (window 1,024) and starcoder2's 24 × 2 of 128
+   (GQA 12:1);
 4a. the kernel-config tuner on the card: ``tune(geom_for(deepseek-7b, page
    size 16), platform="cuda", measure=True)`` for the bf16 and the int8
    pool over phase 7's own steps (packed by its scheduler in a dry run on
@@ -151,9 +155,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``_int_mm`` on both weight layouts; the quantisation kernel at the
    pass's two input shapes; the LUT exp device alone and host per call)
    beside its plain version, a library yardstick and its roofline bound,
-   and print the ``{"kernels": [...]}`` line; the end-to-end times beside
+   for the ``{"kernels": [...]}`` line, printed after phase 11 has added
+   its launches and #2's times at its shapes; the end-to-end times beside
    the readings before the split-KV kernel and the bf16 unembed;
-11. print the card's name and power limit, then ``{"ok": true, "device":
+11. the dense families beside deepseek-7b, at their published widths and
+   full depth, one model at a time (each freed before the next, deepseek
+   before the first), seeded weights: gemma2-9b (local/global layers,
+   softcaps, post-block norms) on a bf16 and an int8 pool, gemma3-12b
+   (5:1 local/global, local RoPE theta, QK-norm) and starcoder2-3b
+   (LayerNorm, biases, GQA 12:1) on a bf16 pool.  Each serves phase 7's
+   prompts, plus one of 4,200 tokens (gemma2) or 1,500 (gemma3) that its
+   window bites, through ``EngineCore`` as phase 7's captured arm does: in
+   lockstep with an eager twin (equal plans, equal picks save a near-tie
+   by the margin rule), warm passes, ``mark_warm()`` and a measured pass
+   (step p50/p99, tokens/s, peak memory; 0 captures after
+   ``mark_warm()``; #2's split pass and combine each = layers × steps),
+   then a pass whose first 8-lane decode step is profiled.  One
+   full-width ragged step with a lane past the window, through the kernel
+   against the plain attention (``phase_step_vs_plain``).  gemma2:
+   requests 4–7 sampled with 7c's parameters, captured = eager bit for
+   bit (the final softcap precedes the sampler), 2 LUT-exp launches per
+   sampling step; #2 timed at its decode and at a mixed step whose chunk
+   the window bites.  starcoder2: #2 timed at its decode beside SDPA with
+   ``enable_gqa``; scoring 2 × 1024 through ``build_model(cfg).loss`` on
+   #3 against the plain attention;
+12. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -179,6 +205,18 @@ MAX_NEW = 32
 HQ, D, PS, N_PAGES = 32, 128, 16, 1000          # attention-check widths
 KV_LENS = [37, 311, 598, 870, 1142, 1414, 1700, 1990]     # 37 … ~2000
 CHUNK = 128                        # the prefill chunk of the tiled checks
+# Phase 11: the dense families served beside deepseek-7b, each with the
+# prompt that makes its window mask keys (none: starcoder2 has no window)
+FAMILIES = (("gemma2-9b", 4200), ("gemma3-12b", 1500), ("starcoder2-3b", None))
+# Phase 4's checks at their shapes: (label, heads, kernel keywords)
+FAMILY_SHAPES = (
+    ("gemma2 16×8×256 cap=50 window=4096", dict(hq=16, hkv=8, d=256),
+     dict(cap=50.0, window=4096)),
+    ("gemma3 local 16×8×256 window=1024", dict(hq=16, hkv=8, d=256),
+     dict(window=1024)),
+    ("starcoder2 24×2×128 gqa 12:1", dict(hq=24, hkv=2, d=128), {}))
+FAMILY_KV_LENS = [37, 611, 1185, 1759, 2333, 3100, 4111, 4200]
+FAMILY_PAGES = 1250
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,    # dense; f32 off tensor cores
@@ -541,6 +579,15 @@ def phase_paged_attention():
         ("tiled exact f32", tiled, 8, dict(pool="float32", q_dtype="float32"),
          dict(exp_mode="exact")),
     ]
+    # the served families' shapes (phase 11): lanes of 37 to 4,200 rows, a
+    # chunk at 4,111 and a decode at 4,200, so gemma2's window of 4,096
+    # masks keys whose edge falls inside a page
+    fam = [(1, kv) for kv in FAMILY_KV_LENS]
+    fam[-2] = (CHUNK, FAMILY_KV_LENS[-2])
+    for fname, shape, kw in FAMILY_SHAPES:
+        for pool in ("bfloat16", "int8"):
+            cases.append((f"{fname} {pool}", fam, 8,
+                          dict(pool=pool, n_pages=FAMILY_PAGES, **shape), kw))
     for i, (name, spec, bq, mk, kw) in enumerate(cases):
         s = make_stream(spec, seed=i, **mk)
         args = (s["q"], s["k"], s["v"], s["table"], s["pos"])
@@ -1385,9 +1432,10 @@ def phase_int8_bert():
 
 
 def phase_scoring(cfg, params, label, floor):
-    """deepseek-7b causal scoring (``build_model(cfg).loss``) on 2 × 1024
-    tokens: one kernel launch per layer, the loss and the logits held
-    against the plain attention."""
+    """Causal scoring (``build_model(cfg).loss``) on 2 × 1024 tokens
+    (deepseek-7b in phase 7, starcoder2-3b in phase 11): one kernel launch
+    per layer, the loss and the logits held against the plain
+    attention."""
     import torch
     from repro_torch.kernels.streaming_attention import streaming_attention
     from repro_torch.models.api import build_model
@@ -1401,13 +1449,13 @@ def phase_scoring(cfg, params, label, floor):
     wall = time.perf_counter() - t0
     launches = streaming_attention.launches
     if launches != cfg.num_layers:
-        fail(f"deepseek scoring {label}: streaming attention launched "
+        fail(f"{cfg.name} scoring {label}: streaming attention launched "
              f"{launches} times, expected {cfg.num_layers}")
-    expect_variant(f"deepseek scoring {label}", VARIANT[cfg.dtype],
+    expect_variant(f"{cfg.name} scoring {label}", VARIANT[cfg.dtype],
                    cfg.num_layers)
     losses = [loss] + [float(build_model(cfg.replace(attn_backend=be)).loss(
         params, {"tokens": tokens})[0]) for be in ("naive", "jnp")]
-    log(f"[scoring {label}] deepseek-7b next-token loss on {b}×{l}: {loss:.4f} "
+    log(f"[scoring {label}] {cfg.name} next-token loss on {b}×{l}: {loss:.4f} "
         f"through the kernel ({launches} launches, {wall * 1e3:.0f} ms incl. "
         f"the first call), {losses[1]:.4f} plain (ln V = "
         f"{np.log(cfg.vocab_size):.4f})")
@@ -1420,9 +1468,10 @@ def phase_scoring(cfg, params, label, floor):
         build_model(cfg).loss(params, {"tokens": tokens})
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    earlier = EARLIER_MS.get(f"scoring {label}")
     log(f"[scoring {label}] warm forward + loss, median of 3: "
-        f"{np.median(walls):.1f} ms ({walls}; earlier: "
-        f"{EARLIER_MS[f'scoring {label}']} ms)")
+        f"{np.median(walls):.1f} ms ({walls}"
+        + (f"; earlier: {earlier} ms)" if earlier else ")"))
     torch.cuda.empty_cache()
     return dict(launches=launches, ms=wall * 1e3, warm_ms=float(np.median(walls)),
                 warm_ms_all=walls, **held)
@@ -1861,12 +1910,11 @@ def write_checkpoint(ckpt_dir, step, cfg, params):
     import hashlib
     import os
     import torch
-    from repro_torch.params import param_paths
-    paths = param_paths(cfg)
+    from repro_torch.params import to_flat
     flat, dtypes = {}, {}
-    for k, t in params.items():
+    for path, t in to_flat(params, cfg).items():
         t = t.detach().contiguous().cpu()
-        name = "params/" + paths[k]
+        name = "params/" + path
         if t.dtype == torch.bfloat16:
             flat[name] = t.view(torch.int16).numpy().view("V2")
             dtypes[name] = "bfloat16"
@@ -2950,12 +2998,13 @@ def phase_front_door(eng, prompts, want):
     return facts
 
 
-def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
-    """One full-width ragged step (7 decode lanes + a prefill chunk) over
-    ``pool``, through the kernel and through the plain attention (passed
-    explicitly, at 8 pages per online-softmax step and at 1).  Each run
-    rewrites the step's own rows before attending, so all three read the
-    same history.
+def phase_step_vs_plain(cfg, params, pool, label: str, floor: float,
+                        spec=None):
+    """One full-width ragged step (7 decode lanes + a prefill chunk; or
+    ``spec``'s (new rows, rows after) per lane) over ``pool``, through the
+    kernel and through the plain attention (passed explicitly, at 8 pages
+    per online-softmax step and at 1).  Each run rewrites the step's own
+    rows before attending, so all three read the same history.
 
     Tolerance: the kernel must sit within 3× the spread between the two
     plain schedules on this very step (``floor`` at least) — in bf16 every
@@ -2970,7 +3019,7 @@ def phase_step_vs_plain(cfg, params, pool, label: str, floor: float):
     from repro_torch.models.lm import lm_step_ragged
     from repro_torch.serving.scheduler import default_token_buckets
     rng = np.random.default_rng(7)
-    spec = [(1, kv) for kv in KV_LENS[1:]] + [(CHUNK, 3 * CHUNK)]
+    spec = spec or [(1, kv) for kv in KV_LENS[1:]] + [(CHUNK, 3 * CHUNK)]
     ps, n_pages = pool["k"].shape[3], pool["k"].shape[1] - 1
     need = [-(-kv // ps) for _, kv in spec]
     perm = rng.permutation(n_pages)
@@ -3042,18 +3091,21 @@ def phase_step_f32(cfg, params):
     return phase_step_vs_plain(c, params, pool, "f32", floor=1e-3)
 
 
-def attention_work(s, itemsize):
-    """Bytes and operations the main-path attention call needs: every live
-    KV row read once (values + int8 scales), q read and out written once,
-    the table and lengths; QKᵀ and P·V over each live row's visible
-    columns."""
+def attention_work(s, itemsize, window=None):
+    """Bytes and operations the main-path attention call needs: every KV
+    row some live row sees read once (values + int8 scales: with a
+    ``window``, a lane's last ``window + n − 1`` rows), q read and out
+    written once, the table and lengths; QKᵀ and P·V over each live row's
+    visible columns."""
     hq, hkv, d = s["hq"], s["hkv"], s["d"]
-    rows_kv = sum(kv for _, kv in s["spec"])
+    w = window or 1 << 62
+    rows_kv = sum(min(kv, w + n - 1) for n, kv in s["spec"])
     scale_bytes = 2 * 4 if s["ks"] is not None else 0
     kv_bytes = rows_kv * hkv * (2 * d * s["k"].element_size() + scale_bytes)
     t = s["q"].shape[0]
     io = 2 * t * hq * d * itemsize + s["table"].numel() * 4
-    vis = sum(sum(kv - n + i + 1 for i in range(n)) for n, kv in s["spec"])
+    vis = sum(sum(min(kv - n + i + 1, w) for i in range(n))
+              for n, kv in s["spec"])
     flops = 4.0 * d * hq * vis
     return kv_bytes + io, flops
 
@@ -3089,8 +3141,8 @@ def lane_views(s, lanes):
     return out
 
 
-def paged_bound(s, itemsize):
-    nbytes, flops = attention_work(s, itemsize)
+def paged_bound(s, itemsize, window=None):
+    nbytes, flops = attention_work(s, itemsize, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -3656,6 +3708,285 @@ def time_streaming(flush, facts):
         **timed, tensor_core_build=facts["build"])
 
 
+# ------------------------------------------------------------- phase 11 --
+
+def family_prompts(cfg, long_len):
+    """Phase 7's prompt lengths over ``cfg``'s vocab (seed 0), plus one
+    prompt of ``long_len`` tokens where the model has a window."""
+    rng, lens = phase7_lens()
+    lens = [int(n) for n in lens] + ([long_len] if long_len else [])
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+
+def serve_family(cfg, params, kv_quant, prompts, label):
+    """Phase 7's captured arm for one family model and pool: a captured
+    engine in lockstep with an eager twin (equal plans; equal picks save a
+    near-tie by the margin rule of ``lockstep_pass``), warm passes until
+    one captures nothing new, ``mark_warm()``, a measured pass (``serve_waves``: the
+    split pass and the combine each = layers × steps, streams = pass 1's),
+    and one more pass whose first 8-lane decode step is profiled (kernels
+    per decode step).  → (facts, the captured engine)."""
+    import torch
+    from repro_torch.kernels.autotune import resolve_config
+    from repro_torch.serving import EngineCore
+    c = cfg.replace(kv_quant=kv_quant)
+    make = lambda **kw: EngineCore(c, params, device=DEV, **dict(ENGINE, **kw))  # noqa: E731
+    ce, twin = make(), make(capture=False)
+    want_kc = resolve_config(cfg.name, "cuda")
+    if ce.kernel_config != want_kc or ce.kernel_config.source != "tuned":
+        fail(f"{label}: resolved {ce.kernel_config.describe()}, not the "
+             f"table's {want_kc.describe()}")
+    t0 = time.perf_counter()
+    forks, _ = lockstep_pass(ce, twin, prompts, label, {})
+    lock_s = time.perf_counter() - t0
+    eager = {r.uid - 100: r.tokens for r in twin.finished}
+    captured = {r.uid - 100: r.tokens for r in ce.finished}
+    del twin
+    torch.cuda.empty_cache()
+    excused = {f["uid"] - 100 for f in forks}
+    if any(captured[u] != eager[u] for u in eager if u not in excused):
+        fail(f"{label}: a captured stream differs from the eager twin's")
+    wave = lambda uid0: [[(uid0 + i, p) for i, p in enumerate(prompts)]]  # noqa: E731
+
+    def check(run, uid0, what):
+        got = {u - uid0: t for u, t in run["streams"].items()}
+        if any(got[u] != captured[u] for u in got):
+            fail(f"{label}: the {what} pass served other streams than pass 1")
+
+    captures, uid0 = [ce.graphs.captures], 200
+    while captures[-1] and len(captures) < WARM_PASSES:
+        w = serve_waves(ce, wave(uid0))
+        check(w, uid0, "warm")
+        captures.append(w["waves"][0]["captures"])
+        uid0 += 100
+    ce.obs.mark_warm()
+    m = serve_waves(ce, wave(uid0))
+    check(m, uid0, "measured")
+    retraces = int(ce.obs.registry.value("step_retraces_total"))
+    if retraces:
+        fail(f"{label}: {retraces} step captures after mark_warm()")
+    decode_at = next(i for i, st in enumerate(m["step_log"])
+                     if not st["prefill"] and st["decode"] == ENGINE["lanes"])
+    tdir = ROOT / "chiprun_out" / "traces"
+    counts = read_paged_counts()
+    prof = serve_waves(ce, wave(uid0 + 100), profile_at={
+        decode_at: str(tdir / f"{label.replace(' ', '_')}_replayed_decode")})
+    set_paged_counts(counts)
+    window = prof["windows"][decode_at]
+    decode_ms = [st["ms"] for st in m["step_log"]
+                 if not st["prefill"] and st["decode"] == ENGINE["lanes"]]
+    facts = dict(
+        lockstep_s=lock_s, forks=forks, captures_per_pass=captures,
+        keys=sorted(ce.graphs.keys), step_retraces_total=retraces,
+        steps=m["steps"], launches=m["launches"], generated=m["generated"],
+        wall_s=m["wall_s"], tok_s=m["tok_s"], step_ms_p50=m["step_ms_p50"],
+        step_ms_p99=m["step_ms_p99"],
+        decode_step_ms_p50=float(np.median(decode_ms)),
+        peak_gib=m["peak_gib"], kernel_config=ce.kernel_config.describe(),
+        decode_window={k: window[k] for k in (
+            "launches", "device_ms", "kernel_span_idle_share", "by_group",
+            "trace")})
+    log(f"[{label}] captured arm: lockstep with the eager twin in "
+        f"{lock_s:.1f} s, captured = eager on every request"
+        + (f" save near-tie forks {forks}" if forks else "")
+        + f"; captures per pass {captures}, keys (T, P) {facts['keys']}; "
+        f"after mark_warm(): step_retraces_total {retraces}; measured pass: "
+        f"{m['steps']} steps, step ms p50 {m['step_ms_p50']:.2f} p99 "
+        f"{m['step_ms_p99']:.2f}, 8-lane decode p50 "
+        f"{facts['decode_step_ms_p50']:.2f}; {m['tok_s']:.1f} generated "
+        f"tok/s; peak {m['peak_gib']:.2f} GiB; launches {m['launches']} = "
+        f"{cfg.num_layers} layers × {m['steps']} steps; replayed decode step "
+        f"{window['launches']} kernels, {window['device_ms']:.3f} ms of "
+        f"device time; StepOutput.kernel_config {facts['kernel_config']}")
+    return facts, ce
+
+
+def family_sampled(cfg, params, ce, prompts, label):
+    """Requests 4–7 sampled (7c's parameters) on the warm captured engine
+    ``ce`` (two passes: the first captures the sampler graph, the second
+    nothing) and on a fresh eager engine: streams equal bit for bit, two
+    LUT-exp launches on every step that samples and none on the others."""
+    import torch
+    from repro_torch.serving import EngineCore
+    traffic, _ = sampled_traffic(prompts)
+    wave = lambda uid0: [[(uid0 + i, p, sp) for i, p, sp in traffic]]  # noqa: E731
+    first = serve_waves(ce, wave(1000))
+    second = serve_waves(ce, wave(1100))
+    if second["waves"][0]["captures"] or ce.graphs.sampler_captures != 1:
+        fail(f"{label}: the second sampled pass captured "
+             f"{second['waves'][0]['captures']} keys; "
+             f"{ce.graphs.sampler_captures} sampler captures")
+    sampled_steps = sum(st["sampled"] for st in second["step_log"])
+    if not sampled_steps or second["launches"]["lut_exp"] != 2 * sampled_steps:
+        fail(f"{label}: {second['launches']['lut_exp']} LUT-exp launches over "
+             f"{sampled_steps} sampling steps (expected 2 each)")
+    ee = EngineCore(cfg, params, device=DEV, capture=False, **ENGINE)
+    eager = serve_waves(ee, wave(1000))
+    del ee
+    torch.cuda.empty_cache()
+    norm = lambda r, u0: {u - u0: t for u, t in r["streams"].items()}  # noqa: E731
+    if not norm(first, 1000) == norm(second, 1100) == norm(eager, 1000):
+        fail(f"{label}: sampled streams differ between the captured passes "
+             f"and the eager arm")
+    log(f"[{label}] requests 4–7 sampled: captured = eager bit for bit over "
+        f"{len(traffic)} requests; {second['steps']} steps, {sampled_steps} "
+        f"sampling, LUT-exp launches {second['launches']['lut_exp']} = 2 × "
+        f"sampling steps; step ms p50 {second['step_ms_p50']:.2f} p99 "
+        f"{second['step_ms_p99']:.2f}; {second['tok_s']:.1f} tok/s")
+    return dict(steps=second["steps"], sampled_steps=sampled_steps,
+                launches=second["launches"],
+                step_ms_p50=second["step_ms_p50"],
+                step_ms_p99=second["step_ms_p99"], tok_s=second["tok_s"])
+
+
+def time_family_paged(cfg, spec, label, flush, library=None, seed=21):
+    """Kernel #2 (both launches) at ``cfg``'s heads and kernel keywords on
+    the tiled call of stream ``spec`` (bf16 pool, the engine's table row):
+    as a caller sees it, device alone and host per call, beside ``library``
+    (a function of the stream → one PyTorch call of the same function, or
+    None where none exists) and the plain version; bound from the bytes the
+    window leaves to read."""
+    from repro_torch.kernels.autotune import resolve_config
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_reference)
+    kc = resolve_config(cfg.name, "cuda")
+    window = cfg.window if cfg.layer_pattern else None
+    kern = dict(scale=cfg.attn_scale or cfg.d_head ** -0.5,
+                cap=cfg.attn_softcap, window=window)
+    s = make_stream(spec, hq=cfg.num_heads, hkv=cfg.num_kv_heads, d=cfg.d_head,
+                    n_pages=ENGINE["num_pages"], seed=seed)
+    (a, kw), _, split = tiled_calls(s, kc)
+    kw = dict(kw, **kern)
+    plain_kw = dict(kw, block_pages=8)
+    got = paged_attention(*a, **kw)
+    want = paged_attention_reference(*a, **plain_kw)
+    err = float((got.float() - want.float()).abs().max())
+    kernel = lambda: paged_attention(*a, **kw)  # noqa: E731
+    timers = {"ms": lambda: cuda_ms(kernel, flush=flush),
+              "device_ms": lambda: cuda_ms(kernel, flush=flush, spin=True)}
+    lib = library(s) if library is not None else None
+    if lib is not None:
+        timers["library_ms"] = lambda: cuda_ms(lib, flush=flush)
+        timers["library_device_ms"] = lambda: cuda_ms(lib, flush=flush,
+                                                      spin=True)
+    med = interleaved_ms(timers)
+    plain = cuda_ms(lambda: paged_attention_reference(*a, **plain_kw),
+                    iters=5, flush=flush)
+    bound, bound_by, nbytes, flops = paged_bound(s, 2, window)
+    entry = dict(med, host_ms=host_ms(kernel), plain_ms=plain, bound_ms=bound,
+                 bound_by=bound_by, max_abs_err=err, kv_split=split,
+                 block_q=kc.block_q, library_ms=med.get("library_ms"),
+                 shape=f"{label}: {cfg.num_heads} q × {cfg.num_kv_heads} kv "
+                       f"heads of {cfg.d_head}, lanes {spec}, cap "
+                       f"{kern['cap']}, window {window}, bf16 pool, block_q "
+                       f"{kc.block_q}, {split} pages per split, "
+                       f"{s['table'].shape[1]} table slots")
+    log(f"[time] paged_attention {entry['shape']}: kernel {med['ms']:.4f} ms, "
+        f"device alone {med['device_ms']:.4f}, host per call "
+        f"{entry['host_ms']:.4f}; library "
+        + (f"{med['library_ms']:.4f} ms (device {med['library_device_ms']:.4f})"
+           if lib is not None else "none")
+        + f"; plain {plain:.3f} ms; bound {bound:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); max|Δ| {err:.3g}")
+    return entry
+
+
+def sdpa_gqa_decode(s):
+    """One SDPA call with ``enable_gqa`` and a length mask over the decode
+    lanes' gathered bf16 views: the same function as #2 at exact exp."""
+    import torch
+    import torch.nn.functional as F
+    kv = [kv for _, kv in s["spec"]]
+    lmax, n = max(kv), len(kv)
+    views = lane_views(s, range(n))
+    kg = torch.cat([F.pad(k, (0, 0, 0, lmax - k.shape[2])) for k, _ in views])
+    vg = torch.cat([F.pad(v, (0, 0, 0, lmax - v.shape[2])) for _, v in views])
+    qd = s["q"][:n].reshape(n, 1, s["hq"], s["d"]).transpose(1, 2).contiguous()
+    mask = (torch.arange(lmax, device=DEV)[None, :]
+            < torch.tensor(kv, device=DEV)[:, None])[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qd, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_families():
+    """Phase 11: gemma2-9b, gemma3-12b and starcoder2-3b at their published
+    widths and full depth, one at a time (each freed before the next),
+    seeded weights → per model its facts and #2's timings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    flush = lambda: flush_buf.zero_()  # noqa: E731
+    out = {}
+    for name, long_len in FAMILIES:
+        t_model = time.perf_counter()
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.values())
+        log(f"[weights] {name}: {n_params / 1e9:.2f} B parameters, "
+            f"{sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.1f}"
+            f" GB {cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s; "
+            f"kinds {cfg.pattern} × {cfg.num_layers // len(cfg.pattern)}")
+        prompts = family_prompts(cfg, long_len)
+        f = dict(params_b=n_params / 1e9, prompts=[len(p) for p in prompts],
+                 parts_s={})
+        short = name.split("-")[0]
+        pools = (False, True) if short == "gemma2" else (False,)
+
+        def part(what, t0):
+            f["parts_s"][what] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        for kv_quant in pools:
+            tag = f"{short} {'int8' if kv_quant else 'bf16'}"
+            t0 = time.perf_counter()
+            served, ce = serve_family(cfg, params, kv_quant, prompts, tag)
+            t0 = part(f"serve {tag}", t0)
+            if not kv_quant:
+                # the window bites: a decode lane past it (and the chunk)
+                spec = [(1, kv) for kv in (37, 598, 1142, 1700, 2300, 3000,
+                                           long_len or 1990)]
+                served["step_vs_plain"] = phase_step_vs_plain(
+                    cfg, params, ce.kv.pool, f"{tag} step", floor=1e-2,
+                    spec=spec + [(CHUNK, 3 * CHUNK)])
+                t0 = part(f"step vs plain {tag}", t0)
+                if short == "gemma2":
+                    served["sampled"] = family_sampled(cfg, params, ce,
+                                                       prompts, f"{tag} sampled")
+                    part(f"sampled {tag}", t0)
+            del ce
+            torch.cuda.empty_cache()
+            f["int8" if kv_quant else "bf16"] = served
+        t0 = time.perf_counter()
+        mid = [len(p) + MAX_NEW // 2 for p in prompts]
+        decode = [(1, kv) for kv in sorted(mid)[-ENGINE["lanes"]:]]
+        if short == "gemma2":
+            f["time_decode"] = time_family_paged(cfg, decode, "gemma2 decode",
+                                                 flush)
+            n_chunk = MIXED_CHUNK[0]
+            mixed = [(n_chunk, long_len)] + decode[:7]
+            f["time_mixed"] = time_family_paged(
+                cfg, mixed, "gemma2 mixed step, the window bites the chunk",
+                flush)
+        elif short == "starcoder2":
+            f["time_decode"] = time_family_paged(
+                cfg, decode, "starcoder2 decode (GQA 12:1)", flush,
+                library=sdpa_gqa_decode)
+            f["scoring"] = phase_scoring(cfg, params, "starcoder2 bf16",
+                                         floor=1e-2)
+        part("kernel times" + (" and scoring" if "scoring" in f else ""), t0)
+        del params
+        torch.cuda.empty_cache()
+        f["model_s"] = time.perf_counter() - t_model
+        log(f"[family {name}] done in {f['model_s']:.1f} s: "
+            + json.dumps({k: round(v, 1) for k, v in f["parts_s"].items()}))
+        out[name] = f
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3751,6 +4082,21 @@ def main() -> int:
         tag: {k: t[k] for k in ("winner", "winner_ms", "default_ms",
                                 "predicted_winner", "spearman")}
         for tag, t in tuner.items()}
+    families = phase_families()
+    by_name = {k["name"]: k for k in kernels}
+    by_name["paged_combine"].setdefault("launches_by_path", {})
+    by_name["paged_attention"]["families"] = {}
+    for model, f in families.items():
+        for pool in ("bf16", "int8"):
+            for k in ("paged_attention", "paged_combine"):
+                if pool in f:
+                    by_name[k]["launches_by_path"][f"{model} {pool}"] = (
+                        f[pool]["launches"][k])
+        if "sampled" in f["bf16"]:
+            by_name["lut_exp"]["launches_by_path"][f"{model} sampled bf16"] = (
+                f["bf16"]["sampled"]["launches"]["lut_exp"])
+        by_name["paged_attention"]["families"][model] = {
+            k: f[k] for k in ("time_decode", "time_mixed") if k in f}
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -3767,6 +4113,7 @@ def main() -> int:
     summary["bert"] = bert
     summary["scoring"] = scoring
     summary["int8_bert"] = int8_bert
+    summary["families"] = families
     log("[summary] " + json.dumps(summary))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

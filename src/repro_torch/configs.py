@@ -1,15 +1,20 @@
 """Model configuration for the PyTorch port: the dense and BERT families.
 
 An own copy of the reference ``ModelConfig`` (``src/repro/configs/base.py``)
-cut to what the port implements: the llama-style decoder the ragged
-serving path runs (RMSNorm, RoPE, SiLU-gated MLP, untied embeddings), and
-the cache-free full-sequence forward (``models/lm.py::lm_apply``) that the
-dense family's scoring and the BERT encoder share (LayerNorm, learned
-positions, biased projections, GELU, tied embeddings).  The configurations
-are ``deepseek-7b``, ``bert-base`` and ``bert-large`` at their published
-widths, and their ``-smoke`` variants, which every CPU test builds.  Field
-names, defaults and the ``reduced`` rule match the reference, so a config
-built here and one built there describe the same model.
+cut to what the port implements: the dense decoders the ragged serving
+path runs — llama-style (RMSNorm, RoPE, SiLU-gated MLP, untied
+embeddings), gemma-style (a cycled local/global ``layer_pattern`` with a
+sliding window and a local RoPE theta, attention and final logit
+softcaps, QK-norm, post-block norms, GeGLU, embeddings scaled by
+√d_model) and starcoder2-style (LayerNorm, biased projections, plain GELU
+MLP) — and the cache-free full-sequence forward (``models/lm.py::
+lm_apply``) that the dense family's scoring and the BERT encoder share
+(learned positions, tied embeddings).  The configurations are
+``deepseek-7b``, ``gemma2-9b``, ``gemma3-12b``, ``starcoder2-3b``,
+``bert-base`` and ``bert-large`` at their published widths, and their
+``-smoke`` variants, which every CPU test builds.  Field names, defaults
+and the ``reduced`` rule match the reference, so a config built here and
+one built there describe the same model.
 
 ``postnorm`` is kept for parity only: the reference's ``lm_apply`` never
 reads it (its ``_layer_apply`` is pre-norm for every family), so both
@@ -19,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -37,10 +42,15 @@ class ModelConfig:
 
     # --- attention behaviour ---
     rope_theta: float = 10_000.0
+    local_rope_theta: Optional[float] = None   # gemma3: local layers use 10k
     window: Optional[int] = None               # sliding window (local layers)
+    layer_pattern: Tuple[str, ...] = ()        # cycled over layers
     attn_softcap: Optional[float] = None       # gemma2 logit soft-capping
-    attn_bias: bool = False                    # bert: biased q/k/v and MLP
+    final_softcap: Optional[float] = None      # gemma2 final-logit soft-capping
+    qk_norm: bool = False                      # gemma3
+    attn_bias: bool = False                    # starcoder2 / bert: biases
     attn_scale: Optional[float] = None         # default 1/sqrt(head_dim)
+    post_block_norm: bool = False              # gemma2/3: post-attn/mlp norms
 
     # --- mlp / norms / embeddings ---
     mlp_gated: bool = True
@@ -49,6 +59,7 @@ class ModelConfig:
     postnorm: bool = False                     # parity only (module docstring)
     pos_embedding: str = "rope"                # rope | learned
     tie_embeddings: bool = True
+    embed_scale: bool = False                  # gemma: embeddings · sqrt(d)
     max_position: int = 1 << 20                # learned-position table size
 
     # --- numerics & HASTILY technique toggles ---
@@ -73,15 +84,29 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        """The per-layer kinds, cycled over the layers."""
+        return self.layer_pattern or ("global",)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The kind of every layer, in layer order."""
+        p = self.pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant with the reference's rule (``reduced`` in
-    ``src/repro/configs/base.py``): 2 layers, d_model 64, 4 heads over at
+    ``src/repro/configs/base.py``): 2 layers — two whole periods of a
+    ``layer_pattern`` where there is one —, d_model 64, 4 heads over at
     most 2 kv heads of 16, d_ff 128, vocab 512, a window of 8 where there
     is one, 4096 learned positions and a 16-row streaming block."""
+    n_small = max(2 * len(cfg.pattern), 2)
     return cfg.replace(
         name=cfg.name + "-smoke",
-        num_layers=min(cfg.num_layers, 2), d_model=64, d_ff=128,
+        num_layers=(n_small if cfg.num_layers and cfg.layer_pattern
+                    else min(cfg.num_layers, n_small)),
+        d_model=64, d_ff=128,
         vocab_size=512, num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
         head_dim=16, window=8 if cfg.window else None, max_position=4096,
         block_k=16)
@@ -99,6 +124,77 @@ DEEPSEEK_7B = ModelConfig(
     d_ff=11008,
     vocab_size=102400,
     tie_embeddings=False,
+)
+
+# [arXiv:2408.00118; hf]  alternating (local window-4096, global) layers,
+# attention-logit softcap 50, final-logit softcap 30, GeGLU, embeddings
+# scaled by sqrt(d_model); query_pre_attn_scalar 256 → attn_scale 1/16
+GEMMA2_9B = ModelConfig(
+    name="gemma2-9b",
+    family="dense",
+    num_layers=42,
+    d_model=3584,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=256,
+    d_ff=14336,
+    vocab_size=256000,
+    layer_pattern=("local", "global"),
+    window=4096,
+    attn_softcap=50.0,
+    final_softcap=30.0,
+    mlp_gated=True,
+    act="gelu",
+    norm="rmsnorm",
+    embed_scale=True,
+    post_block_norm=True,
+    attn_scale=0.0625,
+    tie_embeddings=True,
+)
+
+# [hf:google/gemma-3-1b-pt; unverified]  five local (window 1024, rope 10k)
+# layers per one global (rope 1M) layer; QK-norm instead of a logit softcap
+GEMMA3_12B = ModelConfig(
+    name="gemma3-12b",
+    family="dense",
+    num_layers=48,
+    d_model=3840,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=256,
+    d_ff=15360,
+    vocab_size=262144,
+    layer_pattern=("local", "local", "local", "local", "local", "global"),
+    window=1024,
+    rope_theta=1_000_000.0,
+    local_rope_theta=10_000.0,
+    qk_norm=True,
+    mlp_gated=True,
+    act="gelu",
+    norm="rmsnorm",
+    embed_scale=True,
+    post_block_norm=True,
+    tie_embeddings=True,
+)
+
+# [arXiv:2402.19173; hf]  GQA 12:1, LayerNorm, non-gated GELU MLP, biased
+# projections
+STARCODER2_3B = ModelConfig(
+    name="starcoder2-3b",
+    family="dense",
+    num_layers=30,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=2,
+    head_dim=128,
+    d_ff=12288,
+    vocab_size=49152,
+    mlp_gated=False,
+    act="gelu",
+    norm="layernorm",
+    attn_bias=True,
+    rope_theta=999_999.4,
+    tie_embeddings=True,
 )
 
 # [paper Table III]: encoder-only, learned positions, GELU, MHA.
@@ -132,7 +228,8 @@ BERT_LARGE = BERT_BASE.replace(
 )
 
 _REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in [DEEPSEEK_7B, BERT_BASE, BERT_LARGE]}
+    c.name: c for c in [DEEPSEEK_7B, GEMMA2_9B, GEMMA3_12B, STARCODER2_3B,
+                        BERT_BASE, BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:

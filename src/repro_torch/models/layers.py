@@ -1,9 +1,13 @@
 """Transformer building blocks (port of ``src/repro/models/layers.py``):
-dense (optionally biased), RMSNorm and LayerNorm, RoPE, token and learned
-position embeddings, the untied and tied unembed, the gated and plain MLP,
-and two branches of the attention layer: the cache-free full-sequence
-branch (``attn_apply``, through the attention registry) and the ragged
-(``token_pages``) branch of the paged serving step (``attn_apply_ragged``).
+dense (optionally biased), RMSNorm and LayerNorm, the per-head RMS norm of
+QK-norm, RoPE, token (optionally scaled by √d_model) and learned position
+embeddings, the untied and tied unembed with the final logit softcap, the
+gated and plain MLP, and two branches of the attention layer: the
+cache-free full-sequence branch (``attn_apply``, through the attention
+registry) and the ragged (``token_pages``) branch of the paged serving
+step (``attn_apply_ragged``).  Both read the layer's ``kind``: a
+``local`` layer attends within ``cfg.window`` and rotates with
+``cfg.local_rope_theta`` when it is set.
 Functions on tensors; parameters are plain tensors.  Projections, the MLP
 and the unembed stay PyTorch products, as the reference leaves them to
 XLA; attention goes through the port's kernels.
@@ -62,6 +66,14 @@ def norm(cfg: ModelConfig, p: Params, name: str, x: torch.Tensor) -> torch.Tenso
     return norm_apply(p[name], x)
 
 
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-head RMS norm of q or k (QK-norm), ``1 + scale`` weighted, in
+    f32.  x: (B, H, L, Dh), scale (Dh,)."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
 def rope_apply(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding.  x: (B, H, L, D); pos: (L,) or (B, L) positions."""
     d = x.shape[-1]
@@ -77,15 +89,25 @@ def rope_apply(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     return out.reshape(x.shape).to(x.dtype)
 
 
-def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+def embed_apply(cfg: ModelConfig, table: torch.Tensor,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows; with ``cfg.embed_scale`` times √d_model, that factor
+    first rounded to the table's dtype as the reference's
+    ``jnp.asarray(d ** 0.5, x.dtype)`` rounds it (√3584 → 59.75 in bf16).
+    The product of two values of that dtype is exact in f32, so one
+    rounding of it equals the reference's product."""
+    x = table[tokens.long()]
+    if cfg.embed_scale:
+        factor = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+        x = x * factor
+    return x
 
 
 def embed_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
     """Token rows plus, for learned positions, the position rows, added in
     the working dtype."""
-    x = embed_apply(params["embed"], tokens)
+    x = embed_apply(cfg, params["embed"], tokens)
     if cfg.pos_embedding == "learned":
         x = x + params["positions"][pos.long()]
     return x
@@ -93,17 +115,21 @@ def embed_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final logits in f32, through ``lm_head`` or, for tied embeddings,
-    the token table.  On the card a bf16 ``x`` and head go through one
-    bf16 × bf16 GEMM with an f32 output (``aten::mm.dtype``), as the
-    reference's einsum with ``preferred_element_type=f32``: exact products
-    summed in f32, and no f32 copy of the head.  Elsewhere both operands
-    are widened to f32."""
+    the token table, then gemma2's final softcap ``cap · tanh(z / cap)``
+    in f32.  On the card a bf16 ``x`` and head go through one bf16 × bf16
+    GEMM with an f32 output (``aten::mm.dtype``), as the reference's einsum
+    with ``preferred_element_type=f32``: exact products summed in f32, and
+    no f32 copy of the head.  Elsewhere both operands are widened to f32."""
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     if x.device.type == "cuda" and x.dtype == head.dtype == torch.bfloat16:
         out = torch.mm(x.reshape(-1, x.shape[-1]), head,
                        out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], head.shape[-1])
-    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+        logits = out.reshape(*x.shape[:-1], head.shape[-1])
+    else:
+        logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 _ACTS = {"silu": F.silu, "relu": F.relu,
@@ -126,8 +152,29 @@ def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(b, l, n, hd // n).transpose(1, 2)        # (B, H, L, Dh)
 
 
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, pos: torch.Tensor,
+         kind: str):
+    """q, k, v (B, H, L, Dh) of ``x``: biased projections, QK-norm, then
+    RoPE at the kind's theta (the reference's order); → (q, k, v, window)
+    with the kind's window."""
+    q = _heads(dense_apply(p["wq"], x, p.get("wq_b")), cfg.num_heads)
+    k = _heads(dense_apply(p["wk"], x, p.get("wk_b")), cfg.num_kv_heads)
+    v = _heads(dense_apply(p["wv"], x, p.get("wv_b")), cfg.num_kv_heads)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    theta = cfg.rope_theta
+    if kind == "local" and cfg.local_rope_theta is not None:
+        theta = cfg.local_rope_theta
+    if cfg.pos_embedding == "rope":
+        q = rope_apply(q, pos, theta)
+        k = rope_apply(k, pos, theta)
+    return q, k, v, (cfg.window if kind == "local" else None)
+
+
 def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       x: torch.Tensor, *, pos: torch.Tensor,
+                      kind: str = "global",
                       cache: Dict[str, torch.Tensor],
                       token_pages: torch.Tensor,
                       cu_seqlens: Optional[torch.Tensor],
@@ -139,7 +186,9 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     ``x`` is one (1, T, d_model) packed stream, ``pos`` (T,) each token's
     position, ``token_pages`` (T, P) each token's page-table row and
     ``cache`` this layer's pool views {"k", "v"[, "ks", "vs"]} of shape
-    (N+1, Hkv, ps, Dh) (scales (N+1, Hkv, ps)).  Each token's K/V row is
+    (N+1, Hkv, ps, Dh) (scales (N+1, Hkv, ps)).  ``kind`` is the layer's
+    (``cfg.layer_kinds()``): a local layer's window, and the config's
+    scale and softcap, reach the varlen attention.  Each token's K/V row is
     written at (its page, pos % ps) — quantised on the way in for int8
     pools; dead rows carry an all-scratch table row, so their writes land
     on the scratch page — and attention reads the pool through the tables.
@@ -152,11 +201,7 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     config (``attention_api.ragged_attention``).
     """
     _, t, _ = x.shape
-    q = _heads(dense_apply(p["wq"], x), cfg.num_heads)
-    k = _heads(dense_apply(p["wk"], x), cfg.num_kv_heads)
-    v = _heads(dense_apply(p["wv"], x), cfg.num_kv_heads)
-    q = rope_apply(q, pos[None], cfg.rope_theta)
-    k = rope_apply(k, pos[None], cfg.rope_theta)
+    q, k, v, window = _qkv(cfg, p, x, pos[None], kind)
 
     ps = cache["k"].shape[2]
     slot = torch.clamp(torch.div(pos, ps, rounding_mode="floor"), 0,
@@ -168,7 +213,8 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         # val (1, H, T, …) → rows-major (T, H, …), one row per (page, offset)
         pool[pids, :, off] = val[0].transpose(0, 1).to(pool.dtype)
 
-    kw = dict(scale=cfg.d_head ** -0.5, exp_mode=cfg.exp_mode)
+    kw = dict(scale=cfg.attn_scale or cfg.d_head ** -0.5,
+              cap=cfg.attn_softcap, window=window, exp_mode=cfg.exp_mode)
     if "ks" in cache:                       # int8 pool: values + row scales
         kq, ks = quantize_kv_rows(k)
         vq, vs = quantize_kv_rows(v)
@@ -197,19 +243,13 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     multi-row calls to the CUDA streaming-attention kernel).  x (B, L, D),
     pos (L,) positions (RoPE)."""
     b, l, _ = x.shape
-    q = _heads(dense_apply(p["wq"], x, p.get("wq_b")), cfg.num_heads)
-    k = _heads(dense_apply(p["wk"], x, p.get("wk_b")), cfg.num_kv_heads)
-    v = _heads(dense_apply(p["wv"], x, p.get("wv_b")), cfg.num_kv_heads)
-    if cfg.pos_embedding == "rope":
-        q = rope_apply(q, pos, cfg.rope_theta)
-        k = rope_apply(k, pos, cfg.rope_theta)
+    q, k, v, window = _qkv(cfg, p, x, pos, kind)
     out = attention(q, k, v,
                     backend=backend_for_config(cfg.attn_backend,
                                                cfg.attn_impl),
                     scale=cfg.attn_scale or cfg.d_head ** -0.5,
                     causal=causal,
-                    window=cfg.window if kind == "local" else None,
-                    cap=cfg.attn_softcap, block_k=cfg.block_k,
+                    window=window, cap=cfg.attn_softcap, block_k=cfg.block_k,
                     exp_mode=cfg.exp_mode, fallback=True)
     out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
     return dense_apply(p["wo"], out)

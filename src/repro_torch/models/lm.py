@@ -1,19 +1,22 @@
 """Language models of the port (port of ``src/repro/models/lm.py``):
 ``period_layout``, the cache-free full-sequence forward (``trunk_apply``,
 ``lm_apply``, ``cross_entropy``, ``lm_loss``) that BERT encoding and dense
-scoring run, and the ragged serving path of the dense decoder
+scoring run, and the ragged serving path of the dense decoders
 (``trunk_cache_init``, ``trunk_apply_ragged``, ``lm_step_ragged``).
 
 Parameters are one flat dict (``params.py``): per-layer weights are stacked
-on a leading layer axis, as the reference's scanned ``periods`` leaves are,
-and layer ``i`` reads the views ``w[i]``.  The page pool has the reference
-layout too: ``k``/``v`` are (L, N+1, Hkv, ps, Dh), int8 scales
-(L, N+1, Hkv, ps) f32, and page ``N`` is the scratch page.
+on a leading layer axis in layer order, and layer ``i`` reads the views
+``w[i]``; layer ``n·len(pattern) + j`` is the reference's scanned
+``periods/{j}`` leaf ``[n]``.  The page pool is one stack in layer order
+too: ``k``/``v`` are (L, N+1, Hkv, ps, Dh), int8 scales (L, N+1, Hkv, ps)
+f32, and page ``N`` is the scratch page; a layer's kind
+(``cfg.layer_kinds()``) decides only its window and RoPE theta.
 
 Every layer is pre-norm, as the reference's ``_layer_apply`` is for every
 family — BERT included: the reference never reads ``cfg.postnorm`` on this
 path, so its "BERT" is a pre-LN encoder with a final LayerNorm, and the
-port computes the same.
+port computes the same.  ``post_block_norm`` (gemma) adds a norm on the
+attention output and one on the MLP output, each before its residual add.
 """
 from __future__ import annotations
 
@@ -38,37 +41,67 @@ def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
     keys = ["ln1", "wq", "wk", "wv", "wo", "ln2", "up", "down"]
     if cfg.mlp_gated:
         keys.append("gate")
+    if cfg.qk_norm:
+        keys += ["q_norm", "k_norm"]
+    if cfg.post_block_norm:
+        keys += ["ln1_post", "ln2_post"]
     if cfg.attn_bias:
         keys += ["wq_b", "wk_b", "wv_b"]
         if not cfg.mlp_gated:
             keys += ["up_b", "down_b"]
     if cfg.norm == "layernorm":
         keys += ["ln1_b", "ln2_b"]
+        if cfg.post_block_norm:
+            keys += ["ln1_post_b", "ln2_post_b"]
     return tuple(keys)
 
 
 def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
-    """→ (kinds within one period, n full periods, n tail layers).  The
-    dense decoder and BERT are all global layers: one-layer periods, no
-    tail."""
+    """→ (kinds within one period, n full periods, n tail layers), as the
+    reference's: one period is one cycle of ``cfg.pattern``.  A tail (a
+    layer count that is no multiple of the pattern) raises: no config the
+    port registers has one."""
     if cfg.family not in ("dense", "bert"):
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs the dense and bert "
             f"families only; the other families are a later slice")
-    return ("global",), cfg.num_layers, 0
+    kinds = cfg.pattern
+    bad = sorted(set(kinds) - {"local", "global"})
+    if bad:
+        raise NotImplementedError(f"{cfg.name}: layer kinds {bad}: the port "
+                                  f"runs local and global attention layers")
+    nper, tail = divmod(cfg.num_layers, len(kinds))
+    if tail:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_layers} layers leave a tail of {tail} "
+            f"after {nper} periods of {kinds}; the port has no tail layers")
+    return kinds, nper, tail
 
 
-def _ragged_family(cfg: ModelConfig) -> int:
-    """The ragged serving path serves the dense decoder only; → its layers."""
+def _ragged_family(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The ragged serving path serves the dense decoders, whose layers are
+    local or global attention; → the kind of every layer."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r}: ragged serving runs the dense decoder "
+            f"family {cfg.family!r}: ragged serving runs the dense decoders "
             f"only; the other families are a later slice")
-    return period_layout(cfg)[1]
+    period_layout(cfg)
+    return cfg.layer_kinds()
 
 
 def _layer(cfg: ModelConfig, params: Params, i: int) -> Params:
     return {k: params[k][i] for k in layer_keys(cfg)}
+
+
+def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           attend: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """One layer: pre-norm attention (``attend`` of the normed stream),
+    then the pre-norm MLP, each through its post-block norm where the
+    config has one, each added to the residual stream."""
+    def post(name, h):
+        return L.norm(cfg, p, name, h) if cfg.post_block_norm else h
+    x = x + post("ln1_post", attend(L.norm(cfg, p, "ln1", x)))
+    return x + post("ln2_post", L.mlp_apply(cfg, p, L.norm(cfg, p, "ln2", x)))
 
 
 # --------------------------------------------------------------------------
@@ -77,14 +110,12 @@ def _layer(cfg: ModelConfig, params: Params, i: int) -> Params:
 
 def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 pos: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """Every layer over the whole sequence: pre-norm attention, then the
-    pre-norm MLP, each added to the residual stream."""
-    kinds, nper, _ = period_layout(cfg)
-    for i in range(nper):
+    """Every layer (``_block``) over the whole sequence."""
+    period_layout(cfg)
+    for i, kind in enumerate(cfg.layer_kinds()):
         p = _layer(cfg, params, i)
-        x = x + L.attn_apply(cfg, p, L.norm(cfg, p, "ln1", x), pos=pos,
-                             kind=kinds[0], causal=causal)
-        x = x + L.mlp_apply(cfg, p, L.norm(cfg, p, "ln2", x))
+        x = _block(cfg, p, x, lambda h: L.attn_apply(
+            cfg, p, h, pos=pos, kind=kind, causal=causal))
     return x
 
 
@@ -133,8 +164,8 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
 def trunk_cache_init(cfg: ModelConfig, pages: int, page_size: int,
                      device=None) -> Dict[str, torch.Tensor]:
     """The page pool: ``pages`` pages (the last one the scratch page)."""
-    nper = _ragged_family(cfg)
-    shape = (nper, pages, cfg.num_kv_heads, page_size, cfg.d_head)
+    n = len(_ragged_family(cfg))
+    shape = (n, pages, cfg.num_kv_heads, page_size, cfg.d_head)
     if cfg.kv_quant:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -158,14 +189,13 @@ def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     kernel_config = ragged_kernel_config(kernel_config, x.device.type)
     layout = varlen_layout(cu_seqlens, pos, x.shape[1],
                            kernel_config.block_q, x.device)
-    for i in range(_ragged_family(cfg)):
+    for i, kind in enumerate(_ragged_family(cfg)):
         p = _layer(cfg, params, i)
         cache = {k: v[i] for k, v in caches.items()}
-        x = x + L.attn_apply_ragged(
-            cfg, p, L.norm_apply(p["ln1"], x), pos=pos, cache=cache,
+        x = _block(cfg, p, x, lambda h: L.attn_apply_ragged(
+            cfg, p, h, pos=pos, kind=kind, cache=cache,
             token_pages=token_pages, cu_seqlens=cu_seqlens,
-            kernel_config=kernel_config, attend=attend, layout=layout)
-        x = x + L.mlp_apply(cfg, p, L.norm_apply(p["ln2"], x))
+            kernel_config=kernel_config, attend=attend, layout=layout))
     return x
 
 
@@ -198,12 +228,12 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         raise ValueError(f"last_idx must be (lanes,) or (lanes, 1 + k), got "
                          f"shape {tuple(last_idx.shape)}")
     pos = pos.to(torch.int32)
-    x = L.embed_apply(params["embed"], tokens)[None]            # (1, T, D)
+    x = L.embed_apply(cfg, params["embed"], tokens)[None]       # (1, T, D)
     x = trunk_apply_ragged(cfg, params, x, pos=pos, caches=caches,
                            token_pages=token_pages, cu_seqlens=cu_seqlens,
                            kernel_config=kernel_config,
                            attend=attend)
-    x = L.norm_apply(params["final_norm"], x)
+    x = L.norm(cfg, params, "final_norm", x)
     # gather before unembedding: only the picked rows are needed
     x = x[0][last_idx.long()]
     logits = L.unembed(cfg, params, x)

@@ -18,6 +18,10 @@ stream: the pool's tensors are never rebound, because every captured step
 graph (``serving/graphs.py``) reads them by address, and stream order puts
 the copy ahead of the step that reads it.  ``obs`` (the engine's
 ``ServingObservability``) counts the copies.
+
+``check_pageable`` refuses, at construction, a model whose cache the pool
+cannot page: a local layer whose window is narrower than a page would
+keep a ring buffer inside the page (the reference's ``_check_pageable``).
 """
 from __future__ import annotations
 
@@ -27,11 +31,31 @@ from typing import List
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models.lm import trunk_cache_init
+from repro_torch.serving.api import UnsupportedCacheLayout
+
+
+def check_pageable(cfg: ModelConfig, page_size: int) -> None:
+    """Raise ``UnsupportedCacheLayout("ring_buffer_sliding_window")`` when
+    a local layer's window is narrower than what the reference's probe
+    builds: its caches at ``max_len = page_size`` for an even page (so
+    ``window == page_size`` pages), at twice that for an odd one (its
+    probe's over-strict step past the pool)."""
+    probe = page_size if page_size % 2 == 0 and page_size >= 2 \
+        else 2 * page_size
+    if cfg.window is None or cfg.window >= probe:
+        return
+    kinds = cfg.layer_kinds()
+    if "local" in kinds:
+        raise UnsupportedCacheLayout(
+            "ring_buffer_sliding_window", cfg.name,
+            f"layer {kinds.index('local')} keeps ring-buffer slot positions "
+            f"(window {cfg.window} narrower than page_size={page_size})")
 
 
 class PagedKVCache:
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int, *,
                  device=None, obs=None):
+        check_pageable(cfg, page_size)
         self.num_pages = num_pages
         self.obs = obs                              # ServingObservability
         self.page_size = page_size

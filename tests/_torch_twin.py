@@ -22,6 +22,7 @@ fork there fails the run.
 import numpy as np
 
 import jax
+import jax.numpy as jnp
 
 from repro.checkpoint.store import flatten_tree
 from repro.configs import get_config as j_get_config
@@ -39,12 +40,33 @@ from repro_torch.serving import SamplingParams as TSamplingParams
 from repro_torch.serving.sampling import greedy_rows, sample_in_step
 
 
-def build(dtype: str, kv_quant: bool):
-    jc = j_get_config("deepseek-7b-smoke").replace(dtype=dtype,
-                                                   kv_quant=kv_quant)
-    tc = get_config("deepseek-7b-smoke").replace(dtype=dtype,
-                                                 kv_quant=kv_quant)
+def perturbed(params, seed):
+    """Every bias and every norm scale (LayerNorm, RMSNorm, QK-norm)
+    nudged by 0.1·N(0, 1) from a numpy seed: the reference initialises
+    them as constants, which would hide a dropped bias or a misread
+    ``1 + scale``."""
+    rng = np.random.default_rng(seed)
+
+    def bump(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if name.endswith(("['b']", "['bias']", "['scale']", "['q_norm']",
+                          "['k_norm']")):
+            noise = rng.normal(size=leaf.shape).astype(np.float32) * 0.1
+            return leaf + jnp.asarray(noise).astype(leaf.dtype)
+        return leaf
+    return jax.tree_util.tree_map_with_path(bump, params)
+
+
+def build(dtype: str, kv_quant: bool, name: str = "deepseek-7b-smoke",
+          perturb=None):
+    """Both configs and the reference's weights (``perturb``: the numpy
+    seed of ``perturbed``'s noise, None for the weights as drawn) → (JAX
+    config, port config, JAX params, port params)."""
+    jc = j_get_config(name).replace(dtype=dtype, kv_quant=kv_quant)
+    tc = get_config(name).replace(dtype=dtype, kv_quant=kv_quant)
     params = build_model(jc).init(jax.random.PRNGKey(0))
+    if perturb is not None:
+        params = perturbed(params, perturb)
     return jc, tc, params, from_flat(flatten_tree(params), tc, "cpu")
 
 

@@ -23,7 +23,7 @@ from repro_torch.kernels.lut_exp import ops as lut_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.streaming_attention import ops as sa_ops  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
-from repro_torch.params import from_flat, init_params, param_paths  # noqa: E402
+from repro_torch.params import from_flat, init_params, to_flat  # noqa: E402
 from repro_torch.serving import EngineCore, Request  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,7 +93,7 @@ def test_params_default_to_card_and_raise_without_one(no_card, name):
     gen = torch.Generator().manual_seed(0)
     params = init_params(cfg, gen, "cpu")
     assert all(t.device.type == "cpu" for t in params.values())
-    flat = {param_paths(cfg)[k]: v.float().numpy() for k, v in params.items()}
+    flat = {p: v.float().numpy() for p, v in to_flat(params, cfg).items()}
     assert from_flat(flat, cfg, "cpu")["embed"].device.type == "cpu"
     for make in (lambda: init_params(cfg, gen), lambda: from_flat(flat, cfg),
                  lambda: build_model(cfg).init(gen)):

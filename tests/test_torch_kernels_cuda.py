@@ -252,6 +252,37 @@ def test_paged_split_kernel_bf16_within_one_ulp(cuda_device, kv_split):
     assert bf16_ulps(got, want, TOL["atol"]) <= 1.0
 
 
+# The served families' shapes, a q-block of 8 rows per lane: gemma2's 2:1
+# GQA at head dim 256 with its softcap of 50 and a window that ends
+# mid-page (37 rows at page 16), and starcoder2's 12:1 GQA at 128 (96 rows
+# of a q-block: six row tiles per (lane, kv head)).
+FAMILY_CASES = [dict(group=2, hkv=8, d=256, ps=16, p=8, lq=8),
+                dict(group=12, hkv=2, d=128, ps=16, p=8, lq=8)]
+FAMILY_KWS = [dict(cap=50.0, window=37), dict()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_split", [None, 1])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("shape", [0, 1], ids=["gemma2", "starcoder2"])
+def test_paged_kernel_at_the_families_shapes(cuda_device, shape, quant,
+                                             kv_split):
+    """bf16 q over a bf16 or an int8 pool, at the default split and at one
+    page per split: within one bf16 ulp beyond the f32 atol of the plain
+    version cut into the same splits."""
+    args, sc = make_case(31 + shape, cuda_device, quant=quant,
+                         **FAMILY_CASES[shape])
+    args[0] = args[0].bfloat16()
+    if not quant:
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    kw = FAMILY_KWS[shape]
+    got = paged_attention(*args, **sc, **kw, kv_split=kv_split)
+    want = paged_attention_reference(
+        *args, **sc, **kw, kv_split=kv_split or default_kv_split(16))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert bf16_ulps(got, want, TOL["atol"]) <= 1.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_split_window_masks_whole_splits(cuda_device, quant):
