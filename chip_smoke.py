@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    sm_90a and print ptxas's registers / shared memory / spills; the bf16
    streaming-attention kernels' lines again, and their SASS HMMA counts
    (``cuobjdump``): each head-dim instantiation must hold tensor-core
-   instructions; likewise the int8 matmul's wgmma kernels and their SASS
-   IGMMA counts;
+   instructions (head dim 256 included, whose registers and spills are
+   printed on their own lines); likewise the int8 matmul's wgmma kernels
+   and their SASS IGMMA counts;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
    sweep shapes and edge values, orders 0/1, f32/bf16, and an unaligned
    view);
@@ -39,9 +40,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    widths (16 × 64, l 512 and 4096) and deepseek widths (32 × 128, causal,
    l 2048), f32 and bf16, with GQA 4:1, window, softcap, q_offset/kv_len,
    ragged Lq/Lkv, rows that see no key, lut0 and exact exp, each in both
-   dtypes, bf16 also against the f32 plain version (``PV_LIMITS``: P·V
-   stays the f32 product); every bf16 call counted on the tensor-core
-   kernel, every f32 call on the CUDA-core one;
+   dtypes, and head dim 256 at gemma2's widths (16 × 8 heads, causal,
+   softcap 50, a 4,200-row query that the window of 4,096 bites, kv_len
+   4,150 of 4,224 keys; lut and exact exp), bf16 also against the f32
+   plain version (``PV_LIMITS``: P·V stays the f32 product); every bf16
+   call counted on the tensor-core kernel, every f32 call on the CUDA-core
+   one;
 6. encode with BERT-large at full width and depth (random weights from a
    seed) through ``build_model(cfg).prefill`` on 8 × 512 and 1 × 4096
    tokens: 24 streaming-attention launches per forward (bf16: all on the
@@ -149,7 +153,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    beside SDPA three ways: as a caller sees it, the device
    time alone and the host time per call, at the engine's tuned config
    and, device alone, at ``DEFAULT_CONFIG``; streaming attention at the BERT
-   encode and deepseek scoring shapes, with exact exp and the f32 CUDA-core
+   encode and deepseek scoring shapes, and at head dim 256 at gemma2's
+   scoring shape and the slot engine's 4,200-row local-layer prefill
+   (SDPA causal only beside it), with exact exp and the f32 CUDA-core
    kernel beside it; the int8 matmul at the BERT-large projections, device
    alone too, with its mma.sync variant, each wgmma tile width and
    ``_int_mm`` on both weight layouts; the quantisation kernel at the
@@ -177,9 +183,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    bit (the final softcap precedes the sampler), 2 LUT-exp launches per
    sampling step; #2 timed at its decode and at a mixed step whose chunk
    the window bites.  starcoder2: #2 timed at its decode beside SDPA with
-   ``enable_gqa``; scoring 2 × 1024 through ``build_model(cfg).loss`` on
-   #3 against the plain attention;
-12. print the card's name and power limit, then ``{"ok": true, "device":
+   ``enable_gqa``.  Each model scores 2 × 1024 through
+   ``build_model(cfg).loss`` on #3 (one launch per layer: 42, 48 and 30;
+   head dim 256 for the gemmas) against the plain attention;
+12. the slot engine (``ServingEngine``) at full width and depth: deepseek-7b
+   (8 slots × 1,088 rows, phase 7's weights and prompts, 32 new each),
+   bf16 cache then int8 — a lockstep pass of the captured decode beside an
+   eager twin (bit for bit every step), then a measured pass: #3 once per
+   prompt on every layer whose cache is not int8, #2 never, streams equal
+   phase 7's ``EngineCore`` streams save margin-rule forks, and in f32
+   (after phase 7's scoring widens the weights; a measured pass only)
+   equal to an f32 ``EngineCore``'s; gemma2-9b (8
+   slots × 8,192 rows, inside phase 11 on its weights, phase 11's 9
+   prompts): 21 local layers keep rings of 4,096 rows, the 4,200-token
+   prompt's ring wraps and holds its last 4,096 positions, the cache's
+   bytes equal the arithmetic (with rings and without), streams equal
+   phase 11's ``EngineCore`` streams save margin-rule forks, and again
+   at full width cut to two periods in f32, against an f32
+   ``EngineCore``; prefill ms by prompt length, decode step p50/p99,
+   tokens/s, peak memory;
+13. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -243,6 +266,10 @@ WARM_PASSES = 3                    # the captured arm's warm passes, at most,
 MIXED_CHUNK = (256, 512)           # the mixed step's chunk: (tokens, live rows)
 PREFIX_SHARED, PREFIX_TAIL = 520, 32  # the prefix phase: system prompt, tail unit
 SPEC_K = 4                         # drafts per decode lane, speculative phase
+# Phase 12: the slot engine per model (slots, max_len): phase 7's prompts
+# (up to 1,024 tokens) and 32 new; gemma2's 4,200-token prompt
+SLOT_ENGINES = {"deepseek-7b": dict(slots=8, max_len=1088),
+                "gemma2-9b": dict(slots=8, max_len=8192)}
 SPEC_PHRASE = 32                   # the repeated phrase of its NGram prompts
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
@@ -416,6 +443,12 @@ def phase_build():
     tc = [line for line in report["streaming_attention"] if tc_kernel in line]
     for line in tc:
         log(f"[tensor_core kernel] {line}")
+    d256 = [line for line in tc if "ILi256E" in line]
+    for line in d256:
+        log(f"[tensor_core kernel D 256] {line}")
+    if len(d256) != 3:
+        fail(f"streaming attention: {len(d256)} head-dim-256 instantiations "
+             f"of the bf16 kernel, expected one per exp mode")
     hmma = {fn: n for fn, n in sass_counts(libs["streaming_attention"],
                                            "HMMA").items()
             if tc_kernel in fn}
@@ -436,8 +469,8 @@ def phase_build():
     if not wg or len(igmma) != len(wg) or not all(igmma.values()):
         fail(f"int8 matmul: the wgmma kernels hold no wgmma instructions "
              f"(ptxas {len(wg)}, IGMMA {igmma})")
-    return dict(ptxas=tc, sass_hmma=hmma, int8_wgmma_ptxas=wg,
-                int8_sass_igmma=igmma)
+    return dict(ptxas=tc, ptxas_d256=d256, sass_hmma=hmma,
+                int8_wgmma_ptxas=wg, int8_sass_igmma=igmma)
 
 
 def phase_lut_exp():
@@ -858,6 +891,15 @@ SA_CASES = [
 SA_CASES += [(name[:-len(" f32")] + " bf16", shape, "bfloat16", kw)
              for name, shape, dtype, kw in SA_CASES[7:]
              if dtype == "float32"]
+# Head dim 256 at gemma2's widths (16 × 8 heads, softcap 50): a 4,200-row
+# causal query that the window of 4,096 bites, over 4,224 keys of which
+# kv_len keeps 4,150; both kernels, the LUT and the exact exponential.
+GEMMA2_D256 = (1, 16, 8, 4200, 4224, 256)
+GEMMA2_KW = dict(causal=True, cap=50.0, window=4096, kv_len=4150)
+SA_CASES += [(f"gemma2 d256 window 4096 kv_len 4150 {exp} {dt}", GEMMA2_D256,
+              dtype, dict(GEMMA2_KW, exp_mode=exp))
+             for exp in ("lut", "exact")
+             for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
 # the kernel each dtype launches (ops.kernel_variant)
 VARIANT = {"float32": "cuda_core", "bfloat16": "tensor_core"}
 
@@ -3695,6 +3737,7 @@ def time_streaming(flush, facts):
             f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         del q, k, v, q32, k32, v32, got, want
+    timed.update(time_streaming_d256(flush))
     first = timed.pop(shapes[0][0])
     return dict(
         name="streaming_attention", route="cuda",
@@ -3706,6 +3749,81 @@ def time_streaming(flush, facts):
         **first, library="scaled_dot_product_attention (exact exp, not the "
                          "same function)",
         **timed, tensor_core_build=facts["build"])
+
+
+def visible_pairs(lq, lkv, *, causal, window=None, kv_len=None, q_offset=0):
+    """How many (query row, key) pairs the mask keeps: the work of an
+    attention call that skips masked keys."""
+    pos = q_offset + np.arange(lq, dtype=np.int64)
+    last = np.full(lq, min(lkv, kv_len or lkv) - 1)
+    if causal:
+        last = np.minimum(last, pos)
+    first = np.maximum(0, pos - window + 1) if window else np.zeros(lq, np.int64)
+    return int(np.clip(last - first + 1, 0, None).sum())
+
+
+# Head dim 256 on the main paths: gemma2's scoring batch (a global layer:
+# causal, softcap 50) and the slot engine's prefill of the 4,200-token
+# prompt on a local layer (the window of 4,096 bites).
+D256_SHAPES = (
+    ("gemma2 scoring 2x1024 (global layer)", (2, 16, 8, 1024, 1024, 256),
+     dict(causal=True, cap=50.0)),
+    ("gemma2 slot prefill 1x4200 (local layer)", (1, 16, 8, 4200, 4200, 256),
+     dict(causal=True, cap=50.0, window=4096)))
+
+
+def time_streaming_d256(flush):
+    """Kernel #3 at head dim 256 (``D256_SHAPES``): the bf16 tensor-core
+    kernel, with exact exp, the f32 CUDA-core kernel, the plain version and
+    SDPA.  SDPA is not the same function: its flash path takes head dim 256
+    in bf16 only without a mask, so it runs causal without the softcap or
+    the window, on k and v widened to the 16 query heads outside the
+    timing.  Bytes: q, k, v read once and out written once; operations:
+    QKᵀ and P·V over the visible pairs, at the bf16 tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.streaming_attention import (attention_ref,
+                                                         streaming_attention)
+    out = {}
+    for label, shape, kw in D256_SHAPES:
+        b, hq, hkv, lq, lkv, d = shape
+        q, k, v = sa_inputs(shape, "bfloat16", seed=8)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got = streaming_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: streaming_attention(q, k, v, **kw), flush=flush)
+        exact = cuda_ms(lambda: streaming_attention(q, k, v, exp_mode="exact",
+                                                    **kw), flush=flush)
+        f32 = cuda_ms(lambda: streaming_attention(q32, k32, v32, **kw),
+                      iters=5, flush=flush)
+        plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=3,
+                        flush=flush)
+        kx, vx = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True), flush=flush)
+        nbytes = 2.0 * (2 * b * hq * lq * d + 2 * b * hkv * lkv * d)
+        flops = 4.0 * b * hq * d * visible_pairs(
+            lq, lkv, causal=kw["causal"], window=kw.get("window"))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        out[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib, tflops=flops / ms / 1e9, exact_exp_ms=exact,
+            f32_cuda_core_ms=f32, f32_cuda_core_tflops=flops / f32 / 1e9,
+            gflop=flops / 1e9,
+            shape=f"B {b}, {hq} × {hkv} heads × {d}, l {lq}, bf16, {kw}")
+        log(f"[time] streaming_attention {label} ({out[label]['shape']}): "
+            f"tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"exact exp {exact:.4f} ms, f32 CUDA-core kernel {f32:.4f} ms, "
+            f"plain {plain:.3f} ms, sdpa (causal only, heads widened) "
+            f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD[0]}")
+        del q, k, v, q32, k32, v32, kx, vx, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- phase 11 --
@@ -3783,7 +3901,7 @@ def serve_family(cfg, params, kv_quant, prompts, label):
         step_ms_p99=m["step_ms_p99"],
         decode_step_ms_p50=float(np.median(decode_ms)),
         peak_gib=m["peak_gib"], kernel_config=ce.kernel_config.describe(),
-        decode_window={k: window[k] for k in (
+        streams=captured, decode_window={k: window[k] for k in (
             "launches", "device_ms", "kernel_span_idle_share", "by_group",
             "trace")})
     log(f"[{label}] captured arm: lockstep with the eager twin in "
@@ -3915,10 +4033,12 @@ def phase_families():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     flush = lambda: flush_buf.zero_()  # noqa: E731
     out = {}
     for name, long_len in FAMILIES:
+        streams = {}
         t_model = time.perf_counter()
         cfg = get_config(name)
         t0 = time.perf_counter()
@@ -3959,6 +4079,7 @@ def phase_families():
                     part(f"sampled {tag}", t0)
             del ce
             torch.cuda.empty_cache()
+            streams[tag] = served.pop("streams")
             f["int8" if kv_quant else "bf16"] = served
         t0 = time.perf_counter()
         mid = [len(p) + MAX_NEW // 2 for p in prompts]
@@ -3975,9 +4096,22 @@ def phase_families():
             f["time_decode"] = time_family_paged(
                 cfg, decode, "starcoder2 decode (GQA 12:1)", flush,
                 library=sdpa_gqa_decode)
-            f["scoring"] = phase_scoring(cfg, params, "starcoder2 bf16",
-                                         floor=1e-2)
-        part("kernel times" + (" and scoring" if "scoring" in f else ""), t0)
+        part("kernel times", t0)
+        t0 = time.perf_counter()
+        # scoring on #3: head dim 256 for the gemmas
+        f["scoring"] = phase_scoring(cfg, params, f"{short} bf16", floor=1e-2)
+        t0 = part("scoring", t0)
+        if short == "gemma2":
+            # phase 12: the slot engine on the same weights, held to the
+            # captured EngineCore streams served above
+            make_core = lambda: EngineCore(cfg, params, device=DEV, **ENGINE)  # noqa: E731
+            f["slot"] = phase_slot_engine(
+                cfg, params, False, prompts, streams[f"{short} bf16"],
+                make_core, SLOT_ENGINES[name], f"slot {short} bf16",
+                lockstep=False)
+            t0 = part("slot engine", t0)
+            f["slot_f32"] = slot_engine_f32_cut(cfg, params, prompts, name)
+            part("slot engine f32, 2 periods", t0)
         del params
         torch.cuda.empty_cache()
         f["model_s"] = time.perf_counter() - t_model
@@ -3985,6 +4119,236 @@ def phase_families():
             + json.dumps({k: round(v, 1) for k, v in f["parts_s"].items()}))
         out[name] = f
     return out
+
+
+# ------------------------------------------------------------- phase 12 --
+
+def slot_engine_f32_cut(cfg, params, prompts, name):
+    """Phase 12's ring check where bf16's random-weight logits are too
+    loose to hold streams: ``cfg`` at its published width, cut to its first
+    two periods (gemma2: 2 local, 2 global layers), the weights widened to
+    f32; the slot engine against an f32 ``EngineCore`` on the same prompts
+    (``phase_slot_engine``: the long prompt's rings wrapped, streams equal
+    save margin-rule forks)."""
+    import torch
+    from repro_torch.models.lm import layer_keys
+    from repro_torch.serving import EngineCore
+    cut = cfg.replace(dtype="float32", num_layers=2 * len(cfg.pattern))
+    per_layer = set(layer_keys(cfg))
+    p32 = {k: (v[:cut.num_layers] if k in per_layer else v).float()
+           for k, v in params.items()}
+    make = lambda: EngineCore(cut, p32, device=DEV, **ENGINE)  # noqa: E731
+    wave = [[(i, p) for i, p in enumerate(prompts)]]
+    want = fresh_run(make, lambda e, t: serve_waves(e, wave))(
+        frozenset())["streams"]
+    facts = phase_slot_engine(cut, p32, False, prompts, want, make,
+                              SLOT_ENGINES[name],
+                              f"slot {name} f32 {cut.num_layers} layers",
+                              lockstep=False)
+    del p32
+    torch.cuda.empty_cache()
+    return facts
+
+
+def slot_pass(eng, prompts, targets=frozenset(), twin=None):
+    """Serve ``prompts`` (uids 0.., ``MAX_NEW`` new tokens each) through the
+    slot engine ``eng``, kernel counts zeroed just before and read just
+    after.  ``twin`` (the same engine with ``capture=False``) steps in
+    lockstep: after every step its logits, picks and request states must
+    equal ``eng``'s bit for bit (its prefills then count too).
+    ``targets`` {(uid, token index)} → those tokens' logits rows, read
+    through ``eng.tap``.  → facts of the pass."""
+    import torch
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    from repro_torch.serving import Request
+    rows = {}
+
+    def tap(req, row):
+        if (req.uid, len(req.tokens)) in targets:
+            rows[req.uid, len(req.tokens)] = row.float().cpu().numpy()
+
+    def state(e):
+        return ([None if a is None else (a.uid, list(a.tokens))
+                 for a in e.active],
+                [(r.uid, list(r.tokens)) for r in e.finished])
+    engines = [eng] + ([twin] if twin is not None else [])
+    for e in engines:
+        e.finished.clear()
+        e.prefill_ms.clear()
+        e.decode_ms.clear()
+        for i, p in enumerate(prompts):
+            e.submit(Request(uid=i, prompt=p, max_new=MAX_NEW))
+    eng.tap = tap if targets else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_streaming_counts()
+    zero_paged_counts()
+    slot_of, steps = {}, 0
+    t0 = time.perf_counter()
+    while eng.queue or any(a is not None for a in eng.active):
+        eng.step()
+        if twin is not None:
+            twin.step()
+            if (not torch.equal(eng.logits, twin.logits)
+                    or state(eng) != state(twin)):
+                fail(f"slot engine: the captured decode differs from the "
+                     f"eager one at step {steps}")
+        for slot, r in enumerate(eng.active):
+            if r is not None:
+                slot_of.setdefault(r.uid, slot)
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.tap = None
+    streams = {r.uid: list(r.tokens) for r in eng.finished}
+    if sorted(streams) != list(range(len(prompts))) or any(
+            len(t) != MAX_NEW or not all(0 <= x < eng.cfg.vocab_size
+                                         for x in t)
+            for t in streams.values()):
+        fail("slot engine: a request did not produce MAX_NEW in-vocab tokens")
+    gen = sum(len(t) for t in streams.values())
+    return dict(streams=streams, logits=rows, steps=steps, wall_s=wall,
+                generated=gen, tok_s=gen / wall, slot_of=slot_of,
+                launches=dict(streaming_attention=streaming_attention.launches,
+                              by_variant=dict(
+                                  streaming_attention.launches_by_variant),
+                              **read_paged_counts()),
+                prefill_ms=[(lp, ms) for lp, ms in eng.prefill_ms],
+                decode_ms_p50=float(np.percentile(eng.decode_ms, 50)),
+                decode_ms_p99=float(np.percentile(eng.decode_ms, 99)),
+                decode_steps=len(eng.decode_ms),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def cache_bytes_arithmetic(cfg, slots, max_len, ring: bool) -> int:
+    """The contiguous cache's bytes by arithmetic: every layer's K and V
+    rows (int8 with f32 row scales under ``kv_quant``), and, with ``ring``,
+    a local layer's ring of ``window`` rows with its int32 positions."""
+    import torch
+    width = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    item = 1 if cfg.kv_quant else width
+    row = cfg.num_kv_heads * cfg.d_head * item + (
+        cfg.num_kv_heads * 4 if cfg.kv_quant else 0)
+    total = 0
+    for kind in cfg.layer_kinds():
+        if ring and kind == "local" and cfg.window < max_len:
+            total += slots * cfg.window * (
+                2 * cfg.num_kv_heads * cfg.d_head * width + 4)
+        else:
+            total += 2 * slots * max_len * row
+    return total
+
+
+def phase_slot_engine(cfg, params, kv_quant, prompts, want, make_core,
+                      sizes, label, *, lockstep=True):
+    """Phase 12 for one model and cache: ``ServingEngine`` (``sizes``:
+    slots, max_len) at full width and depth serves ``prompts``, 32 new
+    each.  With ``lockstep``, a first pass runs the captured engine beside
+    an eager twin: captured decode = eager, bit for bit, every step.  The
+    measured pass (the captured engine alone; counts zeroed just before):
+    kernel #3 launched once per prompt on every layer whose cache is not
+    int8 (the tensor-core kernel; an int8 cache attends through the plain
+    quantised scan, as in the reference), #2 never; its greedy streams
+    equal ``want``
+    ({uid: tokens} of the captured ``EngineCore`` on the same prompts)
+    save near-tie forks by the margin rule (``hold_by_margin``, both arms
+    run again); where local layers keep rings, the longest prompt's ring
+    of every local layer holds its last ``window`` positions, position p
+    at slot p mod window.  → facts: prefill ms per prompt length, decode
+    step p50/p99, tokens/s, peak memory, the cache's bytes beside the
+    arithmetic."""
+    import torch
+    from repro_torch.models.layers import is_ring
+    from repro_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+    c = cfg.replace(kv_quant=kv_quant)
+    make = lambda capture=True: ServingEngine(  # noqa: E731
+        c, params, device=DEV, capture=capture, **sizes)
+    eng = make()
+    measured_bytes = sum(t.numel() * t.element_size()
+                         for t in eng.caches.values())
+    ring = "ring_pos" in eng.caches
+    facts = dict(cache_gb=measured_bytes / 1e9,
+                 cache_gb_arithmetic=cache_bytes_arithmetic(
+                     c, sizes["slots"], sizes["max_len"], ring) / 1e9,
+                 cache_gb_without_ring=cache_bytes_arithmetic(
+                     c, sizes["slots"], sizes["max_len"], False) / 1e9,
+                 ring_layers=int(eng.caches["ring_pos"].shape[0]) if ring else 0)
+    if abs(facts["cache_gb"] - facts["cache_gb_arithmetic"]) > 1e-6:
+        fail(f"{label}: the cache holds {facts['cache_gb']} GB, the "
+             f"arithmetic says {facts['cache_gb_arithmetic']} GB")
+    if lockstep:
+        twin = make(capture=False)
+        lock = slot_pass(eng, prompts, twin=twin)
+        facts["lockstep_steps"] = lock["steps"]
+        del twin
+        torch.cuda.empty_cache()
+    m = slot_pass(eng, prompts)
+    if lockstep and m["streams"] != lock["streams"]:
+        fail(f"{label}: the measured pass served other streams than the "
+             f"lockstep pass")
+    # #3 prefills every layer whose cache is not int8 (the int8 cache
+    # attends through the plain quantised scan, as the reference's does)
+    n_layers = sum(not kv_quant or is_ring(c, kind, sizes["max_len"])
+                   for kind in c.layer_kinds())
+    n = n_layers * len(prompts)
+    la = m["launches"]
+    variant = VARIANT[c.dtype]
+    if (la["streaming_attention"] != n or la["by_variant"][variant] != n
+            or la["paged_attention"] or la["paged_combine"]):
+        fail(f"{label}: launches {la}, expected #3 = {n_layers} layers "
+             f"× {len(prompts)} prompts on the {variant} kernel and no #2")
+    if eng.captures != 1:
+        fail(f"{label}: {eng.captures} decode captures, expected 1")
+    if ring:
+        long_uid = max(range(len(prompts)), key=lambda u: len(prompts[u]))
+        end = len(prompts[long_uid]) + MAX_NEW - 1     # last position written
+        w = c.window
+        pos = torch.arange(end - w, end, dtype=torch.int32, device=DEV)
+        expect = torch.empty_like(pos)
+        expect[pos % w] = pos
+        got = eng.caches["ring_pos"][:, m["slot_of"][long_uid]]
+        if len(prompts[long_uid]) <= w or not torch.equal(
+                got, expect.expand_as(got)):
+            fail(f"{label}: the long prompt's rings do not hold its last "
+                 f"{w} positions at their slots")
+        facts["ring_check"] = dict(uid=long_uid, prompt=len(prompts[long_uid]),
+                                   positions=[end - w, end - 1],
+                                   layers=int(got.shape[0]))
+    del eng
+    torch.cuda.empty_cache()
+    wave = [[(i, p) for i, p in enumerate(prompts)]]
+    forks = hold_by_margin(
+        label, m["streams"], want,
+        fresh_run(make, lambda e, t: slot_pass(e, prompts, targets=t)),
+        fresh_run(make_core, lambda e, t: serve_waves(e, wave, targets=t)))
+    by_len = sorted(m["prefill_ms"])
+    facts.update(
+        forks=forks, captures=1, steps=m["steps"], launches=la,
+        prefill_ms=by_len, decode_ms_p50=m["decode_ms_p50"],
+        decode_ms_p99=m["decode_ms_p99"], decode_steps=m["decode_steps"],
+        tok_s=m["tok_s"], wall_s=m["wall_s"], peak_gib=m["peak_gib"],
+        card=CARD[0], phase_s=time.perf_counter() - t_phase)
+    log(f"[{label}] ServingEngine(slots={sizes['slots']}, max_len="
+        f"{sizes['max_len']}) over {len(prompts)} prompts × {MAX_NEW} new"
+        + (f"; captured = eager bit for bit over {lock['steps']} lockstep "
+           f"steps" if lockstep else "")
+        + f"; #3 launches {la['streaming_attention']} = {n_layers} layers"
+        f" × {len(prompts)} prompts (all {variant}), #2 {la['paged_attention']};"
+        f" streams = EngineCore's"
+        + (f" save near-tie forks {forks}" if forks else "")
+        + (f"; rings of {c.window}: request {facts['ring_check']['uid']} "
+           f"({facts['ring_check']['prompt']} tokens) holds positions "
+           f"{facts['ring_check']['positions']} on all "
+           f"{facts['ring_check']['layers']} local layers" if ring else "")
+        + f"; cache {facts['cache_gb']:.3f} GB measured = "
+        f"{facts['cache_gb_arithmetic']:.3f} GB arithmetic (without rings "
+        f"{facts['cache_gb_without_ring']:.3f} GB); prefill ms by prompt "
+        f"length {[(lp, round(ms, 1)) for lp, ms in by_len]}; decode step "
+        f"p50 {m['decode_ms_p50']:.2f} p99 {m['decode_ms_p99']:.2f} ms over "
+        f"{m['decode_steps']} steps; {m['tok_s']:.1f} generated tok/s; peak "
+        f"{m['peak_gib']:.2f} GiB; {facts['phase_s']:.1f} s in all; {CARD[0]}")
+    return facts
 
 
 def main() -> int:
@@ -3995,6 +4359,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore
 
     t_start = time.perf_counter()
     name, smi_line = phase_card()
@@ -4061,6 +4426,14 @@ def main() -> int:
         del eng
         torch.cuda.empty_cache()
     ckpt = phase_checkpoint(cfg, params, prompts)
+    slot = {}
+    for tag, kv_quant in (("bf16", False), ("int8", True)):
+        c = cfg.replace(kv_quant=kv_quant)
+        slot[tag] = phase_slot_engine(
+            cfg, params, kv_quant, prompts,
+            dict(enumerate(greedy_streams[tag])),
+            lambda c=c: EngineCore(c, params, device=DEV, **ENGINE),
+            SLOT_ENGINES[MODEL], f"slot {MODEL} {tag}")
     facts["paths"] = {"prefix bf16": prefix["bf16"]["launches"],
                       "prefix int8": prefix["int8"]["launches"],
                       "spec (a)": spec["scripted"]["launches"],
@@ -4071,6 +4444,16 @@ def main() -> int:
     steps["f32"] = phase_step_f32(cfg, params)       # widens params to f32
     scoring["f32"] = phase_scoring(cfg.replace(dtype="float32"), params,
                                    "f32", floor=1e-3)
+    # phase 12 in f32 (the weights are widened now): the slot engine
+    # against EngineCore where bf16's random-weight near-ties do not reach
+    c32 = cfg.replace(dtype="float32")
+    make32 = lambda: EngineCore(c32, params, device=DEV, **ENGINE)  # noqa: E731
+    wave = [[(i, p) for i, p in enumerate(prompts)]]
+    want32 = fresh_run(make32, lambda e, t: serve_waves(e, wave))(
+        frozenset())["streams"]
+    slot["f32"] = phase_slot_engine(c32, params, False, prompts, want32,
+                                    make32, SLOT_ENGINES[MODEL],
+                                    f"slot {MODEL} f32", lockstep=False)
     del params
     torch.cuda.empty_cache()
     facts["decode_kv_lens"] = decode_kv_lens()
@@ -4097,6 +4480,14 @@ def main() -> int:
                 f["bf16"]["sampled"]["launches"]["lut_exp"])
         by_name["paged_attention"]["families"][model] = {
             k: f[k] for k in ("time_decode", "time_mixed") if k in f}
+        sa = by_name["streaming_attention"].setdefault("launches_by_path", {})
+        sa[f"scoring {model}"] = f["scoring"]["launches"]
+        if "slot" in f:
+            sa[f"slot engine {model} bf16"] = (
+                f["slot"]["launches"]["streaming_attention"])
+    for tag, f in slot.items():
+        by_name["streaming_attention"]["launches_by_path"][
+            f"slot engine {MODEL} {tag}"] = f["launches"]["streaming_attention"]
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -4108,6 +4499,7 @@ def main() -> int:
     summary["tuner"] = tuner
     summary["config_arms"] = arms
     summary["checkpoint"] = ckpt
+    summary["slot_engine"] = slot
     summary["step_vs_plain"] = steps
     summary["streaming_attention_checks"] = sa_worst
     summary["bert"] = bert

@@ -8,9 +8,17 @@ never exist.  ``naive_attention`` materialises the logits (the "PUMA"
 baseline and the correctness oracle).  Both compute in f32, take GQA
 through the ``(B, Hkv, G, Lq, D)`` grouped layout, and return q's dtype.
 Autograd runs through them as through any torch code; the reference's
-custom flash backward and the quantized scan come with later slices.
+custom flash backward comes with the training slice.
 
-``quantize_kv_rows`` is the int8 KV-row quantiser of the page pools.
+``q_offset`` and ``kv_len`` are Python ints or (B,) tensors: one position
+per batch row, as the slot engine's batched decode gives each slot its
+own (the reference ``vmap``s a single-row step instead).  Ints stay on the
+host, so a call inside a CUDA graph capture copies nothing to the card.
+
+``streaming_attention_quantized`` is the scan over an int8 KV cache with
+per-row scales, each block dequantised inside the loop (the reference's
+jnp scan; no TPU kernel computes it), and ``quantize_kv_rows`` the int8
+KV-row quantiser of the caches and page pools.
 """
 from __future__ import annotations
 
@@ -32,8 +40,19 @@ def _split_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 
 def _positions(q_offset: IntLike, lq: int, device) -> torch.Tensor:
-    return (torch.as_tensor(q_offset, dtype=torch.int32, device=device)
-            + torch.arange(lq, dtype=torch.int32, device=device))
+    """Row positions: (1, Lq) from an int offset, (B, Lq) from a (B,) one."""
+    rows = torch.arange(lq, dtype=torch.int32, device=device)[None]
+    if isinstance(q_offset, torch.Tensor):
+        return q_offset.to(torch.int32).reshape(-1, 1) + rows
+    return rows + int(q_offset)
+
+
+def _per_row(x: IntLike):
+    """A (B,) tensor → (B, 1, 1), broadcasting against (B, Lq, bk); an int
+    or a 0-d tensor as it is."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape(-1, 1, 1)
+    return x
 
 
 def _block_mask(causal: bool, window: Optional[int], q_pos: torch.Tensor,
@@ -41,12 +60,13 @@ def _block_mask(causal: bool, window: Optional[int], q_pos: torch.Tensor,
                 kv_len) -> torch.Tensor:
     """Boolean (Bp, 1, 1, Lq, bk) mask for one KV block.
 
-    ``kv_idx`` (bk,) is the structural slot index (bounds the valid prefix
-    via ``kv_len``); ``kv_pos`` (Bp, bk) is each slot's absolute position
-    (negative = never written)."""
-    qp = q_pos[None, :, None]              # (1, Lq, 1)
+    ``q_pos`` (1 or B, Lq) are the query rows' positions; ``kv_idx`` (bk,)
+    is the structural slot index (bounds the valid prefix via ``kv_len``,
+    an int or (B,)); ``kv_pos`` (1 or B, bk) is each slot's absolute
+    position (negative = never written)."""
+    qp = q_pos[:, :, None]                 # (1 or B, Lq, 1)
     kp = kv_pos[:, None, :]                # (Bp, 1, bk)
-    m = (kp >= 0) & (kv_idx[None, None, :] < kv_len)
+    m = (kp >= 0) & (kv_idx[None, None, :] < _per_row(kv_len))
     if causal:
         m = m & (kp <= qp)
     if window is not None:
@@ -81,8 +101,9 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B, Hq, Lq, D); k, v (B, Hkv, Lkv, D) with Hq % Hkv == 0.
     ``q_offset`` is the absolute position of row 0, ``kv_len`` masks a
-    partly filled cache, ``kv_pos`` (B, Lkv) gives explicit slot positions
-    (-1 = never written).  → (B, Hq, Lq, D) in q's dtype.
+    partly filled cache (each an int or (B,)), ``kv_pos`` (B, Lkv) gives
+    explicit slot positions (-1 = never written).  → (B, Hq, Lq, D) in q's
+    dtype.
     """
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
@@ -142,6 +163,83 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = lut_softmax(s, where=mask, exp=exp_fn(exp_mode, dev), cap=cap)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, lq, -1).to(q.dtype)
+
+
+def streaming_attention_quantized(q: torch.Tensor, kq: torch.Tensor,
+                                  vq: torch.Tensor, k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor, *,
+                                  scale: Optional[float] = None,
+                                  causal: bool = True,
+                                  window: Optional[int] = None,
+                                  cap: Optional[float] = None,
+                                  block_k: int = 512, exp_mode: str = "lut",
+                                  q_offset: IntLike = 0,
+                                  kv_len: Optional[IntLike] = None,
+                                  kv_pos: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Streaming attention over an int8 KV cache (inference only; port of
+    the reference's ``streaming_attention_quantized``).
+
+    kq/vq (B, Hkv, Lkv, D) int8; k_scale/v_scale (B, Hkv, Lkv) f32 per-row
+    scales.  Each KV block is dequantised inside the scan, so the f32
+    transient is one block while the cache stays int8.  A single query row
+    skips the scan, as the reference's does: its logits are O(L) already,
+    and its weights are normalised after P·V (``out / Σp``), in the
+    reference's order.  → (B, Hq, Lq, D) in q's dtype.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lkv = kq.shape[1], kq.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    bk = min(block_k, max(lkv, 1))
+    dev = q.device
+    qg = _split_heads(q.float(), hkv)
+    q_pos = _positions(q_offset, lq, dev)
+    kv_len = lkv if kv_len is None else kv_len
+    if kv_pos is None:
+        kv_pos = torch.arange(lkv, dtype=torch.int32, device=dev)[None, :]
+    kv_pos = kv_pos.to(torch.int32)
+    exp = exp_fn(exp_mode, dev)
+
+    if lq == 1:
+        kf = kq.float() * k_scale[..., None]
+        vf = vq.float() * v_scale[..., None]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+        s = softcap(s, cap)
+        kv_idx = torch.arange(lkv, dtype=torch.int32, device=dev)
+        mask = _block_mask(causal, window, q_pos, kv_idx, kv_pos, kv_len)
+        s = torch.where(mask, s, NEG_INF)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        m = torch.where(m <= NEG_INF, 0.0, m)
+        p = torch.where(mask, exp(s - m), 0.0)
+        out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
+        denom = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+        return (out / denom).reshape(b, hq, lq, d).to(q.dtype)
+
+    kb, vb = _blocked_kv(kq, bk), _blocked_kv(vq, bk)
+    ksb = _blocked_kv(k_scale[..., None], bk)
+    vsb = _blocked_kv(v_scale[..., None], bk)
+    pb = _blocked_pos(kv_pos, bk)
+    g = hq // hkv
+    m = torch.full((b, hkv, g, lq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, lq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, lq, d), dtype=torch.float32, device=dev)
+    for j in range(kb.shape[0]):
+        k_blk = kb[j].float() * ksb[j]
+        v_blk = vb[j].float() * vsb[j]
+        kv_idx = j * bk + torch.arange(bk, dtype=torch.int32, device=dev)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_blk) * scale
+        s = softcap(s, cap)
+        mask = _block_mask(causal, window, q_pos, kv_idx, pb[j], kv_len)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.where(mask, exp(s - m_new[..., None]), 0.0)
+        alpha = exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                                    v_blk)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, lq, d).to(q.dtype)
 
 
 def quantize_kv_rows(x: torch.Tensor):

@@ -50,11 +50,19 @@
 // 2^-16·p of p·V — far inside one bf16 ulp of the output.  The S
 // accumulator layout of two adjacent n8 tiles is the m16k16 A layout, so p
 // never leaves registers; alpha rescales the output accumulator in place.
-// The row sum l adds the f32 p.  D ∈ {16, 32, 64, 128} are compile-time
-// instantiations; D = 8 runs as D = 16 with the head dim zero-filled in
-// shared memory.
+// The row sum l adds the f32 p.  D ∈ {16, 32, 64, 128, 256} are
+// compile-time instantiations; D = 8 runs as D = 16 with the head dim
+// zero-filled in shared memory.  At D = 256 (gemma2, gemma3) a warp's 16
+// rows would need 64 registers a thread for Q's fragments, 128 for the f32
+// output accumulator and 32 for a 64-key logit tile, past the 255 a thread
+// may hold: there the key tile is 32 rows (16 logits a thread) and Q stays
+// in shared memory, its A fragment read by one ldmatrix per k-step beside
+// the two on K.  Q (32 KB) and the two-stage K/V ring (4 × 16 KB) take 96
+// KB of dynamic shared memory, past the 48 KB default (the launch raises
+// the limit).
 //
-// f32 → cuda_core::attention_kernel, unchanged from the first version: the
+// f32 → cuda_core::attention_kernel, unchanged from the first version (D
+// 256 is one more instantiation, 213 KB of shared memory): the
 // products in f32 on the CUDA cores.  No bf16 split reaches the f32 check's
 // atol 3e-5 and TF32 keeps about three digits, so f32 — the precision path
 // of the checks; every main-path forward on the card is bf16 — stays here.
@@ -112,17 +120,18 @@ struct Params {
   int o_pair;            // every output row 4-byte aligned: paired bf16 stores
 };
 
-// The kv tiles a q tile whose rows sit at positions qpos0 .. qpos0 + nq - 1
-// can see: the window's first key up to the causal bound of its last row
-// and kv_len.
+// The kv tiles of KT keys that a q tile whose rows sit at positions
+// qpos0 .. qpos0 + nq - 1 can see: the window's first key up to the causal
+// bound of its last row and kv_len.
 struct TileRange {
   int begin, end;
 };
+template <int KT>
 __device__ __forceinline__ TileRange tile_range(const Params& p, int qpos0, int nq) {
   int kv_end = p.kv_len;
   if (p.causal) kv_end = min(kv_end, qpos0 + nq);
   const int kv_begin = p.window > 0 ? max(0, qpos0 - p.window + 1) : 0;
-  return {kv_begin / BK, kv_end > 0 ? (kv_end + BK - 1) / BK : 0};
+  return {kv_begin / KT, kv_end > 0 ? (kv_end + KT - 1) / KT : 0};
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int col) {
@@ -132,10 +141,12 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int col) {
   return ok;
 }
 
-// Does any row at positions r0 .. r1 see any key of the tile at c0?  The
-// last key the tile holds below kv_len is the one the window reaches first.
+// Does any row at positions r0 .. r1 see any key of the KT-key tile at c0?
+// The last key the tile holds below kv_len is the one the window reaches
+// first.
+template <int KT>
 __device__ __forceinline__ bool sees_any(const Params& p, int r0, int r1, int c0) {
-  const int cmax = min(c0 + BK - 1, p.kv_len - 1);
+  const int cmax = min(c0 + KT - 1, p.kv_len - 1);
   return c0 <= cmax && (!p.causal || c0 <= r1) && (p.window <= 0 || r0 - cmax < p.window);
 }
 
@@ -364,9 +375,16 @@ template <int D>
 struct Tile {
   static constexpr int DP = D < 16 ? 16 : D;     // head dim in shared memory
   static constexpr int CH = DP / 8;              // 16-byte chunks per row
-  static constexpr int BYTES = BK * DP * 2;      // one 64-row tile (Q, K or V)
+  // D <= 128: 64-key tiles and the warp's Q fragments held in registers.
+  // D = 256: the f32 output accumulator alone takes 128 registers a
+  // thread, so the key tile halves to 32 (16 logits a thread) and Q stays
+  // in shared memory, its A fragment read by ldmatrix at each k-step.
+  static constexpr int KT = D <= 128 ? BK : 32;  // key rows per kv tile
+  static constexpr bool Q_REGS = D <= 128;
+  static constexpr int Q_BYTES = BQ * DP * 2;    // the 64-row Q tile
+  static constexpr int BYTES = KT * DP * 2;      // one K or V tile
   static constexpr int TAB_BYTES = repro::LUT_K * 4;   // the 128-entry LUT
-  static constexpr int SMEM = TAB_BYTES + BYTES + 2 * STAGES * BYTES;
+  static constexpr int SMEM = TAB_BYTES + Q_BYTES + 2 * STAGES * BYTES;
   // D <= 64: 128 registers a thread let 4 blocks share an SM (16 warps)
   static constexpr int MIN_BLOCKS = D <= 64 ? 4 : 1;
 };
@@ -381,15 +399,16 @@ __device__ __forceinline__ int swz(int r, int c) {
   return (r * CH + pc) * 16;
 }
 
-// Rows [0, n) of a 64-row tile of D-wide rows (row stride sl) into shared
-// memory; rows past n and chunks past D read as 0.  vec: cp.async
+// Rows [0, n) of a ROWS-row tile of D-wide rows (row stride sl) into
+// shared memory; rows past n and chunks past D read as 0.  vec: cp.async
 // (asynchronous, the caller commits); else staged through registers.
-template <int D>
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(const __nv_bfloat16* base, long long sl, int n,
                                           uint8_t* dst, int vec, int tid) {
   constexpr int CH = Tile<D>::CH, DC = D / 8;
+  static_assert(ROWS * CH % THREADS == 0, "a tile's chunks split evenly");
 #pragma unroll
-  for (int it = 0; it < BK * CH / THREADS; ++it) {
+  for (int it = 0; it < ROWS * CH / THREADS; ++it) {
     const int i = tid + it * THREADS;
     const int r = i / CH, c = i % CH;
     const bool ok = r < n && c < DC;
@@ -417,16 +436,16 @@ __device__ __forceinline__ float attn_exp(float x, const float* tab) {
   else return repro::lut_exp_nonpos(x, tab, MODE == 0 ? 1 : 0);
 }
 
-// Sum or max of a row's 16 values in one thread as a tree (4 steps deep).
-template <bool MAX>
-__device__ __forceinline__ float reduce16(const float (&s)[8][4], int half) {
-  float v[8];
+// Sum or max of a row's 2·NT values in one thread as a tree.
+template <bool MAX, int NT>
+__device__ __forceinline__ float reduce_row(const float (&s)[NT][4], int half) {
+  float v[NT];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
     v[n] = MAX ? fmaxf(s[n][2 * half], s[n][2 * half + 1])
                : s[n][2 * half] + s[n][2 * half + 1];
 #pragma unroll
-  for (int w = 4; w > 0; w >>= 1)
+  for (int w = NT / 2; w > 0; w >>= 1)
 #pragma unroll
     for (int n = 0; n < w; ++n) v[n] = MAX ? fmaxf(v[n], v[n + w]) : v[n] + v[n + w];
   return v[0];
@@ -436,12 +455,14 @@ template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel(const Params p) {
   using TL = Tile<D>;
   constexpr int CH = TL::CH;
+  constexpr int KT = TL::KT;                // key rows per kv tile
+  constexpr int NT = KT / 8;                // n8 tiles of logits per tile
   constexpr int KS = TL::DP / 16;           // k16 steps of Q·Kᵀ
   constexpr int NO = TL::DP / 8;            // n8 tiles of the output
   extern __shared__ __align__(128) uint8_t smem[];
   float* tab = reinterpret_cast<float*>(smem);
   uint8_t* qs = smem + TL::TAB_BYTES;
-  uint8_t* ks = qs + TL::BYTES;             // STAGES K tiles
+  uint8_t* ks = qs + TL::Q_BYTES;           // STAGES K tiles
   uint8_t* vs = ks + STAGES * TL::BYTES;    // STAGES V tiles
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -456,14 +477,14 @@ __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel
   const bf16* vb = (const bf16*)p.v + b * p.v_sb + hk * p.v_sh;
 
   const int qpos0 = p.q_offset + q0;
-  const TileRange tr = tile_range(p, qpos0, nq);
+  const TileRange tr = tile_range<KT>(p, qpos0, nq);
 
-  load_tile<D>(qb, p.q_sl, nq, qs, p.vec, tid);
+  load_tile<D, BQ>(qb, p.q_sl, nq, qs, p.vec, tid);
   if (tr.begin < tr.end) {
-    const long long c0 = (long long)tr.begin * BK;
-    const int nk = min(BK, p.lkv - tr.begin * BK);
-    load_tile<D>(kb + c0 * p.k_sl, p.k_sl, nk, ks, p.vec, tid);
-    load_tile<D>(vb + c0 * p.v_sl, p.v_sl, nk, vs, p.vec, tid);
+    const long long c0 = (long long)tr.begin * KT;
+    const int nk = min(KT, p.lkv - tr.begin * KT);
+    load_tile<D, KT>(kb + c0 * p.k_sl, p.k_sl, nk, ks, p.vec, tid);
+    load_tile<D, KT>(vb + c0 * p.v_sl, p.v_sl, nk, vs, p.vec, tid);
   }
   repro::cp_async_commit();
   if constexpr (MODE != 2)
@@ -471,12 +492,15 @@ __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel
   repro::cp_async_wait<0>();
   __syncthreads();
 
-  // The warp's 16 rows of Q as A fragments.
+  // The warp's 16 rows of Q as A fragments: in registers for the whole
+  // loop (D <= 128), else read from shared memory at each k-step.
   const int wr0 = warp * 16;                // first row of the warp in the tile
-  uint32_t qf[KS][4];
+  uint32_t qf[TL::Q_REGS ? KS : 1][4];
+  if constexpr (TL::Q_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    repro::ldmatrix_x4(qf[kk], qs + swz<CH>(wr0 + (lane & 15), 2 * kk + (lane >> 4)));
+    for (int kk = 0; kk < KS; ++kk)
+      repro::ldmatrix_x4(qf[kk], qs + swz<CH>(wr0 + (lane & 15), 2 * kk + (lane >> 4)));
+  }
 
   const int wpos0 = qpos0 + wr0;            // position of the warp's first row
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
@@ -492,61 +516,64 @@ __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel
       __syncthreads();                      // ... for every thread; tile j - 1 is free
     }
     if (j + 1 < tr.end) {                   // tile j + 1 loads while j computes
-      const long long c1 = (long long)(j + 1) * BK;
-      const int nk = min(BK, p.lkv - (j + 1) * BK);
+      const long long c1 = (long long)(j + 1) * KT;
+      const int nk = min(KT, p.lkv - (j + 1) * KT);
       const int st = (it + 1) % STAGES;
-      load_tile<D>(kb + c1 * p.k_sl, p.k_sl, nk, ks + st * TL::BYTES, p.vec, tid);
-      load_tile<D>(vb + c1 * p.v_sl, p.v_sl, nk, vs + st * TL::BYTES, p.vec, tid);
+      load_tile<D, KT>(kb + c1 * p.k_sl, p.k_sl, nk, ks + st * TL::BYTES, p.vec, tid);
+      load_tile<D, KT>(vb + c1 * p.v_sl, p.v_sl, nk, vs + st * TL::BYTES, p.vec, tid);
       repro::cp_async_commit();
     }
     const uint8_t* kt = ks + (it % STAGES) * TL::BYTES;
     const uint8_t* vt = vs + (it % STAGES) * TL::BYTES;
-    const int c0 = j * BK;
+    const int c0 = j * KT;
 
     // A warp none of whose rows sees a key of this tile (or whose rows lie
     // past Lq) skips it: m, l and the accumulator would not change.
-    if (wr0 >= nq || !sees_any(p, wpos0, wpos0 + 15, c0)) continue;
+    if (wr0 >= nq || !sees_any<KT>(p, wpos0, wpos0 + 15, c0)) continue;
     // Every key visible to every row of the warp: no per-element mask.
-    const bool full = c0 + BK <= p.kv_len && (!p.causal || c0 + BK - 1 <= wpos0) &&
+    const bool full = c0 + KT <= p.kv_len && (!p.causal || c0 + KT - 1 <= wpos0) &&
                       (p.window <= 0 || wpos0 + 15 - c0 < p.window);
 
-    // S = Q·Kᵀ: 8 n8 tiles of keys, s[n][e] at row g + 8(e / 2), key
+    // S = Q·Kᵀ: NT n8 tiles of keys, s[n][e] at row g + 8(e / 2), key
     // c0 + 8n + 2t + e % 2.
-    float s[8][4];
+    float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t* qa = qf[TL::Q_REGS ? kk : 0];
+      if constexpr (!TL::Q_REGS)
+        repro::ldmatrix_x4(qf[0], qs + swz<CH>(wr0 + (lane & 15), 2 * kk + (lane >> 4)));
 #pragma unroll
-      for (int n2 = 0; n2 < 4; ++n2) {
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
         uint32_t kf[4];
         repro::ldmatrix_x4(kf, kt + swz<CH>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
                                             2 * kk + ((lane >> 3) & 1)));
-        repro::mma_bf16(s[2 * n2], qf[kk], kf[0], kf[1]);
-        repro::mma_bf16(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
+        repro::mma_bf16(s[2 * n2], qa, kf[0], kf[1]);
+        repro::mma_bf16(s[2 * n2 + 1], qa, kf[2], kf[3]);
       }
     }
 
     // Online softmax in registers; row g + 8i's logits sit in lanes
     // 4g..4g+3.  Softcap and mask are tile-uniform branches around whole
     // loops, and every exponential is computed (a masked logit's is
-    // selected away), so the 32 of a tile run without branches.
+    // selected away), so the 4·NT of a tile run without branches.
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], p.scale);  // never fused into s − m
     if (p.cap > 0.0f) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(p.cap, tanhf(s[n][e] / p.cap));
     }
     uint32_t vis = 0xffffffffu;             // bit 4n + e: s[n][e] is visible
     if (!full) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (!visible(p, wpos0 + g + 8 * (e >> 1), c0 + 8 * n + 2 * t + (e & 1))) {
@@ -557,24 +584,24 @@ __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel
     float m_new[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float mx = reduce16<true>(s, i);
+      float mx = reduce_row<true, NT>(s, i);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       m_new[i] = fmaxf(m[i], mx);
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = attn_exp<MODE>(s[n][e] - m_new[e >> 1], tab);
     if (!full) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = (vis >> (4 * n + e)) & 1u ? s[n][e] : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float rs = reduce16<false>(s, i);
+      float rs = reduce_row<false, NT>(s, i);
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
       rs += __shfl_xor_sync(0xffffffffu, rs, 2);
       const float alpha = attn_exp<MODE>(m[i] - m_new[i], tab);
@@ -590,7 +617,7 @@ __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel
     // O += P·V with P = p_hi + p_lo: the C fragments of key tiles 2kk and
     // 2kk + 1 are the A fragment of key step kk.
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
       uint32_t ah[4], al[4];
       repro::split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
       repro::split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
@@ -739,6 +766,7 @@ int streaming_attention_launch(const void* q, const void* k, const void* v,
       case 32: return cuda_core::launch<32>(p, bhq, s);
       case 64: return cuda_core::launch<64>(p, bhq, s);
       case 128: return cuda_core::launch<128>(p, bhq, s);
+      case 256: return cuda_core::launch<256>(p, bhq, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -749,6 +777,7 @@ int streaming_attention_launch(const void* q, const void* k, const void* v,
       case 32: return tensor_core::launch_mode<32>(p, bhq, s);
       case 64: return tensor_core::launch_mode<64>(p, bhq, s);
       case 128: return tensor_core::launch_mode<128>(p, bhq, s);
+      case 256: return tensor_core::launch_mode<256>(p, bhq, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

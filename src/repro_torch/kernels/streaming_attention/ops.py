@@ -3,7 +3,8 @@
 
 Takes the model layout q ``(B, Hq, Lq, D)``, k/v ``(B, Hkv, Lkv, D)`` with
 any Lq and Lkv.  The CUDA kernel (``csrc/streaming_attention.cu``) picks its
-own tiles (64 query rows by 64 key rows) and masks ragged tails itself, so
+own tiles (64 query rows by 64 key rows, 32 key rows for bf16 at head
+dim 256) and masks ragged tails itself, so
 nothing is padded or copied: q, k and v may be strided views (the
 head-split projections of the model), and the output keeps q's memory
 layout.  The reference pads to its TPU blocks instead; results agree within
@@ -35,14 +36,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype → the kernel the C entry point launches for it
 VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 _EXP_MODES = {"lut": 0, "lut0": 1, "exact": 2}
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 BLOCK_K = 64          # key rows per kv tile (the kernel's online-softmax step)
 MAX_HEAD_BATCH = 65535
 
 
+def block_k(dtype: torch.dtype, d: int) -> int:
+    """Key rows per kv tile of the kernel a CUDA call launches: ``BLOCK_K``,
+    save the bf16 kernel at head dim 256, whose registers hold 32-key
+    tiles (the blocking a plain scan must copy to hold ``lut0``)."""
+    return 32 if dtype == torch.bfloat16 and d > 128 else BLOCK_K
+
+
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """Which kernel a CUDA call with this dtype and head dim launches:
-    ``"tensor_core"`` (bf16: mma.sync, head dims 8–128, 8 zero-filled to
+    ``"tensor_core"`` (bf16: mma.sync, head dims 8–256, 8 zero-filled to
     16) or ``"cuda_core"`` (f32).  Raises on what neither kernel takes."""
     if dtype not in VARIANTS:
         raise TypeError(f"streaming_attention kernel: q, k, v must share "

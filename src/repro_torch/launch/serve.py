@@ -11,7 +11,12 @@ a seed (``params.init_params``), or with ``--ckpt-dir`` restored from the
 latest step of a checkpoint the reference's store wrote
 (``checkpoint.restore_params``).  The engine's kernel config is resolved
 from the port's tuner table (``kernels/autotune.json``) and printed beside
-the engine line.  Runs on the card unless ``--device cpu`` is given.
+the engine line.  A model whose cache the page pool rejects
+(``UnsupportedCacheLayout``: a sliding window narrower than a page) is
+served by the slot-contiguous ``ServingEngine`` instead, through the
+synchronous ``--batch`` loop and without ``/metrics``, as the
+reference's launcher falls back.  Runs on the card unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.params import init_params
 from repro_torch.serving import (AsyncLMServer, EngineCore, Request,
-                                 SamplingParams, start_metrics_server,
+                                 SamplingParams, ServingEngine,
+                                 UnsupportedCacheLayout, start_metrics_server,
                                  write_metrics_json)
 
 
@@ -188,33 +194,41 @@ def main(argv=None) -> None:
         params = init_params(cfg,
                              torch.Generator(device=device).manual_seed(0),
                              device)
-    # ceil per lane: a --max-len request must always fit its worst case
-    pages_per_lane = -(-args.max_len // args.page_size)
-    eng = EngineCore(cfg, params, lanes=args.lanes,
-                     page_size=args.page_size,
-                     num_pages=args.lanes * pages_per_lane,
-                     chunk_size=args.chunk_size, max_len=args.max_len,
-                     prefix_cache=args.prefix_cache,
-                     cache_pages=args.cache_pages,
-                     speculative=args.speculative, spec_k=args.spec_k,
-                     device=device)
-    print(f"engine: EngineCore on {device} (paged, chunk={args.chunk_size}, "
-          f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
-          f"speculative="
-          f"{f'k={args.spec_k}' if args.speculative else 'off'})")
-    print(f"kernel_config: {eng.kernel_config.describe()}")
+    slot = False
+    try:
+        # ceil per lane: a --max-len request must always fit its worst case
+        pages_per_lane = -(-args.max_len // args.page_size)
+        eng = EngineCore(cfg, params, lanes=args.lanes,
+                         page_size=args.page_size,
+                         num_pages=args.lanes * pages_per_lane,
+                         chunk_size=args.chunk_size, max_len=args.max_len,
+                         prefix_cache=args.prefix_cache,
+                         cache_pages=args.cache_pages,
+                         speculative=args.speculative, spec_k=args.spec_k,
+                         device=device)
+        print(f"engine: EngineCore on {device} (paged, chunk="
+              f"{args.chunk_size}, prefix_cache="
+              f"{'on' if args.prefix_cache else 'off'}, speculative="
+              f"{f'k={args.spec_k}' if args.speculative else 'off'})")
+        print(f"kernel_config: {eng.kernel_config.describe()}")
+    except UnsupportedCacheLayout as e:
+        print(f"engine: ServingEngine on {device} (slot-contiguous, sync "
+              f"only) — {e}")
+        eng = ServingEngine(cfg, params, slots=args.lanes,
+                            max_len=args.max_len, device=device)
+        slot = True
 
-    if args.profile_steps:
+    if args.profile_steps and not slot:
         eng.obs.arm_profiler(args.profile_steps, args.profile_dir)
         print(f"profiler: tracing next {args.profile_steps} steps "
               f"into {args.profile_dir}")
 
-    if args.batch:
+    if args.batch or slot:
         _run_batch(eng, args, cfg)
     else:
         _run_async(eng, args, cfg)
 
-    if args.metrics_json:
+    if args.metrics_json and not slot:
         write_metrics_json(eng.obs.registry, args.metrics_json)
         print(f"metrics snapshot: {args.metrics_json}")
 

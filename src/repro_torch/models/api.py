@@ -1,15 +1,24 @@
 """Uniform model API (port of ``src/repro/models/api.py``):
-``build_model(cfg)`` → a ``Model`` with ``init``, ``loss`` and ``prefill``.
+``build_model(cfg)`` → a ``Model`` with ``init``, ``loss``,
+``init_cache``, ``prefill``, ``decode_step`` and ``step_ragged``.
 
 Two families: ``bert`` (``prefill`` encodes a batch and returns the logits
 of every position; ``loss`` is the masked-LM cross-entropy against
 ``labels``) and ``dense`` (``loss`` scores a batch causally: next-token
-cross-entropy, or against ``labels`` of the tokens' shape).  Every entry
-point runs the cache-free forward ``models.lm.lm_apply``, whose attention
-goes through the registry (``cfg.attn_backend``) to the CUDA
-streaming-attention kernel on the card.  Inference only: the kernel has no
-backward yet.  The dense cached ``prefill`` and ``decode_step`` raise
-``NotImplementedError``; serving runs through ``serving.EngineCore``.
+cross-entropy, or against ``labels`` of the tokens' shape).  Both run the
+forward ``models.lm.lm_apply``, whose attention goes through the registry
+(``cfg.attn_backend``) to the CUDA streaming-attention kernel on the card.
+Inference only: the kernel has no backward yet.
+
+The dense family's cached path: ``init_cache(batch, max_len)`` builds the
+contiguous cache (``lm.trunk_cache_init``: ring buffers for local layers
+whose window is below ``max_len``, int8 under ``cfg.kv_quant``) on the
+card unless ``device`` says otherwise; ``prefill(params, {"tokens": (B,
+L)}, caches)`` fills it from position 0 and ``decode_step(params, token
+(B,), caches, index)`` appends one row at ``index`` (an int or (B,)),
+each → (last-row f32 logits (B, V), caches), the caches written in place
+(the reference returns new ones).  ``step_ragged`` is
+``lm.lm_step_ragged``, the paged serving step.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core.attention_api import backend_for_config, get_backend
+from repro_torch.device import resolve_device
 from repro_torch.models import lm as LM
 from repro_torch.params import init_params
 
@@ -33,8 +43,12 @@ class Model:
     cfg: ModelConfig
     init: Callable[..., Params]              # (generator, device=None) → params
     loss: Callable[[Params, Batch], Tuple[torch.Tensor, Dict]]
+    init_cache: Optional[Callable] = None    # (batch, max_len, device=None) → caches
     prefill: Optional[Callable] = None       # (params, batch, caches) → (logits, state)
     decode_step: Optional[Callable] = None   # (params, token, state, index) → (logits, state)
+    # (params, tokens (T,), pools, token_pages (T, P), pos (T,), last_idx
+    # (lanes,) or (lanes, 1+k), ...) → logits: the ragged serving step
+    step_ragged: Optional[Callable] = None
 
 
 def _bert_loss(cfg, params, batch):
@@ -56,13 +70,12 @@ def _lm_loss_with_labels(cfg, params, batch):
     return LM.lm_loss(cfg, params, batch)
 
 
-def _later(what: str):
-    def entry(*a, **k):
-        raise NotImplementedError(
-            f"{what} is not ported yet: it lands with the dense cached-path "
-            f"slice of the PyTorch port (ROADMAP.md); serve through "
-            f"repro_torch.serving.EngineCore")
-    return entry
+def _init_cache(cfg, batch, max_len, device=None):
+    return LM.trunk_cache_init(cfg, batch, max_len, resolve_device(device))
+
+
+def _lm_prefill(cfg, params, batch, caches):
+    return LM.lm_prefill(cfg, params, batch["tokens"], caches)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -79,8 +92,10 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "dense":
         return Model(cfg=cfg, init=init,
                      loss=functools.partial(_lm_loss_with_labels, cfg),
-                     prefill=_later("the dense cached prefill"),
-                     decode_step=_later("the dense cached decode step"))
+                     init_cache=functools.partial(_init_cache, cfg),
+                     prefill=functools.partial(_lm_prefill, cfg),
+                     decode_step=functools.partial(LM.lm_decode_step, cfg),
+                     step_ragged=functools.partial(LM.lm_step_ragged, cfg))
     raise NotImplementedError(
         f"family {cfg.family!r}: the port builds the dense and bert families "
         f"only; the other families are a later slice")

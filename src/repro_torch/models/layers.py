@@ -2,11 +2,12 @@
 dense (optionally biased), RMSNorm and LayerNorm, the per-head RMS norm of
 QK-norm, RoPE, token (optionally scaled by √d_model) and learned position
 embeddings, the untied and tied unembed with the final logit softcap, the
-gated and plain MLP, and two branches of the attention layer: the
-cache-free full-sequence branch (``attn_apply``, through the attention
-registry) and the ragged (``token_pages``) branch of the paged serving
-step (``attn_apply_ragged``).  Both read the layer's ``kind``: a
-``local`` layer attends within ``cfg.window`` and rotates with
+gated and plain MLP, and the branches of the attention layer: the
+full-sequence branch (``attn_apply``, through the attention registry),
+cache-free or over a contiguous cache (``attn_cache_init``: a ring buffer,
+an int8 cache or a plain one), and the ragged (``token_pages``) branch of
+the paged serving step (``attn_apply_ragged``).  Each reads the layer's
+``kind``: a ``local`` layer attends within ``cfg.window`` and rotates with
 ``cfg.local_rope_theta`` when it is set.
 Functions on tensors; parameters are plain tensors.  Projections, the MLP
 and the unembed stay PyTorch products, as the reference leaves them to
@@ -22,7 +23,8 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig
 from repro_torch.core.attention_api import (attention, backend_for_config,
                                             ragged_attention)
-from repro_torch.core.streaming_attention import quantize_kv_rows
+from repro_torch.core.streaming_attention import (
+    quantize_kv_rows, streaming_attention_quantized)
 from repro_torch.device import dense
 from repro_torch.kernels.autotune import KernelConfig
 
@@ -234,22 +236,139 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return dense_apply(p["wo"], out.reshape(1, t, cfg.num_heads * cfg.d_head))
 
 
+def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                    kind: str = "global", dtype=None,
+                    device=None) -> Params:
+    """One layer's contiguous KV cache (port of the reference's
+    ``attn_cache_init``, layers.py:436-460).  A local layer whose window is
+    below ``max_len`` gets a ring buffer of ``window`` rows, ``k``/``v``
+    (B, Hkv, window, Dh) and ``pos`` (B, window) int32, each slot's absolute
+    position (-1: never written): O(window) in place of O(max_len), the
+    cache-side statement of HASTILY's O(l) → O(1) streaming.  Otherwise
+    (B, Hkv, max_len, Dh) rows, int8 with f32 row scales ``ks``/``vs``
+    (B, Hkv, max_len) under ``cfg.kv_quant``."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    if is_ring(cfg, kind, max_len):
+        shape = (batch, cfg.num_kv_heads, cfg.window, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "pos": torch.full((batch, cfg.window), -1, dtype=torch.int32,
+                                  device=device)}
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.d_head)
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                "vs": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def is_ring(cfg: ModelConfig, kind: str, max_len: int) -> bool:
+    """Does a layer of ``kind`` keep a ring buffer in a cache of
+    ``max_len`` rows?"""
+    return kind == "local" and cfg.window is not None and cfg.window < max_len
+
+
+def _write_rows(t: torch.Tensor, val: torch.Tensor, idx) -> None:
+    """``val`` (B, H, l[, Dh]) into ``t`` (B, H, T[, Dh]) at rows idx ..
+    idx + l - 1, in place.  ``idx`` is an int, or (B,) with l == 1: each
+    batch row its own.  The start is clamped as ``dynamic_update_slice``
+    clamps it, so the rows always land inside ``t``."""
+    n, l = t.shape[2], val.shape[2]
+    if isinstance(idx, torch.Tensor):
+        if l != 1:
+            raise ValueError(f"per-row cache indices take one row each, got "
+                             f"{l}")
+        rows = torch.clamp(idx.long(), 0, n - 1)
+        b = torch.arange(t.shape[0], device=t.device)
+        t[b, :, rows] = val[:, :, 0].to(t.dtype)
+        return
+    start = max(0, min(int(idx), n - l))
+    t[:, :, start:start + l] = val.to(t.dtype)
+
+
+def _ring_write(cache: Params, k: torch.Tensor, v: torch.Tensor, idx) -> None:
+    """The ring buffer's write (the reference's ``:355-388``): slot =
+    position mod window.  A decode row (l == 1, ``idx`` an int or (B,))
+    takes one slot per batch row; a prefill of l rows at ``idx`` (an int)
+    keeps its last ``window`` rows."""
+    lc, l = cache["k"].shape[2], k.shape[2]
+    if l == 1:
+        b = k.shape[0]
+        pos = (idx.to(torch.int32) if isinstance(idx, torch.Tensor) else
+               torch.full((b,), int(idx), dtype=torch.int32, device=k.device))
+        slot = torch.remainder(pos, lc).long()
+        _write_rows(cache["k"], k, slot)
+        _write_rows(cache["v"], v, slot)
+        cache["pos"][torch.arange(b, device=k.device), slot] = pos
+        return
+    keep = min(l, lc)
+    pos_keep = (int(idx) + l - keep
+                + torch.arange(keep, dtype=torch.int32, device=k.device))
+    slots = torch.remainder(pos_keep, lc).long()
+    cache["k"][:, :, slots] = k[:, :, l - keep:].to(cache["k"].dtype)
+    cache["v"][:, :, slots] = v[:, :, l - keep:].to(cache["v"].dtype)
+    cache["pos"][:, slots] = pos_keep[None, :]
+
+
 def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                pos: torch.Tensor, kind: str = "global",
-               causal: bool = True) -> torch.Tensor:
-    """The cache-free branch of the reference ``attn_apply``
-    (layers.py:160-433): the whole sequence attends itself through the
-    attention registry (``cfg.attn_backend``; on the card ``auto`` resolves
-    multi-row calls to the CUDA streaming-attention kernel).  x (B, L, D),
-    pos (L,) positions (RoPE)."""
+               causal: bool = True, cache: Optional[Params] = None,
+               cache_index=None) -> torch.Tensor:
+    """The full-sequence branches of the reference ``attn_apply``
+    (layers.py:160-433).  x (B, L, D), pos (L,) or (B, L) positions (RoPE).
+
+    Without a cache the whole sequence attends itself.  With one
+    (``attn_cache_init``), the new K/V rows are written at ``cache_index``
+    — an int (a prefill, or every row at one position), or (B,) for a
+    single-row decode whose batch rows sit at positions of their own —
+    in place, and the rows attend:
+
+    - a ring buffer: a decode row against the ring through its slot
+      positions; a prefill (l > 1) within its own chunk, before the ring
+      keeps the chunk's last ``window`` rows;
+    - an int8 cache: through ``streaming_attention_quantized`` over the
+      whole cache, masked by ``kv_len = cache_index + l``;
+    - a plain cache: over the whole cache, masked by ``kv_len``.
+
+    Ring and plain calls go through the attention registry
+    (``cfg.attn_backend``, ``fallback=True``): with an int ``cache_index``
+    the lengths are static, so on the card ``auto`` resolves a prefill to
+    the CUDA streaming-attention kernel and a decode row to
+    ``naive_decode``, as the reference resolves them on a TPU."""
     b, l, _ = x.shape
     q, k, v, window = _qkv(cfg, p, x, pos, kind)
+    scale = cfg.attn_scale or cfg.d_head ** -0.5
+    q_offset, kv_len, kv_pos = 0, None, None
+    if cache is not None and "pos" in cache:
+        _ring_write(cache, k, v, cache_index)
+        if l == 1:
+            k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
+        q_offset = cache_index
+    elif cache is not None and "ks" in cache:
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        for name, val in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
+            _write_rows(cache[name], val, cache_index)
+        out = streaming_attention_quantized(
+            q, cache["k"], cache["v"], cache["ks"], cache["vs"], scale=scale,
+            causal=causal, window=window, cap=cfg.attn_softcap,
+            block_k=cfg.block_k, exp_mode=cfg.exp_mode, q_offset=cache_index,
+            kv_len=cache_index + l)
+        out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
+        return dense_apply(p["wo"], out)
+    elif cache is not None:
+        _write_rows(cache["k"], k, cache_index)
+        _write_rows(cache["v"], v, cache_index)
+        k, v = cache["k"], cache["v"]
+        q_offset, kv_len = cache_index, cache_index + l
     out = attention(q, k, v,
                     backend=backend_for_config(cfg.attn_backend,
                                                cfg.attn_impl),
-                    scale=cfg.attn_scale or cfg.d_head ** -0.5,
-                    causal=causal,
+                    scale=scale, causal=causal,
                     window=window, cap=cfg.attn_softcap, block_k=cfg.block_k,
-                    exp_mode=cfg.exp_mode, fallback=True)
+                    exp_mode=cfg.exp_mode, q_offset=q_offset, kv_len=kv_len,
+                    kv_pos=kv_pos, fallback=True)
     out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
     return dense_apply(p["wo"], out)

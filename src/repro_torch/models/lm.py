@@ -1,8 +1,10 @@
 """Language models of the port (port of ``src/repro/models/lm.py``):
-``period_layout``, the cache-free full-sequence forward (``trunk_apply``,
+``period_layout``, the full-sequence forward (``trunk_apply``,
 ``lm_apply``, ``cross_entropy``, ``lm_loss``) that BERT encoding and dense
-scoring run, and the ragged serving path of the dense decoders
-(``trunk_cache_init``, ``trunk_apply_ragged``, ``lm_step_ragged``).
+scoring run cache-free and the dense decoders' cached path runs over a
+contiguous cache (``trunk_cache_init``, ``lm_prefill``,
+``lm_decode_step``), and the ragged serving path of the dense decoders
+(``trunk_apply_ragged``, ``lm_step_ragged``) over the page pool.
 
 Parameters are one flat dict (``params.py``): per-layer weights are stacked
 on a leading layer axis in layer order, and layer ``i`` reads the views
@@ -10,7 +12,12 @@ on a leading layer axis in layer order, and layer ``i`` reads the views
 ``periods/{j}`` leaf ``[n]``.  The page pool is one stack in layer order
 too: ``k``/``v`` are (L, N+1, Hkv, ps, Dh), int8 scales (L, N+1, Hkv, ps)
 f32, and page ``N`` is the scratch page; a layer's kind
-(``cfg.layer_kinds()``) decides only its window and RoPE theta.
+(``cfg.layer_kinds()``) decides only its window and RoPE theta.  The
+contiguous cache is the same stack with batch rows for pages and
+``max_len`` rows for a page (one function builds both, as in the
+reference), plus ``ring_*`` leaves for the local layers that keep a ring
+buffer (``layers.attn_cache_init``), which the pool never holds
+(``serving/paged.py::check_pageable``).
 
 Every layer is pre-norm, as the reference's ``_layer_apply`` is for every
 family — BERT included: the reference never reads ``cfg.postnorm`` on this
@@ -20,7 +27,7 @@ attention output and one on the MLP output, each before its residual add.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -105,31 +112,72 @@ def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# cache-free full-sequence forward
+# full-sequence forward, cache-free or over a contiguous cache
 # --------------------------------------------------------------------------
 
+def layer_caches(cfg: ModelConfig, caches: Dict[str, torch.Tensor]
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's views of the stacked contiguous cache, in layer order:
+    a local layer's ring leaves where the cache has them, else the next
+    layer of the ``k``/``v`` (and int8 ``ks``/``vs``) stack."""
+    ring = "ring_pos" in caches
+    flat = [k for k in ("k", "v", "ks", "vs") if k in caches]
+    out, i_flat, i_ring = [], 0, 0
+    for kind in cfg.layer_kinds():
+        if ring and kind == "local":
+            out.append({"k": caches["ring_k"][i_ring],
+                        "v": caches["ring_v"][i_ring],
+                        "pos": caches["ring_pos"][i_ring]})
+            i_ring += 1
+        else:
+            out.append({k: caches[k][i_flat] for k in flat})
+            i_flat += 1
+    return out
+
+
 def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-                pos: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """Every layer (``_block``) over the whole sequence."""
+                pos: torch.Tensor, causal: bool = True,
+                caches: Optional[Dict[str, torch.Tensor]] = None,
+                cache_index=None) -> torch.Tensor:
+    """Every layer (``_block``) over the whole sequence; with ``caches``
+    (``trunk_cache_init``) each layer writes its K/V rows at
+    ``cache_index`` in place and attends over its cache."""
     period_layout(cfg)
+    views = (layer_caches(cfg, caches) if caches is not None
+             else [None] * cfg.num_layers)
     for i, kind in enumerate(cfg.layer_kinds()):
         p = _layer(cfg, params, i)
         x = _block(cfg, p, x, lambda h: L.attn_apply(
-            cfg, p, h, pos=pos, kind=kind, causal=causal))
+            cfg, p, h, pos=pos, kind=kind, causal=causal, cache=views[i],
+            cache_index=cache_index))
     return x
 
 
 def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-             causal: bool = True) -> torch.Tensor:
-    """tokens (B, L) → f32 logits (B, L, V), no cache (the reference's
-    ``lm_apply`` with ``caches=None``: positions 0..L-1, ``q_offset`` 0)."""
+             causal: bool = True,
+             caches: Optional[Dict[str, torch.Tensor]] = None,
+             cache_index=None,
+             logits_rows: Optional[int] = None) -> torch.Tensor:
+    """tokens (B, L) → f32 logits (B, L, V) (the reference's ``lm_apply``).
+    Without ``caches``: positions 0..L-1.  With them, the rows sit at
+    ``cache_index`` + 0..L-1, ``cache_index`` an int or (B,) (each batch
+    row its own position, (B, L) positions), and every layer writes its
+    K/V rows into ``caches`` in place.  ``logits_rows=n`` unembeds only the
+    last n positions (the (B, L, V) logits are the largest activation)."""
     if tokens.device.type == "cuda":
         configure_matmul_precision()
     pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                        device=tokens.device)
+    if isinstance(cache_index, torch.Tensor):
+        pos = cache_index.to(torch.int32).reshape(-1, 1) + pos[None]
+    elif cache_index is not None:
+        pos = pos + int(cache_index)
     x = L.embed_full(cfg, params, tokens, pos)
-    x = trunk_apply(cfg, params, x, pos=pos, causal=causal)
+    x = trunk_apply(cfg, params, x, pos=pos, causal=causal, caches=caches,
+                    cache_index=cache_index)
     x = L.norm(cfg, params, "final_norm", x)
+    if logits_rows is not None:
+        x = x[:, -logits_rows:]
     return L.unembed(cfg, params, x)
 
 
@@ -156,24 +204,58 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
+def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+               caches: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Fill the caches from position 0 (port of the reference's
+    ``lm_prefill``) → (last-position f32 logits (B, V), caches), the
+    caches written in place.  The cache index is the host int 0, so every
+    layer's lengths are static: on the card ``auto`` runs each layer on the
+    streaming-attention kernel.  Only the last row is unembedded."""
+    logits = lm_apply(cfg, params, tokens, caches=caches, cache_index=0,
+                      logits_rows=1)
+    return logits[:, -1], caches
+
+
+def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                   caches: Dict[str, torch.Tensor], index
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token (B,) at absolute position ``index`` — an int, or (B,), one
+    per batch row — → (f32 logits (B, V), caches), the caches written in
+    place (port of the reference's ``lm_decode_step``)."""
+    logits = lm_apply(cfg, params, token[:, None], caches=caches,
+                      cache_index=index)
+    return logits[:, -1], caches
+
+
 # --------------------------------------------------------------------------
-# ragged serving step
+# caches and the ragged serving step
 # --------------------------------------------------------------------------
 
 
-def trunk_cache_init(cfg: ModelConfig, pages: int, page_size: int,
+def trunk_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                      device=None) -> Dict[str, torch.Tensor]:
-    """The page pool: ``pages`` pages (the last one the scratch page)."""
-    n = len(_ragged_family(cfg))
-    shape = (n, pages, cfg.num_kv_heads, page_size, cfg.d_head)
-    if cfg.kv_quant:
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "ks": torch.zeros(shape[:4], dtype=torch.float32, device=device),
-                "vs": torch.zeros(shape[:4], dtype=torch.float32, device=device)}
-    dt = getattr(torch, cfg.dtype)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    """The dense decoders' KV cache, stacked in layer order: ``k``/``v``
+    (L', batch, Hkv, max_len, Dh), int8 with f32 row scales ``ks``/``vs``
+    (L', batch, Hkv, max_len) under ``cfg.kv_quant``, over the L' layers
+    without a ring buffer, and, where local layers keep one
+    (``layers.is_ring``), ``ring_k``/``ring_v`` (Lr, batch, Hkv, window,
+    Dh) and ``ring_pos`` (Lr, batch, window) over those.  The page pool is
+    this cache with a page per batch row and ``max_len`` = the page size
+    (the last page the scratch page); the pool never has ring leaves."""
+    kinds = _ragged_family(cfg)
+    n_ring = sum(L.is_ring(cfg, kind, max_len) for kind in kinds)
+
+    def stacked(leaves, n):
+        return {k: v[None].expand((n,) + v.shape).clone()
+                for k, v in leaves.items()}
+    c = stacked(L.attn_cache_init(cfg, batch, max_len, device=device),
+                len(kinds) - n_ring)
+    if n_ring:
+        ring = stacked(L.attn_cache_init(cfg, batch, max_len, kind="local",
+                                         device=device), n_ring)
+        c.update({f"ring_{k}": v for k, v in ring.items()})
+    return c
 
 
 def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
@@ -189,11 +271,11 @@ def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     kernel_config = ragged_kernel_config(kernel_config, x.device.type)
     layout = varlen_layout(cu_seqlens, pos, x.shape[1],
                            kernel_config.block_q, x.device)
+    views = layer_caches(cfg, caches)
     for i, kind in enumerate(_ragged_family(cfg)):
         p = _layer(cfg, params, i)
-        cache = {k: v[i] for k, v in caches.items()}
         x = _block(cfg, p, x, lambda h: L.attn_apply_ragged(
-            cfg, p, h, pos=pos, kind=kind, cache=cache,
+            cfg, p, h, pos=pos, kind=kind, cache=views[i],
             token_pages=token_pages, cu_seqlens=cu_seqlens,
             kernel_config=kernel_config, attend=attend, layout=layout))
     return x

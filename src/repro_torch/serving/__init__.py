@@ -1,8 +1,10 @@
 """Request-level serving for the port: EngineCore over a paged KV pool, the
+slot-contiguous ServingEngine for the cache layouts the pool rejects, the
 in-step sampler, and the asyncio front door."""
 from repro_torch.serving.api import (Request, RequestState, StepOutput,
                                      UnsupportedCacheLayout)
-from repro_torch.serving.core import EngineCore
+from repro_torch.serving.core import EngineCore, greedy_token
+from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.metrics import (Counter, Gauge, Histogram,
                                          MetricsRegistry, start_metrics_server,
                                          write_metrics_json)
@@ -27,8 +29,10 @@ __all__ = ["AsyncLMServer", "Counter", "EngineCore", "Gauge", "Histogram",
            "PagedKVCache", "PrefixHit", "RadixPrefixCache", "RaggedBatch",
            "Request", "RequestSpan", "RequestState", "RequestTracer",
            "RunningRequest", "SamplingParams", "Scheduler", "ServerClosed",
-           "ServerOverloaded", "ServingObservability", "SpanEvent",
+           "ServerOverloaded", "ServingEngine", "ServingObservability",
+           "SpanEvent",
            "StepOutput", "StepTraceRing", "UnsupportedCacheLayout",
-           "default_token_buckets", "greedy_rows", "sample_in_step",
+           "default_token_buckets", "greedy_rows", "greedy_token",
+           "sample_in_step",
            "sample_row", "sample_rows", "start_metrics_server", "stop_hit",
            "stop_holdback", "validate_stop_tokens", "write_metrics_json"]

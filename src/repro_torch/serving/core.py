@@ -69,11 +69,19 @@ from repro_torch.serving.api import Request, RequestState, StepOutput
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.paged import PagedKVCache
 from repro_torch.serving.prefix_cache import RadixPrefixCache
-from repro_torch.serving.sampling import (InvalidRequest, stop_hit,
-                                          validate_stop_tokens)
+from repro_torch.serving.sampling import (InvalidRequest, greedy_rows,
+                                          stop_hit, validate_stop_tokens)
 from repro_torch.serving.scheduler import RaggedBatch, Scheduler
 from repro_torch.serving.spec import NGramProposer
 from repro_torch.serving.tracing import ServingObservability
+
+
+def greedy_token(logits) -> int:
+    """Deterministic greedy pick of one (V,) logits row: the *lowest* index
+    among joint maxima (``sampling.greedy_rows``), so exact ties break the
+    same way on every engine and device.  The slot engine and
+    ``EngineCore`` share it."""
+    return int(greedy_rows(torch.as_tensor(logits)))
 
 
 def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],

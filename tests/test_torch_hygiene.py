@@ -241,7 +241,7 @@ def test_streaming_attention_variant_follows_dtype(dtype, variant, d):
 @pytest.mark.parametrize("dtype,d,err", [
     (torch.float16, 64, TypeError), (torch.float64, 64, TypeError),
     (torch.int8, 64, TypeError), (torch.bfloat16, 24, ValueError),
-    (torch.bfloat16, 256, ValueError), (torch.float32, 4, ValueError)])
+    (torch.bfloat16, 512, ValueError), (torch.float32, 4, ValueError)])
 def test_streaming_attention_variant_refuses(dtype, d, err):
     with pytest.raises(err):
         sa_ops.kernel_variant(dtype, d)

@@ -50,7 +50,7 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
 from repro_torch.kernels.streaming_attention import (  # noqa: E402
     attention_ref, streaming_attention)
 from repro_torch.kernels.streaming_attention.ops import (  # noqa: E402
-    BLOCK_K, softmax_exp)
+    BLOCK_K, block_k, softmax_exp)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 EDGES = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
@@ -394,7 +394,8 @@ def test_unembed_bf16_never_widens_the_head(cuda_device, tied):
 
 SA_TOL = dict(atol=3e-5, rtol=1e-4)
 # The reference kernel suite's cases (tests/test_kernels.py ATTN_CASES),
-# then head dims 64 and 128 with ragged Lq/Lkv, and rows that see no key
+# then head dims 64, 128 and 256 (gemma2, gemma3: GQA 2:1, softcap 50,
+# window, kv_len below Lkv) with ragged Lq/Lkv, and rows that see no key
 SA_CASES = [
     dict(b=2, hq=4, hkv=4, lq=64, lkv=64, d=16, causal=True),
     dict(b=1, hq=8, hkv=2, lq=48, lkv=48, d=32, causal=True),
@@ -408,6 +409,10 @@ SA_CASES = [
     dict(b=2, hq=8, hkv=2, lq=100, lkv=130, d=64, causal=False),
     dict(b=1, hq=4, hkv=1, lq=77, lkv=77, d=128, causal=True, window=20,
          cap=30.0),
+    dict(b=2, hq=4, hkv=2, lq=150, lkv=150, d=256, causal=True, window=40,
+         cap=50.0),
+    dict(b=1, hq=4, hkv=2, lq=70, lkv=200, d=256, causal=True, q_offset=97,
+         kv_len=151),
     dict(b=1, hq=2, hkv=2, lq=16, lkv=64, d=32, causal=True, q_offset=100,
          window=4),
 ]
@@ -464,7 +469,7 @@ def bf16(*ts):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SA_CASES)
 def test_streaming_attention_kernel_bf16_within_one_ulp(cuda_device, case):
-    """Every case in bf16, on the tensor-core kernel: head dims 8–128, GQA,
+    """Every case in bf16, on the tensor-core kernel: head dims 8–256, GQA,
     window, softcap, q_offset/kv_len, ragged Lq/Lkv and exact exp."""
     (q, k, v), kw = sa_inputs(case, cuda_device, seed=4)
     q, k, v = bf16(q, k, v)
@@ -487,7 +492,7 @@ PV_LIMITS = dict(rms_ratio=1.05, bias=2.0 ** -12)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_streaming_attention_bf16_pv_keeps_f32_weights(cuda_device, causal, d):
     (q, k, v), kw = sa_inputs(dict(b=2, hq=8, hkv=8, lq=512, lkv=512, d=d,
                                    causal=causal), cuda_device, seed=5)
@@ -504,16 +509,18 @@ def test_streaming_attention_bf16_pv_keeps_f32_weights(cuda_device, causal, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [SA_CASES[0], SA_CASES[6], SA_CASES[7],
-                                  SA_CASES[8]])
+                                  SA_CASES[8], SA_CASES[9], SA_CASES[10]])
 def test_streaming_attention_kernel_bf16_lut0_at_its_blocking(cuda_device,
                                                               case):
     """lut0 in bf16 over integer q and k (exact in bf16, exact logits),
-    held against the plain scan at the kernel's 64-key tiles."""
+    held against the plain scan at the kernel's key tiles (64 keys; 32 at
+    head dim 256)."""
     (q, k, v), kw = sa_inputs(case, cuda_device, integers=True)
     q, k, v = bf16(q, k, v)
     kw = dict(kw, exp_mode="lut0", cap=None)
     got = streaming_attention(q, k, v, **kw)
-    want = attention_scan(q, k, v, block_k=BLOCK_K, **kw)
+    want = attention_scan(q, k, v, block_k=block_k(q.dtype, q.shape[-1]),
+                          **kw)
     assert bf16_ulps(got, want, SA_TOL["atol"]) <= 1.0
 
 
@@ -1389,3 +1396,51 @@ def test_engine_split_config_holds_the_default(cuda_device, kv_split):
     assert got_streams == want_streams
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
+
+
+# ------------------------------------------------------ the slot engine --
+#
+# The slot-contiguous engine (serving/engine.py) prefills each request at
+# b = 1 through kernel #3 and decodes every slot in one captured CUDA
+# graph; the same engine with capture=False dispatches the decode op by op.
+
+def _slot_engine(cuda_device, name, kv_quant, capture):
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(name).replace(dtype="bfloat16", kv_quant=kv_quant)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    return ServingEngine(cfg, params, slots=3, max_len=48,
+                         device=cuda_device, capture=capture)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kv_quant", [("gemma2-9b-smoke", False),
+                                           ("deepseek-7b-smoke", True)])
+def test_slot_engine_captured_decode_bit_equal_to_eager(cuda_device, name,
+                                                        kv_quant):
+    """After every step the captured engine's logits, picks and cache bytes
+    equal the eager engine's (gemma2: rings of 8 that a 21-token prompt
+    wraps; deepseek: an int8 cache); one capture; every prompt's prefill
+    runs kernel #3 once per layer whose cache is not int8 (an int8 cache
+    attends through the plain quantised scan, as the reference's does)."""
+    eager = _slot_engine(cuda_device, name, kv_quant, capture=False)
+    graph = _slot_engine(cuda_device, name, kv_quant, capture=True)
+    before = streaming_attention.launches
+    for eng in (eager, graph):
+        _smoke_requests(eng)
+    steps = 0
+    while graph.queue or any(a is not None for a in graph.active):
+        eager.step()
+        graph.step()
+        assert torch.equal(eager.logits, graph.logits), steps
+        for k, t in eager.caches.items():
+            assert torch.equal(t, graph.caches[k]), (steps, k)
+        steps += 1
+    assert not eager.queue and all(a is None for a in eager.active)
+    assert ({r.uid: r.tokens for r in eager.finished}
+            == {r.uid: r.tokens for r in graph.finished})
+    assert graph.captures == 1 and eager.captures == 0
+    sa_layers = 0 if kv_quant else eager.cfg.num_layers
+    assert streaming_attention.launches - before == 2 * 5 * sa_layers

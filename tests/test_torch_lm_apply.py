@@ -34,6 +34,7 @@ from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import build_model as j_build_model  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.lm import lm_apply  # noqa: E402
 from repro_torch.params import from_flat, init_params, param_paths  # noqa: E402
 
 
@@ -165,10 +166,23 @@ def test_configs_match_reference(name):
 
 
 def test_dense_cached_entry_points_raise():
-    m = build_model(get_config("deepseek-7b-smoke"))
-    for entry in (m.prefill, m.decode_step):
-        with pytest.raises(NotImplementedError, match="slice"):
-            entry(None, None, None)
+    """The dense cached path refuses what it cannot take: a block of rows
+    at per-row cache indices (only a single-row decode has one position
+    per batch row), and a CUDA cache without a card; BERT has no cache and
+    no decode step."""
+    cfg = get_config("deepseek-7b-smoke")
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), "cpu")
+    caches = m.init_cache(2, 16, device="cpu")
+    tokens = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="per-row cache indices"):
+        lm_apply(cfg, params, tokens, caches=caches,
+                 cache_index=torch.tensor([0, 4]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            m.init_cache(2, 16)
+    bert = build_model(get_config("bert-base-smoke"))
+    assert bert.init_cache is None and bert.decode_step is None
     with pytest.raises(KeyError, match="unknown attention backend"):
         build_model(get_config("bert-base-smoke").replace(
             attn_backend="flash3"))
