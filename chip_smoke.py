@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    pools (lanes of 37 to 4,200 rows, a 128-row chunk): gemma2's 16 × 8
    heads of 256 with softcap 50 and window 4,096 (its edge inside a page),
    gemma3's local layers (window 1,024) and starcoder2's 24 × 2 of 128
-   (GQA 12:1);
+   (GQA 12:1); and at phase 13's: granite-moe's 24 × 8 heads of 64 (GQA
+   3:1) and grok-1's 48 × 8 of 128 (GQA 6:1) with softcap 30;
 4a. the kernel-config tuner on the card: ``tune(geom_for(deepseek-7b, page
    size 16), platform="cuda", measure=True)`` for the bf16 and the int8
    pool over phase 7's own steps (packed by its scheduler in a dry run on
@@ -42,7 +43,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ragged Lq/Lkv, rows that see no key, lut0 and exact exp, each in both
    dtypes, and head dim 256 at gemma2's widths (16 × 8 heads, causal,
    softcap 50, a 4,200-row query that the window of 4,096 bites, kv_len
-   4,150 of 4,224 keys; lut and exact exp), bf16 also against the f32
+   4,150 of 4,224 keys; lut and exact exp), and the MoE family's scoring
+   shapes (2 × 1024 causal: granite's 24 × 8 heads of 64, GQA 3:1, and
+   grok's 48 × 8 of 128, GQA 6:1, softcap 30), bf16 also against the f32
    plain version (``PV_LIMITS``: P·V stays the f32 product); every bf16
    call counted on the tensor-core kernel, every f32 call on the CUDA-core
    one;
@@ -57,8 +60,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the eager arm (``capture=False``, the step dispatched op by op) and
    the captured arm (``capture=True``, the default: one CUDA graph per
    (stream width, table width), replayed).  The captured arm's first
-   pass runs in lockstep with an eager twin (equal plans; equal picks on
-   every lane save a near-tie shown by PR 11's margin rule), warm passes
+   pass runs in lockstep with an eager twin (equal plans, and the replayed
+   graph's logits equal the eager step's bit for bit on every step), warm
+   passes
    repeat until one captures nothing new (at most 3), then
    ``obs.mark_warm()`` and a measured pass (step p50/p99, tokens/s, peak
    memory, TTFT/TPOT from the registry, ``step_retraces_total``); every
@@ -161,8 +165,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``_int_mm`` on both weight layouts; the quantisation kernel at the
    pass's two input shapes; the LUT exp device alone and host per call)
    beside its plain version, a library yardstick and its roofline bound,
-   for the ``{"kernels": [...]}`` line, printed after phase 11 has added
-   its launches and #2's times at its shapes; the end-to-end times beside
+   for the ``{"kernels": [...]}`` line, printed after phases 11 and 13
+   have added their launches and #2's and #1's times at their shapes;
+   the end-to-end times beside
    the readings before the split-KV kernel and the bf16 unembed;
 11. the dense families beside deepseek-7b, at their published widths and
    full depth, one model at a time (each freed before the next, deepseek
@@ -172,8 +177,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (LayerNorm, biases, GQA 12:1) on a bf16 pool.  Each serves phase 7's
    prompts, plus one of 4,200 tokens (gemma2) or 1,500 (gemma3) that its
    window bites, through ``EngineCore`` as phase 7's captured arm does: in
-   lockstep with an eager twin (equal plans, equal picks save a near-tie
-   by the margin rule), warm passes, ``mark_warm()`` and a measured pass
+   lockstep with an eager twin (equal plans, logits bit for bit on every
+   step), warm passes, ``mark_warm()`` and a measured pass
    (step p50/p99, tokens/s, peak memory; 0 captures after
    ``mark_warm()``; #2's split pass and combine each = layers × steps),
    then a pass whose first 8-lane decode step is profiled.  One
@@ -202,7 +207,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    at full width cut to two periods in f32, against an f32
    ``EngineCore``; prefill ms by prompt length, decode step p50/p99,
    tokens/s, peak memory;
-13. print the card's name and power limit, then ``{"ok": true, "device":
+13. the MoE family, one model at a time after phase 11's are freed,
+   seeded weights: granite-moe-3b-a800m at its published widths and full
+   depth (32 layers, 40 experts top-8 of width 512) on a bf16 and an int8
+   pool, grok-1-314b at its published widths cut to 2 layers (8 experts
+   top-2 of width 32,768, softcap 30; its 64 layers fit no card) on a
+   bf16 pool.  Each serves phase 7's prompts as phase 11 does, and the
+   measured pass launches
+   #1 (the router softmax's LUT exponential) layers × steps times beside
+   #2's split pass and combine.  granite: one full-width mixed step
+   through the kernels against the plain attention
+   (``phase_step_vs_plain``; a smoke only: routing flips at near-ties
+   spread the two plain schedules as far), layer 0's experts alone on that step's
+   input in f32 against the same call on the CPU (equal routing, ``y``
+   within ``F32_TOL``, ``aux`` within 1e-6 relative), the bf16 layer and
+   its router timed as replayed graphs at that stream and at a decode
+   stream.  Each: #2 timed at
+   its decode (granite beside SDPA with ``enable_gqa``), #1 at the
+   router's (1, 384, E) and (1, 8, E) f32 logits, and scoring 2 × 1024
+   on #3 in bf16 and, the weights widened, in f32 — a smoke of the path
+   and its 32 / 2 launches: routing flips leave these checks too loose to
+   decide #3, which phase 5 holds at both shapes —: the f32 loss, ``ce``
+   and ``aux`` each held to the plain attention by the margin rule, the
+   bf16 ones to the f32 plain run (``hold_moe_losses``: random-weight
+   routing flips at bf16 near-ties, so two plain bf16 schedules' spread
+   undersamples how far bf16 runs part);
+14. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -237,7 +267,10 @@ FAMILY_SHAPES = (
      dict(cap=50.0, window=4096)),
     ("gemma3 local 16×8×256 window=1024", dict(hq=16, hkv=8, d=256),
      dict(window=1024)),
-    ("starcoder2 24×2×128 gqa 12:1", dict(hq=24, hkv=2, d=128), {}))
+    ("starcoder2 24×2×128 gqa 12:1", dict(hq=24, hkv=2, d=128), {}),
+    ("granite 24×8×64 gqa 3:1", dict(hq=24, hkv=8, d=64), {}),
+    ("grok 48×8×128 cap=30 gqa 6:1", dict(hq=48, hkv=8, d=128),
+     dict(cap=30.0)))
 FAMILY_KV_LENS = [37, 611, 1185, 1759, 2333, 3100, 4111, 4200]
 FAMILY_PAGES = 1250
 
@@ -271,6 +304,11 @@ SPEC_K = 4                         # drafts per decode lane, speculative phase
 SLOT_ENGINES = {"deepseek-7b": dict(slots=8, max_len=1088),
                 "gemma2-9b": dict(slots=8, max_len=8192)}
 SPEC_PHRASE = 32                   # the repeated phrase of its NGram prompts
+# Phase 13: the MoE family (name, layers kept — None: full depth —, pools
+# as kv_quant flags); grok-1-314b's 64 layers (~628 GB in bf16) fit no
+# card, so it runs its published widths at 2 layers
+MOE_MODELS = (("granite-moe-3b-a800m", None, (False, True)),
+              ("grok-1-314b", 2, (False,)))
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -900,6 +938,15 @@ SA_CASES += [(f"gemma2 d256 window 4096 kv_len 4150 {exp} {dt}", GEMMA2_D256,
               dtype, dict(GEMMA2_KW, exp_mode=exp))
              for exp in ("lut", "exact")
              for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
+# The MoE family's scoring shapes (2 × 1024, causal): granite-moe-3b-a800m's
+# 24 × 8 heads of 64 (GQA 3:1) and grok-1-314b's 48 × 8 of 128 (GQA 6:1,
+# softcap 30), both kernels.
+SA_CASES += [(f"{model} causal l1024 {dt}", shape, dtype, dict(causal=True, **kw))
+             for model, shape, kw in (
+                 ("granite gqa 3:1", (2, 24, 8, 1024, 1024, 64), {}),
+                 ("grok gqa 6:1 cap 30", (2, 48, 8, 1024, 1024, 128),
+                  dict(cap=30.0)))
+             for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
 # the kernel each dtype launches (ops.kernel_variant)
 VARIANT = {"float32": "cuda_core", "bfloat16": "tensor_core"}
 
@@ -1503,7 +1550,25 @@ def phase_scoring(cfg, params, label, floor):
         f"{np.log(cfg.vocab_size):.4f})")
     held = hold_logits(f"scoring {label}", *logits_three_ways(
         cfg, params, tokens, causal=True), floor=floor)
-    held["loss"] = hold_loss(f"scoring {label} loss", losses, floor=floor / 10)
+    if cfg.family == "moe":
+        # the loss is ce + router_aux_weight · aux: each part held apart.
+        # In bf16 a rounding apart moves a router probability across a
+        # near-tie and the routing then differs in that layer, so two
+        # plain schedules' spread undersamples how far bf16 runs part:
+        # held instead against the f32 plain run (``hold_moe_losses``)
+        parts = [build_model(cfg.replace(attn_backend=be)).loss(
+            params, {"tokens": tokens})[1] for be in ("auto", "naive", "jnp")]
+        runs = {"loss": losses, **{part: [float(m[part]) for m in parts]
+                                   for part in ("ce", "aux")}}
+        if cfg.dtype == "bfloat16":
+            held["losses"] = runs
+        else:
+            for part, three in runs.items():
+                held[part] = hold_loss(f"scoring {label} {part}", three,
+                                       floor=floor / 10)
+    else:
+        held["loss"] = hold_loss(f"scoring {label} loss", losses,
+                                 floor=floor / 10)
     walls = []
     for _ in range(3):                                # warm; host clock, synced
         t0 = time.perf_counter()
@@ -1652,14 +1717,25 @@ def spy_batches(eng, seen):
 
 
 def lockstep_pass(ce, twin, prompts, tag, windows):
-    """The captured engine and an eager twin serve the same requests step
-    by step: equal plans every step, and the same greedy pick on every lane
-    unless PR 11's margin rule shows a near-tie (the eager logits' top-2
-    margin at that lane below the largest logit gap between the two
-    engines on that step), which forks the request: its later tokens are
-    not compared.  ``windows`` {step index: logdir} arms the twin's
-    profiler on those steps (the eager arm's trace) → (forks, traces)."""
-    seen, forks, traces = {}, [], {}
+    """The captured engine and an eager twin serve the same greedy requests
+    step by step: equal plans, equal picks, and every step's live logits of
+    the replayed graph (``graphs.logits``) equal to the logits of the twin's
+    eager step, bit for bit (both run the same port code).  ``windows``
+    {step index: logdir} arms the twin's profiler on those steps (the eager
+    arm's trace) → traces."""
+    from repro_torch.serving.sampling import greedy_rows
+    seen, traces = {}, {}
+    eager_step = twin._step
+
+    def logged_step(*a, greedy=False, sampling=None, **kw):
+        # the eager step as the engine runs it (greedy picks of its logits),
+        # its logits kept
+        if sampling is not None:
+            fail(f"compiled {tag}: the lockstep pass serves greedy requests "
+                 f"only, and a step sampled")
+        seen["logits"] = eager_step(*a, **kw)
+        return greedy_rows(seen["logits"])
+    twin._step = logged_step
     for eng in (ce, twin):
         spy_batches(eng, seen)
         submit_all(eng, prompts, uid0=100)
@@ -1674,31 +1750,22 @@ def lockstep_pass(ce, twin, prompts, tag, windows):
         if plan != [(p.run.req.uid, p.q_len) for p in bc.plans]:
             fail(f"compiled {tag}: step {i} planned differently from the eager "
                  f"twin")
-        forked = {f["uid"] for f in forks}
-        diff = [u for u in oe.tokens if u not in forked
-                and oc.tokens.get(u) != oe.tokens[u]]
-        if diff:
-            lc, le = step_logits(ce, bc), step_logits(twin, be)
-            gap = float(np.abs(lc - le).max())
-            for u in diff:
-                lane = [uid for uid, _ in plan].index(u)
-                top2 = np.sort(le[lane])[-2:]
-                margin = float(top2[1] - top2[0])
-                fork = dict(uid=u, step=i, margin=margin, gap=gap,
-                            captured=oc.tokens.get(u), eager=oe.tokens[u])
-                log(f"[compiled {tag}] lane of request {u} differs at step {i}: "
-                    f"{fork}")
-                if not margin < gap:
-                    fail(f"compiled {tag}: request {u} differs from the eager "
-                         f"twin at step {i} with a top-2 margin {margin} not "
-                         f"below the logit gap {gap}")
-                forks.append(fork)
+        diff = [u for u in oe.tokens if oc.tokens.get(u) != oe.tokens[u]]
+        if oe.lanes:
+            lc = ce.graphs.logits[:len(be.plans)].cpu().numpy()
+            le = seen.pop("logits")[:len(be.plans)].cpu().numpy()
+            if diff or not np.array_equal(lc.view(np.int32), le.view(np.int32)):
+                fail(f"compiled {tag}: step {i}: the replayed graph's logits "
+                     f"differ from the eager twin's (max|Δ| "
+                     f"{float(np.abs(lc - le).max())}; picks differ for "
+                     f"{diff})")
         if i in windows:
             traces[i] = twin.obs.last_trace
         i += 1
     for eng in (ce, twin):
         del eng.scheduler.batch_for                 # the spy
-    return forks, traces
+    twin._step = eager_step
+    return traces
 
 
 def step_kind_indices(kinds):
@@ -1712,6 +1779,7 @@ def step_kind_indices(kinds):
 
 KERNEL_GROUPS = (("paged_attention_kernel", "paged split pass"),
                  ("paged_combine", "paged combine"),
+                 ("lut_exp_kernel", "#1 lut_exp"),
                  ("gemm", "GEMM"), ("gemv", "GEMM"), ("xmma", "GEMM"),
                  ("nvjet", "GEMM"),
                  ("cutlass", "GEMM"), ("Memcpy", "copy"), ("Memset", "copy"),
@@ -1784,7 +1852,7 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
     then ``obs.mark_warm()`` and a measured pass (``timed_pass``: launches equal
     layers × model steps on replayed steps); then a pass with the replayed
     arm's profiler windows.  Every pass's greedy streams must equal the
-    eager arm's, save a lane the lockstep showed to be a near-tie."""
+    eager arm's."""
     import torch
     from repro_torch.serving import EngineCore
     c = cfg.replace(kv_quant=kv_quant)
@@ -1793,18 +1861,17 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
     ce = EngineCore(c, params, device=DEV, **ENGINE)
     twin = EngineCore(c, params, device=DEV, capture=False, **ENGINE)
     tdir = ROOT / "chiprun_out" / "traces"
-    forks, traces = lockstep_pass(
+    traces = lockstep_pass(
         ce, twin, prompts, tag,
         {i: str(tdir / f"{tag}_eager_{k}") for k, i in kinds.items()})
     windows = {f"eager {k}": read_window(traces[i], f"{tag} eager {k} step {i}")
                for k, i in kinds.items()}
     del twin
     torch.cuda.empty_cache()
-    excused = {f["uid"] - 100 for f in forks}
 
     def check_streams(streams, label):
         for j, (got, want) in enumerate(zip(streams, eager["streams"])):
-            if j not in excused and got != want:
+            if got != want:
                 fail(f"compiled {tag} {label}: request {j}'s greedy stream "
                      f"differs from the eager arm's")
 
@@ -1853,7 +1920,7 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
         capture_ms_all=cap_ms, keys=sorted(ce.graphs.keys),
         step_retraces_total=retraces,
         step_traces_total=int(reg.value("step_traces_total")),
-        forks=forks, ttft_ms_p50=lat["ttft_ms_p50"],
+        ttft_ms_p50=lat["ttft_ms_p50"],
         ttft_ms_p99=lat["ttft_ms_p99"], tpot_ms=lat["tpot_ms"],
         registry_delta={k: v for k, v in delta.items() if v},
         windows=windows, step_kinds=kinds, streams=measured["streams"],
@@ -1872,8 +1939,8 @@ def phase_compiled(cfg, params, kv_quant: bool, prompts, eager):
         f"TPOT {lat['tpot_ms']:.2f} ms (registry); launches "
         f"{measured['launches']} = layers × steps; StepOutput.kernel_config "
         f"{measured['kernel_config']}; greedy streams equal the "
-        f"eager arm's on all {len(prompts)} requests"
-        + (f" save near-tie forks {forks}" if forks else ""))
+        f"eager arm's on all {len(prompts)} requests, logits bit for bit on "
+        f"every step of the lockstep")
     del ce
     torch.cuda.empty_cache()
     return facts
@@ -3243,7 +3310,6 @@ def phase_timing(engine_facts, vocab):
     and 7 decodes) and a verify step."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_reference, paged_attention_varlen,
         paged_attention_varlen_reference)
@@ -3470,23 +3536,7 @@ def phase_timing(engine_facts, vocab):
     # LUT exp: standalone on the main path in the sampler, twice a sampling
     # step, over the (lanes, V) f32 shifted scores (values <= 0); beside it
     # the earlier yardstick, every logit of the paged decode call
-    def lut_entry(x):
-        got, want = lut_exp(x), lut_exp_ref(x)
-        med = interleaved_ms({
-            "ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush),
-            "device_ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush,
-                                         spin=True),
-            "library_ms": lambda: cuda_ms(lambda: torch.exp(x), flush=flush)})
-        t_bytes = 8.0 * x.numel() / HBM_BYTES_PER_S * 1e3
-        t_ops = 12.0 * x.numel() / PEAK_FLOPS["float32"] * 1e3
-        return dict(
-            max_abs_err=float((got - want).abs().max()), ms=med["ms"],
-            kernel_ms=med["ms"], device_ms=med["device_ms"],
-            host_ms=host_ms(lambda: lut_exp(x)),
-            plain_ms=cuda_ms(lambda: lut_exp_ref(x), flush=flush),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=med["library_ms"])
+    lut_entry = lambda x: lut_exp_entry(x, flush)  # noqa: E731
 
     g = torch.Generator(device=DEV).manual_seed(15)
     scores = torch.randn((ENGINE["lanes"], vocab), generator=g,
@@ -3522,6 +3572,30 @@ def phase_timing(engine_facts, vocab):
     kernels.append(time_int8(flush, engine_facts["int8_bert"]))
     kernels.append(time_quantize(flush, engine_facts["int8_bert"]))
     return kernels
+
+
+def lut_exp_entry(x, flush):
+    """Kernel #1 on ``x``: as a caller sees it, device alone and host per
+    call, beside its plain version and ``torch.exp``; bound from 8 bytes
+    and 12 f32 operations a value."""
+    import torch
+    from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
+    got, want = lut_exp(x), lut_exp_ref(x)
+    med = interleaved_ms({
+        "ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush),
+        "device_ms": lambda: cuda_ms(lambda: lut_exp(x), flush=flush,
+                                     spin=True),
+        "library_ms": lambda: cuda_ms(lambda: torch.exp(x), flush=flush)})
+    t_bytes = 8.0 * x.numel() / HBM_BYTES_PER_S * 1e3
+    t_ops = 12.0 * x.numel() / PEAK_FLOPS["float32"] * 1e3
+    return dict(
+        max_abs_err=float((got - want).abs().max()), ms=med["ms"],
+        kernel_ms=med["ms"], device_ms=med["device_ms"],
+        host_ms=host_ms(lambda: lut_exp(x)),
+        plain_ms=cuda_ms(lambda: lut_exp_ref(x), flush=flush),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=med["library_ms"])
 
 
 def time_int8(flush, facts):
@@ -3838,8 +3912,8 @@ def family_prompts(cfg, long_len):
 
 def serve_family(cfg, params, kv_quant, prompts, label):
     """Phase 7's captured arm for one family model and pool: a captured
-    engine in lockstep with an eager twin (equal plans; equal picks save a
-    near-tie by the margin rule of ``lockstep_pass``), warm passes until
+    engine in lockstep with an eager twin (``lockstep_pass``: equal plans,
+    logits bit for bit on every step), warm passes until
     one captures nothing new, ``mark_warm()``, a measured pass (``serve_waves``: the
     split pass and the combine each = layers × steps, streams = pass 1's),
     and one more pass whose first 8-lane decode step is profiled (kernels
@@ -3855,14 +3929,13 @@ def serve_family(cfg, params, kv_quant, prompts, label):
         fail(f"{label}: resolved {ce.kernel_config.describe()}, not the "
              f"table's {want_kc.describe()}")
     t0 = time.perf_counter()
-    forks, _ = lockstep_pass(ce, twin, prompts, label, {})
+    lockstep_pass(ce, twin, prompts, label, {})
     lock_s = time.perf_counter() - t0
     eager = {r.uid - 100: r.tokens for r in twin.finished}
     captured = {r.uid - 100: r.tokens for r in ce.finished}
     del twin
     torch.cuda.empty_cache()
-    excused = {f["uid"] - 100 for f in forks}
-    if any(captured[u] != eager[u] for u in eager if u not in excused):
+    if any(captured[u] != eager[u] for u in eager):
         fail(f"{label}: a captured stream differs from the eager twin's")
     wave = lambda uid0: [[(uid0 + i, p) for i, p in enumerate(prompts)]]  # noqa: E731
 
@@ -3894,7 +3967,7 @@ def serve_family(cfg, params, kv_quant, prompts, label):
     decode_ms = [st["ms"] for st in m["step_log"]
                  if not st["prefill"] and st["decode"] == ENGINE["lanes"]]
     facts = dict(
-        lockstep_s=lock_s, forks=forks, captures_per_pass=captures,
+        lockstep_s=lock_s, captures_per_pass=captures,
         keys=sorted(ce.graphs.keys), step_retraces_total=retraces,
         steps=m["steps"], launches=m["launches"], generated=m["generated"],
         wall_s=m["wall_s"], tok_s=m["tok_s"], step_ms_p50=m["step_ms_p50"],
@@ -3905,9 +3978,8 @@ def serve_family(cfg, params, kv_quant, prompts, label):
             "launches", "device_ms", "kernel_span_idle_share", "by_group",
             "trace")})
     log(f"[{label}] captured arm: lockstep with the eager twin in "
-        f"{lock_s:.1f} s, captured = eager on every request"
-        + (f" save near-tie forks {forks}" if forks else "")
-        + f"; captures per pass {captures}, keys (T, P) {facts['keys']}; "
+        f"{lock_s:.1f} s, captured = eager on every request (logits bit for "
+        f"bit on every step); captures per pass {captures}, keys (T, P) {facts['keys']}; "
         f"after mark_warm(): step_retraces_total {retraces}; measured pass: "
         f"{m['steps']} steps, step ms p50 {m['step_ms_p50']:.2f} p99 "
         f"{m['step_ms_p99']:.2f}, 8-lane decode p50 "
@@ -4351,6 +4423,231 @@ def phase_slot_engine(cfg, params, kv_quant, prompts, want, make_core,
     return facts
 
 
+# ------------------------------------------------------------- phase 13 --
+
+def moe_inputs_spied(fn):
+    """Run ``fn()`` with ``lm.moe_apply`` wrapped → (its result, the first
+    MoE layer's input it saw: layer 0's of its first step)."""
+    import repro_torch.models.lm as lm_mod
+    real, seen = lm_mod.moe_apply, []
+
+    def spy(cfg, p, x, **kw):
+        if not seen:
+            seen.append(x.detach().clone())
+        return real(cfg, p, x, **kw)
+    lm_mod.moe_apply = spy
+    try:
+        return fn(), seen[0]
+    finally:
+        lm_mod.moe_apply = real
+
+
+def moe_layer_alone(cfg, params, x0, label):
+    """Layer 0's experts at full width on ``x0`` (layer 0's input of a
+    full-width mixed step) in f32, on the card and on the CPU: equal
+    routing (experts, slots, keep flags), gates within 1e-6, ``y`` within
+    ``F32_TOL``, ``aux`` within 1e-6 relative; one launch of #1 on the
+    card.  Then the bf16 layer timed at that stream and at an 8-row
+    decode stream, whole and its router alone (the f32 router product,
+    the LUT softmax and the routing rounds)."""
+    import torch
+    from repro_torch.core.lut_softmax import lut_softmax
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.models import moe
+    c32 = cfg.replace(dtype="float32")
+    keys = ("router", "up", "gate", "down")
+    p32 = {k: params[k][0].float() for k in keys}
+    x = x0.float()
+    routes, real = [], moe.topk_route
+    moe.topk_route = lambda *a: routes.append(real(*a)) or routes[-1]
+    try:
+        before = lut_exp.launches
+        y, aux = moe.moe_apply(c32, p32, x)
+        torch.cuda.synchronize()
+        launched = lut_exp.launches - before
+        t0 = time.perf_counter()
+        y_cpu, aux_cpu = moe.moe_apply(c32, {k: v.cpu() for k, v in p32.items()},
+                                       x.cpu())
+        cpu_s = time.perf_counter() - t0
+    finally:
+        moe.topk_route = real
+    got, want = routes
+    same = {f: bool(torch.equal(getattr(got, f).cpu(), getattr(want, f)))
+            for f in ("expert", "slot", "keep")}
+    gate_err = float((got.gate.cpu() - want.gate).abs().max())
+    err = float((y.cpu() - y_cpu).abs().max())
+    ok_y = torch.allclose(y.cpu(), y_cpu, **F32_TOL)
+    aux_rel = abs(float(aux) - float(aux_cpu)) / abs(float(aux_cpu))
+    kept = int(want.keep.sum())
+    log(f"[{label}] layer 0's experts alone, f32, {x.shape[1]} rows "
+        f"(capacity {moe.moe_capacity(cfg, x.shape[1])}, {kept} of "
+        f"{want.keep.numel()} choices kept): card vs CPU routing equal "
+        f"{same}, gates max|Δ| {gate_err:.3g}; y max|Δ| {err:.3g} (atol 2e-5, "
+        f"rtol 1e-4); aux {float(aux):.7f} vs {float(aux_cpu):.7f} (rel "
+        f"{aux_rel:.2g}); #1 launches {launched}; CPU run {cpu_s:.1f} s")
+    if not all(same.values()) or gate_err > 1e-6:
+        fail(f"{label}: the card's routing differs from the CPU's: {same}, "
+             f"gates {gate_err}")
+    if not ok_y or aux_rel > 1e-6 or launched != 1:
+        fail(f"{label}: y max|Δ| {err}, aux rel {aux_rel}, #1 launches "
+             f"{launched}")
+    del p32, y_cpu
+    # bf16 timings: the layer and its router, each captured as a CUDA graph
+    # (as the replayed step runs them), at the mixed and decode streams
+    from repro_torch.serving.graphs import CapturedCall
+    p = {k: params[k][0] for k in keys}
+    times = {}
+    for what, xs in (("mixed", x0), ("decode", x0[:, :ENGINE["lanes"]])):
+        xs = xs.contiguous()
+        tg = xs.shape[1]
+
+        def router(xs=xs, tg=tg):
+            logits = torch.matmul(xs.float(), p["router"])
+            return moe.topk_route(cfg, lut_softmax(
+                logits, exp=moe._router_exp(cfg)), moe.moe_capacity(cfg, tg))
+        counts = read_paged_counts()
+        layer_g = CapturedCall(
+            lambda xs=xs: moe.moe_apply(cfg, p, xs, with_aux=False), DEV)
+        router_g = CapturedCall(router, DEV)
+        med = interleaved_ms({
+            "layer_ms": lambda g=layer_g: cuda_ms(g.replay),
+            "router_ms": lambda g=router_g: cuda_ms(g.replay)})
+        set_paged_counts(counts)
+        del layer_g, router_g
+        times[what] = dict(rows=tg, capacity=moe.moe_capacity(cfg, tg), **med)
+        log(f"[{label}] bf16 MoE layer at the {what} stream ({tg} rows, "
+            f"capacity {times[what]['capacity']}), a replayed graph: "
+            f"{med['layer_ms']:.4f} ms, its router (f32 product, LUT softmax, "
+            f"{cfg.experts_per_token} rounds) {med['router_ms']:.4f} ms")
+    return dict(routing_equal=same, gate_err=gate_err, max_abs_err=err,
+                aux=float(aux), aux_cpu=float(aux_cpu), aux_rel=aux_rel,
+                kept=kept, choices=want.keep.numel(), cpu_s=cpu_s,
+                times=times)
+
+
+def hold_moe_losses(label, runs, f32, floor):
+    """An MoE model's bf16 scoring (``runs``: part → (kernel, plain, plain
+    scan)) against its f32 plain run (``f32``, ``phase_scoring``'s held
+    parts): the kernel's bf16 value within 3× the farther plain bf16
+    schedule's distance from the f32 plain value, ``floor`` at least — as
+    close to f32 as bf16 itself gets on this input."""
+    held = {}
+    for part, (k, p, p2) in runs.items():
+        ref = f32[part]["plain"]
+        own = max(abs(p - ref), abs(p2 - ref))
+        tol, err = max(3.0 * own, floor), abs(k - ref)
+        log(f"[{label} {part}] kernel {k:.6f}, plain {p:.6f}, plain scan "
+            f"{p2:.6f}; f32 plain {ref:.6f}: kernel |Δ| {err:.3g}, the plain "
+            f"bf16 schedules' {own:.3g} (limit {tol:.3g})")
+        if not np.isfinite([k, p, p2, ref]).all() or err > tol:
+            fail(f"{label} {part}: kernel {k} vs f32 plain {ref} (limit {tol})")
+        held[part] = dict(kernel=k, plain=p, plain_scan=p2, f32_plain=ref,
+                          limit=tol)
+    return held
+
+
+def phase_moe():
+    """Phase 13: granite-moe-3b-a800m at its published widths and full
+    depth, then grok-1-314b at its published widths cut to ``MOE_MODELS``'
+    depth, one at a time (each freed before the next), seeded weights →
+    per model its facts, #2's decode timing and #1's at the router."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    flush = lambda: flush_buf.zero_()  # noqa: E731
+    out = {}
+    for name, cut, pools in MOE_MODELS:
+        t_model = time.perf_counter()
+        cfg = get_config(name)
+        if cut:
+            cfg = cfg.replace(num_layers=cut)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.values())
+        gb = sum(p.numel() * p.element_size() for p in params.values()) / 1e9
+        log(f"[weights] {name}: {n_params / 1e9:.2f} B parameters, {gb:.1f} "
+            f"GB, {cfg.num_layers} layers"
+            + (f" (cut from {get_config(name).num_layers})" if cut else "")
+            + f", {cfg.num_experts} experts top-{cfg.experts_per_token} of "
+            f"width {cfg.d_ff}; drawn in {time.perf_counter() - t0:.1f} s")
+        short = name.split("-")[0]
+        prompts = family_prompts(cfg, None)
+        f = dict(params_b=n_params / 1e9, gb=gb, layers=cfg.num_layers,
+                 prompts=[len(p) for p in prompts], parts_s={})
+
+        def part(what, t0):
+            f["parts_s"][what] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        for kv_quant in pools:
+            tag = f"{short} {'int8' if kv_quant else 'bf16'}"
+            t0 = time.perf_counter()
+            served, ce = serve_family(cfg, params, kv_quant, prompts, tag)
+            router = served["launches"]["lut_exp"]
+            if router != cfg.num_layers * served["steps"]:
+                fail(f"{tag}: #1 launched {router} times in the measured "
+                     f"pass, expected layers × steps = {cfg.num_layers} × "
+                     f"{served['steps']}")
+            t0 = part(f"serve {tag}", t0)
+            if not kv_quant and short == "granite":
+                step, x0 = moe_inputs_spied(lambda: phase_step_vs_plain(
+                    cfg, params, ce.kv.pool, f"{tag} step", floor=1e-2))
+                served["step_vs_plain"] = step
+                t0 = part(f"step vs plain {tag}", t0)
+                served["layer_alone"] = moe_layer_alone(cfg, params, x0,
+                                                        f"{tag} MoE layer")
+                part(f"MoE layer alone {tag}", t0)
+            del ce
+            torch.cuda.empty_cache()
+            served.pop("streams")
+            f["int8" if kv_quant else "bf16"] = served
+        t0 = time.perf_counter()
+        mid = [len(p) + MAX_NEW // 2 for p in prompts]
+        decode = [(1, kv) for kv in sorted(mid)[-ENGINE["lanes"]:]]
+        gqa = cfg.num_heads // cfg.num_kv_heads
+        f["time_decode"] = time_family_paged(
+            cfg, decode, f"{short} decode (GQA {gqa}:1"
+            + (f", cap {cfg.attn_softcap:g})" if cfg.attn_softcap else ")"),
+            flush, library=None if cfg.attn_softcap else sdpa_gqa_decode)
+        g = torch.Generator(device=DEV).manual_seed(16)
+        f["time_router_exp"] = {}
+        for rows in (384, ENGINE["lanes"]):
+            z = torch.randn((1, rows, cfg.num_experts), generator=g,
+                            device=DEV) * 3
+            z = (z - z.amax(-1, keepdim=True)).contiguous()
+            e = lut_exp_entry(z, flush)
+            e["shape"] = (f"(1, {rows}, {cfg.num_experts}) f32 router logits "
+                          f"less their maximum")
+            f["time_router_exp"][rows] = e
+            log(f"[time] lut_exp at {short}'s router, {e['shape']}: kernel "
+                f"{e['ms']:.4f} ms, device alone {e['device_ms']:.4f}, host "
+                f"per call {e['host_ms']:.4f}, plain {e['plain_ms']:.4f}, "
+                f"torch.exp {e['library_ms']:.4f}, bound {e['bound_ms']:.5f} "
+                f"ms; max|Δ| {e['max_abs_err']:.3g}")
+        t0 = part("kernel times", t0)
+        f["scoring"] = phase_scoring(cfg, params, f"{short} bf16", floor=1e-2)
+        t0 = part("scoring", t0)
+        # f32: the weights widened in place (the bf16 dict is consumed)
+        for k in list(params):
+            params[k] = params.pop(k).float()
+        f["scoring_f32"] = phase_scoring(cfg.replace(dtype="float32"), params,
+                                         f"{short} f32", floor=1e-3)
+        f["scoring"]["held_to_f32"] = hold_moe_losses(
+            f"scoring {short} bf16", f["scoring"].pop("losses"),
+            f["scoring_f32"], floor=1e-3)
+        part("f32 scoring", t0)
+        del params
+        torch.cuda.empty_cache()
+        f["model_s"] = time.perf_counter() - t_model
+        log(f"[moe {name}] done in {f['model_s']:.1f} s: "
+            + json.dumps({k: round(v, 1) for k, v in f["parts_s"].items()}))
+        out[name] = f
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4488,6 +4785,23 @@ def main() -> int:
     for tag, f in slot.items():
         by_name["streaming_attention"]["launches_by_path"][
             f"slot engine {MODEL} {tag}"] = f["launches"]["streaming_attention"]
+    moe = phase_moe()
+    by_name["lut_exp"]["router"] = {}
+    for model, f in moe.items():
+        for pool in ("bf16", "int8"):
+            if pool not in f:
+                continue
+            for k in ("paged_attention", "paged_combine"):
+                by_name[k]["launches_by_path"][f"{model} {pool}"] = (
+                    f[pool]["launches"][k])
+            by_name["lut_exp"]["launches_by_path"][
+                f"{model} {pool} router"] = f[pool]["launches"]["lut_exp"]
+        by_name["paged_attention"]["families"][model] = {
+            "time_decode": f["time_decode"]}
+        by_name["lut_exp"]["router"][model] = f["time_router_exp"]
+        sa = by_name["streaming_attention"]["launches_by_path"]
+        sa[f"scoring {model}"] = f["scoring"]["launches"]
+        sa[f"scoring {model} f32"] = f["scoring_f32"]["launches"]
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -4506,6 +4820,7 @@ def main() -> int:
     summary["scoring"] = scoring
     summary["int8_bert"] = int8_bert
     summary["families"] = families
+    summary["moe"] = moe
     log("[summary] " + json.dumps(summary))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

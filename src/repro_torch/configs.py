@@ -1,4 +1,5 @@
-"""Model configuration for the PyTorch port: the dense and BERT families.
+"""Model configuration for the PyTorch port: the dense, MoE and BERT
+families.
 
 An own copy of the reference ``ModelConfig`` (``src/repro/configs/base.py``)
 cut to what the port implements: the dense decoders the ragged serving
@@ -7,14 +8,17 @@ embeddings), gemma-style (a cycled local/global ``layer_pattern`` with a
 sliding window and a local RoPE theta, attention and final logit
 softcaps, QK-norm, post-block norms, GeGLU, embeddings scaled by
 √d_model) and starcoder2-style (LayerNorm, biased projections, plain GELU
-MLP) — and the cache-free full-sequence forward (``models/lm.py::
-lm_apply``) that the dense family's scoring and the BERT encoder share
-(learned positions, tied embeddings).  The configurations are
-``deepseek-7b``, ``gemma2-9b``, ``gemma3-12b``, ``starcoder2-3b``,
-``bert-base`` and ``bert-large`` at their published widths, and their
-``-smoke`` variants, which every CPU test builds.  Field names, defaults
-and the ``reduced`` rule match the reference, so a config built here and
-one built there describe the same model.
+MLP); the token-choice top-k MoE decoders (``family="moe"``: each layer's
+MLP is ``num_experts`` gated experts behind a router, a token sent to
+``experts_per_token`` of them, ``models/moe.py``); and the cache-free
+full-sequence forward (``models/lm.py::lm_apply``) that the decoders'
+scoring and the BERT encoder share (learned positions, tied
+embeddings).  The configurations are ``deepseek-7b``, ``gemma2-9b``,
+``gemma3-12b``, ``starcoder2-3b``, ``granite-moe-3b-a800m``,
+``grok-1-314b``, ``bert-base`` and ``bert-large`` at their published
+widths, and their ``-smoke`` variants, which every CPU test builds.
+Field names, defaults and the ``reduced`` rule match the reference, so a
+config built here and one built there describe the same model.
 
 ``postnorm`` is kept for parity only: the reference's ``lm_apply`` never
 reads it (its ``_layer_apply`` is pre-norm for every family), so both
@@ -30,7 +34,7 @@ from typing import Dict, Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str = "dense"                      # dense | bert
+    family: str = "dense"                      # dense | moe | bert
 
     num_layers: int = 0
     d_model: int = 0
@@ -61,6 +65,13 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False                  # gemma: embeddings · sqrt(d)
     max_position: int = 1 << 20                # learned-position table size
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_group: int = 512                       # tokens per dispatch group
 
     # --- numerics & HASTILY technique toggles ---
     dtype: str = "bfloat16"
@@ -100,8 +111,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     ``src/repro/configs/base.py``): 2 layers — two whole periods of a
     ``layer_pattern`` where there is one —, d_model 64, 4 heads over at
     most 2 kv heads of 16, d_ff 128, vocab 512, a window of 8 where there
-    is one, 4096 learned positions and a 16-row streaming block."""
+    is one, 4096 learned positions and a 16-row streaming block; an MoE
+    config keeps at most 8 experts and 2 per token."""
     n_small = max(2 * len(cfg.pattern), 2)
+    moe = (dict(num_experts=min(cfg.num_experts, 8),
+                experts_per_token=min(cfg.experts_per_token, 2))
+           if cfg.family == "moe" else {})
     return cfg.replace(
         name=cfg.name + "-smoke",
         num_layers=(n_small if cfg.num_layers and cfg.layer_pattern
@@ -109,7 +124,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_model=64, d_ff=128,
         vocab_size=512, num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
         head_dim=16, window=8 if cfg.window else None, max_position=4096,
-        block_k=16)
+        block_k=16, **moe)
 
 
 # [arXiv:2401.02954; hf]
@@ -197,6 +212,47 @@ STARCODER2_3B = ModelConfig(
     tie_embeddings=True,
 )
 
+# [hf:ibm-granite; hf]  IBM Granite 3.0 MoE: 40 gated SiLU experts of
+# width 512, top-8, GQA 3:1
+GRANITE_MOE_3B = ModelConfig(
+    name="granite-moe-3b-a800m",
+    family="moe",
+    num_layers=32,
+    d_model=1536,
+    num_heads=24,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=512,
+    vocab_size=49155,
+    num_experts=40,
+    experts_per_token=8,
+    mlp_gated=True,
+    act="silu",
+    norm="rmsnorm",
+    tie_embeddings=True,
+)
+
+# [hf:xai-org/grok-1; unverified]  8 gelu-gated experts of width 32768,
+# top-2, GQA 6:1, attention-logit softcap 30
+GROK_1_314B = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    num_layers=64,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=32768,
+    vocab_size=131072,
+    num_experts=8,
+    experts_per_token=2,
+    mlp_gated=True,
+    act="gelu",
+    norm="rmsnorm",
+    attn_softcap=30.0,
+    tie_embeddings=True,
+)
+
 # [paper Table III]: encoder-only, learned positions, GELU, MHA.
 BERT_BASE = ModelConfig(
     name="bert-base",
@@ -229,7 +285,7 @@ BERT_LARGE = BERT_BASE.replace(
 
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in [DEEPSEEK_7B, GEMMA2_9B, GEMMA3_12B, STARCODER2_3B,
-                        BERT_BASE, BERT_LARGE]}
+                        GRANITE_MOE_3B, GROK_1_314B, BERT_BASE, BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:

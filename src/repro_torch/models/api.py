@@ -2,15 +2,18 @@
 ``build_model(cfg)`` → a ``Model`` with ``init``, ``loss``,
 ``init_cache``, ``prefill``, ``decode_step`` and ``step_ragged``.
 
-Two families: ``bert`` (``prefill`` encodes a batch and returns the logits
-of every position; ``loss`` is the masked-LM cross-entropy against
-``labels``) and ``dense`` (``loss`` scores a batch causally: next-token
-cross-entropy, or against ``labels`` of the tokens' shape).  Both run the
+Three families: ``bert`` (``prefill`` encodes a batch and returns the
+logits of every position; ``loss`` is the masked-LM cross-entropy against
+``labels``), ``dense`` and ``moe`` (``loss`` scores a batch causally:
+next-token cross-entropy, or against ``labels`` of the tokens' shape,
+plus ``cfg.router_aux_weight`` times the MoE load-balancing loss; the
+MoE decoder has the dense one's entries, its layers' MLPs replaced by
+``models/moe.py``).  All run the
 forward ``models.lm.lm_apply``, whose attention goes through the registry
 (``cfg.attn_backend``) to the CUDA streaming-attention kernel on the card.
 Inference only: the kernel has no backward yet.
 
-The dense family's cached path: ``init_cache(batch, max_len)`` builds the
+The decoders' cached path: ``init_cache(batch, max_len)`` builds the
 contiguous cache (``lm.trunk_cache_init``: ring buffers for local layers
 whose window is below ``max_len``, int8 under ``cfg.kv_quant``) on the
 card unless ``device`` says otherwise; ``prefill(params, {"tokens": (B,
@@ -64,9 +67,9 @@ def _bert_encode(cfg, params, batch, caches=None):
 def _lm_loss_with_labels(cfg, params, batch):
     labels = batch.get("labels")
     if labels is not None and labels.shape == batch["tokens"].shape:
-        logits = LM.lm_apply(cfg, params, batch["tokens"])
+        logits, aux = LM.lm_apply(cfg, params, batch["tokens"], with_aux=True)
         ce = LM.cross_entropy(logits, labels, batch.get("loss_mask"))
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
     return LM.lm_loss(cfg, params, batch)
 
 
@@ -89,7 +92,7 @@ def build_model(cfg: ModelConfig) -> Model:
                      loss=functools.partial(_bert_loss, cfg),
                      prefill=functools.partial(_bert_encode, cfg),
                      decode_step=None)   # encoder-only: no decode step
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return Model(cfg=cfg, init=init,
                      loss=functools.partial(_lm_loss_with_labels, cfg),
                      init_cache=functools.partial(_init_cache, cfg),
@@ -97,5 +100,5 @@ def build_model(cfg: ModelConfig) -> Model:
                      decode_step=functools.partial(LM.lm_decode_step, cfg),
                      step_ragged=functools.partial(LM.lm_step_ragged, cfg))
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port builds the dense and bert families "
-        f"only; the other families are a later slice")
+        f"family {cfg.family!r}: the port builds the dense, moe and bert "
+        f"families only; the other families are a later slice")

@@ -1,10 +1,14 @@
 """Language models of the port (port of ``src/repro/models/lm.py``):
 ``period_layout``, the full-sequence forward (``trunk_apply``,
-``lm_apply``, ``cross_entropy``, ``lm_loss``) that BERT encoding and dense
-scoring run cache-free and the dense decoders' cached path runs over a
-contiguous cache (``trunk_cache_init``, ``lm_prefill``,
-``lm_decode_step``), and the ragged serving path of the dense decoders
-(``trunk_apply_ragged``, ``lm_step_ragged``) over the page pool.
+``lm_apply``, ``cross_entropy``, ``lm_loss``) that BERT encoding and the
+decoders' scoring run cache-free and the decoders' cached path runs over
+a contiguous cache (``trunk_cache_init``, ``lm_prefill``,
+``lm_decode_step``), and the ragged serving path of the decoders
+(``trunk_apply_ragged``, ``lm_step_ragged``) over the page pool.  The
+decoders are the dense family and the MoE family, whose layers run
+``models/moe.py::moe_apply`` in place of the MLP; the full-sequence
+forward sums the MoE layers' load-balancing losses (``aux``) and
+``lm_loss`` adds ``cfg.router_aux_weight`` times it, as the reference.
 
 Parameters are one flat dict (``params.py``): per-layer weights are stacked
 on a leading layer axis in layer order, and layer ``i`` reads the views
@@ -37,15 +41,20 @@ from repro_torch.device import configure_matmul_precision
 from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.paged_attention.varlen import varlen_layout
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply
 
 Params = Dict[str, torch.Tensor]
 
 
 
 def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The per-layer parameter keys of ``cfg``: weights, then the biases of
-    biased projections and LayerNorms (``<weight>_b``)."""
-    keys = ["ln1", "wq", "wk", "wv", "wo", "ln2", "up", "down"]
+    """The per-layer parameter keys of ``cfg``: weights (an MoE layer's
+    ``router`` and its experts' ``up`` / ``down`` / ``gate`` in place of
+    the MLP's), then the biases of biased projections and LayerNorms
+    (``<weight>_b``)."""
+    moe = cfg.family == "moe"
+    keys = ["ln1", "wq", "wk", "wv", "wo", "ln2"]
+    keys += ["router", "up", "down"] if moe else ["up", "down"]
     if cfg.mlp_gated:
         keys.append("gate")
     if cfg.qk_norm:
@@ -54,7 +63,7 @@ def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
         keys += ["ln1_post", "ln2_post"]
     if cfg.attn_bias:
         keys += ["wq_b", "wk_b", "wv_b"]
-        if not cfg.mlp_gated:
+        if not (cfg.mlp_gated or moe):
             keys += ["up_b", "down_b"]
     if cfg.norm == "layernorm":
         keys += ["ln1_b", "ln2_b"]
@@ -68,9 +77,9 @@ def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
     reference's: one period is one cycle of ``cfg.pattern``.  A tail (a
     layer count that is no multiple of the pattern) raises: no config the
     port registers has one."""
-    if cfg.family not in ("dense", "bert"):
+    if cfg.family not in ("dense", "moe", "bert"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense and bert "
+            f"family {cfg.family!r}: the port runs the dense, moe and bert "
             f"families only; the other families are a later slice")
     kinds = cfg.pattern
     bad = sorted(set(kinds) - {"local", "global"})
@@ -86,12 +95,12 @@ def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
 
 
 def _ragged_family(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The ragged serving path serves the dense decoders, whose layers are
-    local or global attention; → the kind of every layer."""
-    if cfg.family != "dense":
+    """The ragged serving path serves the dense and MoE decoders, whose
+    layers are local or global attention; → the kind of every layer."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: ragged serving runs the dense decoders "
-            f"only; the other families are a later slice")
+            f"family {cfg.family!r}: ragged serving runs the dense and moe "
+            f"decoders only; the other families are a later slice")
     period_layout(cfg)
     return cfg.layer_kinds()
 
@@ -101,14 +110,24 @@ def _layer(cfg: ModelConfig, params: Params, i: int) -> Params:
 
 
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-           attend: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+           attend: Callable[[torch.Tensor], torch.Tensor], *,
+           with_aux: bool = False
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer: pre-norm attention (``attend`` of the normed stream),
-    then the pre-norm MLP, each through its post-block norm where the
-    config has one, each added to the residual stream."""
+    then the pre-norm MLP — or, for the MoE family, the experts — each
+    through its post-block norm where the config has one, each added to
+    the residual stream → (x, the MoE layer's load-balancing loss with
+    ``with_aux``, else None)."""
     def post(name, h):
         return L.norm(cfg, p, name, h) if cfg.post_block_norm else h
     x = x + post("ln1_post", attend(L.norm(cfg, p, "ln1", x)))
-    return x + post("ln2_post", L.mlp_apply(cfg, p, L.norm(cfg, p, "ln2", x)))
+    h = L.norm(cfg, p, "ln2", x)
+    aux = None
+    if cfg.family == "moe":
+        h, aux = moe_apply(cfg, p, h, with_aux=with_aux)
+    else:
+        h = L.mlp_apply(cfg, p, h)
+    return x + post("ln2_post", h), aux
 
 
 # --------------------------------------------------------------------------
@@ -138,27 +157,35 @@ def layer_caches(cfg: ModelConfig, caches: Dict[str, torch.Tensor]
 def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 pos: torch.Tensor, causal: bool = True,
                 caches: Optional[Dict[str, torch.Tensor]] = None,
-                cache_index=None) -> torch.Tensor:
+                cache_index=None, with_aux: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Every layer (``_block``) over the whole sequence; with ``caches``
     (``trunk_cache_init``) each layer writes its K/V rows at
-    ``cache_index`` in place and attends over its cache."""
+    ``cache_index`` in place and attends over its cache → (x, with
+    ``with_aux`` the f32 sum of the MoE layers' load-balancing losses —
+    0 for a dense trunk —, else None)."""
     period_layout(cfg)
     views = (layer_caches(cfg, caches) if caches is not None
              else [None] * cfg.num_layers)
+    aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                 if with_aux else None)
     for i, kind in enumerate(cfg.layer_kinds()):
         p = _layer(cfg, params, i)
-        x = _block(cfg, p, x, lambda h: L.attn_apply(
+        x, aux = _block(cfg, p, x, lambda h: L.attn_apply(
             cfg, p, h, pos=pos, kind=kind, causal=causal, cache=views[i],
-            cache_index=cache_index))
-    return x
+            cache_index=cache_index), with_aux=with_aux)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
              causal: bool = True,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              cache_index=None,
-             logits_rows: Optional[int] = None) -> torch.Tensor:
-    """tokens (B, L) → f32 logits (B, L, V) (the reference's ``lm_apply``).
+             logits_rows: Optional[int] = None, with_aux: bool = False):
+    """tokens (B, L) → f32 logits (B, L, V) (the reference's ``lm_apply``),
+    or with ``with_aux`` (logits, the summed MoE load-balancing loss).
     Without ``caches``: positions 0..L-1.  With them, the rows sit at
     ``cache_index`` + 0..L-1, ``cache_index`` an int or (B,) (each batch
     row its own position, (B, L) positions), and every layer writes its
@@ -173,12 +200,14 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     elif cache_index is not None:
         pos = pos + int(cache_index)
     x = L.embed_full(cfg, params, tokens, pos)
-    x = trunk_apply(cfg, params, x, pos=pos, causal=causal, caches=caches,
-                    cache_index=cache_index)
+    x, aux = trunk_apply(cfg, params, x, pos=pos, causal=causal,
+                         caches=caches, cache_index=cache_index,
+                         with_aux=with_aux)
     x = L.norm(cfg, params, "final_norm", x)
     if logits_rows is not None:
         x = x[:, -logits_rows:]
-    return L.unembed(cfg, params, x)
+    logits = L.unembed(cfg, params, x)
+    return (logits, aux) if with_aux else logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -197,11 +226,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss of the causal LM: logits at 0..L-2 against tokens
-    1..L-1."""
+    1..L-1, plus ``cfg.router_aux_weight`` times the MoE load-balancing
+    loss (0 for a dense model) → (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
-    logits = lm_apply(cfg, params, tokens)
+    logits, aux = lm_apply(cfg, params, tokens, with_aux=True)
     ce = cross_entropy(logits[:, :-1], tokens[:, 1:], batch.get("loss_mask"))
-    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -235,7 +265,7 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
 
 def trunk_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                      device=None) -> Dict[str, torch.Tensor]:
-    """The dense decoders' KV cache, stacked in layer order: ``k``/``v``
+    """The decoders' KV cache, stacked in layer order: ``k``/``v``
     (L', batch, Hkv, max_len, Dh), int8 with f32 row scales ``ks``/``vs``
     (L', batch, Hkv, max_len) under ``cfg.kv_quant``, over the L' layers
     without a ring buffer, and, where local layers keep one
@@ -267,14 +297,16 @@ def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     """Every layer over the packed stream, writing its pool rows in place.
     The lane boundaries are validated and cut into q-blocks of
     ``kernel_config.block_q`` rows once, here, for all layers (the
-    reference's ``jit`` hoists the same work)."""
+    reference's ``jit`` hoists the same work).  An MoE layer routes every
+    row of the stream, dead padding rows included, as the reference; the
+    load-balancing loss is not computed (the reference drops it)."""
     kernel_config = ragged_kernel_config(kernel_config, x.device.type)
     layout = varlen_layout(cu_seqlens, pos, x.shape[1],
                            kernel_config.block_q, x.device)
     views = layer_caches(cfg, caches)
     for i, kind in enumerate(_ragged_family(cfg)):
         p = _layer(cfg, params, i)
-        x = _block(cfg, p, x, lambda h: L.attn_apply_ragged(
+        x, _ = _block(cfg, p, x, lambda h: L.attn_apply_ragged(
             cfg, p, h, pos=pos, kind=kind, cache=views[i],
             token_pages=token_pages, cu_seqlens=cu_seqlens,
             kernel_config=kernel_config, attend=attend, layout=layout))

@@ -1,4 +1,4 @@
-"""Parameters of the port's models (dense decoder and BERT encoder).
+"""Parameters of the port's models (dense and MoE decoders, BERT encoder).
 
 ``from_flat`` takes the reference's parameters as the flat
 ``{path: np.ndarray}`` dict of ``checkpoint/store.py::flatten_tree`` (numpy
@@ -12,8 +12,10 @@ The port's layout is one flat dict: ``embed`` (V, D), ``positions``
 ``final_norm_b``], ``lm_head`` (D, V) when embeddings are untied, and the
 per-layer leaves of ``models.lm.layer_keys`` stacked on a leading layer
 axis in layer order, e.g. ``wq`` (L, D, Hq·Dh) and its bias ``wq_b``
-(L, Hq·Dh).  The reference scans periods of ``len(cfg.pattern)`` layers:
-its leaf ``trunk/periods/{j}/...`` is (L / len(pattern), ...), and its
+(L, Hq·Dh); an MoE layer's ``router`` (L, D, E) stays f32 and its
+experts are ``up`` / ``gate`` (L, E, D, F) and ``down`` (L, E, F, D), the
+reference's ``moe/...`` leaves.  The reference scans periods of
+``len(cfg.pattern)`` layers: its leaf ``trunk/periods/{j}/...`` is (L / len(pattern), ...), and its
 row ``n`` is the port's layer ``n·len(pattern) + j``.
 """
 from __future__ import annotations
@@ -39,6 +41,8 @@ _LAYER_PATHS = {
     "up": "mlp/up/w", "gate": "mlp/gate/w", "down": "mlp/down/w",
     "up_b": "mlp/up/b", "down_b": "mlp/down/b",
 }
+_MOE_PATHS = {"router": "moe/router/w", "up": "moe/up", "gate": "moe/gate",
+              "down": "moe/down"}
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -64,8 +68,9 @@ def param_paths(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
         paths["final_norm_b"] = ("final_norm/bias",)
     if not cfg.tie_embeddings:
         paths["lm_head"] = ("lm_head/w",)
+    names = dict(_LAYER_PATHS, **(_MOE_PATHS if cfg.family == "moe" else {}))
     for k in layer_keys(cfg):
-        paths[k] = tuple(f"trunk/periods/{j}/{_LAYER_PATHS[k]}"
+        paths[k] = tuple(f"trunk/periods/{j}/{names[k]}"
                          for j in range(len(kinds)))
     return paths
 
@@ -108,8 +113,8 @@ def to_flat(params: Mapping[str, torch.Tensor],
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Random weights with ``lm_init``'s distributions: dense weights
-    normal·d_in^-0.5, biases 0, the token and position tables normal·0.02,
-    norm scales 1 (RMSNorm and the QK-norm multiply by ``1 + scale``),
+    normal·d_in^-0.5 (each MoE expert's too, and the f32 router's),
+    biases 0, the token and position tables normal·0.02, norm scales 1 (RMSNorm and the QK-norm multiply by ``1 + scale``),
     LayerNorm biases 0.  Drawn in f32 one layer at a time on ``device``
     (default: the card) with ``generator`` (which must live there), then
     cast to ``cfg.dtype``; the constant leaves draw nothing, so a seed
@@ -126,10 +131,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         device=dev)
         return (x * std).to(dt)
 
-    def stacked(d_in, d_out):
-        w = torch.empty((n, d_in, d_out), dtype=dt, device=dev)
-        for i in range(n):
-            w[i] = normal((d_in, d_out), d_in ** -0.5)
+    def stacked(d_in, d_out, experts=(), dtype=dt):
+        # one matrix at a time: a grok-1 expert stack is 1.6 G values
+        w = torch.empty((n, *experts, d_in, d_out), dtype=dtype, device=dev)
+        for m in w.view(-1, d_in, d_out):
+            m.copy_(torch.randn((d_in, d_out), generator=generator,
+                                dtype=torch.float32, device=dev)
+                    * d_in ** -0.5)
         return w
 
     def const(shape, value):
@@ -141,8 +149,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     p["final_norm"] = const((d,), 1.0)
     widths = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d),
               "up": (d, f), "gate": (d, f), "down": (f, d)}
+    moe = cfg.family == "moe"
     for k in layer_keys(cfg):
-        if k in widths:
+        if k == "router":
+            p[k] = stacked(d, cfg.num_experts, dtype=torch.float32)
+        elif moe and k in ("up", "gate", "down"):
+            p[k] = stacked(*widths[k], experts=(cfg.num_experts,))
+        elif k in widths:
             p[k] = stacked(*widths[k])
         elif k in ("ln1", "ln2", "ln1_post", "ln2_post"):
             p[k] = const((n, d), 1.0)

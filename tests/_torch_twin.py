@@ -10,10 +10,12 @@ speculative statistics, equal step captures (the port's ``trace_count``
 against JAX's), equal ``StepOutput.kernel_config`` (the port's without its
 card-only ``kv_split``), and equal greedy tokens, every committed one;
 after the drain, equal ``kv.free_pages``.
-For int8 pools a token may differ only at a genuine near-tie: JAX's top-2
-logit margin at that lane (and, for a verify lane, at the row of the
-first differing token) lies below the logit gap measured between the two
-engines on that very step.  Such a request is then marked forked and its
+For int8 pools (and, with ``tie_rule=True``, a float pool: an MoE
+model's bf16 routing flips between frameworks where two experts'
+probabilities nearly tie) a token may differ only at a genuine near-tie:
+JAX's top-2 logit margin at that lane (and, for a verify lane, at the
+row of the first differing token) lies below the logit gap measured
+between the two engines on that very step.  Such a request is then marked forked and its
 later token values are not compared; since no request has an eos id,
 scheduling never depends on token values, so every other check continues.
 A speculative engine's schedule does depend on them (acceptance), so a
@@ -145,14 +147,17 @@ def _spy_logits(je, jc, logits, monkeypatch):
 
 def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
               on_step=None, waves=None, proposer=None, built=None,
-              sampling=None):
+              sampling=None, tie_rule=None):
     """Drive both engines to completion → dict of per-run facts.
     ``on_step(je, te, step)`` runs after every step's checks.  ``waves``
     lists the request indices submitted together, each wave once both
     engines drained the one before (default: all at once); ``proposer()``
     makes each engine's own draft proposer; ``built`` is ``build``'s
     result when the caller already has it; ``sampling`` lists each
-    request's ``SamplingParams`` keyword arguments (None: greedy)."""
+    request's ``SamplingParams`` keyword arguments (None: greedy);
+    ``tie_rule`` applies the near-tie rule to the pool (default: to int8
+    pools only)."""
+    tie_rule = kv_quant if tie_rule is None else tie_rule
     jc, tc, jparams, tparams = built or build(dtype, kv_quant)
     kw = dict(engine_kw, seed=7)
     je = JEngine(jc, jparams, **kw, **(
@@ -163,9 +168,9 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
     _spy_batches(je, jb)
     _spy_batches(te, tb)
 
-    # logits of every int8 step, for the near-tie test
+    # logits of every step the near-tie rule reads
     logits = {}
-    if kv_quant:
+    if tie_rule:
         _spy_logits(je, jc, logits, monkeypatch)
 
     reqs = {}
@@ -207,7 +212,7 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
             for uid, (jr, tr) in reqs.items():
                 if uid in forked or jr.tokens == tr.tokens:
                     continue
-                assert kv_quant, (f"{dtype} float pool: tokens of request "
+                assert tie_rule, (f"{dtype} float pool: tokens of request "
                                   f"{uid} differ at step {steps}: "
                                   f"{jr.tokens} vs {tr.tokens}")
                 lane = [u for u, _, _ in plan].index(uid)
@@ -220,7 +225,7 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
                 margin = float(top2[1] - top2[0])
                 gap = float(np.abs(logits["torch"][:len(plan)]
                                    - logits["jax"][:len(plan)]).max())
-                assert margin < gap, (f"int8 pool: request {uid} forked at "
+                assert margin < gap, (f"request {uid} forked at "
                                       f"step {steps} with a JAX top-2 margin "
                                       f"{margin} above the measured logit "
                                       f"gap {gap}")

@@ -878,12 +878,12 @@ def test_int8_matmul_row_major_weight_counts_one_transpose(cuda_device):
 # there, at one (page, offset), and which of those writes lands last is
 # not defined.
 
-def _smoke_engine(cuda_device, kv_quant, capture, **kw):
+def _smoke_engine(cuda_device, kv_quant, capture, name="deepseek-7b-smoke",
+                  **kw):
     from repro_torch.configs import get_config
     from repro_torch.params import init_params
     from repro_torch.serving import EngineCore
-    cfg = get_config("deepseek-7b-smoke").replace(dtype="bfloat16",
-                                                  kv_quant=kv_quant)
+    cfg = get_config(name).replace(dtype="bfloat16", kv_quant=kv_quant)
     params = init_params(cfg, torch.Generator(device=cuda_device)
                          .manual_seed(0), cuda_device)
     return EngineCore(cfg, params, lanes=3, page_size=8, num_pages=24,
@@ -1444,3 +1444,100 @@ def test_slot_engine_captured_decode_bit_equal_to_eager(cuda_device, name,
     assert graph.captures == 1 and eager.captures == 0
     sa_layers = 0 if kv_quant else eager.cfg.num_layers
     assert streaming_attention.launches - before == 2 * 5 * sa_layers
+
+
+# ------------------------------------------------------------------ MoE --
+#
+# The MoE layer (models/moe.py) on the card against its CPU run, and the
+# MoE family's captured ragged step.  f32: the router's products run
+# without TF32 on both, so the routing is the same and ``y`` holds the
+# paged suite's f32 tolerance (the expert products sum in cuBLAS's order).
+
+MOE_SMOKE = ("granite-moe-3b-a800m-smoke", "grok-1-314b-smoke")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_SMOKE)
+def test_moe_apply_on_card_equals_cpu(cuda_device, name, monkeypatch):
+    """f32 at smoke width, 3 × 40 tokens (capacity overflow at factor
+    0.5): equal routing (experts, slots, keep flags; the gates within 1e-6:
+    the router's products sum in another order), ``y`` within ``TOL``,
+    ``aux`` within 1e-6 relative; one launch of kernel #1."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.params import init_params
+    cfg = get_config(name).replace(dtype="float32", moe_capacity_factor=0.5)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = {k: params[k][0] for k in ("router", "up", "gate", "down")}
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, 40, cfg.d_model)).astype(np.float32))
+    routes = []
+    real = moe.topk_route
+    monkeypatch.setattr(moe, "topk_route",
+                        lambda *a: routes.append(real(*a)) or routes[-1])
+    y_cpu, aux_cpu = moe.moe_apply(cfg, p, x)
+    before = lut_exp.launches
+    y, aux = moe.moe_apply(cfg, {k: v.to(cuda_device) for k, v in p.items()},
+                           x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert lut_exp.launches == before + 1
+    want, got = routes
+    for field in ("expert", "slot", "keep"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), \
+            field
+    torch.testing.assert_close(got.gate.cpu(), want.gate, atol=1e-6, rtol=0)
+    assert not bool(want.keep.all())                 # overflow dropped some
+    torch.testing.assert_close(y.cpu(), y_cpu, **TOL)
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-6 * float(aux_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_SMOKE)
+def test_moe_captured_step_bit_equal_to_eager(cuda_device, name):
+    """The MoE family's ragged step captured per (T, P) against the same
+    step dispatched op by op: picks and pool bytes equal after every step
+    of the mixed trace (dead rows routed on both)."""
+    eager = _smoke_engine(cuda_device, False, capture=False, name=name)
+    graph = _smoke_engine(cuda_device, False, capture=True, name=name)
+    for eng in (eager, graph):
+        _smoke_requests(eng)
+    steps = 0
+    while eager.scheduler.has_work():
+        oe, og = eager.step(), graph.step()
+        assert oe.tokens == og.tokens, steps
+        for pool, bits in _pool_bits(eager).items():
+            assert torch.equal(bits, _pool_bits(graph)[pool]), (steps, pool)
+        steps += 1
+    assert not graph.scheduler.has_work()
+    assert 0 < graph.graphs.captures < steps
+
+
+@pytest.mark.cuda
+def test_moe_replay_counts_one_router_launch_per_layer(cuda_device):
+    """A replayed MoE step reads no device value on the host, and N replays
+    advance kernel #1's counter by N × layers (the router softmax) beside
+    #2's split pass and combine."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    eng = _smoke_engine(cuda_device, False, capture=True,
+                        name="granite-moe-3b-a800m-smoke")
+    _smoke_requests(eng, lens=(5, 6, 7), news=(4, 4, 4))
+    eng.step()
+    eng.step()
+    batch, _ = eng.scheduler.batch_for(eng.scheduler.begin_step())
+    arrays = eng.step_arrays(batch)
+    eng.graphs.run(**arrays)                         # may capture this key
+    torch.cuda.synchronize()
+    want = eng.graphs.run(**arrays).clone()
+    n, layers = 5, eng.cfg.num_layers
+    before = (lut_exp.launches, paged_attention.launches,
+              paged_attention.combine_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            got = eng.graphs.run(**arrays)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (lut_exp.launches - before[0], paged_attention.launches - before[1],
+            paged_attention.combine_launches - before[2]) == (n * layers,) * 3
