@@ -232,8 +232,38 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    bf16 ones to the f32 plain run (``hold_moe_losses``: random-weight
    routing flips at bf16 near-ties, so two plain bf16 schedules' spread
    undersamples how far bf16 runs part);
-14. print the card's name and power limit, then ``{"ok": true, "device":
+14. the SSM families, one model at a time after phase 13's are freed,
+   seeded bf16 weights at their published widths and full depth:
+   falcon-mamba-7b (64 Mamba-1 layers, d_inner 8192, state 16) and
+   zamba2-1.2b (38 Mamba-2 layers, a shared attention + MLP block before
+   each of 6 periods of 6, a tail of 2).  ``EngineCore`` refuses each
+   (``UnsupportedCacheLayout("ssm_state")``); the slot engine (8 slots ×
+   1,088 rows) serves phase 7's prompts, 32 new each: a lockstep pass of
+   the captured decode beside an eager twin (logits, picks and every cache
+   leaf bit for bit on every step), then a measured pass — #1 launched
+   layers × (1 or 4 per chunk of every prefill + 1 per decode step), #3
+   6 times per zamba2 prompt (its shared block's prefill), #2 never, the
+   cache's bytes equal to the arithmetic, prefill ms by prompt length,
+   decode p50/p99, tokens/s, peak memory — and one replayed decode step
+   profiled (kernels and device time by group).  Then layer 0's mixer at
+   full width in f32 on the card against the CPU: 300 rows (three chunks,
+   the last partial) from a non-zero carried state, then four decode
+   steps, ``y``, the scan state and ``conv`` each within ``SSM_REL_TOL``
+   of its own scale;
+15. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
+
+Phase 3 also holds #1 bit for bit at phase 14's shapes (falcon's chunk
+and decode Ā, zamba2's intra-chunk decay), phase 5 holds #3 at zamba2's
+shared prefill (1 × 1024, 32 heads of 64, causal), and phase 10 times #1
+at falcon's two shapes beside ``torch.exp`` and #3 at zamba2's prefill
+beside SDPA and at the MoE scoring shapes (granite beside SDPA with
+``enable_gqa``).  The plain-attention step checks of phases 7, 11 and 13
+(``phase_step_vs_plain``) run at full width cut to ``STEP_CHECK_LAYERS``
+layers or two whole periods (``step_check_cut``), which keeps every path
+driven and every kernel held while their plain schedules' host work
+shrinks (``tools/step_check_cost.py`` times both depths).  ``[phases]``
+prints the seconds of each phase.
 
 Exits non-zero without a result when no CUDA card is visible.
 """
@@ -309,6 +339,22 @@ SPEC_PHRASE = 32                   # the repeated phrase of its NGram prompts
 # card, so it runs its published widths at 2 layers
 MOE_MODELS = (("granite-moe-3b-a800m", None, (False, True)),
               ("grok-1-314b", 2, (False,)))
+# The depth of the plain-attention step checks (``step_check_cut``)
+STEP_CHECK_LAYERS = 4
+# Phase 3's #1 checks at phase 14's shapes: (label, f32 shape, inputs drawn
+# in [-hi, 0])
+SSM_LUT_SHAPES = (
+    ("falcon-mamba chunk Ā = exp(Δ ⊗ A)", (1, 128, 8192, 16), 16.0),
+    ("falcon-mamba decode Ā", (8, 1, 8192, 16), 16.0),
+    ("zamba2 intra-chunk decay", (1, 64, 128, 128), 60.0))
+# Phase 14: the SSM families on the slot engine (8 slots × 1,088 rows:
+# phase 7's prompts and 32 new), and layer 0's mixer card vs CPU in f32 on
+# 300 rows (three chunks of 128, the last partial) within this share of
+# each value's own scale
+SSM_MODELS = ("falcon-mamba-7b", "zamba2-1.2b")
+SSM_SLOTS = dict(slots=8, max_len=1088)
+SSM_LAYER_ROWS = 300
+SSM_REL_TOL = 1e-4
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -543,6 +589,20 @@ def phase_lut_exp():
             fail(f"lut_exp not bit-equal on an unaligned {dt} view")
         checked += 1
     log(f"[lut_exp] bit-equal to the plain version in {checked} cases")
+    # the SSM discretisations of phase 14, f32: falcon-mamba's chunk Ā =
+    # exp(Δ ⊗ A) (Δ = softplus(·) ≥ 0, A = −(1..16)) and its decode step,
+    # zamba2's intra-chunk decay exp(min(s_i − s_j, 0))
+    for label, shape, hi in SSM_LUT_SHAPES:
+        x = torch.rand(shape, device=DEV, generator=torch.Generator(
+            device=DEV).manual_seed(31)) * -hi
+        for order in (0, 1):
+            if not torch.equal(lut_exp(x, order=order).view(torch.int32),
+                               lut_exp_ref(x, order=order).view(torch.int32)):
+                fail(f"lut_exp not bit-equal at {label} {shape}, order "
+                     f"{order}")
+        log(f"[lut_exp] {label} {shape} f32 ({x.numel()} values in "
+            f"[-{hi}, 0]): bit-equal to the plain version, orders 0/1")
+        del x
     # the form the tensor-core attention kernel inlines (lut_exp_nonpos):
     # bit-equal on x <= 0, with the floors where the table index turns
     from repro_torch.kernels.streaming_attention.ops import softmax_exp
@@ -946,6 +1006,12 @@ SA_CASES += [(f"{model} causal l1024 {dt}", shape, dtype, dict(causal=True, **kw
                  ("granite gqa 3:1", (2, 24, 8, 1024, 1024, 64), {}),
                  ("grok gqa 6:1 cap 30", (2, 48, 8, 1024, 1024, 128),
                   dict(cap=30.0)))
+             for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
+# zamba2-1.2b's shared attention block as its slot prefill runs it: one
+# prompt of 1,024 tokens, 32 heads of 64 (MHA), causal, both kernels.
+ZAMBA2_PREFILL = (1, 32, 32, 1024, 1024, 64)
+SA_CASES += [(f"zamba2 shared prefill causal l1024 {dt}", ZAMBA2_PREFILL,
+              dtype, dict(causal=True))
              for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
 # the kernel each dtype launches (ops.kernel_variant)
 VARIANT = {"float32": "cuda_core", "bfloat16": "tensor_core"}
@@ -3107,13 +3173,28 @@ def phase_front_door(eng, prompts, want):
     return facts
 
 
+def step_check_cut(cfg, params, pool):
+    """``cfg`` cut to ``STEP_CHECK_LAYERS`` layers, or two whole periods of
+    its pattern where that is more (gemma3: 12), with the first layers'
+    weights and pool leaves (views): the depth of the plain-attention step
+    checks, whose plain schedules run on the host layer by layer."""
+    from repro_torch.models.lm import layer_keys
+    per = len(cfg.pattern)
+    n = min(cfg.num_layers, per * max(2, -(-STEP_CHECK_LAYERS // per)))
+    keys = set(layer_keys(cfg))
+    cut = {k: (v[:n] if k in keys else v) for k, v in params.items()}
+    return (cfg.replace(num_layers=n), cut,
+            None if pool is None else {k: v[:n] for k, v in pool.items()})
+
+
 def phase_step_vs_plain(cfg, params, pool, label: str, floor: float,
                         spec=None):
-    """One full-width ragged step (7 decode lanes + a prefill chunk; or
-    ``spec``'s (new rows, rows after) per lane) over ``pool``, through the
-    kernel and through the plain attention (passed explicitly, at 8 pages
-    per online-softmax step and at 1).  Each run rewrites the step's own
-    rows before attending, so all three read the same history.
+    """One ragged step at full width (7 decode lanes + a prefill chunk; or
+    ``spec``'s (new rows, rows after) per lane) over ``pool``, at the depth
+    of ``step_check_cut``, through the kernel and through the plain
+    attention (passed explicitly, at 8 pages per online-softmax step and at
+    1).  Each run rewrites the step's own rows before attending, so all
+    three read the same history.
 
     Tolerance: the kernel must sit within 3× the spread between the two
     plain schedules on this very step (``floor`` at least) — in bf16 every
@@ -3127,6 +3208,8 @@ def phase_step_vs_plain(cfg, params, pool, label: str, floor: float,
         paged_attention_varlen_reference)
     from repro_torch.models.lm import lm_step_ragged
     from repro_torch.serving.scheduler import default_token_buckets
+    depth = cfg.num_layers
+    cfg, params, pool = step_check_cut(cfg, params, pool)
     rng = np.random.default_rng(7)
     spec = spec or [(1, kv) for kv in KV_LENS[1:]] + [(CHUNK, 3 * CHUNK)]
     ps, n_pages = pool["k"].shape[3], pool["k"].shape[1] - 1
@@ -3169,7 +3252,8 @@ def phase_step_vs_plain(cfg, params, pool, label: str, floor: float,
     agree = (k_logits.argmax(-1) == p_logits.argmax(-1)).cpu().numpy()
     decided = margin > 2 * err
     log(f"[step {label}] full-width ragged step ({live} live rows, width "
-        f"{width}, {cfg.num_layers} layers): kernel vs plain attention "
+        f"{width}, {cfg.num_layers} of {depth} layers): kernel vs plain "
+        f"attention "
         f"max|Δlogit| {err:.3g}; plain 8-page vs 1-page schedule "
         f"{spread:.3g} (limit {tol:.3g}); logit std "
         f"{float(p_logits.std()):.3f}; greedy picks agree on "
@@ -3181,7 +3265,7 @@ def phase_step_vs_plain(cfg, params, pool, label: str, floor: float,
         fail(f"{label} step: greedy pick differs on a lane with a clear margin")
     return dict(max_abs_logit=err, plain_schedule_spread=spread, limit=tol,
                 agree=int(agree.sum()), decided=int(decided.sum()),
-                lanes=len(agree))
+                lanes=len(agree), layers=cfg.num_layers)
 
 
 def phase_step_f32(cfg, params):
@@ -3192,8 +3276,8 @@ def phase_step_f32(cfg, params):
     c = cfg.replace(dtype="float32")
     for k in list(params):
         params[k] = params.pop(k).float()
-    pool = trunk_cache_init(c, ENGINE["num_pages"] + 1, ENGINE["page_size"],
-                            DEV)
+    pool = trunk_cache_init(step_check_cut(c, params, None)[0],
+                            ENGINE["num_pages"] + 1, ENGINE["page_size"], DEV)
     g = torch.Generator(device=DEV).manual_seed(3)
     for leaf in pool.values():
         leaf.normal_(generator=g)
@@ -3562,7 +3646,15 @@ def phase_timing(engine_facts, vocab):
         shape=f"({ENGINE['lanes']}, {vocab}) f32 shifted scores: the "
               f"sampler's two exponentials of a sampling step",
         decode_logits=decode_entry))
-    for label, e in (("sampler shape", entry), ("decode logits", decode_entry)):
+    # phase 14's discretisations: falcon-mamba's chunk Ā and decode Ā
+    ssm = {}
+    for label, shape, hi in SSM_LUT_SHAPES[:2]:
+        x = torch.rand(shape, device=DEV, generator=g) * -hi
+        ssm[label] = dict(lut_entry(x), shape=f"{shape} f32 Δ ⊗ A values")
+        del x
+    kernels[-1]["ssm"] = ssm
+    for label, e in (("sampler shape", entry), ("decode logits", decode_entry),
+                     *ssm.items()):
         log(f"[time] lut_exp at the {label}: kernel {e['ms']:.4f} ms, device "
             f"alone {e['device_ms']:.4f} ms, host per call {e['host_ms']:.4f} "
             f"ms, plain {e['plain_ms']:.4f} ms, torch.exp "
@@ -3751,10 +3843,12 @@ def time_quantize(flush, facts):
 
 def streaming_shapes():
     """(label, (B, Hq, Hkv, Lq, Lkv, D), causal) of kernel #3's main-path
-    calls: the BERT-large encodes and the deepseek-7b scoring batch."""
+    calls: the BERT-large encodes, the deepseek-7b scoring batch and
+    zamba2-1.2b's shared block in its slot prefill of 1,024 tokens."""
     shapes = [(f"l{l}", (b, 16, 16, l, l, 64), False) for b, l in BERT_SHAPES]
     b, l = SCORE_SHAPE
     shapes.append((f"scoring_{b}x{l}", (b, 32, 32, l, l, 128), True))
+    shapes.append(("zamba2_shared_prefill_1x1024", ZAMBA2_PREFILL, True))
     return shapes
 
 
@@ -3812,6 +3906,7 @@ def time_streaming(flush, facts):
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         del q, k, v, q32, k32, v32, got, want
     timed.update(time_streaming_d256(flush))
+    timed.update(time_streaming_gqa(flush))
     first = timed.pop(shapes[0][0])
     return dict(
         name="streaming_attention", route="cuda",
@@ -3896,6 +3991,60 @@ def time_streaming_d256(flush):
             f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD[0]}")
         del q, k, v, q32, k32, v32, kx, vx, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+# The MoE family's scoring shapes (2 × 1024, causal): granite-moe's 24 × 8
+# heads of 64 (SDPA takes it with ``enable_gqa``) and grok-1's 48 × 8 of 128
+# with softcap 30 (no single PyTorch call takes the softcap).
+GQA_SHAPES = (
+    ("granite scoring 2x1024 (GQA 3:1)", (2, 24, 8, 1024, 1024, 64),
+     dict(causal=True), True),
+    ("grok scoring 2x1024 (GQA 6:1, cap 30)", (2, 48, 8, 1024, 1024, 128),
+     dict(causal=True, cap=30.0), False))
+
+
+def time_streaming_gqa(flush):
+    """Kernel #3 at the MoE scoring shapes (``GQA_SHAPES``), bf16: the
+    tensor-core kernel, its plain version, SDPA with ``enable_gqa`` where
+    it computes the same function (no softcap), and the bound (bytes: q,
+    k, v read once, out written once; operations: QKᵀ and P·V over the
+    causal pairs at the bf16 peak)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.streaming_attention import (attention_ref,
+                                                         streaming_attention)
+    out = {}
+    for label, shape, kw, has_library in GQA_SHAPES:
+        b, hq, hkv, lq, lkv, d = shape
+        q, k, v = sa_inputs(shape, "bfloat16", seed=9)
+        got = streaming_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: streaming_attention(q, k, v, **kw), flush=flush)
+        plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5,
+                        flush=flush)
+        lib = (cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush=flush)
+            if has_library else None)
+        nbytes = 2.0 * (2 * b * hq * lq * d + 2 * b * hkv * lkv * d)
+        flops = 4.0 * b * hq * d * visible_pairs(lq, lkv, causal=True)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        out[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib, tflops=flops / ms / 1e9,
+            shape=f"B {b}, {hq} × {hkv} heads × {d}, l {lq}, bf16, {kw}")
+        log(f"[time] streaming_attention {label} ({out[label]['shape']}): "
+            f"tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain:.3f} ms, sdpa (enable_gqa) "
+            + (f"{lib:.4f} ms" if lib is not None else "none (softcap)")
+            + f", bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP); {CARD[0]}")
+        del q, k, v, got, want
         torch.cuda.empty_cache()
     return out
 
@@ -4222,12 +4371,13 @@ def slot_engine_f32_cut(cfg, params, prompts, name):
     return facts
 
 
-def slot_pass(eng, prompts, targets=frozenset(), twin=None):
+def slot_pass(eng, prompts, targets=frozenset(), twin=None, states=False):
     """Serve ``prompts`` (uids 0.., ``MAX_NEW`` new tokens each) through the
     slot engine ``eng``, kernel counts zeroed just before and read just
     after.  ``twin`` (the same engine with ``capture=False``) steps in
     lockstep: after every step its logits, picks and request states must
-    equal ``eng``'s bit for bit (its prefills then count too).
+    equal ``eng``'s bit for bit (its prefills then count too), and with
+    ``states`` every cache leaf too (the SSM state, conv and shared K/V).
     ``targets`` {(uid, token index)} → those tokens' logits rows, read
     through ``eng.tap``.  → facts of the pass."""
     import torch
@@ -4265,6 +4415,11 @@ def slot_pass(eng, prompts, targets=frozenset(), twin=None):
                     or state(eng) != state(twin)):
                 fail(f"slot engine: the captured decode differs from the "
                      f"eager one at step {steps}")
+            bad = [k for k in (eng.caches if states else ())
+                   if not torch.equal(eng.caches[k], twin.caches[k])]
+            if bad:
+                fail(f"slot engine: cache leaves {bad} of the captured "
+                     f"decode differ from the eager one's at step {steps}")
         for slot, r in enumerate(eng.active):
             if r is not None:
                 slot_of.setdefault(r.uid, slot)
@@ -4648,6 +4803,248 @@ def phase_moe():
     return out
 
 
+# ------------------------------------------------------------- phase 14 --
+
+def ssm_exp_launches(cfg, prompt_lens, decode_steps) -> int:
+    """Kernel #1's launches in a slot pass of an SSM model by formula: per
+    layer, one (Mamba-1's Ā) or four (Mamba-2's decays) per chunk of every
+    prompt's prefill, and one per decode step."""
+    per_chunk = 4 if cfg.ssm_variant == "mamba2" else 1
+    chunks = sum(-(-n // cfg.ssm_chunk) for n in prompt_lens)
+    return cfg.num_layers * (per_chunk * chunks + decode_steps)
+
+
+def ssm_cache_bytes(cfg, slots, max_len) -> int:
+    """The SSM cache's bytes by arithmetic: every layer's conv state (the
+    last K-1 inputs of its conv channels, model dtype) and scan state
+    (Mamba-1 d_inner × n, Mamba-2 H × N × P, f32), and the hybrid's shared
+    block's K and V per period."""
+    import torch
+    from repro_torch.models.lm import period_layout
+    width = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    if cfg.ssm_variant == "mamba2":
+        channels = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        state = cfg.d_inner * cfg.ssm_state              # H × N × P
+    else:
+        channels, state = cfg.d_inner, cfg.d_inner * cfg.ssm_state
+    total = cfg.num_layers * slots * ((cfg.ssm_conv - 1) * channels * width
+                                      + state * 4)
+    if cfg.family == "hybrid":
+        nper = period_layout(cfg)[1]
+        total += 2 * nper * slots * max_len * cfg.num_kv_heads * cfg.d_head * width
+    return total
+
+
+def ssm_layer_alone(cfg, params, label):
+    """Layer 0's mixer at full width in f32, on the card and on the CPU:
+    ``SSM_LAYER_ROWS`` rows (three chunks, the last partial) from a
+    non-zero carried state (conv and scan state drawn from a seed), then
+    four decode steps; ``y``, the scan state (``h`` / ``S``) and ``conv``
+    after each call, each within ``SSM_REL_TOL`` of its own scale (the
+    largest magnitude of the CPU's value); #1 launched once (Mamba-1) or
+    four times (Mamba-2) per chunk and once per decode step."""
+    import torch
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.models import mamba, mamba2
+    from repro_torch.models.lm import layer_keys
+    c32 = cfg.replace(dtype="float32")
+    two = cfg.ssm_variant == "mamba2"
+    apply, init, state = ((mamba2.mamba2_apply, mamba2.mamba2_cache_init, "S")
+                          if two else
+                          (mamba.mamba_apply, mamba.mamba_cache_init, "h"))
+    p_cpu = {k: params[k][0].float().cpu() for k in layer_keys(cfg)}
+    p_dev = {k: v.to(DEV) for k, v in p_cpu.items()}
+    g = torch.Generator().manual_seed(23)
+    c_cpu = {k: torch.randn(v.shape[1:], generator=g) * 0.5
+             for k, v in init(c32, 1).items()}
+    c_dev = {k: v.to(DEV) for k, v in c_cpu.items()}
+    worst, t_cpu = {}, 0.0
+    before = lut_exp.launches
+    for step, rows in enumerate((SSM_LAYER_ROWS, 1, 1, 1, 1)):
+        x = torch.randn((1, rows, cfg.d_model), generator=g)
+        y_dev = apply(c32, p_dev, x.to(DEV), cache=c_dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_cpu = apply(c32, p_cpu, x, cache=c_cpu)
+        t_cpu += time.perf_counter() - t0
+        for what, got, want in (("y", y_dev, y_cpu),
+                                (state, c_dev[state], c_cpu[state]),
+                                ("conv", c_dev["conv"], c_cpu["conv"])):
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max())
+            worst[what] = max(worst.get(what, 0.0), err / scale)
+            if not torch.isfinite(got).all() or err > SSM_REL_TOL * scale:
+                fail(f"{label}: layer 0's {what} after call {step} ({rows} "
+                     f"rows): card vs CPU max|Δ| {err:.3g} above "
+                     f"{SSM_REL_TOL} × its scale {scale:.3g}")
+    launched = lut_exp.launches - before
+    want_launches = ((4 if two else 1) * -(-SSM_LAYER_ROWS // cfg.ssm_chunk)
+                     + 4)
+    log(f"[{label}] layer 0's mixer alone at full width, f32: "
+        f"{SSM_LAYER_ROWS} rows from a carried state, then 4 decode steps: "
+        f"card vs CPU max|Δ| / scale "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f" (limit {SSM_REL_TOL}); #1 launches {launched} = "
+        f"{want_launches}; CPU {t_cpu:.1f} s")
+    if launched != want_launches:
+        fail(f"{label}: layer 0's mixer launched #1 {launched} times, "
+             f"expected {want_launches}")
+    del p_dev, c_dev
+    torch.cuda.empty_cache()
+    return dict(rows=SSM_LAYER_ROWS, decode_steps=4, rel_err=worst,
+                limit=SSM_REL_TOL, lut_launches=launched, cpu_s=t_cpu)
+
+
+def profile_slot_decode(eng, label):
+    """One replayed decode step of the slot engine ``eng`` (its captured
+    graph, the slots as the last step left them) under ``torch.profiler``
+    → ``read_window``'s summary: kernels and device time by group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tdir = ROOT / "chiprun_out" / "traces"
+    tdir.mkdir(parents=True, exist_ok=True)
+    path = str(tdir / f"{label.replace(' ', '_')}_replayed_decode.json")
+    counts = read_paged_counts()
+    eng._graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._graph.replay()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    set_paged_counts(counts)
+    return read_window(path, f"{label} replayed decode step")
+
+
+def serve_ssm(cfg, params, prompts, label):
+    """Phase 14's serving for one SSM model: ``ServingEngine`` (``SSM_SLOTS``)
+    over ``prompts``, 32 new each.  A lockstep pass of the captured decode
+    beside an eager twin (logits, picks, request states and every cache
+    leaf bit for bit on every step), then the measured pass (counts zeroed
+    just before): #1 launched by ``ssm_exp_launches``' formula, #3 once
+    per period per prompt (the hybrid's shared block; none for Mamba-1),
+    #2 never, the streams the lockstep pass's; the cache's bytes equal
+    the arithmetic; one replayed decode step profiled."""
+    import torch
+    from repro_torch.models.lm import period_layout
+    from repro_torch.serving import ServingEngine
+    make = lambda capture=True: ServingEngine(  # noqa: E731
+        cfg, params, device=DEV, capture=capture, **SSM_SLOTS)
+    eng = make()
+    measured = sum(t.numel() * t.element_size() for t in eng.caches.values())
+    want_bytes = ssm_cache_bytes(cfg, SSM_SLOTS["slots"], SSM_SLOTS["max_len"])
+    if measured != want_bytes:
+        fail(f"{label}: the cache holds {measured} bytes, the arithmetic "
+             f"says {want_bytes}")
+    t0 = time.perf_counter()
+    twin = make(capture=False)
+    lock = slot_pass(eng, prompts, twin=twin, states=True)
+    lock_s = time.perf_counter() - t0
+    del twin
+    torch.cuda.empty_cache()
+    m = slot_pass(eng, prompts)
+    if m["streams"] != lock["streams"]:
+        fail(f"{label}: the measured pass served other streams than the "
+             f"lockstep pass")
+    la = m["launches"]
+    lens = [len(p) for p in prompts]
+    want_lut = ssm_exp_launches(cfg, lens, m["decode_steps"])
+    nper = period_layout(cfg)[1] if cfg.family == "hybrid" else 0
+    want_sa = nper * len(prompts)
+    variant = VARIANT[cfg.dtype]
+    if (la["lut_exp"] != want_lut or la["streaming_attention"] != want_sa
+            or la["by_variant"][variant] != want_sa
+            or la["paged_attention"] or la["paged_combine"]):
+        fail(f"{label}: launches {la}, expected #1 = {want_lut} (formula), "
+             f"#3 = {nper} periods × {len(prompts)} prompts on the {variant} "
+             f"kernel, no #2")
+    if eng.captures != 1:
+        fail(f"{label}: {eng.captures} decode captures, expected 1")
+    window = profile_slot_decode(eng, label)
+    by_len = sorted(m["prefill_ms"])
+    facts = dict(
+        lockstep_steps=lock["steps"], lockstep_s=lock_s, steps=m["steps"],
+        launches=la, lut_exp_formula=want_lut, captures=eng.captures,
+        cache_gb=measured / 1e9, prefill_ms=by_len,
+        decode_ms_p50=m["decode_ms_p50"], decode_ms_p99=m["decode_ms_p99"],
+        decode_steps=m["decode_steps"], tok_s=m["tok_s"], wall_s=m["wall_s"],
+        peak_gib=m["peak_gib"], generated=m["generated"],
+        decode_window={k: window[k] for k in (
+            "launches", "device_ms", "kernel_span_idle_share", "by_group",
+            "top", "trace")}, card=CARD[0])
+    log(f"[{label}] ServingEngine(slots={SSM_SLOTS['slots']}, max_len="
+        f"{SSM_SLOTS['max_len']}) over {len(prompts)} prompts × {MAX_NEW} new: "
+        f"captured = eager bit for bit (logits, picks, every cache leaf) over "
+        f"{lock['steps']} lockstep steps ({lock_s:.1f} s); measured pass: #1 "
+        f"launches {la['lut_exp']} = {want_lut} (formula), #3 "
+        f"{la['streaming_attention']} = {nper} periods × {len(prompts)} "
+        f"prompts, #2 {la['paged_attention']}; cache {measured / 1e9:.4f} GB "
+        f"= the arithmetic; prefill ms by prompt length "
+        f"{[(lp, round(ms, 1)) for lp, ms in by_len]}; decode step p50 "
+        f"{m['decode_ms_p50']:.2f} p99 {m['decode_ms_p99']:.2f} ms over "
+        f"{m['decode_steps']} steps; {m['tok_s']:.1f} generated tok/s; peak "
+        f"{m['peak_gib']:.2f} GiB; {CARD[0]}")
+    del eng
+    torch.cuda.empty_cache()
+    return facts
+
+
+def phase_ssm():
+    """Phase 14: falcon-mamba-7b (Mamba-1) and zamba2-1.2b (Mamba-2 and its
+    shared attention block) at their published widths and full depth, one
+    at a time (each freed before the next), seeded bf16 weights: the page
+    pool refuses each (``UnsupportedCacheLayout("ssm_state")``), the slot
+    engine serves phase 7's prompts (``serve_ssm``), and layer 0's mixer
+    alone holds the CPU in f32 (``ssm_layer_alone``) → facts per model."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore, UnsupportedCacheLayout
+    out = {}
+    for name in SSM_MODELS:
+        t_model = time.perf_counter()
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.values())
+        gb = sum(p.numel() * p.element_size() for p in params.values()) / 1e9
+        log(f"[weights] {name}: {n_params / 1e9:.2f} B parameters, {gb:.1f} "
+            f"GB {cfg.dtype}, {cfg.num_layers} {cfg.ssm_variant} layers"
+            + (f" + a shared attention block before each of "
+               f"{cfg.num_layers // cfg.hybrid_period} periods of "
+               f"{cfg.hybrid_period}" if cfg.family == "hybrid" else "")
+            + f"; drawn in {time.perf_counter() - t0:.1f} s")
+        short = name.split("-")[0]
+        f = dict(params_b=n_params / 1e9, gb=gb, layers=cfg.num_layers,
+                 parts_s={})
+        try:
+            EngineCore(cfg, params, device=DEV, **ENGINE)
+        except UnsupportedCacheLayout as e:
+            if e.layout != "ssm_state":
+                fail(f"{name}: EngineCore refused with layout {e.layout!r}")
+            f["engine_core_refusal"] = str(e)
+            log(f"[{short}] EngineCore refuses: {e}")
+        else:
+            fail(f"{name}: EngineCore accepted an SSM model")
+        prompts = family_prompts(cfg, None)
+        f["prompts"] = [len(p) for p in prompts]
+        t0 = time.perf_counter()
+        f["slot"] = serve_ssm(cfg, params, prompts, f"slot {short} bf16")
+        f["parts_s"]["serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f["layer_alone"] = ssm_layer_alone(cfg, params, f"{short} layer 0")
+        f["parts_s"]["layer alone"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        f["model_s"] = time.perf_counter() - t_model
+        log(f"[ssm {name}] done in {f['model_s']:.1f} s: "
+            + json.dumps({k: round(v, 1) for k, v in f["parts_s"].items()}))
+        out[name] = f
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4659,16 +5056,30 @@ def main() -> int:
     from repro_torch.serving import EngineCore
 
     t_start = time.perf_counter()
+    phase_s, clock = {}, [t_start]
+
+    def mark(what):
+        now = time.perf_counter()
+        phase_s[what] = now - clock[0]
+        clock[0] = now
+
     name, smi_line = phase_card()
     built = phase_build()
+    mark("1-2 card, build")
     phase_lut_exp()
+    mark("3 LUT exp")
     phase_paged_attention()
+    mark("4 paged attention")
     p7_steps = phase7_steps()
     tuner = phase_tuner(p7_steps)
+    mark("4a tuner")
     sa_worst = phase_streaming_attention()
+    mark("5 streaming attention")
     bert = phase_bert()
+    mark("6 BERT")
     phase_int8_checks()
     int8_bert = phase_int8_bert()
+    mark("8-9 INT8")
 
     cfg = get_config(MODEL)
     t0 = time.perf_counter()
@@ -4706,12 +5117,15 @@ def main() -> int:
         facts["launches"][pool] = compiled[tag]["launches"]
         if not kv_quant:
             arms = phase_config_arms(cfg, params, prompts)
+    mark("7 deepseek engine")
     prefix = {tag: phase_prefix(cfg, params, kv_quant)
               for tag, kv_quant in (("bf16", False), ("int8", True))}
     greedy_streams = {tag: compiled[tag].pop("streams")
                       for tag in ("bf16", "int8")}
+    mark("7a prefix cache")
     spec = phase_spec(cfg, params, prompts, greedy_streams["bf16"],
                       compiled["bf16"])
+    mark("7b speculation")
     sampled = {}
     for tag, kv_quant in (("bf16", False), ("int8", True)):
         f, eng = phase_sampled(cfg, params, kv_quant, prompts,
@@ -4722,7 +5136,9 @@ def main() -> int:
         sampled[tag] = f
         del eng
         torch.cuda.empty_cache()
+    mark("7c-7d sampling, front door")
     ckpt = phase_checkpoint(cfg, params, prompts)
+    mark("7e checkpoint")
     slot = {}
     for tag, kv_quant in (("bf16", False), ("int8", True)):
         c = cfg.replace(kv_quant=kv_quant)
@@ -4731,6 +5147,7 @@ def main() -> int:
             dict(enumerate(greedy_streams[tag])),
             lambda c=c: EngineCore(c, params, device=DEV, **ENGINE),
             SLOT_ENGINES[MODEL], f"slot {MODEL} {tag}")
+    mark("12 slot engine deepseek bf16, int8")
     facts["paths"] = {"prefix bf16": prefix["bf16"]["launches"],
                       "prefix int8": prefix["int8"]["launches"],
                       "spec (a)": spec["scripted"]["launches"],
@@ -4753,6 +5170,7 @@ def main() -> int:
                                     f"slot {MODEL} f32", lockstep=False)
     del params
     torch.cuda.empty_cache()
+    mark("7 scoring, f32 step, 12 slot f32")
     facts["decode_kv_lens"] = decode_kv_lens()
     facts["bert"], facts["scoring"] = bert, scoring
     facts["int8_bert"] = int8_bert
@@ -4762,7 +5180,9 @@ def main() -> int:
         tag: {k: t[k] for k in ("winner", "winner_ms", "default_ms",
                                 "predicted_winner", "spearman")}
         for tag, t in tuner.items()}
+    mark("10 timing")
     families = phase_families()
+    mark("11 dense families")
     by_name = {k["name"]: k for k in kernels}
     by_name["paged_combine"].setdefault("launches_by_path", {})
     by_name["paged_attention"]["families"] = {}
@@ -4802,6 +5222,16 @@ def main() -> int:
         sa = by_name["streaming_attention"]["launches_by_path"]
         sa[f"scoring {model}"] = f["scoring"]["launches"]
         sa[f"scoring {model} f32"] = f["scoring_f32"]["launches"]
+    mark("13 MoE family")
+    ssm = phase_ssm()
+    for model, f in ssm.items():
+        la = f["slot"]["launches"]
+        by_name["lut_exp"]["launches_by_path"][f"slot engine {model} bf16"] = (
+            la["lut_exp"])
+        if la["streaming_attention"]:
+            by_name["streaming_attention"]["launches_by_path"][
+                f"slot engine {model} bf16"] = la["streaming_attention"]
+    mark("14 SSM families")
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -4821,7 +5251,11 @@ def main() -> int:
     summary["int8_bert"] = int8_bert
     summary["families"] = families
     summary["moe"] = moe
+    summary["ssm"] = ssm
+    summary["phase_s"] = phase_s
     log("[summary] " + json.dumps(summary))
+    log("[phases] seconds " + json.dumps({k: round(v, 1)
+                                          for k, v in phase_s.items()}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,5 +1,5 @@
-"""Model configuration for the PyTorch port: the dense, MoE and BERT
-families.
+"""Model configuration for the PyTorch port: the dense, MoE, SSM, hybrid
+and BERT families.
 
 An own copy of the reference ``ModelConfig`` (``src/repro/configs/base.py``)
 cut to what the port implements: the dense decoders the ragged serving
@@ -13,9 +13,14 @@ MLP is ``num_experts`` gated experts behind a router, a token sent to
 ``experts_per_token`` of them, ``models/moe.py``); and the cache-free
 full-sequence forward (``models/lm.py::lm_apply``) that the decoders'
 scoring and the BERT encoder share (learned positions, tied
-embeddings).  The configurations are ``deepseek-7b``, ``gemma2-9b``,
-``gemma3-12b``, ``starcoder2-3b``, ``granite-moe-3b-a800m``,
-``grok-1-314b``, ``bert-base`` and ``bert-large`` at their published
+embeddings); the attention-free Mamba-1 decoder (``family="ssm"``:
+every layer a selective-scan block, ``models/mamba.py``) and the Mamba-2
+hybrid (``family="hybrid"``: Mamba-2 blocks, ``models/mamba2.py``, with
+one shared attention + MLP block run again before every period of
+``hybrid_period`` of them).  The configurations are ``deepseek-7b``,
+``gemma2-9b``, ``gemma3-12b``, ``starcoder2-3b``,
+``granite-moe-3b-a800m``, ``grok-1-314b``, ``falcon-mamba-7b``,
+``zamba2-1.2b``, ``bert-base`` and ``bert-large`` at their published
 widths, and their ``-smoke`` variants, which every CPU test builds.
 Field names, defaults and the ``reduced`` rule match the reference, so a
 config built here and one built there describe the same model.
@@ -34,7 +39,7 @@ from typing import Dict, Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str = "dense"                      # dense | moe | bert
+    family: str = "dense"                      # dense | moe | ssm | hybrid | bert
 
     num_layers: int = 0
     d_model: int = 0
@@ -61,7 +66,7 @@ class ModelConfig:
     act: str = "silu"                          # silu | gelu | relu
     norm: str = "rmsnorm"                      # rmsnorm | layernorm
     postnorm: bool = False                     # parity only (module docstring)
-    pos_embedding: str = "rope"                # rope | learned
+    pos_embedding: str = "rope"                # rope | learned | none
     tie_embeddings: bool = True
     embed_scale: bool = False                  # gemma: embeddings · sqrt(d)
     max_position: int = 1 << 20                # learned-position table size
@@ -72,6 +77,17 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     moe_group: int = 512                       # tokens per dispatch group
+
+    # --- SSM ---
+    ssm_state: int = 0
+    ssm_variant: str = ""                      # mamba1 | mamba2
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64                     # mamba2
+    ssm_groups: int = 1                        # mamba2 B/C groups
+    ssm_chunk: int = 128                       # chunked-scan length
+    ssm_dt_rank: int = 0                       # mamba1 (0 → d_model//16)
+    hybrid_period: int = 0                     # zamba2: shared attn every N blocks
 
     # --- numerics & HASTILY technique toggles ---
     dtype: str = "bfloat16"
@@ -96,9 +112,21 @@ class ModelConfig:
         return self.d_model // max(self.num_heads, 1)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(self.d_model // 16, 1)
+
+    @property
     def pattern(self) -> Tuple[str, ...]:
-        """The per-layer kinds, cycled over the layers."""
-        return self.layer_pattern or ("global",)
+        """The per-layer kinds, cycled over the layers (``mamba`` for the
+        SSM family; the hybrid's periods are ``models/lm.py::
+        period_layout``'s)."""
+        if self.layer_pattern:
+            return self.layer_pattern
+        return ("mamba",) if self.family == "ssm" else ("global",)
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """The kind of every layer, in layer order."""
@@ -110,21 +138,31 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant with the reference's rule (``reduced`` in
     ``src/repro/configs/base.py``): 2 layers — two whole periods of a
     ``layer_pattern`` where there is one —, d_model 64, 4 heads over at
-    most 2 kv heads of 16, d_ff 128, vocab 512, a window of 8 where there
-    is one, 4096 learned positions and a 16-row streaming block; an MoE
-    config keeps at most 8 experts and 2 per token."""
+    most 2 kv heads of 16 (none for an attention-free model), d_ff 128,
+    vocab 512, a window of 8 where there is one, 4096 learned positions,
+    a 16-row streaming block and an 8-row scan chunk; an MoE config keeps
+    at most 8 experts and 2 per token, an SSM or hybrid one a state of at
+    most 8 and Mamba-2 heads of 16, and a hybrid 2 periods of 2 blocks
+    plus 2 more (4 periods, no tail)."""
     n_small = max(2 * len(cfg.pattern), 2)
-    moe = (dict(num_experts=min(cfg.num_experts, 8),
-                experts_per_token=min(cfg.experts_per_token, 2))
-           if cfg.family == "moe" else {})
-    return cfg.replace(
-        name=cfg.name + "-smoke",
+    kw = dict(
         num_layers=(n_small if cfg.num_layers and cfg.layer_pattern
                     else min(cfg.num_layers, n_small)),
-        d_model=64, d_ff=128,
-        vocab_size=512, num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
-        head_dim=16, window=8 if cfg.window else None, max_position=4096,
-        block_k=16, **moe)
+        d_model=64, d_ff=128, vocab_size=512,
+        num_heads=4 if cfg.num_heads else 0,
+        num_kv_heads=min(cfg.num_kv_heads, 2),
+        head_dim=16 if cfg.num_heads else 0,
+        window=8 if cfg.window else None, max_position=4096, block_k=16,
+        ssm_chunk=8)
+    if cfg.family == "moe":
+        kw.update(num_experts=min(cfg.num_experts, 8),
+                  experts_per_token=min(cfg.experts_per_token, 2))
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_state=min(cfg.ssm_state, 8), ssm_head_dim=16)
+    if cfg.family == "hybrid":
+        kw.update(num_layers=max(cfg.hybrid_period, 2) + 2,
+                  hybrid_period=max(min(cfg.hybrid_period, 2), 2))
+    return cfg.replace(name=cfg.name + "-smoke", **kw)
 
 
 # [arXiv:2401.02954; hf]
@@ -253,6 +291,50 @@ GROK_1_314B = ModelConfig(
     tie_embeddings=True,
 )
 
+# [arXiv:2410.05355; unverified]  attention-free Mamba-1: d_inner 8192
+# (expand 2), state 16, conv 4, dt_rank 256 (d_model / 16)
+FALCON_MAMBA_7B = ModelConfig(
+    name="falcon-mamba-7b",
+    family="ssm",
+    num_layers=64,
+    d_model=4096,
+    d_ff=0,
+    vocab_size=65024,
+    ssm_variant="mamba1",
+    ssm_state=16,
+    ssm_expand=2,
+    ssm_conv=4,
+    norm="rmsnorm",
+    pos_embedding="none",
+    tie_embeddings=False,
+)
+
+# [arXiv:2411.15242; hf]  38 Mamba-2 blocks (state 64, heads of 64) and
+# one shared transformer block (32 × 64 MHA, d_ff 8192, GELU-gated) run
+# again before every period of 6 blocks (weights reused, KV per period)
+ZAMBA2_1P2B = ModelConfig(
+    name="zamba2-1.2b",
+    family="hybrid",
+    num_layers=38,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=32000,
+    ssm_variant="mamba2",
+    ssm_state=64,
+    ssm_expand=2,
+    ssm_conv=4,
+    ssm_head_dim=64,
+    ssm_groups=1,
+    hybrid_period=6,
+    mlp_gated=True,
+    act="gelu",
+    norm="rmsnorm",
+    tie_embeddings=True,
+)
+
 # [paper Table III]: encoder-only, learned positions, GELU, MHA.
 BERT_BASE = ModelConfig(
     name="bert-base",
@@ -285,7 +367,8 @@ BERT_LARGE = BERT_BASE.replace(
 
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in [DEEPSEEK_7B, GEMMA2_9B, GEMMA3_12B, STARCODER2_3B,
-                        GRANITE_MOE_3B, GROK_1_314B, BERT_BASE, BERT_LARGE]}
+                        GRANITE_MOE_3B, GROK_1_314B, FALCON_MAMBA_7B,
+                        ZAMBA2_1P2B, BERT_BASE, BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -8,7 +8,11 @@ logits of every position; ``loss`` is the masked-LM cross-entropy against
 next-token cross-entropy, or against ``labels`` of the tokens' shape,
 plus ``cfg.router_aux_weight`` times the MoE load-balancing loss; the
 MoE decoder has the dense one's entries, its layers' MLPs replaced by
-``models/moe.py``).  All run the
+``models/moe.py``), ``ssm`` (falcon-mamba: Mamba-1 layers,
+``models/mamba.py``) and ``hybrid`` (zamba2: Mamba-2 layers,
+``models/mamba2.py``, and a shared attention block), whose O(1) state
+the page pool cannot hold: they have every entry but ``step_ragged``
+and are served by the slot engine.  All run the
 forward ``models.lm.lm_apply``, whose attention goes through the registry
 (``cfg.attn_backend``) to the CUDA streaming-attention kernel on the card.
 Inference only: the kernel has no backward yet.
@@ -92,13 +96,16 @@ def build_model(cfg: ModelConfig) -> Model:
                      loss=functools.partial(_bert_loss, cfg),
                      prefill=functools.partial(_bert_encode, cfg),
                      decode_step=None)   # encoder-only: no decode step
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
+        ragged = cfg.family in ("dense", "moe")
         return Model(cfg=cfg, init=init,
                      loss=functools.partial(_lm_loss_with_labels, cfg),
                      init_cache=functools.partial(_init_cache, cfg),
                      prefill=functools.partial(_lm_prefill, cfg),
                      decode_step=functools.partial(LM.lm_decode_step, cfg),
-                     step_ragged=functools.partial(LM.lm_step_ragged, cfg))
+                     step_ragged=(functools.partial(LM.lm_step_ragged, cfg)
+                                  if ragged else None))
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port builds the dense, moe and bert "
-        f"families only; the other families are a later slice")
+        f"family {cfg.family!r}: the port builds the dense, moe, ssm, "
+        f"hybrid and bert families only; the other families are a later "
+        f"slice")

@@ -28,6 +28,18 @@ family — BERT included: the reference never reads ``cfg.postnorm`` on this
 path, so its "BERT" is a pre-LN encoder with a final LayerNorm, and the
 port computes the same.  ``post_block_norm`` (gemma) adds a norm on the
 attention output and one on the MLP output, each before its residual add.
+
+The SSM families run the same entry points without the ragged step (the
+page pool cannot hold O(1) state: ``serving/paged.py::check_pageable``):
+a Mamba layer is pre-norm (one ``ln``) around ``models/mamba.py::
+mamba_apply`` (falcon-mamba, ``family="ssm"``) or ``models/mamba2.py::
+mamba2_apply`` (zamba2, ``family="hybrid"``) plus the residual.  The
+hybrid's shared attention + MLP block (one set of ``shared_*`` weights)
+runs before the Mamba layers of every whole period of ``hybrid_period``;
+the tail layers after the last period run without it.  Its contiguous
+cache holds each layer's ``conv`` and ``h`` / ``S`` state and one
+``k``/``v`` per period for the shared block, the batch on axis 1 of
+every leaf as in the attention caches.
 """
 from __future__ import annotations
 
@@ -41,14 +53,34 @@ from repro_torch.device import configure_matmul_precision
 from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.paged_attention.varlen import varlen_layout
 from repro_torch.models import layers as L
+from repro_torch.models.mamba import MAMBA_KEYS, mamba_apply, mamba_cache_init
+from repro_torch.models.mamba2 import (MAMBA2_KEYS, mamba2_apply,
+                                       mamba2_cache_init)
 from repro_torch.models.moe import moe_apply
 
 Params = Dict[str, torch.Tensor]
-
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The per-layer parameter keys of ``cfg``: weights (an MoE layer's
+    """The per-layer parameter keys of ``cfg``: an attention block's
+    (``block_keys``), or a Mamba layer's norm and mixer leaves."""
+    if cfg.family in SSM_FAMILIES:
+        keys = MAMBA2_KEYS if cfg.ssm_variant == "mamba2" else MAMBA_KEYS
+        return tuple(keys) + (("ln_b",) if cfg.norm == "layernorm" else ())
+    return block_keys(cfg)
+
+
+def shared_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The hybrid's shared attention block: ``shared_<key>`` for each key
+    of ``block_keys``, one set for the whole model (none elsewhere)."""
+    if cfg.family != "hybrid":
+        return ()
+    return tuple("shared_" + k for k in block_keys(cfg))
+
+
+def block_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """An attention block's parameter keys: weights (an MoE layer's
     ``router`` and its experts' ``up`` / ``down`` / ``gate`` in place of
     the MLP's), then the biases of biased projections and LayerNorms
     (``<weight>_b``)."""
@@ -74,23 +106,31 @@ def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
     """→ (kinds within one period, n full periods, n tail layers), as the
-    reference's: one period is one cycle of ``cfg.pattern``.  A tail (a
-    layer count that is no multiple of the pattern) raises: no config the
-    port registers has one."""
-    if cfg.family not in ("dense", "moe", "bert"):
+    reference's: one period is one cycle of ``cfg.pattern``, or for the
+    hybrid ``hybrid_period`` Mamba layers.  Only the hybrid may leave a
+    tail (zamba2: 6 periods of 6 and 2 more); elsewhere a tail raises, as
+    no other config the port registers has one."""
+    if cfg.family == "hybrid":
+        kinds = ("mamba",) * max(cfg.hybrid_period, 1)
+        return (kinds,) + divmod(cfg.num_layers, len(kinds))
+    if cfg.family not in ("dense", "moe", "bert", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense, moe and bert "
-            f"families only; the other families are a later slice")
+            f"family {cfg.family!r}: the port runs the dense, moe, ssm, "
+            f"hybrid and bert families only; the other families are a "
+            f"later slice")
     kinds = cfg.pattern
-    bad = sorted(set(kinds) - {"local", "global"})
+    bad = sorted(set(kinds) - ({"mamba"} if cfg.family == "ssm"
+                               else {"local", "global"}))
     if bad:
         raise NotImplementedError(f"{cfg.name}: layer kinds {bad}: the port "
-                                  f"runs local and global attention layers")
+                                  f"runs local and global attention layers "
+                                  f"and the SSM family's mamba layers")
     nper, tail = divmod(cfg.num_layers, len(kinds))
     if tail:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.num_layers} layers leave a tail of {tail} "
-            f"after {nper} periods of {kinds}; the port has no tail layers")
+            f"after {nper} periods of {kinds}; the port has no tail layers "
+            f"outside the hybrid")
     return kinds, nper, tail
 
 
@@ -107,6 +147,11 @@ def _ragged_family(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def _layer(cfg: ModelConfig, params: Params, i: int) -> Params:
     return {k: params[k][i] for k in layer_keys(cfg)}
+
+
+def _shared(cfg: ModelConfig, params: Params) -> Params:
+    """The hybrid's shared block under ``block_keys``' names."""
+    return {k[len("shared_"):]: params[k] for k in shared_keys(cfg)}
 
 
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -138,7 +183,12 @@ def layer_caches(cfg: ModelConfig, caches: Dict[str, torch.Tensor]
                  ) -> List[Dict[str, torch.Tensor]]:
     """Each layer's views of the stacked contiguous cache, in layer order:
     a local layer's ring leaves where the cache has them, else the next
-    layer of the ``k``/``v`` (and int8 ``ks``/``vs``) stack."""
+    layer of the ``k``/``v`` (and int8 ``ks``/``vs``) stack; a Mamba
+    layer's ``conv`` and ``h`` (Mamba-1) or ``S`` (Mamba-2)."""
+    if cfg.family in SSM_FAMILIES:
+        state = "S" if cfg.ssm_variant == "mamba2" else "h"
+        return [{"conv": caches["conv"][i], state: caches[state][i]}
+                for i in range(cfg.num_layers)]
     ring = "ring_pos" in caches
     flat = [k for k in ("k", "v", "ks", "vs") if k in caches]
     out, i_flat, i_ring = [], 0, 0
@@ -164,6 +214,11 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     ``cache_index`` in place and attends over its cache → (x, with
     ``with_aux`` the f32 sum of the MoE layers' load-balancing losses —
     0 for a dense trunk —, else None)."""
+    if cfg.family in SSM_FAMILIES:
+        x = _ssm_trunk(cfg, params, x, pos=pos, causal=causal, caches=caches,
+                       cache_index=cache_index)
+        return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+                   if with_aux else None)
     period_layout(cfg)
     views = (layer_caches(cfg, caches) if caches is not None
              else [None] * cfg.num_layers)
@@ -177,6 +232,32 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
+
+
+def _ssm_trunk(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+               pos: torch.Tensor, causal: bool,
+               caches: Optional[Dict[str, torch.Tensor]], cache_index
+               ) -> torch.Tensor:
+    """The SSM families' trunk: every Mamba layer pre-norm around its
+    mixer plus the residual; for the hybrid, the shared block (global
+    attention over period ``j``'s ``k``/``v`` with a cache) before the
+    layers of each whole period ``j``, none before the tail."""
+    kinds, nper, _ = period_layout(cfg)
+    apply = mamba2_apply if cfg.ssm_variant == "mamba2" else mamba_apply
+    views = (layer_caches(cfg, caches) if caches is not None
+             else [None] * cfg.num_layers)
+    shared = _shared(cfg, params)
+    kv = [k for k in ("k", "v", "ks", "vs") if caches is not None and k in caches]
+    for i in range(cfg.num_layers):
+        j, slot = divmod(i, len(kinds))
+        if shared and slot == 0 and j < nper:
+            view = {k: caches[k][j] for k in kv} if caches is not None else None
+            x, _ = _block(cfg, shared, x, lambda h: L.attn_apply(
+                cfg, shared, h, pos=pos, kind="global", causal=causal,
+                cache=view, cache_index=cache_index))
+        p = _layer(cfg, params, i)
+        x = x + apply(cfg, p, L.norm(cfg, p, "ln", x), cache=views[i])
+    return x
 
 
 def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -272,7 +353,24 @@ def trunk_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     (``layers.is_ring``), ``ring_k``/``ring_v`` (Lr, batch, Hkv, window,
     Dh) and ``ring_pos`` (Lr, batch, window) over those.  The page pool is
     this cache with a page per batch row and ``max_len`` = the page size
-    (the last page the scratch page); the pool never has ring leaves."""
+    (the last page the scratch page); the pool never has ring leaves.
+
+    The SSM families' cache (``serving/engine.py``'s slots; the pool
+    refuses it) is each Mamba layer's state, stacked: ``conv`` (L, batch,
+    K-1, C) in the model dtype, ``h`` (L, batch, d_inner, n) or ``S`` (L,
+    batch, H, N, P) in f32; for the hybrid also the shared block's
+    ``k``/``v`` (periods, batch, Hkv, max_len, Dh) (int8 with ``ks``/``vs``
+    under ``cfg.kv_quant``), one per period."""
+    if cfg.family in SSM_FAMILIES:
+        init = (mamba2_cache_init if cfg.ssm_variant == "mamba2"
+                else mamba_cache_init)
+        c = init(cfg, batch, cfg.num_layers, device=device)
+        if cfg.family == "hybrid":
+            nper = period_layout(cfg)[1]
+            c.update({k: v[None].expand((nper,) + v.shape).clone()
+                      for k, v in L.attn_cache_init(cfg, batch, max_len,
+                                                    device=device).items()})
+        return c
     kinds = _ragged_family(cfg)
     n_ring = sum(L.is_ring(cfg, kind, max_len) for kind in kinds)
 

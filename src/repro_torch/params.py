@@ -1,4 +1,5 @@
-"""Parameters of the port's models (dense and MoE decoders, BERT encoder).
+"""Parameters of the port's models (dense, MoE, Mamba and hybrid decoders,
+BERT encoder).
 
 ``from_flat`` takes the reference's parameters as the flat
 ``{path: np.ndarray}`` dict of ``checkpoint/store.py::flatten_tree`` (numpy
@@ -27,7 +28,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm import layer_keys, period_layout
+from repro_torch.models.lm import layer_keys, period_layout, shared_keys
 
 _LAYER_PATHS = {
     "ln1": "ln1/scale", "ln2": "ln2/scale",
@@ -43,6 +44,11 @@ _LAYER_PATHS = {
 }
 _MOE_PATHS = {"router": "moe/router/w", "up": "moe/up", "gate": "moe/gate",
               "down": "moe/down"}
+_MAMBA_PATHS = {"ln": "ln/scale", "ln_b": "ln/bias",
+                **{k: f"mix/{k}/w" for k in ("in_proj", "x_proj", "dt_proj",
+                                             "out_proj")},
+                **{k: f"mix/{k}" for k in ("conv_w", "conv_b", "dt_bias",
+                                           "A_log", "D", "norm_scale")}}
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -59,8 +65,9 @@ def _to_torch(arr) -> torch.Tensor:
 def param_paths(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
     """Port key → the reference flat paths it is made of: one for a
     model-wide leaf; for a per-layer leaf, one per slot ``j`` of the
-    period, ``trunk/periods/{j}/...``."""
-    kinds, _, _ = period_layout(cfg)
+    period, ``trunk/periods/{j}/...``, then one per tail layer ``i``,
+    ``trunk/tail/{i}/...``."""
+    kinds, nper, tail = period_layout(cfg)
     paths = {"embed": ("embed/tokens",), "final_norm": ("final_norm/scale",)}
     if cfg.pos_embedding == "learned":
         paths["positions"] = ("embed/positions",)
@@ -68,10 +75,15 @@ def param_paths(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
         paths["final_norm_b"] = ("final_norm/bias",)
     if not cfg.tie_embeddings:
         paths["lm_head"] = ("lm_head/w",)
-    names = dict(_LAYER_PATHS, **(_MOE_PATHS if cfg.family == "moe" else {}))
+    names = dict(_LAYER_PATHS, **(_MOE_PATHS if cfg.family == "moe" else {}),
+                 **(_MAMBA_PATHS if "mamba" in kinds else {}))
     for k in layer_keys(cfg):
-        paths[k] = tuple(f"trunk/periods/{j}/{names[k]}"
-                         for j in range(len(kinds)))
+        paths[k] = (tuple(f"trunk/periods/{j}/{names[k]}"
+                          for j in range(len(kinds)) if nper)
+                    + tuple(f"trunk/tail/{i}/{names[k]}"
+                            for i in range(tail)))
+    for k in shared_keys(cfg):
+        paths[k] = (f"trunk/shared_attn/{_LAYER_PATHS[k[len('shared_'):]]}",)
     return paths
 
 
@@ -80,9 +92,13 @@ def from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
     """The reference's flat parameter dict (numpy arrays, or CPU tensors as
     ``checkpoint.restore_flat`` gives them) → the port's parameters on
     ``device`` (default: the card): period slot ``j``'s row ``n`` becomes
-    layer ``n·len(pattern) + j``."""
+    layer ``n·len(pattern) + j``, and tail layer ``i`` follows the last
+    period."""
     dev = resolve_device(device)
     paths = param_paths(cfg)
+    kinds, nper, _ = period_layout(cfg)
+    per = len(kinds) if nper else 0         # period paths ahead of the tail's
+    layered = set(layer_keys(cfg))
     known = {p for ps in paths.values() for p in ps}
     extra = sorted(set(flat) - known)
     if extra:
@@ -93,7 +109,11 @@ def from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
     out = {}
     for k, ps in paths.items():
         parts = [_to_torch(flat[p]) for p in ps]
-        t = parts[0] if len(parts) == 1 else torch.stack(parts, 1).flatten(0, 1)
+        if k in layered:
+            head = [torch.stack(parts[:per], 1).flatten(0, 1)] if per else []
+            t = torch.cat(head + [x[None] for x in parts[per:]])
+        else:
+            t = parts[0]
         out[k] = t.to(dev)
     return out
 
@@ -103,10 +123,18 @@ def to_flat(params: Mapping[str, torch.Tensor],
     """The inverse of ``from_flat``: the port's parameters → the
     reference's flat paths, each leaf a view of the port's tensor on its
     device."""
+    kinds, nper, _ = period_layout(cfg)
+    per = len(kinds) if nper else 0
+    layered = set(layer_keys(cfg))
     out = {}
     for k, ps in param_paths(cfg).items():
         for j, p in enumerate(ps):
-            out[p] = params[k] if len(ps) == 1 else params[k][j::len(ps)]
+            if k not in layered:
+                out[p] = params[k]
+            elif j < per:
+                out[p] = params[k][:nper * per][j::per]
+            else:                                # tail layer j - per
+                out[p] = params[k][nper * per + j - per]
     return out
 
 
@@ -115,10 +143,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with ``lm_init``'s distributions: dense weights
     normal·d_in^-0.5 (each MoE expert's too, and the f32 router's),
     biases 0, the token and position tables normal·0.02, norm scales 1 (RMSNorm and the QK-norm multiply by ``1 + scale``),
-    LayerNorm biases 0.  Drawn in f32 one layer at a time on ``device``
-    (default: the card) with ``generator`` (which must live there), then
-    cast to ``cfg.dtype``; the constant leaves draw nothing, so a seed
-    draws the same weights whatever norms and biases a config adds."""
+    LayerNorm biases 0.  A Mamba layer draws ``mamba_init`` /
+    ``mamba2_init``'s: its projections and the conv normal·fan-in^-0.5
+    (the conv's fan-in the kernel width), the conv bias 0, ``dt_bias``
+    log(expm1(0.01)), ``D`` 1, and ``A_log`` log(1..n) per channel
+    (S4D-real, Mamba-1) or log(linspace(1, 16, H)) (Mamba-2), with
+    ``A_log``, ``D`` and Mamba-2's ``dt_bias`` in f32.  Drawn in f32 one
+    layer at a time on ``device`` (default: the card) with ``generator``
+    (which must live there), then cast to ``cfg.dtype``; the constant
+    leaves draw nothing, so a seed draws the same weights whatever norms
+    and biases a config adds."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     period_layout(cfg)
@@ -131,17 +165,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         device=dev)
         return (x * std).to(dt)
 
-    def stacked(d_in, d_out, experts=(), dtype=dt):
+    def stacked(d_in, d_out, experts=(), dtype=dt, layers=n):
         # one matrix at a time: a grok-1 expert stack is 1.6 G values
-        w = torch.empty((n, *experts, d_in, d_out), dtype=dtype, device=dev)
+        w = torch.empty((layers, *experts, d_in, d_out), dtype=dtype,
+                        device=dev)
         for m in w.view(-1, d_in, d_out):
             m.copy_(torch.randn((d_in, d_out), generator=generator,
                                 dtype=torch.float32, device=dev)
                     * d_in ** -0.5)
         return w
 
-    def const(shape, value):
-        return torch.full(shape, value, dtype=dt, device=dev)
+    def const(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
     p = {"embed": normal((cfg.vocab_size, d), 0.02)}
     if cfg.pos_embedding == "learned":
@@ -150,22 +185,65 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     widths = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d),
               "up": (d, f), "gate": (d, f), "down": (f, d)}
     moe = cfg.family == "moe"
-    for k in layer_keys(cfg):
-        if k == "router":
-            p[k] = stacked(d, cfg.num_experts, dtype=torch.float32)
-        elif moe and k in ("up", "gate", "down"):
-            p[k] = stacked(*widths[k], experts=(cfg.num_experts,))
-        elif k in widths:
-            p[k] = stacked(*widths[k])
-        elif k in ("ln1", "ln2", "ln1_post", "ln2_post"):
-            p[k] = const((n, d), 1.0)
-        elif k in ("q_norm", "k_norm"):
-            p[k] = const((n, dh), 1.0)
-        else:                                   # biases: <weight>_b
-            w = k[:-2]
-            p[k] = const((n, widths[w][1] if w in widths else d), 0.0)
+
+    def block(keys, layers):
+        out = {}
+        for k in keys:
+            if k == "router":
+                out[k] = stacked(d, cfg.num_experts, dtype=torch.float32)
+            elif moe and k in ("up", "gate", "down"):
+                out[k] = stacked(*widths[k], experts=(cfg.num_experts,))
+            elif k in widths:
+                out[k] = stacked(*widths[k], layers=layers)
+            elif k in ("ln1", "ln2", "ln1_post", "ln2_post"):
+                out[k] = const((layers, d), 1.0)
+            elif k in ("q_norm", "k_norm"):
+                out[k] = const((layers, dh), 1.0)
+            else:                                   # biases: <weight>_b
+                w = k[:-2]
+                out[k] = const((layers, widths[w][1] if w in widths else d),
+                               0.0)
+        return out
+
+    if cfg.family in ("ssm", "hybrid"):
+        p.update(_mamba_leaves(cfg, stacked, const, dev))
+        shared = block([k[len("shared_"):] for k in shared_keys(cfg)], 1)
+        p.update({"shared_" + k: v[0] for k, v in shared.items()})
+    else:
+        p.update(block(layer_keys(cfg), n))
     if cfg.norm == "layernorm":
         p["final_norm_b"] = const((d,), 0.0)
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
+    return p
+
+
+def _mamba_leaves(cfg: ModelConfig, stacked, const,
+                  dev: torch.device) -> Dict[str, torch.Tensor]:
+    """Every Mamba layer's leaves, stacked (``init_params``' draw)."""
+    n, d, di, k = cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_conv
+    f32 = torch.float32
+    dt_bias = float(np.log(np.expm1(np.float32(0.01))))
+    if cfg.ssm_variant == "mamba2":
+        h = cfg.d_inner // cfg.ssm_head_dim
+        c = di + 2 * cfg.ssm_groups * cfg.ssm_state
+        p = {"in_proj": stacked(d, 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state
+                                + h),
+             "conv_w": stacked(k, c), "conv_b": const((n, c), 0.0),
+             "dt_bias": const((n, h), dt_bias, f32),
+             "A_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
+                                               device=dev)).expand(n, h).clone(),
+             "D": const((n, h), 1.0, f32), "norm_scale": const((n, di), 1.0),
+             "out_proj": stacked(di, d)}
+    else:
+        r, s = cfg.dt_rank, cfg.ssm_state
+        a = torch.arange(1, s + 1, dtype=f32, device=dev)
+        p = {"in_proj": stacked(d, 2 * di), "conv_w": stacked(k, di),
+             "conv_b": const((n, di), 0.0), "x_proj": stacked(di, r + 2 * s),
+             "dt_proj": stacked(r, di), "dt_bias": const((n, di), dt_bias),
+             "A_log": torch.log(a).expand(n, di, s).clone(),
+             "D": const((n, di), 1.0, f32), "out_proj": stacked(di, d)}
+    p["ln"] = const((n, d), 1.0)
+    if cfg.norm == "layernorm":
+        p["ln_b"] = const((n, d), 0.0)
     return p

@@ -5,11 +5,13 @@
 ``ServingEngine`` serves the cache layouts the page pool rejects
 (``UnsupportedCacheLayout``): a local layer whose window is narrower than a
 page keeps a ring buffer of ``window`` rows (``models/layers.py::
-attn_cache_init``), which cannot page.  Each of B slots owns one batch row
-of the model's contiguous cache (``Model.init_cache(slots, max_len)``):
-``max_len`` rows of every global layer, int8 with row scales under
-``cfg.kv_quant``, and a ring of ``window`` rows per local layer when the
-window is below ``max_len``.
+attn_cache_init``), and a Mamba layer O(1) state (``models/mamba.py``,
+``models/mamba2.py``), neither of which can page.  Each of B slots owns one
+batch row of the model's contiguous cache (``Model.init_cache(slots,
+max_len)``): ``max_len`` rows of every global layer, int8 with row scales
+under ``cfg.kv_quant``, a ring of ``window`` rows per local layer when the
+window is below ``max_len``, or a Mamba layer's conv and scan state (and
+the hybrid's shared block's ``max_len`` rows per period).
 
 Admission prefills one request at b = 1 (``Model.prefill``) straight into
 its slot's rows, views of the engine's cache, after resetting them to the

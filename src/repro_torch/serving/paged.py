@@ -20,8 +20,10 @@ the copy ahead of the step that reads it.  ``obs`` (the engine's
 ``ServingObservability``) counts the copies.
 
 ``check_pageable`` refuses, at construction, a model whose cache the pool
-cannot page: a local layer whose window is narrower than a page would
-keep a ring buffer inside the page (the reference's ``_check_pageable``).
+cannot page: a Mamba layer's state is O(1) per sequence, with no length
+axis to page, and a local layer whose window is narrower than a page
+would keep a ring buffer inside the page (the reference's
+``_check_pageable``).
 """
 from __future__ import annotations
 
@@ -35,11 +37,20 @@ from repro_torch.serving.api import UnsupportedCacheLayout
 
 
 def check_pageable(cfg: ModelConfig, page_size: int) -> None:
-    """Raise ``UnsupportedCacheLayout("ring_buffer_sliding_window")`` when
+    """Raise ``UnsupportedCacheLayout("ssm_state")`` for the SSM families
+    (the reference's probe finds their state leaves O(1) per slot) and
+    ``UnsupportedCacheLayout("ring_buffer_sliding_window")`` when
     a local layer's window is narrower than what the reference's probe
     builds: its caches at ``max_len = page_size`` for an even page (so
     ``window == page_size`` pages), at twice that for an odd one (its
     probe's over-strict step past the pool)."""
+    if cfg.family in ("ssm", "hybrid"):
+        channels = cfg.d_inner + (2 * cfg.ssm_groups * cfg.ssm_state
+                                  if cfg.ssm_variant == "mamba2" else 0)
+        raise UnsupportedCacheLayout(
+            "ssm_state", cfg.name,
+            f"leaf conv (shape (1, {cfg.ssm_conv - 1}, {channels})) is O(1) "
+            f"per slot — no length axis to page")
     probe = page_size if page_size % 2 == 0 and page_size >= 2 \
         else 2 * page_size
     if cfg.window is None or cfg.window >= probe:

@@ -1541,3 +1541,126 @@ def test_moe_replay_counts_one_router_launch_per_layer(cuda_device):
     assert torch.equal(got, want)
     assert (lut_exp.launches - before[0], paged_attention.launches - before[1],
             paged_attention.combine_launches - before[2]) == (n * layers,) * 3
+
+
+# ------------------------------------------------------------------ SSM --
+#
+# The Mamba-1 and Mamba-2 mixers (models/mamba.py, models/mamba2.py) on the
+# card against their CPU run in f32 (the products without TF32 on both;
+# cuBLAS and the CPU sum in their own orders, so within ``TOL``), kernel
+# #1 at the SSM shapes bit for bit, and the slot engine's captured decode
+# of an SSM and a hybrid smoke model against the eager one.
+
+SSM_SMOKE = ("falcon-mamba-7b-smoke", "zamba2-1.2b-smoke")
+
+
+def _ssm_layer(name):
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba, mamba2
+    from repro_torch.models.lm import layer_keys
+    from repro_torch.params import init_params
+    cfg = get_config(name).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = {k: params[k][0] for k in layer_keys(cfg)}
+    p["conv_b"] = torch.randn(p["conv_b"].shape,
+                              generator=torch.Generator().manual_seed(1))
+    if cfg.ssm_variant == "mamba2":
+        return cfg, p, mamba2.mamba2_apply, mamba2.mamba2_cache_init, "S"
+    return cfg, p, mamba.mamba_apply, mamba.mamba_cache_init, "h"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SSM_SMOKE)
+def test_ssm_mixer_on_card_equals_cpu(cuda_device, name):
+    """f32 at smoke width: 2 × 21 rows (2 chunks of 8 and a partial one)
+    from a random carried state, then 3 decode steps: ``y``, the scan
+    state and ``conv`` within ``TOL`` after each call; kernel #1 launched
+    once (Mamba-1) or 4 times (Mamba-2) per chunk and once per decode
+    step."""
+    cfg, p, apply, init, state = _ssm_layer(name)
+    g = torch.Generator().manual_seed(2)
+    c_cpu = {k: torch.randn(v.shape[1:], generator=g) * 0.5
+             for k, v in init(cfg, 2).items()}
+    c_dev = {k: v.to(cuda_device) for k, v in c_cpu.items()}
+    p_dev = {k: v.to(cuda_device) for k, v in p.items()}
+    before = lut_exp.launches
+    for rows in (21, 1, 1, 1):
+        x = torch.randn((2, rows, cfg.d_model), generator=g)
+        y = apply(cfg, p_dev, x.to(cuda_device), cache=c_dev)
+        y_cpu = apply(cfg, p, x, cache=c_cpu)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.cpu(), y_cpu, **TOL)
+        for k in (state, "conv"):
+            torch.testing.assert_close(c_dev[k].cpu(), c_cpu[k], **TOL)
+    per_chunk = 4 if cfg.ssm_variant == "mamba2" else 1
+    assert lut_exp.launches - before == per_chunk * 3 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,hi", [((1, 128, 8192, 16), 16.0),
+                                      ((8, 1, 8192, 16), 16.0),
+                                      ((1, 64, 128, 128), 60.0)])
+def test_lut_exp_bit_exact_at_the_ssm_shapes(cuda_device, shape, hi):
+    """Kernel #1 at falcon-mamba's chunk and decode Ā and zamba2's
+    intra-chunk decay, f32 inputs in [-hi, 0]: bit-equal to the plain
+    version, orders 0 and 1."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(3)) * -hi
+    xd = x.to(cuda_device)
+    for order in (0, 1):
+        got = lut_exp(xd, order=order)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32),
+                           lut_exp_ref(x, order=order).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SSM_SMOKE)
+def test_ssm_slot_engine_captured_decode_bit_equal_to_eager(cuda_device,
+                                                            name):
+    """After every step the captured engine's logits, picks and every cache
+    leaf (conv, scan state, the hybrid's shared K/V) equal the eager
+    engine's; one capture; kernel #3 once per period per prompt (the
+    hybrid's shared block; none for Mamba-1)."""
+    from repro_torch.models.lm import period_layout
+    eager = _slot_engine(cuda_device, name, False, capture=False)
+    graph = _slot_engine(cuda_device, name, False, capture=True)
+    before = streaming_attention.launches
+    for eng in (eager, graph):
+        _smoke_requests(eng)
+    steps = 0
+    while graph.queue or any(a is not None for a in graph.active):
+        eager.step()
+        graph.step()
+        assert torch.equal(eager.logits, graph.logits), steps
+        for k, t in eager.caches.items():
+            assert torch.equal(t, graph.caches[k]), (steps, k)
+        steps += 1
+    assert ({r.uid: r.tokens for r in eager.finished}
+            == {r.uid: r.tokens for r in graph.finished})
+    assert graph.captures == 1 and eager.captures == 0
+    cfg = graph.cfg
+    nper = period_layout(cfg)[1] if cfg.family == "hybrid" else 0
+    assert streaming_attention.launches - before == 2 * 5 * nper
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SSM_SMOKE)
+def test_ssm_decode_replay_counts_one_exp_per_layer(cuda_device, name):
+    """A replayed SSM decode step reads no device value on the host, and N
+    replays advance kernel #1's counter by N × layers."""
+    eng = _slot_engine(cuda_device, name, False, capture=True)
+    _smoke_requests(eng, lens=(5, 6, 7), news=(4, 4, 4))
+    eng.step()
+    eng.step()                                   # the decode is captured
+    want = eng._graph.replay().clone()
+    torch.cuda.synchronize()
+    n, before = 5, lut_exp.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            got = eng._graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert lut_exp.launches - before == n * eng.cfg.num_layers

@@ -224,7 +224,7 @@ def test_slot_engine_refuses_what_it_cannot_serve():
     bert = build("float32", False, "bert-base-smoke")
     with pytest.raises(ValueError, match="no decode step"):
         ServingEngine(bert[1], bert[3], slots=1, max_len=16, device="cpu")
-    for family in ("ssm", "hybrid"):           # Mamba / zamba2: a later slice
+    for family in ("encdec", "vlm"):      # seamless-m4t, internvl2: later
         with pytest.raises(NotImplementedError, match=family):
             ServingEngine(tc.replace(family=family), tparams, slots=1,
                           max_len=16, device="cpu")
