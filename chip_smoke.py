@@ -1,5 +1,5 @@
 """The PyTorch port's main paths on one NVIDIA H100: build, check, encode,
-serve, score.
+serve, score, generate.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    heads of 256 with softcap 50 and window 4,096 (its edge inside a page),
    gemma3's local layers (window 1,024) and starcoder2's 24 × 2 of 128
    (GQA 12:1); and at phase 13's: granite-moe's 24 × 8 heads of 64 (GQA
-   3:1) and grok-1's 48 × 8 of 128 (GQA 6:1) with softcap 30;
+   3:1) and grok-1's 48 × 8 of 128 (GQA 6:1) with softcap 30; and at
+   phase 15's: internvl2-1b's 14 × 2 of 64 (GQA 7:1: 56 rows a q-block);
 4a. the kernel-config tuner on the card: ``tune(geom_for(deepseek-7b, page
    size 16), platform="cuda", measure=True)`` for the bf16 and the int8
    pool over phase 7's own steps (packed by its scheduler in a dry run on
@@ -45,8 +46,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    softcap 50, a 4,200-row query that the window of 4,096 bites, kv_len
    4,150 of 4,224 keys; lut and exact exp), and the MoE family's scoring
    shapes (2 × 1024 causal: granite's 24 × 8 heads of 64, GQA 3:1, and
-   grok's 48 × 8 of 128, GQA 6:1, softcap 30), bf16 also against the f32
-   plain version (``PV_LIMITS``: P·V stays the f32 product); every bf16
+   grok's 48 × 8 of 128, GQA 6:1, softcap 30), and phase 15's calls
+   (``ENCDEC_SHAPES``: internvl2's multimodal prefill, GQA 7:1, causal, a
+   kv_len cut; seamless-m4t's encoder, non-causal; its decoder's
+   self-attention prefill, causal, kv_len 16 of 48; its cross-attention, 16
+   and 1,024 rows against 256 frames, non-causal, Lq ≠ Lkv), bf16 also
+   against the f32 plain version (``PV_LIMITS``: P·V stays the f32
+   product); every bf16
    call counted on the tensor-core kernel, every f32 call on the CUDA-core
    one;
 6. encode with BERT-large at full width and depth (random weights from a
@@ -163,7 +169,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    kernel beside it; the int8 matmul at the BERT-large projections, device
    alone too, with its mma.sync variant, each wgmma tile width and
    ``_int_mm`` on both weight layouts; the quantisation kernel at the
-   pass's two input shapes; the LUT exp device alone and host per call)
+   pass's two input shapes; the LUT exp device alone and host per call;
+   paged attention at internvl2-1b's GQA 7:1 decode beside SDPA with
+   ``enable_gqa``; streaming attention at phase 15's four calls beside
+   the SDPA call of the same function: ``enable_gqa`` and a kv_len mask
+   for internvl2's prefill, plain non-causal SDPA for the encoder and the
+   cross-attention, a mask for the decoder's self-attention)
    beside its plain version, a library yardstick and its roofline bound,
    for the ``{"kernels": [...]}`` line, printed after phases 11 and 13
    have added their launches and #2's and #1's times at their shapes;
@@ -250,7 +261,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the last partial) from a non-zero carried state, then four decode
    steps, ``y``, the scan state and ``conv`` each within ``SSM_REL_TOL``
    of its own scale;
-15. print the card's name and power limit, then ``{"ok": true, "device":
+15. the vlm and encoder-decoder families, one model at a time after phase
+   14's are freed, seeded bf16 weights at their published widths and full
+   depth: (a) internvl2-1b (24 layers, 896, 14:2 heads of 64, vocab
+   151,655) serves phase 7's prompts as text through ``EngineCore`` as
+   phase 11 does (captured in lockstep with an eager twin, 0 captures
+   after ``mark_warm()``, #2's split pass and combine = layers × steps,
+   requests 4–7 sampled with 2 LUT-exp launches a sampling step), then
+   the multimodal entry: ``Model.prefill`` of 8 requests, each a seeded
+   (256, 896) patch prefix and 128 tokens (#3 24 times), held against
+   ``lm_apply`` with the prefix on the plain attention by the margin rule
+   in bf16 and, the weights widened, in f32 (the CUDA-core kernel), and
+   32 greedy ``decode_step``s at Lp + L + t (no #3); (b)
+   seamless-m4t-large-v2 (24 + 24 layers, 1,024, 16 × 64, vocab 256,206):
+   ``EngineCore`` refuses it (``no_paged_step``) and so does the slot
+   engine; the Model API generates 32 greedy tokens for 8 requests, each
+   (256, 1024) seeded frames and 16 tokens (#3 72 times a prefill: 24
+   encoder, 24 decoder self-attention, 24 cross-attention; 0 a decode
+   step; the cross K/V carried unchanged), the prefill's logits held
+   against ``decode_trunk`` on the plain attention by the margin rule;
+   encode ms, prefill ms, decode p50/p99, tokens/s, peak memory; then the
+   scoring loss on 2 × (256 frames + 1,024 tokens) through
+   ``Model.loss`` (#3 72 times) against the plain attention;
+16. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Phase 3 also holds #1 bit for bit at phase 14's shapes (falcon's chunk
@@ -300,7 +333,8 @@ FAMILY_SHAPES = (
     ("starcoder2 24×2×128 gqa 12:1", dict(hq=24, hkv=2, d=128), {}),
     ("granite 24×8×64 gqa 3:1", dict(hq=24, hkv=8, d=64), {}),
     ("grok 48×8×128 cap=30 gqa 6:1", dict(hq=48, hkv=8, d=128),
-     dict(cap=30.0)))
+     dict(cap=30.0)),
+    ("internvl2 14×2×64 gqa 7:1", dict(hq=14, hkv=2, d=64), {}))
 FAMILY_KV_LENS = [37, 611, 1185, 1759, 2333, 3100, 4111, 4200]
 FAMILY_PAGES = 1250
 
@@ -355,6 +389,16 @@ SSM_MODELS = ("falcon-mamba-7b", "zamba2-1.2b")
 SSM_SLOTS = dict(slots=8, max_len=1088)
 SSM_LAYER_ROWS = 300
 SSM_REL_TOL = 1e-4
+# Phase 15: the vlm family (internvl2-1b: phase 7's prompts as text through
+# EngineCore, then the multimodal prefill of VLM_BATCH requests, each a
+# 256-patch prefix and VLM_PROMPT tokens, and GEN_NEW greedy decode steps)
+# and the encoder-decoder (seamless-m4t-large-v2: ENCDEC_BATCH requests,
+# each 256 frames and ENCDEC_PROMPT tokens, GEN_NEW greedy tokens; scoring
+# ENCDEC_SCORE tokens behind 256 frames)
+VLM_MODEL, VLM_BATCH, VLM_PROMPT = "internvl2-1b", 8, 128
+ENCDEC_MODEL, ENCDEC_BATCH, ENCDEC_PROMPT = "seamless-m4t-large-v2", 8, 16
+ENCDEC_SCORE = (2, 1024)
+GEN_NEW = 32
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -561,8 +605,10 @@ def phase_lut_exp():
     import torch
     from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
     rng = np.random.default_rng(0)
+    # ... and internvl2-1b's sampler scores, (lanes, 151,655): rows of an
+    # odd length, so each row after the first starts off the 16-byte grid
     shapes = [(7,), (128,), (3, 5, 11), (256, 128), (1, 1), (1000,),
-              (1 << 20,)]
+              (1 << 20,), (ENGINE["lanes"], 151655)]
     edges = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
     checked = 0
     for shape in shapes:
@@ -1012,6 +1058,29 @@ SA_CASES += [(f"{model} causal l1024 {dt}", shape, dtype, dict(causal=True, **kw
 ZAMBA2_PREFILL = (1, 32, 32, 1024, 1024, 64)
 SA_CASES += [(f"zamba2 shared prefill causal l1024 {dt}", ZAMBA2_PREFILL,
               dtype, dict(causal=True))
+             for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
+# Phase 15's calls: internvl2-1b's multimodal prefill (8 × (256 patches +
+# 128 tokens) over its cache of 416 rows, kv_len 384, 14 × 2 heads of 64,
+# GQA 7:1, causal), seamless-m4t's encoder
+# (8 × 256 frames, 16 × 64, bidirectional), its decoder's self-attention in
+# the prefill (16 rows over the 48-row cache, kv_len 16, causal) and its
+# cross-attention (16 rows against 256 frames, Lq ≠ Lkv, no mask), and the
+# cross-attention of its scoring batch (1,024 rows against 256 frames).
+VLM_PREFILL = (VLM_BATCH, 14, 2, 256 + VLM_PROMPT,
+               256 + VLM_PROMPT + GEN_NEW, 64)
+ENCDEC_SHAPES = (
+    ("internvl2 prefix prefill (GQA 7:1)", VLM_PREFILL,
+     dict(causal=True, kv_len=256 + VLM_PROMPT)),
+    ("seamless encoder", (ENCDEC_BATCH, 16, 16, 256, 256, 64), {}),
+    ("seamless decoder self-attention prefill",
+     (ENCDEC_BATCH, 16, 16, ENCDEC_PROMPT, ENCDEC_PROMPT + GEN_NEW, 64),
+     dict(causal=True, kv_len=ENCDEC_PROMPT)),
+    ("seamless cross-attention prefill",
+     (ENCDEC_BATCH, 16, 16, ENCDEC_PROMPT, 256, 64), {}))
+SA_CASES += [(f"{name} {dt}", shape, dtype, kw)
+             for name, shape, kw in ENCDEC_SHAPES + (
+                 ("seamless cross-attention scoring",
+                  (ENCDEC_SCORE[0], 16, 16, ENCDEC_SCORE[1], 256, 64), {}),)
              for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
 # the kernel each dtype launches (ops.kernel_variant)
 VARIANT = {"float32": "cuda_core", "bfloat16": "tensor_core"}
@@ -3653,13 +3722,27 @@ def phase_timing(engine_facts, vocab):
         ssm[label] = dict(lut_entry(x), shape=f"{shape} f32 Δ ⊗ A values")
         del x
     kernels[-1]["ssm"] = ssm
+    # phase 15's sampler: internvl2-1b's (lanes, 151,655) scores
+    vlm_scores = torch.randn((ENGINE["lanes"], 151655), generator=g,
+                             device=DEV) * 3
+    vlm_scores = vlm_scores - vlm_scores.amax(-1, keepdim=True)
+    vlm_sampler = dict(lut_entry(vlm_scores),
+                       shape="(8, 151655) f32 shifted scores")
+    kernels[-1]["internvl2_sampler"] = vlm_sampler
     for label, e in (("sampler shape", entry), ("decode logits", decode_entry),
-                     *ssm.items()):
+                     *ssm.items(), ("internvl2 sampler", vlm_sampler)):
         log(f"[time] lut_exp at the {label}: kernel {e['ms']:.4f} ms, device "
             f"alone {e['device_ms']:.4f} ms, host per call {e['host_ms']:.4f} "
             f"ms, plain {e['plain_ms']:.4f} ms, torch.exp "
             f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"(medians of 5 interleaved rounds)")
+    # #2 at internvl2-1b's GQA 7:1 (phase 15's serve): its decode step at
+    # phase 7's prompts' mid-decode lengths, beside SDPA with enable_gqa
+    from repro_torch.configs import get_config
+    vlm = get_config(VLM_MODEL)
+    kernels[0]["families"] = {VLM_MODEL: {"time_decode": time_family_paged(
+        vlm, [(1, kv) for kv in kv_lens], "internvl2 decode (GQA 7:1)",
+        flush, library=sdpa_gqa_decode)}}
     kernels.append(time_streaming(flush, engine_facts))
     kernels.append(time_int8(flush, engine_facts["int8_bert"]))
     kernels.append(time_quantize(flush, engine_facts["int8_bert"]))
@@ -3906,7 +3989,8 @@ def time_streaming(flush, facts):
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         del q, k, v, q32, k32, v32, got, want
     timed.update(time_streaming_d256(flush))
-    timed.update(time_streaming_gqa(flush))
+    timed.update(time_streaming_calls(GQA_SHAPES, flush, seed=9))
+    timed.update(time_streaming_calls(ENCDEC_SHAPES, flush, seed=10))
     first = timed.pop(shapes[0][0])
     return dict(
         name="streaming_attention", route="cuda",
@@ -4000,50 +4084,78 @@ def time_streaming_d256(flush):
 # with softcap 30 (no single PyTorch call takes the softcap).
 GQA_SHAPES = (
     ("granite scoring 2x1024 (GQA 3:1)", (2, 24, 8, 1024, 1024, 64),
-     dict(causal=True), True),
+     dict(causal=True)),
     ("grok scoring 2x1024 (GQA 6:1, cap 30)", (2, 48, 8, 1024, 1024, 128),
-     dict(causal=True, cap=30.0), False))
+     dict(causal=True, cap=30.0)))
 
 
-def time_streaming_gqa(flush):
-    """Kernel #3 at the MoE scoring shapes (``GQA_SHAPES``), bf16: the
-    tensor-core kernel, its plain version, SDPA with ``enable_gqa`` where
-    it computes the same function (no softcap), and the bound (bytes: q,
-    k, v read once, out written once; operations: QKᵀ and P·V over the
-    causal pairs at the bf16 peak)."""
+def sdpa_for(q, k, v, kw):
+    """One SDPA call of the same function as kernel #3 with keywords
+    ``kw`` (causal and/or kv_len, no softcap or window; the exponential
+    exact): GQA through ``enable_gqa``, a kv_len cut or a causal block whose
+    query rows do not end at the last key through a boolean mask."""
     import torch
     import torch.nn.functional as F
+    lq, lkv = q.shape[2], k.shape[2]
+    gqa = dict(enable_gqa=True) if q.shape[1] != k.shape[1] else {}
+    kv_len = kw.get("kv_len")
+    if kv_len is None and (not kw.get("causal") or lq == lkv):
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=bool(kw.get("causal")), **gqa)
+    rows = torch.arange(lq, device=DEV)[:, None]
+    keys = torch.arange(lkv, device=DEV)[None, :]
+    mask = keys < (kv_len or lkv)
+    if kw.get("causal"):
+        mask = mask & (keys <= rows)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  **gqa)
+
+
+def time_streaming_calls(shapes, flush, seed):
+    """Kernel #3 at ``shapes`` ((label, (B, Hq, Hkv, Lq, Lkv, D), kernel
+    keywords)), bf16: the tensor-core kernel, its plain version, SDPA where
+    one call computes the same function (``sdpa_for``; none with a
+    softcap), and the bound (bytes: q, the kv_len keys and values read
+    once, out written once; operations: QKᵀ and P·V over the visible pairs
+    at the bf16 peak)."""
+    import torch
     from repro_torch.kernels.streaming_attention import (attention_ref,
                                                          streaming_attention)
     out = {}
-    for label, shape, kw, has_library in GQA_SHAPES:
+    for label, shape, kw in shapes:
         b, hq, hkv, lq, lkv, d = shape
-        q, k, v = sa_inputs(shape, "bfloat16", seed=9)
+        q, k, v = sa_inputs(shape, "bfloat16", seed=seed)
         got = streaming_attention(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         err = float((got.float() - want.float()).abs().max())
+        lib_fn = None if kw.get("cap") else sdpa_for(q, k, v, kw)
+        lib_err = (None if lib_fn is None else
+                   float((lib_fn().float() - want.float()).abs().max()))
         ms = cuda_ms(lambda: streaming_attention(q, k, v, **kw), flush=flush)
         plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5,
                         flush=flush)
-        lib = (cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), flush=flush)
-            if has_library else None)
-        nbytes = 2.0 * (2 * b * hq * lq * d + 2 * b * hkv * lkv * d)
-        flops = 4.0 * b * hq * d * visible_pairs(lq, lkv, causal=True)
+        lib = None if lib_fn is None else cuda_ms(lib_fn, flush=flush)
+        keys = kw.get("kv_len") or lkv
+        nbytes = 2.0 * (2 * b * hq * lq * d + 2 * b * hkv * keys * d)
+        flops = 4.0 * b * hq * d * visible_pairs(
+            lq, lkv, causal=kw.get("causal", False), kv_len=kw.get("kv_len"))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         out[label] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib, tflops=flops / ms / 1e9,
-            shape=f"B {b}, {hq} × {hkv} heads × {d}, l {lq}, bf16, {kw}")
+            library_ms=lib, library_max_abs_err=lib_err,
+            tflops=flops / ms / 1e9, gflop=flops / 1e9,
+            shape=f"B {b}, {hq} × {hkv} heads × {d}, Lq {lq}, Lkv {lkv}, "
+                  f"bf16, {kw}")
         log(f"[time] streaming_attention {label} ({out[label]['shape']}): "
             f"tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain:.3f} ms, sdpa (enable_gqa) "
-            + (f"{lib:.4f} ms" if lib is not None else "none (softcap)")
-            + f", bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP); {CARD[0]}")
+            f"plain {plain:.3f} ms, sdpa "
+            + ("none (softcap)" if lib is None else
+               f"{lib:.4f} ms (max|Δ| {lib_err:.3g} from the plain version)")
+            + f", bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP); max|Δ| {err:.3g}; {CARD[0]}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
     return out
@@ -5045,6 +5157,286 @@ def phase_ssm():
     return out
 
 
+# ------------------------------------------------------------- phase 15 --
+
+def draw_weights(name):
+    """``name``'s config and seeded bf16 weights on the card (seed 0)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.values())
+    gb = sum(p.numel() * p.element_size() for p in params.values()) / 1e9
+    log(f"[weights] {name}: {n / 1e9:.3f} B parameters, {gb:.2f} GB "
+        f"{cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, params, dict(params_b=n / 1e9, gb=gb)
+
+
+def greedy_generate(step, first_logits, n):
+    """``n`` greedy decode steps from ``first_logits``: ``step(t, tokens)``
+    → the next logits → (tokens (B, n + 1) on the host, per-step host ms,
+    each ending in the picks' read)."""
+    import torch
+    from repro_torch.serving.sampling import greedy_rows
+    tok = greedy_rows(first_logits)
+    out, ms = [tok.cpu()], []
+    for t in range(n):
+        s0 = time.perf_counter()
+        tok = greedy_rows(step(t, tok))
+        out.append(tok.cpu())
+        ms.append((time.perf_counter() - s0) * 1e3)
+    return torch.stack(out, 1).numpy(), ms
+
+
+def phase_vlm():
+    """Phase 15 (a): internvl2-1b at its published widths and full depth.
+    ``EngineCore`` serves phase 7's prompts as text (``serve_family``: a
+    captured engine in lockstep with an eager twin, ``mark_warm()`` and 0
+    captures after it, #2's split pass and combine each = layers × steps;
+    requests 4–7 sampled, 2 LUT-exp launches a sampling step).  Then the
+    multimodal entry: ``Model.prefill`` of VLM_BATCH requests, each a
+    seeded (256, 896) prefix and VLM_PROMPT tokens — #3 once per layer —
+    held against ``lm_apply`` with the prefix on the plain attention by
+    PR 11's margin rule, and GEN_NEW greedy ``decode_step``s at Lp + L + t
+    (no #3: a decode row is ``naive_decode``); then the prefill again in
+    f32, held the same way."""
+    import torch
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    from repro_torch.models.api import build_model
+    from repro_torch.models.lm import lm_apply
+    cfg, params, f = draw_weights(VLM_MODEL)
+    f["parts_s"] = {}
+    t0 = time.perf_counter()
+    prompts = family_prompts(cfg, None)
+    served, ce = serve_family(cfg, params, False, prompts, "internvl2 bf16")
+    served["sampled"] = family_sampled(cfg, params, ce, prompts,
+                                       "internvl2 sampled")
+    served.pop("streams")
+    del ce
+    torch.cuda.empty_cache()
+    f["bf16"] = served
+    f["parts_s"]["serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    m = build_model(cfg)
+    lp, b, lt = cfg.frontend_len, VLM_BATCH, VLM_PROMPT
+    g = torch.Generator(device=DEV).manual_seed(23)
+    prefix = (torch.randn((b, lp, cfg.d_model), generator=g, device=DEV)
+              * 0.05).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (b, lt), generator=g,
+                           device=DEV, dtype=torch.int32)
+    batch = {"tokens": tokens, "prefix_embed": prefix}
+    max_len = lp + lt + GEN_NEW
+    m.prefill(params, batch, m.init_cache(b, max_len, device=DEV))  # warm
+    caches = m.init_cache(b, max_len, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_streaming_counts()
+    s0 = time.perf_counter()
+    logits, _ = m.prefill(params, batch, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - s0) * 1e3
+    expect_variant("internvl2 multimodal prefill", VARIANT[cfg.dtype],
+                   cfg.num_layers)
+    launches = streaming_attention.launches
+    plain = [lm_apply(cfg.replace(attn_backend=be), params, tokens,
+                      prefix_embed=prefix, logits_rows=1)[:, -1]
+             for be in ("naive", "jnp")]
+    held = hold_logits("internvl2 multimodal prefill", logits, *plain,
+                       floor=1e-2)
+    reset_streaming_counts()
+    toks, ms = greedy_generate(
+        lambda t, tok: m.decode_step(params, tok, caches, lp + lt + t)[0],
+        logits, GEN_NEW)
+    if streaming_attention.launches:
+        fail(f"internvl2 decode: #3 launched {streaming_attention.launches} "
+             f"times in {GEN_NEW} decode steps (a decode row is "
+             f"naive_decode)")
+    if not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        fail("internvl2 decode: a token outside the vocab")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    f["multimodal"] = dict(
+        batch=b, prefix=lp, prompt=lt, new=GEN_NEW, prefill_ms=prefill_ms,
+        launches=launches, decode_ms_p50=float(np.median(ms)),
+        decode_ms_p99=float(np.percentile(ms, 99)),
+        tok_s=b * GEN_NEW / ((prefill_ms + sum(ms)) / 1e3), peak_gib=peak,
+        held=held, card=CARD[0])
+    log(f"[internvl2 multimodal] prefill of {b} × ({lp} patches + {lt} "
+        f"tokens): {prefill_ms:.2f} ms, #3 {launches} launches (1 per "
+        f"layer); {GEN_NEW} greedy decode steps at Lp + L + t: p50 "
+        f"{f['multimodal']['decode_ms_p50']:.2f} p99 "
+        f"{f['multimodal']['decode_ms_p99']:.2f} ms, #3 0; "
+        f"{f['multimodal']['tok_s']:.1f} generated tok/s; peak {peak:.2f} "
+        f"GiB; {CARD[0]}")
+    # the same prefill in f32 (the weights widened, the bf16 dict
+    # consumed): the CUDA-core kernel against the plain attention, where
+    # two plain schedules land within f32 rounding of each other
+    del caches
+    c32 = cfg.replace(dtype="float32")
+    for k in list(params):
+        params[k] = params.pop(k).float()
+    batch32 = {"tokens": tokens, "prefix_embed": prefix.float()}
+    m32 = build_model(c32)
+    reset_streaming_counts()
+    logits32, _ = m32.prefill(params, batch32,
+                              m32.init_cache(b, max_len, device=DEV))
+    expect_variant("internvl2 multimodal prefill f32", VARIANT[c32.dtype],
+                   cfg.num_layers)
+    plain = [lm_apply(c32.replace(attn_backend=be), params, tokens,
+                      prefix_embed=prefix.float(), logits_rows=1)[:, -1]
+             for be in ("naive", "jnp")]
+    f["multimodal"]["held_f32"] = hold_logits(
+        "internvl2 multimodal prefill f32", logits32, *plain, floor=1e-3)
+    f["parts_s"]["multimodal"] = time.perf_counter() - t0
+    del params, m
+    torch.cuda.empty_cache()
+    return f
+
+
+def phase_encdec():
+    """Phase 15 (b): seamless-m4t-large-v2 at its published widths and full
+    depth (24 + 24 layers).  ``EngineCore`` refuses it
+    (``UnsupportedCacheLayout("no_paged_step")``) and so does the slot
+    engine (``NotImplementedError``); the Model API generates: ``prefill``
+    of ENCDEC_BATCH requests, each (256, 1024) seeded frames and
+    ENCDEC_PROMPT tokens — #3 72 times (24 encoder, 24 decoder
+    self-attention, 24 cross-attention), the cross K/V projected once —,
+    then GEN_NEW greedy ``decode_step``s (no #3), the prefill's logits held
+    against ``decode_trunk`` on the plain attention by the margin rule; the
+    scoring loss on ENCDEC_SCORE tokens behind 256 frames (#3 72 times)
+    against the plain attention."""
+    import torch
+    from repro_torch.kernels.streaming_attention import streaming_attention
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import (EngineCore, ServingEngine,
+                                     UnsupportedCacheLayout)
+    cfg, params, f = draw_weights(ENCDEC_MODEL)
+    f["parts_s"] = {}
+    t0 = time.perf_counter()
+    try:
+        EngineCore(cfg, params, device=DEV, **ENGINE)
+    except UnsupportedCacheLayout as e:
+        if e.layout != "no_paged_step":
+            fail(f"seamless: EngineCore refused with layout {e.layout!r}")
+        f["engine_core_refusal"] = str(e)
+    else:
+        fail("seamless: EngineCore accepted an encoder-decoder")
+    try:
+        ServingEngine(cfg, params, device=DEV, slots=ENCDEC_BATCH,
+                      max_len=ENCDEC_PROMPT + GEN_NEW)
+    except NotImplementedError as e:
+        f["slot_engine_refusal"] = str(e)
+    else:
+        fail("seamless: the slot engine accepted an encoder-decoder")
+    log(f"[seamless] EngineCore refuses: {f['engine_core_refusal']}")
+    log(f"[seamless] ServingEngine refuses: {f['slot_engine_refusal']}")
+
+    m = build_model(cfg)
+    b, lt, per = ENCDEC_BATCH, ENCDEC_PROMPT, 3 * cfg.dec_layers
+    g = torch.Generator(device=DEV).manual_seed(29)
+    frames = (torch.randn((b, cfg.frontend_len, cfg.d_model), generator=g,
+                          device=DEV) * 0.05).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (b, lt), generator=g,
+                           device=DEV, dtype=torch.int32)
+    batch = {"frames": frames, "tokens": tokens}
+    max_len = lt + GEN_NEW
+    m.prefill(params, batch, m.init_cache(b, max_len, device=DEV))  # warm
+    encode_ms = []
+    for _ in range(3):
+        s0 = time.perf_counter()
+        ED.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - s0) * 1e3)
+    caches = m.init_cache(b, max_len, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_streaming_counts()
+    s0 = time.perf_counter()
+    logits, state = m.prefill(params, batch, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - s0) * 1e3
+    expect_variant("seamless prefill", VARIANT[cfg.dtype],
+                   cfg.enc_layers + 2 * cfg.dec_layers)
+    launches = streaming_attention.launches
+    cross = {k: v.clone() for k, v in state["cross"].items()}
+
+    def plain_logits(be):
+        c = cfg.replace(attn_backend=be)
+        ckv = ED.cross_kvs_init(c, params, ED.encode(c, params, frames))
+        return ED.decode_trunk(c, params, tokens, ckv, logits_rows=1)[:, -1]
+    held = hold_logits("seamless prefill", logits,
+                       *(plain_logits(be) for be in ("naive", "jnp")),
+                       floor=1e-2)
+    reset_streaming_counts()
+    steps = []
+
+    def step(t, tok):
+        lg, st = m.decode_step(params, tok, state, lt + t)
+        steps.append(st["cross"] is state["cross"])
+        return lg
+    toks, ms = greedy_generate(step, logits, GEN_NEW)
+    if streaming_attention.launches:
+        fail(f"seamless decode: #3 launched {streaming_attention.launches} "
+             f"times in {GEN_NEW} decode steps")
+    if not all(steps) or any(not torch.equal(cross[k], state["cross"][k])
+                             for k in cross):
+        fail("seamless decode: a step did not carry the cross K/V unchanged")
+    if not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        fail("seamless decode: a token outside the vocab")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    f["generate"] = dict(
+        batch=b, frames=cfg.frontend_len, prompt=lt, new=GEN_NEW,
+        encode_ms=float(np.median(encode_ms)), prefill_ms=prefill_ms,
+        launches_per_prefill=launches, launches_per_decode_step=0,
+        decode_ms_p50=float(np.median(ms)),
+        decode_ms_p99=float(np.percentile(ms, 99)),
+        tok_s=b * GEN_NEW / ((prefill_ms + sum(ms)) / 1e3), peak_gib=peak,
+        held=held, card=CARD[0])
+    gen = f["generate"]
+    log(f"[seamless generate] {b} requests × ({cfg.frontend_len} frames + "
+        f"{lt} tokens): encode {gen['encode_ms']:.2f} ms, prefill "
+        f"{prefill_ms:.2f} ms with #3 {launches} launches = {per} "
+        f"({cfg.enc_layers} encoder + {cfg.dec_layers} self + "
+        f"{cfg.dec_layers} cross); {GEN_NEW} greedy decode steps: p50 "
+        f"{gen['decode_ms_p50']:.2f} p99 {gen['decode_ms_p99']:.2f} ms, #3 "
+        f"0 per step, the cross K/V carried unchanged; {gen['tok_s']:.1f} "
+        f"generated tok/s; peak {peak:.2f} GiB; {CARD[0]}")
+    del caches, state, cross
+    f["parts_s"]["generate"] = time.perf_counter() - t0
+
+    # scoring: 2 × (256 frames + 1,024 tokens) through Model.loss
+    t0 = time.perf_counter()
+    sb, sl = ENCDEC_SCORE
+    rng = np.random.default_rng(5)
+    score = {"frames": (torch.randn((sb, cfg.frontend_len, cfg.d_model),
+                                    generator=g, device=DEV) * 0.05
+                        ).to(torch.bfloat16),
+             "tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (sb, sl)).astype(np.int32)).to(DEV)}
+    reset_streaming_counts()
+    s0 = time.perf_counter()
+    loss = float(m.loss(params, score)[0])
+    wall = (time.perf_counter() - s0) * 1e3
+    expect_variant("seamless scoring", VARIANT[cfg.dtype], per)
+    launches = streaming_attention.launches
+    losses = [loss] + [float(build_model(cfg.replace(attn_backend=be)).loss(
+        params, score)[0]) for be in ("naive", "jnp")]
+    f["scoring"] = dict(launches=launches, ms=wall, loss=hold_loss(
+        "seamless scoring loss", losses, floor=1e-3))
+    log(f"[seamless scoring] {sb} × ({cfg.frontend_len} frames + {sl} "
+        f"tokens): loss {loss:.4f} through the kernel ({launches} launches, "
+        f"{wall:.0f} ms incl. the first call), {losses[1]:.4f} plain (ln V "
+        f"= {np.log(cfg.vocab_size):.4f})")
+    f["parts_s"]["scoring"] = time.perf_counter() - t0
+    del params, m
+    torch.cuda.empty_cache()
+    return f
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5185,7 +5577,6 @@ def main() -> int:
     mark("11 dense families")
     by_name = {k["name"]: k for k in kernels}
     by_name["paged_combine"].setdefault("launches_by_path", {})
-    by_name["paged_attention"]["families"] = {}
     for model, f in families.items():
         for pool in ("bf16", "int8"):
             for k in ("paged_attention", "paged_combine"):
@@ -5232,6 +5623,19 @@ def main() -> int:
             by_name["streaming_attention"]["launches_by_path"][
                 f"slot engine {model} bf16"] = la["streaming_attention"]
     mark("14 SSM families")
+    vlm = phase_vlm()
+    by_name["paged_attention"]["launches_by_path"][f"{VLM_MODEL} bf16"] = (
+        vlm["bf16"]["launches"]["paged_attention"])
+    by_name["paged_combine"]["launches_by_path"][f"{VLM_MODEL} bf16"] = (
+        vlm["bf16"]["launches"]["paged_combine"])
+    by_name["lut_exp"]["launches_by_path"][f"{VLM_MODEL} sampled bf16"] = (
+        vlm["bf16"]["sampled"]["launches"]["lut_exp"])
+    sa = by_name["streaming_attention"]["launches_by_path"]
+    sa[f"multimodal prefill {VLM_MODEL}"] = vlm["multimodal"]["launches"]
+    encdec = phase_encdec()
+    sa[f"prefill {ENCDEC_MODEL}"] = encdec["generate"]["launches_per_prefill"]
+    sa[f"scoring {ENCDEC_MODEL}"] = encdec["scoring"]["launches"]
+    mark("15 vlm, encdec")
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -5252,6 +5656,8 @@ def main() -> int:
     summary["families"] = families
     summary["moe"] = moe
     summary["ssm"] = ssm
+    summary["vlm"] = vlm
+    summary["encdec"] = encdec
     summary["phase_s"] = phase_s
     log("[summary] " + json.dumps(summary))
     log("[phases] seconds " + json.dumps({k: round(v, 1)

@@ -1,5 +1,5 @@
-"""Model configuration for the PyTorch port: the dense, MoE, SSM, hybrid
-and BERT families.
+"""Model configuration for the PyTorch port: the dense, MoE, SSM, hybrid,
+vision-language, encoder-decoder and BERT families.
 
 An own copy of the reference ``ModelConfig`` (``src/repro/configs/base.py``)
 cut to what the port implements: the dense decoders the ragged serving
@@ -17,11 +17,17 @@ embeddings); the attention-free Mamba-1 decoder (``family="ssm"``:
 every layer a selective-scan block, ``models/mamba.py``) and the Mamba-2
 hybrid (``family="hybrid"``: Mamba-2 blocks, ``models/mamba2.py``, with
 one shared attention + MLP block run again before every period of
-``hybrid_period`` of them).  The configurations are ``deepseek-7b``,
-``gemma2-9b``, ``gemma3-12b``, ``starcoder2-3b``,
+``hybrid_period`` of them); the vision-language decoder (``family="vlm"``:
+a Qwen2 trunk whose ``frontend_len`` patch embeddings, a stub of the
+vision frontend, are prepended to the tokens) and the encoder-decoder
+(``family="encdec"``: ``enc_layers`` bidirectional layers over
+``frontend_len`` stub audio frames, ``dec_layers`` decoder layers with
+cross-attention, ``models/encdec.py``).  The configurations are
+``deepseek-7b``, ``gemma2-9b``, ``gemma3-12b``, ``starcoder2-3b``,
 ``granite-moe-3b-a800m``, ``grok-1-314b``, ``falcon-mamba-7b``,
-``zamba2-1.2b``, ``bert-base`` and ``bert-large`` at their published
-widths, and their ``-smoke`` variants, which every CPU test builds.
+``zamba2-1.2b``, ``internvl2-1b``, ``seamless-m4t-large-v2``,
+``bert-base`` and ``bert-large`` at their published widths, and their
+``-smoke`` variants, which every CPU test builds.
 Field names, defaults and the ``reduced`` rule match the reference, so a
 config built here and one built there describe the same model.
 
@@ -39,7 +45,7 @@ from typing import Dict, Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str = "dense"                      # dense | moe | ssm | hybrid | bert
+    family: str = "dense"      # dense | moe | ssm | hybrid | vlm | encdec | bert
 
     num_layers: int = 0
     d_model: int = 0
@@ -88,6 +94,14 @@ class ModelConfig:
     ssm_chunk: int = 128                       # chunked-scan length
     ssm_dt_rank: int = 0                       # mamba1 (0 → d_model//16)
     hybrid_period: int = 0                     # zamba2: shared attn every N blocks
+
+    # --- encoder-decoder ---
+    enc_layers: int = 0
+    dec_layers: int = 0
+
+    # --- modality frontend stubs ---
+    frontend: str = ""                         # audio | vision | ""
+    frontend_len: int = 256                    # patches / frames of the prefix
 
     # --- numerics & HASTILY technique toggles ---
     dtype: str = "bfloat16"
@@ -152,8 +166,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         num_heads=4 if cfg.num_heads else 0,
         num_kv_heads=min(cfg.num_kv_heads, 2),
         head_dim=16 if cfg.num_heads else 0,
-        window=8 if cfg.window else None, max_position=4096, block_k=16,
-        ssm_chunk=8)
+        window=8 if cfg.window else None, max_position=4096,
+        frontend_len=4 if cfg.frontend else 256, block_k=16, ssm_chunk=8)
     if cfg.family == "moe":
         kw.update(num_experts=min(cfg.num_experts, 8),
                   experts_per_token=min(cfg.experts_per_token, 2))
@@ -162,6 +176,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "hybrid":
         kw.update(num_layers=max(cfg.hybrid_period, 2) + 2,
                   hybrid_period=max(min(cfg.hybrid_period, 2), 2))
+    if cfg.family == "encdec":
+        kw.update(enc_layers=2, dec_layers=2, num_layers=0)
     return cfg.replace(name=cfg.name + "-smoke", **kw)
 
 
@@ -335,6 +351,52 @@ ZAMBA2_1P2B = ModelConfig(
     tie_embeddings=True,
 )
 
+# [arXiv:2404.16821; hf]  InternViT + Qwen2-0.5B: the LM trunk (GQA 7:1,
+# QKV biases, RoPE theta 1e6); the vision frontend is a stub, 256 patch
+# embeddings of d_model prepended to the tokens
+INTERNVL2_1B = ModelConfig(
+    name="internvl2-1b",
+    family="vlm",
+    num_layers=24,
+    d_model=896,
+    num_heads=14,
+    num_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab_size=151655,
+    mlp_gated=True,
+    act="silu",
+    norm="rmsnorm",
+    attn_bias=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    frontend="vision",
+    frontend_len=256,
+)
+
+# [arXiv:2308.11596; hf]  24 encoder + 24 decoder layers, MHA 16 × 64,
+# LayerNorm, plain GELU MLP; the speech frontend (w2v-BERT) is a stub, 256
+# frame embeddings of d_model
+SEAMLESS_M4T_LARGE_V2 = ModelConfig(
+    name="seamless-m4t-large-v2",
+    family="encdec",
+    enc_layers=24,
+    dec_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=256206,
+    mlp_gated=False,
+    act="gelu",
+    norm="layernorm",
+    pos_embedding="rope",
+    tie_embeddings=True,
+    frontend="audio",
+    frontend_len=256,
+)
+
 # [paper Table III]: encoder-only, learned positions, GELU, MHA.
 BERT_BASE = ModelConfig(
     name="bert-base",
@@ -368,7 +430,8 @@ BERT_LARGE = BERT_BASE.replace(
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in [DEEPSEEK_7B, GEMMA2_9B, GEMMA3_12B, STARCODER2_3B,
                         GRANITE_MOE_3B, GROK_1_314B, FALCON_MAMBA_7B,
-                        ZAMBA2_1P2B, BERT_BASE, BERT_LARGE]}
+                        ZAMBA2_1P2B, INTERNVL2_1B, SEAMLESS_M4T_LARGE_V2,
+                        BERT_BASE, BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -72,3 +72,11 @@ def lut_exp(x: torch.Tensor, *, k: int = K, order: int = 1,
     out = pow2_int(n) * looked * residual_correction(r, k, order)
     out = torch.where(xf < UNDERFLOW_X, torch.zeros_like(out), out)
     return out.to(dtype)
+
+
+def lut_exp2(x: torch.Tensor, *, k: int = K, order: int = 1) -> torch.Tensor:
+    """LUT ``2^x``: ``lut_exp(x · ln2)``, for bases already in log2.  ln2
+    is first rounded to ``x``'s dtype, as the reference's weakly typed
+    Python scalar is (bf16: 0.69140625), so x · ln2 rounds once in it."""
+    ln2 = torch.tensor(LN2, dtype=x.dtype).item()
+    return lut_exp(x * ln2, k=k, order=order)

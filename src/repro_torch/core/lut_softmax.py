@@ -9,7 +9,6 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.lut_exp import lut_exp
-from repro_torch.kernels.lut_exp.ops import device_table
 
 NEG_INF = -1e30  # finite mask value: keeps (x - max) well-defined everywhere
 
@@ -25,7 +24,9 @@ def exp_fn(exp_mode: str, device=None) -> ExpFn:
     if exp_mode not in EXP_MODES:
         raise ValueError(f"exp_mode must be lut, lut0 or exact, got {exp_mode!r}")
     # one resident copy per device: a call inside a CUDA graph capture
-    # must not copy the table from the host
+    # must not copy the table from the host.  Deferred import: the
+    # kernels package imports this module.
+    from repro_torch.kernels.lut_exp.ops import device_table
     table = device_table(torch.device("cpu" if device is None else device))
     order = 1 if exp_mode == "lut" else 0
     return lambda x: lut_exp(x, order=order, table=table)

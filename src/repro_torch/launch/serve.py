@@ -15,8 +15,10 @@ the engine line.  A model whose cache the page pool rejects
 (``UnsupportedCacheLayout``: a sliding window narrower than a page) is
 served by the slot-contiguous ``ServingEngine`` instead, through the
 synchronous ``--batch`` loop and without ``/metrics``, as the
-reference's launcher falls back.  Runs on the card unless ``--device
-cpu`` is given.
+reference's launcher falls back.  A model neither engine serves (the
+encoder-decoder: ``EngineCore`` refuses it with ``no_paged_step``, the
+slot engine with ``NotImplementedError``) exits non-zero with the slot
+engine's message.  Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -214,8 +216,11 @@ def main(argv=None) -> None:
     except UnsupportedCacheLayout as e:
         print(f"engine: ServingEngine on {device} (slot-contiguous, sync "
               f"only) — {e}")
-        eng = ServingEngine(cfg, params, slots=args.lanes,
-                            max_len=args.max_len, device=device)
+        try:
+            eng = ServingEngine(cfg, params, slots=args.lanes,
+                                max_len=args.max_len, device=device)
+        except NotImplementedError as refusal:      # no engine serves it
+            raise SystemExit(f"serve: {refusal}") from None
         slot = True
 
     if args.profile_steps and not slot:

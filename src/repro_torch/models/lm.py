@@ -5,10 +5,14 @@ decoders' scoring run cache-free and the decoders' cached path runs over
 a contiguous cache (``trunk_cache_init``, ``lm_prefill``,
 ``lm_decode_step``), and the ragged serving path of the decoders
 (``trunk_apply_ragged``, ``lm_step_ragged``) over the page pool.  The
-decoders are the dense family and the MoE family, whose layers run
-``models/moe.py::moe_apply`` in place of the MLP; the full-sequence
-forward sums the MoE layers' load-balancing losses (``aux``) and
-``lm_loss`` adds ``cfg.router_aux_weight`` times it, as the reference.
+decoders are the dense family, the vision-language family (``vlm``: a
+dense trunk whose full-sequence forward takes the frontend's patch
+embeddings, ``prefix_embed`` (B, Lp, D), ahead of the tokens; the ragged
+step serves it as text, as the reference's does) and the MoE family,
+whose layers run ``models/moe.py::moe_apply`` in place of the MLP; the
+full-sequence forward sums the MoE layers' load-balancing losses
+(``aux``) and ``lm_loss`` adds ``cfg.router_aux_weight`` times it, as the
+reference.
 
 Parameters are one flat dict (``params.py``): per-layer weights are stacked
 on a leading layer axis in layer order, and layer ``i`` reads the views
@@ -60,6 +64,8 @@ from repro_torch.models.moe import moe_apply
 
 Params = Dict[str, torch.Tensor]
 SSM_FAMILIES = ("ssm", "hybrid")
+# the attention decoders: the page pool and the ragged step serve these
+DECODER_FAMILIES = ("dense", "vlm", "moe")
 
 
 def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -113,11 +119,11 @@ def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
     if cfg.family == "hybrid":
         kinds = ("mamba",) * max(cfg.hybrid_period, 1)
         return (kinds,) + divmod(cfg.num_layers, len(kinds))
-    if cfg.family not in ("dense", "moe", "bert", "ssm"):
+    if cfg.family not in DECODER_FAMILIES + ("bert", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense, moe, ssm, "
-            f"hybrid and bert families only; the other families are a "
-            f"later slice")
+            f"family {cfg.family!r}: the LM trunk runs the dense, vlm, moe, "
+            f"ssm, hybrid and bert families; an encoder-decoder runs "
+            f"models/encdec.py")
     kinds = cfg.pattern
     bad = sorted(set(kinds) - ({"mamba"} if cfg.family == "ssm"
                                else {"local", "global"}))
@@ -135,12 +141,13 @@ def period_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
 
 
 def _ragged_family(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The ragged serving path serves the dense and MoE decoders, whose
-    layers are local or global attention; → the kind of every layer."""
-    if cfg.family not in ("dense", "moe"):
+    """The ragged serving path serves the dense, vlm and MoE decoders,
+    whose layers are local or global attention; → the kind of every
+    layer."""
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: ragged serving runs the dense and moe "
-            f"decoders only; the other families are a later slice")
+            f"family {cfg.family!r}: ragged serving runs the dense, vlm and "
+            f"moe decoders only")
     period_layout(cfg)
     return cfg.layer_kinds()
 
@@ -260,27 +267,38 @@ def _ssm_trunk(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     return x
 
 
+def positions(n: int, cache_index, device) -> torch.Tensor:
+    """Rows 0..n-1 past ``cache_index`` (None: 0): (n,) int32 positions
+    for an int, (B, n) for a (B,) tensor, one row per batch row."""
+    pos = torch.arange(n, dtype=torch.int32, device=device)
+    if isinstance(cache_index, torch.Tensor):
+        return cache_index.to(torch.int32).reshape(-1, 1) + pos[None]
+    return pos if cache_index is None else pos + int(cache_index)
+
+
 def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+             prefix_embed: Optional[torch.Tensor] = None,
              causal: bool = True,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              cache_index=None,
              logits_rows: Optional[int] = None, with_aux: bool = False):
-    """tokens (B, L) → f32 logits (B, L, V) (the reference's ``lm_apply``),
+    """tokens (B, L) → f32 logits (B, L', V) (the reference's ``lm_apply``),
     or with ``with_aux`` (logits, the summed MoE load-balancing loss).
-    Without ``caches``: positions 0..L-1.  With them, the rows sit at
-    ``cache_index`` + 0..L-1, ``cache_index`` an int or (B,) (each batch
-    row its own position, (B, L) positions), and every layer writes its
-    K/V rows into ``caches`` in place.  ``logits_rows=n`` unembeds only the
-    last n positions (the (B, L, V) logits are the largest activation)."""
+    ``prefix_embed`` (B, Lp, D) (vlm patches) is cast to the stream's dtype
+    and prepended to the token embeddings, so L' = Lp + L and the tokens
+    sit at positions Lp.. past the offset.  Without ``caches``: positions
+    0..L'-1.  With them, the rows sit at ``cache_index`` + 0..L'-1,
+    ``cache_index`` an int or (B,) (each batch row its own position, (B,
+    L') positions), and every layer writes its K/V rows into ``caches`` in
+    place.  ``logits_rows=n`` unembeds only the last n positions (the
+    (B, L', V) logits are the largest activation)."""
     if tokens.device.type == "cuda":
         configure_matmul_precision()
-    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
-                       device=tokens.device)
-    if isinstance(cache_index, torch.Tensor):
-        pos = cache_index.to(torch.int32).reshape(-1, 1) + pos[None]
-    elif cache_index is not None:
-        pos = pos + int(cache_index)
-    x = L.embed_full(cfg, params, tokens, pos)
+    lp = 0 if prefix_embed is None else prefix_embed.shape[1]
+    pos = positions(lp + tokens.shape[1], cache_index, tokens.device)
+    x = L.embed_full(cfg, params, tokens, pos[..., lp:])
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     x, aux = trunk_apply(cfg, params, x, pos=pos, causal=causal,
                          caches=caches, cache_index=cache_index,
                          with_aux=with_aux)
@@ -306,25 +324,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token loss of the causal LM: logits at 0..L-2 against tokens
-    1..L-1, plus ``cfg.router_aux_weight`` times the MoE load-balancing
-    loss (0 for a dense model) → (loss, {"ce", "aux"})."""
-    tokens = batch["tokens"]
-    logits, aux = lm_apply(cfg, params, tokens, with_aux=True)
+    """Next-token loss of the causal LM: the tokens' logits at 0..L-2
+    against tokens 1..L-1 (behind a ``prefix_embed`` of the batch, whose
+    rows score nothing), plus ``cfg.router_aux_weight`` times the MoE
+    load-balancing loss (0 for a dense model) → (loss, {"ce", "aux"})."""
+    tokens, prefix = batch["tokens"], batch.get("prefix_embed")
+    logits, aux = lm_apply(cfg, params, tokens, prefix_embed=prefix,
+                           with_aux=True)
+    logits = logits[:, logits.shape[1] - tokens.shape[1]:]
     ce = cross_entropy(logits[:, :-1], tokens[:, 1:], batch.get("loss_mask"))
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-               caches: Dict[str, torch.Tensor]
+               caches: Dict[str, torch.Tensor], *,
+               prefix_embed: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fill the caches from position 0 (port of the reference's
-    ``lm_prefill``) → (last-position f32 logits (B, V), caches), the
-    caches written in place.  The cache index is the host int 0, so every
-    layer's lengths are static: on the card ``auto`` runs each layer on the
-    streaming-attention kernel.  Only the last row is unembedded."""
-    logits = lm_apply(cfg, params, tokens, caches=caches, cache_index=0,
-                      logits_rows=1)
+    ``lm_prefill``), ``prefix_embed``'s Lp rows ahead of the tokens →
+    (last-position f32 logits (B, V), caches), the caches written in
+    place; the next decode index is Lp + L.  The cache index is the host
+    int 0, so every layer's lengths are static: on the card ``auto`` runs
+    each layer on the streaming-attention kernel.  Only the last row is
+    unembedded."""
+    logits = lm_apply(cfg, params, tokens, prefix_embed=prefix_embed,
+                      caches=caches, cache_index=0, logits_rows=1)
     return logits[:, -1], caches
 
 
@@ -371,7 +395,8 @@ def trunk_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                       for k, v in L.attn_cache_init(cfg, batch, max_len,
                                                     device=device).items()})
         return c
-    kinds = _ragged_family(cfg)
+    period_layout(cfg)
+    kinds = cfg.layer_kinds()
     n_ring = sum(L.is_ring(cfg, kind, max_len) for kind in kinds)
 
     def stacked(leaves, n):

@@ -1,5 +1,5 @@
-"""Parameters of the port's models (dense, MoE, Mamba and hybrid decoders,
-BERT encoder).
+"""Parameters of the port's models (dense, vlm, MoE, Mamba and hybrid
+decoders, the encoder-decoder, BERT encoder).
 
 ``from_flat`` takes the reference's parameters as the flat
 ``{path: np.ndarray}`` dict of ``checkpoint/store.py::flatten_tree`` (numpy
@@ -17,7 +17,14 @@ axis in layer order, e.g. ``wq`` (L, D, Hq·Dh) and its bias ``wq_b``
 experts are ``up`` / ``gate`` (L, E, D, F) and ``down`` (L, E, F, D), the
 reference's ``moe/...`` leaves.  The reference scans periods of
 ``len(cfg.pattern)`` layers: its leaf ``trunk/periods/{j}/...`` is (L / len(pattern), ...), and its
-row ``n`` is the port's layer ``n·len(pattern) + j``.
+row ``n`` is the port's layer ``n·len(pattern) + j``.  The vlm family's
+leaves are the dense ones (Qwen2: ``wq_b``/``wk_b``/``wv_b``, no ``wo``
+or MLP bias).  The encoder-decoder's (``models/encdec.py``) are already
+stacked in the reference (``jax.vmap`` over layers, no periods): its
+``encoder/...`` leaves are the port's ``enc_<key>``, ``decoder/{ln1,
+self_attn, lnx, cross_attn, ln2, mlp}/...`` its ``decoder_keys``
+(``cross_attn/...`` as ``cross_<key>``), and ``enc_norm`` / ``dec_norm``
+end each stack.
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm import layer_keys, period_layout, shared_keys
+from repro_torch.models.encdec import decoder_keys, encoder_keys
+from repro_torch.models.lm import (block_keys, layer_keys, period_layout,
+                                   shared_keys)
 
 _LAYER_PATHS = {
     "ln1": "ln1/scale", "ln2": "ln2/scale",
@@ -62,11 +71,44 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _encdec_paths(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
+    """The encoder-decoder's keys → their one (stacked) reference path."""
+    paths = {"embed": ("embed/tokens",)}
+    norms = ("enc_norm", "dec_norm")
+    for k in encoder_keys(cfg):
+        paths[k] = (f"encoder/{_LAYER_PATHS[k[len('enc_'):]]}",)
+    for k in decoder_keys(cfg):
+        if k.startswith("cross_"):
+            leaf = "cross_" + _LAYER_PATHS[k[len("cross_"):]]
+        elif k.startswith("lnx"):
+            leaf = "lnx/bias" if k.endswith("_b") else "lnx/scale"
+        else:
+            leaf = _LAYER_PATHS[k].replace("attn/", "self_attn/", 1)
+        paths[k] = (f"decoder/{leaf}",)
+    for n in norms:
+        paths[n] = (f"{n}/scale",)
+        if cfg.norm == "layernorm":
+            paths[n + "_b"] = (f"{n}/bias",)
+    return paths
+
+
+def _stacking(cfg: ModelConfig) -> Tuple[set, int, int]:
+    """(the keys stacked from period slots, slots per period, periods):
+    none for the encoder-decoder, whose reference leaves are stacked."""
+    if cfg.family == "encdec":
+        return set(), 0, 0
+    kinds, nper, _ = period_layout(cfg)
+    return set(layer_keys(cfg)), (len(kinds) if nper else 0), nper
+
+
 def param_paths(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
     """Port key → the reference flat paths it is made of: one for a
-    model-wide leaf; for a per-layer leaf, one per slot ``j`` of the
-    period, ``trunk/periods/{j}/...``, then one per tail layer ``i``,
+    model-wide leaf (and for an encoder-decoder's stacked leaf); for a
+    per-layer leaf, one per slot ``j`` of the period,
+    ``trunk/periods/{j}/...``, then one per tail layer ``i``,
     ``trunk/tail/{i}/...``."""
+    if cfg.family == "encdec":
+        return _encdec_paths(cfg)
     kinds, nper, tail = period_layout(cfg)
     paths = {"embed": ("embed/tokens",), "final_norm": ("final_norm/scale",)}
     if cfg.pos_embedding == "learned":
@@ -96,9 +138,7 @@ def from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
     period."""
     dev = resolve_device(device)
     paths = param_paths(cfg)
-    kinds, nper, _ = period_layout(cfg)
-    per = len(kinds) if nper else 0         # period paths ahead of the tail's
-    layered = set(layer_keys(cfg))
+    layered, per, _ = _stacking(cfg)    # per: period paths ahead of the tail's
     known = {p for ps in paths.values() for p in ps}
     extra = sorted(set(flat) - known)
     if extra:
@@ -123,9 +163,7 @@ def to_flat(params: Mapping[str, torch.Tensor],
     """The inverse of ``from_flat``: the port's parameters → the
     reference's flat paths, each leaf a view of the port's tensor on its
     device."""
-    kinds, nper, _ = period_layout(cfg)
-    per = len(kinds) if nper else 0
-    layered = set(layer_keys(cfg))
+    layered, per, nper = _stacking(cfg)
     out = {}
     for k, ps in param_paths(cfg).items():
         for j, p in enumerate(ps):
@@ -143,8 +181,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with ``lm_init``'s distributions: dense weights
     normal·d_in^-0.5 (each MoE expert's too, and the f32 router's),
     biases 0, the token and position tables normal·0.02, norm scales 1 (RMSNorm and the QK-norm multiply by ``1 + scale``),
-    LayerNorm biases 0.  A Mamba layer draws ``mamba_init`` /
-    ``mamba2_init``'s: its projections and the conv normal·fan-in^-0.5
+    LayerNorm biases 0.  An encoder-decoder draws its encoder's block
+    leaves over ``enc_layers`` and its decoder's over ``dec_layers``, each
+    cross-attention leaf as its self-attention counterpart.  A Mamba
+    layer draws ``mamba_init`` / ``mamba2_init``'s: its projections and the conv normal·fan-in^-0.5
     (the conv's fan-in the kernel width), the conv bias 0, ``dt_bias``
     log(expm1(0.01)), ``D`` 1, and ``A_log`` log(1..n) per channel
     (S4D-real, Mamba-1) or log(linspace(1, 16, H)) (Mamba-2), with
@@ -155,7 +195,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     and biases a config adds."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
-    period_layout(cfg)
+    encdec = cfg.family == "encdec"
+    if not encdec:
+        period_layout(cfg)
     n = cfg.num_layers
     d, f, dh = cfg.d_model, cfg.d_ff, cfg.d_head
     hq, hkv = cfg.num_heads * dh, cfg.num_kv_heads * dh
@@ -181,38 +223,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     p = {"embed": normal((cfg.vocab_size, d), 0.02)}
     if cfg.pos_embedding == "learned":
         p["positions"] = normal((cfg.max_position, d), 0.02)
-    p["final_norm"] = const((d,), 1.0)
+    norms = ("enc_norm", "dec_norm") if encdec else ("final_norm",)
+    for name in norms:
+        p[name] = const((d,), 1.0)
     widths = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d),
               "up": (d, f), "gate": (d, f), "down": (f, d)}
     moe = cfg.family == "moe"
 
     def block(keys, layers):
         out = {}
-        for k in keys:
+        for key in keys:       # cross_<k> is drawn as its counterpart <k>
+            k = key[len("cross_"):] if key.startswith("cross_") else key
             if k == "router":
-                out[k] = stacked(d, cfg.num_experts, dtype=torch.float32)
+                out[key] = stacked(d, cfg.num_experts, dtype=torch.float32)
             elif moe and k in ("up", "gate", "down"):
-                out[k] = stacked(*widths[k], experts=(cfg.num_experts,))
+                out[key] = stacked(*widths[k], experts=(cfg.num_experts,))
             elif k in widths:
-                out[k] = stacked(*widths[k], layers=layers)
-            elif k in ("ln1", "ln2", "ln1_post", "ln2_post"):
-                out[k] = const((layers, d), 1.0)
+                out[key] = stacked(*widths[k], layers=layers)
+            elif k in ("ln1", "ln2", "lnx", "ln1_post", "ln2_post"):
+                out[key] = const((layers, d), 1.0)
             elif k in ("q_norm", "k_norm"):
-                out[k] = const((layers, dh), 1.0)
+                out[key] = const((layers, dh), 1.0)
             else:                                   # biases: <weight>_b
                 w = k[:-2]
-                out[k] = const((layers, widths[w][1] if w in widths else d),
-                               0.0)
+                out[key] = const((layers, widths[w][1] if w in widths else d),
+                                 0.0)
         return out
 
-    if cfg.family in ("ssm", "hybrid"):
+    if encdec:
+        enc = block(block_keys(cfg), cfg.enc_layers)
+        p.update({"enc_" + k: v for k, v in enc.items()})
+        p.update(block(decoder_keys(cfg), cfg.dec_layers))
+    elif cfg.family in ("ssm", "hybrid"):
         p.update(_mamba_leaves(cfg, stacked, const, dev))
         shared = block([k[len("shared_"):] for k in shared_keys(cfg)], 1)
         p.update({"shared_" + k: v[0] for k, v in shared.items()})
     else:
         p.update(block(layer_keys(cfg), n))
     if cfg.norm == "layernorm":
-        p["final_norm_b"] = const((d,), 0.0)
+        p.update({name + "_b": const((d,), 0.0) for name in norms})
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
     return p

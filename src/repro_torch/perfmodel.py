@@ -21,8 +21,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterable, Tuple
 
-from repro_torch.kernels.paged_attention.ops import MAX_ROW_TILE
-
 
 @dataclasses.dataclass(frozen=True)
 class PlatformSpec:
@@ -147,6 +145,9 @@ def paged_kernel_traffic(segments: Iterable[Tuple[int, int]], *,
     - ``blocks``: the live blocks of the grid, which run in waves over the
       card's ``SMS`` multiprocessors (``paged_kernel_roofline``).
     """
+    # Deferred import: the kernels package reaches this module through
+    # the tuner that ``core.attention_api`` imports.
+    from repro_torch.kernels.paged_attention.ops import MAX_ROW_TILE
     bq = max(1, int(block_q))
     split = max(1, int(kv_split))
     group = hq // hkv

@@ -3,7 +3,7 @@ slot-contiguous ServingEngine for the cache layouts the pool rejects, the
 in-step sampler, and the asyncio front door."""
 from repro_torch.serving.api import (Request, RequestState, StepOutput,
                                      UnsupportedCacheLayout)
-from repro_torch.serving.core import EngineCore, greedy_token
+from repro_torch.serving.core import EngineCore, greedy_token, greedy_tokens
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.metrics import (Counter, Gauge, Histogram,
                                          MetricsRegistry, start_metrics_server,
@@ -33,6 +33,7 @@ __all__ = ["AsyncLMServer", "Counter", "EngineCore", "Gauge", "Histogram",
            "SpanEvent",
            "StepOutput", "StepTraceRing", "UnsupportedCacheLayout",
            "default_token_buckets", "greedy_rows", "greedy_token",
+           "greedy_tokens",
            "sample_in_step",
            "sample_row", "sample_rows", "start_metrics_server", "stop_hit",
            "stop_holdback", "validate_stop_tokens", "write_metrics_json"]

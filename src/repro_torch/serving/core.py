@@ -64,8 +64,10 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, configure_matmul_precision, resolve_device
 from repro_torch.kernels.paged_attention.varlen import validate_cu_seqlens
 from repro_torch.kernels.autotune import KernelConfig, resolve_config
-from repro_torch.models.lm import lm_step_ragged
-from repro_torch.serving.api import Request, RequestState, StepOutput
+from repro_torch.models.api import build_model
+from repro_torch.models.lm import SSM_FAMILIES, lm_step_ragged
+from repro_torch.serving.api import (Request, RequestState, StepOutput,
+                                     UnsupportedCacheLayout)
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.paged import PagedKVCache
 from repro_torch.serving.prefix_cache import RadixPrefixCache
@@ -82,6 +84,16 @@ def greedy_token(logits) -> int:
     same way on every engine and device.  The slot engine and
     ``EngineCore`` share it."""
     return int(greedy_rows(torch.as_tensor(logits)))
+
+
+def greedy_tokens(logits) -> np.ndarray:
+    """``greedy_token`` over leading axes, in numpy: (..., V) → (...,), the
+    lowest index among each row's joint maxima (the reference's
+    ``greedy_tokens``, the speculative verify rule's pick)."""
+    lg = np.asarray(logits)
+    hit = lg == lg.max(axis=-1, keepdims=True)
+    return np.min(np.where(hit, np.arange(lg.shape[-1]), lg.shape[-1]),
+                  axis=-1)
 
 
 def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
@@ -134,6 +146,13 @@ class EngineCore:
                              f"got {spec_k}")
         if mesh not in (None, 1):
             raise _later("a tensor-parallel mesh", "TP-serving")
+        if (build_model(cfg).step_ragged is None
+                and cfg.family not in SSM_FAMILIES):
+            # the reference's words and kind; the SSM families reach the
+            # pool's own refusal (``ssm_state``), as they do there
+            raise UnsupportedCacheLayout(
+                "no_paged_step", cfg.name,
+                f"the {cfg.family} family exposes no paged chunk step")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_matmul_precision()
@@ -228,9 +247,7 @@ class EngineCore:
         return out
 
     def _step_ragged(self) -> StepOutput:
-        s = self.scheduler
-        batch, preempted = s.batch_for(s.begin_step())
-        return self._run_stream(batch, preempted)
+        return self._run_stream(*self.scheduler.schedule_ragged())
 
     def step_arrays(self, batch: RaggedBatch) -> Dict[str, np.ndarray]:
         """The step function's host inputs for ``batch``: its packed

@@ -2,7 +2,10 @@
 ``_EngineBase`` and ``ServingEngine``; its ``PagedServingEngine`` shim over
 ``EngineCore`` is not ported).
 
-``ServingEngine`` serves the cache layouts the page pool rejects
+``ServingEngine`` serves the vlm family as text, as the reference's does,
+and refuses the encoder-decoder (``NotImplementedError``): its prefill
+takes tokens only, and an encoder-decoder needs its frames.  It serves
+the cache layouts the page pool rejects
 (``UnsupportedCacheLayout``): a local layer whose window is narrower than a
 page keeps a ring buffer of ``window`` rows (``models/layers.py::
 attn_cache_init``), and a Mamba layer O(1) state (``models/mamba.py``,
@@ -81,6 +84,12 @@ class _EngineBase:
             if t.device != self.device:
                 raise ValueError(f"parameter {name!r} lives on {t.device}, "
                                  f"the engine on {self.device}")
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.name}: family 'encdec' — the slot engine prefills a "
+                f"request from its tokens alone, and an encoder-decoder "
+                f"needs its encoder's frames (the reference's ServingEngine "
+                f"cannot serve it either); run Model.prefill / decode_step")
         self.cfg = cfg
         self.model = build_model(cfg)
         if self.model.decode_step is None:

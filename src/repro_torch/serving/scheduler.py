@@ -502,3 +502,9 @@ class Scheduler:
         """Trim to a bucket edge, grant pages, pack → (batch, preempted)."""
         plans = self._grant_plans(self._trim_to_bucket(wants))
         return self.pack(plans), tuple(self._evicted_now)
+
+    def schedule_ragged(self) -> Tuple[RaggedBatch, Tuple[int, ...]]:
+        """One step's plan in one call: admission and the token budget
+        (``begin_step``), then ``batch_for`` → (batch, preempted), as the
+        reference's ``schedule_ragged``."""
+        return self.batch_for(self.begin_step())

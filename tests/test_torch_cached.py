@@ -147,6 +147,22 @@ def test_init_cache_leaves_match_reference(name, kv_quant):
         np.testing.assert_array_equal(np.asarray(ring["pos"]), -1)
 
 
+def test_bert_init_cache_matches_reference():
+    """bert's ``Model.init_cache`` is the stacked ``trunk_cache_init``, as
+    the reference's: the same leaves, shapes, dtypes and zeros."""
+    jc, tc, _, _ = build("bfloat16", False, "bert-base-smoke")
+    jl = ref_layers(j_build_model(jc).init_cache(3, MAX_LEN), 1,
+                    jc.num_layers)
+    tl = layer_caches(tc, build_model(tc).init_cache(3, MAX_LEN,
+                                                     device="cpu"))
+    assert len(tl) == len(jl) == tc.num_layers
+    for j, t in zip(jl, tl):
+        assert sorted(j) == sorted(t) == ["k", "v"]
+        for k in j:
+            assert tuple(t[k].shape) == j[k].shape
+            assert t[k].dtype == torch.bfloat16 and not t[k].any()
+
+
 @pytest.mark.parametrize("name", FAMILIES)
 def test_prefill_and_decode_float32_match_reference(name):
     ref, port = run_cached(name, "float32", False)

@@ -56,3 +56,34 @@ def test_preempted_request_resumes_like_solo_run():
     assert seen
     assert {r.uid: r.tokens for r in eng.finished} == solo
     assert eng.pages_in_use == 0
+
+
+def test_schedule_ragged_matches_reference():
+    """``Scheduler.schedule_ragged`` of both packages on the contended
+    trace, each engine stepped through its own ``_run_stream``: equal
+    plans, packed streams, tables and preemptions on every step, and
+    equal tokens."""
+    import numpy as np
+    from repro.serving import EngineCore as JEngine
+    from repro.serving import Request as JRequest
+    from repro_torch.serving import EngineCore, Request
+    jc, tc, jparams, tparams = build("float32", False)
+    je = JEngine(jc, jparams, **CONTENDED)
+    te = EngineCore(tc, tparams, device="cpu", **CONTENDED)
+    for uid, (p, (_, mn)) in enumerate(zip(
+            prompts_for(512, 21, [lp for lp, _ in SPECS]), SPECS)):
+        je.submit(JRequest(uid=uid, prompt=p, max_new=mn))
+        te.submit(Request(uid=uid, prompt=p, max_new=mn))
+    steps, preempted = 0, []
+    while je.scheduler.has_work() or te.scheduler.has_work():
+        (a, pa), (b, pb) = (je.scheduler.schedule_ragged(),
+                            te.scheduler.schedule_ragged())
+        assert [(p.run.req.uid, p.q_len) for p in a.plans] == \
+            [(p.run.req.uid, p.q_len) for p in b.plans], steps
+        for f in ("tokens", "pos", "lane_id", "table", "cu_seqlens"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+        assert (a.live, a.width, pa) == (b.live, b.width, pb), steps
+        preempted += list(pa)
+        assert je._run_stream(a, pa).tokens == te._run_stream(b, pb).tokens
+        steps += 1
+    assert preempted and steps > 10

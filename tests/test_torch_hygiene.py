@@ -72,6 +72,51 @@ def test_serving_obs_modules_import_no_jax(module):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# Names of the reference's package exports the port has not ported yet,
+# each with the ROADMAP §1 item that brings it; no other name may be
+# missing.
+NOT_YET_PORTED = {
+    "core": {"ring_attention", "distributed_decode_attention",   # item 5
+             "sharded_softmax", "sharded_softmax_tree", "tree_allreduce"},
+    "kernels": set(),
+    "models": set(),
+    "serving": {"PagedServingEngine"},                           # item 4
+    "checkpoint": {"save", "restore", "retain", "AsyncCheckpointer",
+                   "flatten_tree", "unflatten_into"},            # item 6
+}
+
+
+def _reference_all(package: str):
+    """The reference package's ``__all__``, read from its source (the
+    reference imports JAX; this file does not)."""
+    tree = ast.parse((SRC / "repro" / package / "__init__.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "__all__"):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"repro.{package} has no __all__")
+
+
+@pytest.mark.parametrize("package", sorted(NOT_YET_PORTED))
+def test_port_exports_cover_the_reference(package):
+    """Every name of ``repro.<package>.__all__`` is in
+    ``repro_torch.<package>.__all__`` and imports as the function or class
+    (never a submodule shadowing it), save the named names not yet
+    ported; and none of those is secretly exported already."""
+    import importlib
+    import inspect
+    port = importlib.import_module(f"repro_torch.{package}")
+    want = _reference_all(package)
+    exempt = NOT_YET_PORTED[package]
+    assert exempt <= want, exempt - want
+    missing = sorted(want - exempt - set(port.__all__))
+    assert not missing, missing
+    for name in want - exempt:
+        obj = getattr(port, name)
+        assert not inspect.ismodule(obj), (package, name)
+    assert not exempt & set(port.__all__), exempt & set(port.__all__)
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

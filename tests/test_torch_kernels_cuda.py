@@ -1664,3 +1664,101 @@ def test_ssm_decode_replay_counts_one_exp_per_layer(cuda_device, name):
     torch.cuda.synchronize()
     assert got.shape == want.shape
     assert lut_exp.launches - before == n * eng.cfg.num_layers
+
+
+# internvl2-1b's GQA 7:1 at head dim 64 (a decode row: 7 rows of one row
+# tile; a q-block of 8 rows: 56 rows, three whole row tiles of 16 and one
+# of 8), bf16 q over a bf16 or an int8 pool, at the default split and at
+# one page per split.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_split", [None, 1])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("lq", [1, 8])
+def test_paged_kernel_at_gqa_7(cuda_device, lq, quant, kv_split):
+    """Within one bf16 ulp beyond the f32 atol of the plain version cut
+    into the same splits."""
+    args, sc = make_case(37 + lq, cuda_device, group=7, hkv=2, d=64, ps=16,
+                         p=8, lq=lq, quant=quant)
+    args[0] = args[0].bfloat16()
+    if not quant:
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    before = paged_attention.launches
+    got = paged_attention(*args, **sc, kv_split=kv_split)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_reference(
+        *args, **sc, kv_split=kv_split or default_kv_split(16))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert bf16_ulps(got, want, TOL["atol"]) <= 1.0
+
+
+# Kernel #3 at the vlm and encoder-decoder calls at their full sizes:
+# internvl2-1b's multimodal prefill (8 × 384 rows over a 416-row cache,
+# kv_len 384, 14 × 2 heads of 64, causal), seamless-m4t's encoder (8 × 256
+# frames, 16 heads of 64, no mask), its decoder's self-attention prefill
+# (16 rows over a 48-row cache, kv_len 16, causal) and its cross-attention
+# (16 rows against 256 frames, no mask).
+VLM_ENCDEC_CASES = [
+    dict(b=8, hq=14, hkv=2, lq=384, lkv=416, d=64, causal=True, kv_len=384),
+    dict(b=8, hq=16, hkv=16, lq=256, lkv=256, d=64, causal=False),
+    dict(b=8, hq=16, hkv=16, lq=16, lkv=48, d=64, causal=True, kv_len=16),
+    dict(b=8, hq=16, hkv=16, lq=16, lkv=256, d=64, causal=False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", VLM_ENCDEC_CASES,
+                         ids=["internvl2-prefill", "seamless-encoder",
+                              "seamless-self", "seamless-cross"])
+def test_streaming_attention_at_the_vlm_encdec_shapes(cuda_device, case,
+                                                      dtype):
+    """f32 (CUDA cores) at the reference suite's atol 3e-5 / rtol 1e-4;
+    bf16 (tensor cores) within one bf16 ulp beyond that atol."""
+    (q, k, v), kw = sa_inputs(case, cuda_device, seed=6)
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    variant = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    before = streaming_attention.launches_by_variant[variant]
+    got = streaming_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert streaming_attention.launches_by_variant[variant] == before + 1
+    want = attention_ref(q, k, v, **kw)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, **SA_TOL)
+    else:
+        assert bf16_ulps(got, want, SA_TOL["atol"]) <= 1.0
+
+
+@pytest.mark.cuda
+def test_vlm_and_encdec_prefill_launch_counts(cuda_device):
+    """On the smoke configs: a vlm prefill with a prefix launches #3 once
+    per layer; an encoder-decoder prefill 3 times per layer pair (encoder,
+    decoder self- and cross-attention); their decode steps none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.params import init_params
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for name, per in (("internvl2-1b-smoke", 1),
+                      ("seamless-m4t-large-v2-smoke", 3)):
+        cfg = get_config(name)
+        m = build_model(cfg)
+        params = init_params(cfg, g, cuda_device)
+        stub = (torch.randn((2, cfg.frontend_len, cfg.d_model), generator=g,
+                            device=cuda_device) * 0.05).bfloat16()
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 6),
+                                         device=cuda_device, generator=g),
+                 "prefix_embed" if cfg.family == "vlm" else "frames": stub}
+        lp = cfg.frontend_len if cfg.family == "vlm" else 0
+        caches = m.init_cache(2, lp + 6 + 3, device=cuda_device)
+        before = streaming_attention.launches
+        logits, state = m.prefill(params, batch, caches)
+        torch.cuda.synchronize()
+        layers = cfg.num_layers or cfg.dec_layers
+        assert streaming_attention.launches - before == per * layers
+        before = streaming_attention.launches
+        for t in range(3):
+            logits, state = m.decode_step(params, logits.argmax(-1), state,
+                                          lp + 6 + t)
+        torch.cuda.synchronize()
+        assert streaming_attention.launches == before
+        assert torch.isfinite(logits).all()

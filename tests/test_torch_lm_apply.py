@@ -168,8 +168,9 @@ def test_configs_match_reference(name):
 def test_dense_cached_entry_points_raise():
     """The dense cached path refuses what it cannot take: a block of rows
     at per-row cache indices (only a single-row decode has one position
-    per batch row), and a CUDA cache without a card; BERT has no cache and
-    no decode step."""
+    per batch row), and a CUDA cache without a card; BERT has no decode
+    step, and its cache is the stacked ``trunk_cache_init``, as the
+    reference's."""
     cfg = get_config("deepseek-7b-smoke")
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), "cpu")
@@ -182,7 +183,8 @@ def test_dense_cached_entry_points_raise():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             m.init_cache(2, 16)
     bert = build_model(get_config("bert-base-smoke"))
-    assert bert.init_cache is None and bert.decode_step is None
+    assert bert.decode_step is None
+    assert sorted(bert.init_cache(2, 16, device="cpu")) == ["k", "v"]
     with pytest.raises(KeyError, match="unknown attention backend"):
         build_model(get_config("bert-base-smoke").replace(
             attn_backend="flash3"))

@@ -16,13 +16,14 @@ import jax.numpy as jnp  # noqa: E402
 import repro.core.lut_exp  # noqa: E402
 from repro.core.streaming_attention import quantize_kv_rows as j_quant  # noqa: E402
 from repro.kernels.lut_exp.ops import lut_exp as j_pallas_lut_exp  # noqa: E402
-import repro_torch.core.lut_exp as tlut  # noqa: E402
+import repro_torch.core.lut_exp  # noqa: E402,F401
 from repro_torch.core.streaming_attention import quantize_kv_rows as t_quant  # noqa: E402
 from repro_torch.kernels.lut_exp import lut_exp as t_kernel_lut_exp  # noqa: E402
 from repro_torch.kernels.lut_exp import lut_exp_ref  # noqa: E402
 
-# the reference package re-exports the function under the module's name
+# both packages re-export the function under the module's name
 jlut = sys.modules["repro.core.lut_exp"]
+tlut = sys.modules["repro_torch.core.lut_exp"]
 
 SHAPES = [(7,), (128,), (3, 5, 11), (256, 128), (1, 1), (1000,)]
 EDGES = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
@@ -89,6 +90,27 @@ def test_lut_exp_edges_and_wide_range_bit_exact(rng, order):
     got = tlut.lut_exp(torch.from_numpy(x), order=order).numpy()
     np.testing.assert_array_equal(bits(got), bits(want))
     assert got[0] == 0.0 and got[1] == 0.0 and got[2] == 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", [0, 1])
+def test_lut_exp2_bit_exact(rng, dtype, order):
+    """``lut_exp2`` (``lut_exp(x · ln2)``) equals the eager JAX core's bit
+    for bit (in bf16 ln2 rounds to bf16 first on both sides), and in f32
+    sits within the LUT's error of ``2^x``."""
+    x = rng.uniform(-30, 30, size=(64, 33)).astype(np.float32)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = np.asarray(jlut.lut_exp2(xj, order=order).astype(jnp.float32))
+    got = tlut.lut_exp2(xt, order=order)
+    assert got.dtype == xt.dtype and tuple(got.shape) == x.shape
+    np.testing.assert_array_equal(bits(to_np(got)), bits(want))
+    if dtype == "bfloat16":
+        return
+    exact = np.exp2(x.astype(np.float64))
+    # order 0 drops e^r (r < ln2/K); order 1 keeps 1 + r
+    assert np.abs(to_np(got) / exact - 1).max() < (6e-3 if order == 0
+                                                   else 1e-3)
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 50, 16), (1, 2, 7, 128)])

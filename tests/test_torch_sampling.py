@@ -245,6 +245,20 @@ def test_in_step_greedy_matches_host_tie_break():
     assert (greedy_rows(torch.from_numpy(lg)).numpy() == got).all()
 
 
+def test_greedy_tokens_matches_reference():
+    """``serving.core.greedy_tokens``: the reference's numpy pick over
+    leading axes, crafted ties included, equal index for index."""
+    from repro_torch.serving.core import greedy_tokens as t_greedy_tokens
+    rng = np.random.default_rng(1)
+    lg = rng.normal(size=(3, 4, 29)).astype(np.float32)
+    lg[0, 0, [3, 17]] = lg[0, 0].max() + 1.0
+    lg[1, 2, :] = -1.0
+    got = t_greedy_tokens(lg)
+    assert got.shape == (3, 4)
+    np.testing.assert_array_equal(got, greedy_tokens(lg))
+    assert got[0, 0] == 3 and got[1, 2] == 0
+
+
 def _picks(lg, *, temps, top_k=0, top_p=1.0, seed=0):
     n = lg.shape[0]
     return _port(lg, np.full((n,), temps, np.float32),

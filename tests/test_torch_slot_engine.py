@@ -224,10 +224,15 @@ def test_slot_engine_refuses_what_it_cannot_serve():
     bert = build("float32", False, "bert-base-smoke")
     with pytest.raises(ValueError, match="no decode step"):
         ServingEngine(bert[1], bert[3], slots=1, max_len=16, device="cpu")
-    for family in ("encdec", "vlm"):      # seamless-m4t, internvl2: later
-        with pytest.raises(NotImplementedError, match=family):
-            ServingEngine(tc.replace(family=family), tparams, slots=1,
-                          max_len=16, device="cpu")
+    # seamless-m4t: its prefill needs frames, which a request has not
+    with pytest.raises(NotImplementedError, match="encdec"):
+        ServingEngine(tc.replace(family="encdec"), tparams, slots=1,
+                      max_len=16, device="cpu")
+    # internvl2: served as text, as the reference's engine serves it
+    vlm = ServingEngine(tc.replace(family="vlm"), tparams, slots=1,
+                        max_len=16, device="cpu")
+    vlm.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32), max_new=3))
+    assert len(vlm.run()[0].tokens) == 3
 
 
 def test_serve_cli_falls_back_to_the_slot_engine():

@@ -25,7 +25,9 @@ from repro.core.streaming_attention import streaming_attention as j_scan  # noqa
 from repro.kernels import attention_ref as j_attention_ref  # noqa: E402
 from repro.kernels import streaming_attention as j_kernel  # noqa: E402
 from repro_torch.core import attention_api as t_api  # noqa: E402
-from repro_torch.core import streaming_attention as t_core  # noqa: E402
+# ``repro_torch.core`` re-exports the function under the module's name
+from repro_torch.core.streaming_attention import (  # noqa: E402
+    streaming_attention as t_scan)
 from repro_torch.kernels.streaming_attention import (  # noqa: E402
     attention_ref, streaming_attention)
 from tests.test_kernels import ATTN_CASES  # noqa: E402
@@ -83,7 +85,7 @@ def test_scan_matches_jax_scan(case):
     arrays, kw = inputs(case, seed=1)
     (jq, jk, jv), (tq, tk, tv) = both(arrays)
     want = np.asarray(jitted(j_scan, jq, jk, jv, block_k=16, **kw))
-    got = t_core.streaming_attention(tq, tk, tv, block_k=16, **kw).numpy()
+    got = t_scan(tq, tk, tv, block_k=16, **kw).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(
         got, np.asarray(jitted(j_attention_ref, jq, jk, jv, **kw)), **TOL)
@@ -116,7 +118,7 @@ def test_bf16_matches_jax():
     np.testing.assert_allclose(got.float().numpy(), oracle, atol=3e-2)
     jb = [a.astype(jnp.bfloat16) for a in (jq, jk, jv)]
     want = jitted(j_scan, *jb, causal=True, block_k=16)
-    got = t_core.streaming_attention(*tb, causal=True, block_k=16)
+    got = t_scan(*tb, causal=True, block_k=16)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                atol=3e-2)
