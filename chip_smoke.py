@@ -189,7 +189,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    prompts, plus one of 4,200 tokens (gemma2) or 1,500 (gemma3) that its
    window bites, through ``EngineCore`` as phase 7's captured arm does: in
    lockstep with an eager twin (equal plans, logits bit for bit on every
-   step), warm passes, ``mark_warm()`` and a measured pass
+   step) at the depth of ``step_check_cut``, then at full depth a first
+   pass, warm passes, ``mark_warm()`` and a measured pass
    (step p50/p99, tokens/s, peak memory; 0 captures after
    ``mark_warm()``; #2's split pass and combine each = layers × steps),
    then a pass whose first 8-lane decode step is profiled.  One
@@ -283,7 +284,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    encode ms, prefill ms, decode p50/p99, tokens/s, peak memory; then the
    scoring loss on 2 × (256 frames + 1,024 tokens) through
    ``Model.loss`` (#3 72 times) against the plain attention;
-16. print the card's name and power limit, then ``{"ok": true, "device":
+16. training: the backward kernel of #3 (``streaming_attention_bwd``)
+   held against its plain backward from the forward kernel's own out and
+   lse, bf16 and f32, at ``BWD_SHAPES`` (bert-large 8 × 16 × 512 × 64;
+   deepseek-7b 8 × 32 × 512 × 128 causal; grok's 2 × 48:8 × 1024 × 128
+   with cap 30; seamless's cross shape, 8 × 16 rows against 256 frames;
+   a window + kv_len + q_offset case), within ``BWD_TOL``, and bit-equal
+   over two calls; then ``Trainer.run()`` on bert-large at full width and
+   depth (24 layers) and deepseek-7b at full width cut to 4 of 30 layers,
+   seeded weights, 8 and 6 steps of 8 × 512 tokens (masked-LM and
+   next-token losses), a checkpoint every 3 steps into a temporary
+   directory and a ``FailureInjector`` failure at step 4 (restore step 3,
+   resume): finite losses and gradient norms, #3's forward and backward
+   launched layers × the steps run, step ms p50, tokens/s, peak memory
+   and one profiled step's device time by group; losses bit-equal to an
+   uninterrupted run's; step 0 against two twin ``Trainer``s on the plain
+   attention (``TRAIN_TWIN_FLOOR``); the backward kernel timed beside its
+   plain version, SDPA's forward plus backward and its bound;
+17. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Phase 3 also holds #1 bit for bit at phase 14's shapes (falcon's chunk
@@ -292,10 +310,11 @@ shared prefill (1 × 1024, 32 heads of 64, causal), and phase 10 times #1
 at falcon's two shapes beside ``torch.exp`` and #3 at zamba2's prefill
 beside SDPA and at the MoE scoring shapes (granite beside SDPA with
 ``enable_gqa``).  The plain-attention step checks of phases 7, 11 and 13
-(``phase_step_vs_plain``) run at full width cut to ``STEP_CHECK_LAYERS``
-layers or two whole periods (``step_check_cut``), which keeps every path
-driven and every kernel held while their plain schedules' host work
-shrinks (``tools/step_check_cost.py`` times both depths).  ``[phases]``
+(``phase_step_vs_plain``) and the eager lockstep twins of phases 11 and
+13 run at full width cut to ``STEP_CHECK_LAYERS`` layers or two whole
+periods (``step_check_cut``), which keeps every path driven and every
+kernel held while their eager and plain schedules' host work shrinks
+(``tools/step_check_cost.py`` times both depths of the step checks).  ``[phases]``
 prints the seconds of each phase.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -303,6 +322,7 @@ Exits non-zero without a result when no CUDA card is visible.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1915,6 +1935,9 @@ def step_kind_indices(kinds):
 KERNEL_GROUPS = (("paged_attention_kernel", "paged split pass"),
                  ("paged_combine", "paged combine"),
                  ("lut_exp_kernel", "#1 lut_exp"),
+                 ("dkdv_kernel", "#3 backward"), ("dq_kernel", "#3 backward"),
+                 ("delta_kernel", "#3 backward"),
+                 ("attention_kernel", "#3 forward"),
                  ("gemm", "GEMM"), ("gemv", "GEMM"), ("xmma", "GEMM"),
                  ("nvjet", "GEMM"),
                  ("cutlass", "GEMM"), ("Memcpy", "copy"), ("Memset", "copy"),
@@ -4174,38 +4197,46 @@ def family_prompts(cfg, long_len):
 def serve_family(cfg, params, kv_quant, prompts, label):
     """Phase 7's captured arm for one family model and pool: a captured
     engine in lockstep with an eager twin (``lockstep_pass``: equal plans,
-    logits bit for bit on every step), warm passes until
-    one captures nothing new, ``mark_warm()``, a measured pass (``serve_waves``: the
-    split pass and the combine each = layers × steps, streams = pass 1's),
-    and one more pass whose first 8-lane decode step is profiled (kernels
-    per decode step).  → (facts, the captured engine)."""
+    logits bit for bit on every step) at the depth of ``step_check_cut``
+    (the eager twin's host time grows with depth, and every layer runs the
+    same code), then at full depth: a first pass, warm passes until one
+    captures nothing new, ``mark_warm()``, a measured pass (``serve_waves``:
+    the split pass and the combine each = layers × steps, streams = the
+    first pass's), and one more pass whose first 8-lane decode step is
+    profiled (kernels per decode step).  → (facts, the captured
+    engine)."""
     import torch
     from repro_torch.kernels.autotune import resolve_config
     from repro_torch.serving import EngineCore
     c = cfg.replace(kv_quant=kv_quant)
-    make = lambda **kw: EngineCore(c, params, device=DEV, **dict(ENGINE, **kw))  # noqa: E731
-    ce, twin = make(), make(capture=False)
+    cut_cfg, cut_params, _ = step_check_cut(c, params, None)
+    make_cut = lambda **kw: EngineCore(  # noqa: E731
+        cut_cfg, cut_params, device=DEV, **dict(ENGINE, **kw))
+    lce, twin = make_cut(), make_cut(capture=False)
+    t0 = time.perf_counter()
+    lockstep_pass(lce, twin, prompts, label, {})
+    lock_s = time.perf_counter() - t0
+    eager = {r.uid - 100: r.tokens for r in twin.finished}
+    cut_captured = {r.uid - 100: r.tokens for r in lce.finished}
+    del twin, lce
+    torch.cuda.empty_cache()
+    if any(cut_captured[u] != eager[u] for u in eager):
+        fail(f"{label}: a captured stream differs from the eager twin's")
+    ce = EngineCore(c, params, device=DEV, **ENGINE)
     want_kc = resolve_config(cfg.name, "cuda")
     if ce.kernel_config != want_kc or ce.kernel_config.source != "tuned":
         fail(f"{label}: resolved {ce.kernel_config.describe()}, not the "
              f"table's {want_kc.describe()}")
-    t0 = time.perf_counter()
-    lockstep_pass(ce, twin, prompts, label, {})
-    lock_s = time.perf_counter() - t0
-    eager = {r.uid - 100: r.tokens for r in twin.finished}
-    captured = {r.uid - 100: r.tokens for r in ce.finished}
-    del twin
-    torch.cuda.empty_cache()
-    if any(captured[u] != eager[u] for u in eager):
-        fail(f"{label}: a captured stream differs from the eager twin's")
     wave = lambda uid0: [[(uid0 + i, p) for i, p in enumerate(prompts)]]  # noqa: E731
+    first = serve_waves(ce, wave(100))
+    captured = {u - 100: t for u, t in first["streams"].items()}
 
     def check(run, uid0, what):
         got = {u - uid0: t for u, t in run["streams"].items()}
         if any(got[u] != captured[u] for u in got):
             fail(f"{label}: the {what} pass served other streams than pass 1")
 
-    captures, uid0 = [ce.graphs.captures], 200
+    captures, uid0 = [first["waves"][0]["captures"]], 200
     while captures[-1] and len(captures) < WARM_PASSES:
         w = serve_waves(ce, wave(uid0))
         check(w, uid0, "warm")
@@ -4228,7 +4259,8 @@ def serve_family(cfg, params, kv_quant, prompts, label):
     decode_ms = [st["ms"] for st in m["step_log"]
                  if not st["prefill"] and st["decode"] == ENGINE["lanes"]]
     facts = dict(
-        lockstep_s=lock_s, captures_per_pass=captures,
+        lockstep_s=lock_s, lockstep_layers=cut_cfg.num_layers,
+        captures_per_pass=captures,
         keys=sorted(ce.graphs.keys), step_retraces_total=retraces,
         steps=m["steps"], launches=m["launches"], generated=m["generated"],
         wall_s=m["wall_s"], tok_s=m["tok_s"], step_ms_p50=m["step_ms_p50"],
@@ -4238,9 +4270,10 @@ def serve_family(cfg, params, kv_quant, prompts, label):
         streams=captured, decode_window={k: window[k] for k in (
             "launches", "device_ms", "kernel_span_idle_share", "by_group",
             "trace")})
-    log(f"[{label}] captured arm: lockstep with the eager twin in "
-        f"{lock_s:.1f} s, captured = eager on every request (logits bit for "
-        f"bit on every step); captures per pass {captures}, keys (T, P) {facts['keys']}; "
+    log(f"[{label}] captured arm: lockstep with the eager twin at "
+        f"{cut_cfg.num_layers} of {cfg.num_layers} layers in {lock_s:.1f} s, "
+        f"captured = eager on every request (logits bit for bit on every "
+        f"step); captures per pass {captures}, keys (T, P) {facts['keys']}; "
         f"after mark_warm(): step_retraces_total {retraces}; measured pass: "
         f"{m['steps']} steps, step ms p50 {m['step_ms_p50']:.2f} p99 "
         f"{m['step_ms_p99']:.2f}, 8-lane decode p50 "
@@ -5437,6 +5470,364 @@ def phase_encdec():
     return f
 
 
+# ------------------------------------------------------------- phase 16 --
+
+# Phase 16: training through ``Trainer.run()`` (name, layers kept — None:
+# full depth —, steps, AdamW moment dtype): bert-large bidirectional at
+# head dim 64, deepseek-7b causal at 128 cut to 4 of 30 layers (its 6.9 B
+# parameters in bf16 with f32 AdamW moments and the gradients need ~83
+# GB).  TrainConfig's defaults otherwise (the reference's: lr 3e-4,
+# warmup 10, clip 1.0) on TRAIN_BATCH × TRAIN_SEQ tokens, a checkpoint
+# every TRAIN_CKPT_EVERY steps, one kept.  The run fails at TRAIN_FAIL_AT,
+# restores step 3's checkpoint and resumes.  deepseek's state is 9.9 GB a
+# checkpoint with bf16 moments (16.5 with f32), and every checkpoint goes
+# to disk: bf16 moments (the reference's ``moment_dtype`` option) and 6
+# steps (2 checkpoints) keep the script's disk writes near 30 GB.
+TRAIN_MODELS = (("bert-large", None, 8, "float32"),
+                ("deepseek-7b", 4, 6, "bfloat16"))
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, (4,)
+# Step 0 with the plain attention on the card (the scan's custom VJP) at
+# two blockings: the kernel's loss and gradient norm must sit within 3×
+# their spread, and within these relative floors (bf16: each attention
+# output rounds once, at another place in each schedule).
+TRAIN_TWIN_FLOOR = {"loss": 2e-3, "grad_norm": 2e-2}
+# The backward kernel against its plain version, from the forward kernel's
+# own out and lse: (label, (B, Hq, Hkv, Lq, Lkv, D), keywords).
+BWD_SHAPES = (
+    ("bert-large 8x512", (8, 16, 16, 512, 512, 64), {}),
+    ("deepseek-7b 8x512 causal", (8, 32, 32, 512, 512, 128),
+     dict(causal=True)),
+    ("grok 2x1024 (GQA 6:1, cap 30)", (2, 48, 8, 1024, 1024, 128),
+     dict(causal=True, cap=30.0)),
+    ("seamless cross 8x16 rows vs 256 frames", (8, 16, 16, 16, 256, 64), {}),
+    ("window 128, kv_len 400, q_offset 100 (GQA 4:1)",
+     (2, 32, 8, 300, 420, 128),
+     dict(causal=True, window=128, kv_len=400, q_offset=100)))
+# max|kernel − plain| over max|plain|, per gradient: f32 sums in another
+# order over up to 6 × 1,024 rows; bf16 within one bf16 ulp of the
+# largest element (both sides round their f32 sums once to bf16).
+BWD_TOL = {"float32": 3e-5, "bfloat16": 2.0 ** -7}
+
+
+def reset_training_counts():
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.kernels.streaming_attention.ops import (
+        streaming_attention_bwd)
+    reset_streaming_counts()
+    streaming_attention_bwd.launches = 0
+    for v in streaming_attention_bwd.launches_by_variant:
+        streaming_attention_bwd.launches_by_variant[v] = 0
+    lut_exp.launches = 0
+
+
+def read_training_counts():
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.kernels.streaming_attention.ops import (
+        streaming_attention, streaming_attention_bwd)
+    return dict(fwd=streaming_attention.launches,
+                fwd_by_variant=dict(streaming_attention.launches_by_variant),
+                bwd=streaming_attention_bwd.launches,
+                bwd_by_variant=dict(streaming_attention_bwd.launches_by_variant),
+                lut_exp=lut_exp.launches)
+
+
+def bwd_inputs(shape, dtype, kw, seed):
+    """q, k, v, the forward kernel's (out, lse) and a random dout."""
+    import torch
+    from repro_torch.kernels.streaming_attention.ops import (
+        streaming_attention_lse)
+    q, k, v = sa_inputs(shape, dtype, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
+    out, lse = streaming_attention_lse(q, k, v, **kw)
+    return q, k, v, out, lse, dout
+
+
+def phase_backward_checks():
+    """The backward kernel against its plain version (``attention_bwd_ref``
+    on the card) at ``BWD_SHAPES``, bf16 and f32, fed the forward kernel's
+    out and lse (the lse itself held to the plain forward's); a second
+    call must give the same bits (no atomics)."""
+    import torch
+    from repro_torch.kernels.streaming_attention.ops import (
+        attention_bwd_ref, attention_lse_ref, streaming_attention_bwd)
+    out = {}
+    for label, shape, kw in BWD_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, o, lse, dout = bwd_inputs(shape, dtype, kw, seed=31)
+            scale = shape[-1] ** -0.5
+            got = streaming_attention_bwd(q, k, v, o, lse, dout, scale=scale,
+                                          **kw)
+            again = streaming_attention_bwd(q, k, v, o, lse, dout,
+                                            scale=scale, **kw)
+            want = attention_bwd_ref(q, k, v, o, lse, dout, scale=scale, **kw)
+            _, plain_lse = attention_lse_ref(q, k, v, scale=scale, **kw)
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                if not torch.isfinite(a).all():
+                    fail(f"backward {label} {dtype}: {name} not finite")
+                big = float(w.float().abs().max())
+                abs_errs[name] = float((a.float() - w.float()).abs().max())
+                errs[name] = abs_errs[name] / big
+            lse_err = float((lse - plain_lse).abs().max())
+            det = all(torch.equal(a, b) for a, b in zip(got, again))
+            tol = BWD_TOL[dtype]
+            log(f"[backward {label} {dtype}] kernel vs plain, max|Δ| / "
+                f"max|plain|: " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                            errs.items())
+                + f" (limit {tol:.3g}); lse max|Δ| {lse_err:.3g} (limit "
+                f"1e-4); two calls bit-equal: {det}")
+            if max(errs.values()) > tol:
+                fail(f"backward {label} {dtype}: {errs} over {tol}")
+            if lse_err > 1e-4:
+                fail(f"backward {label} {dtype}: lse {lse_err} over 1e-4")
+            if not det:
+                fail(f"backward {label} {dtype}: two calls differ")
+            out[f"{label} {dtype}"] = dict(rel_err=errs, abs_err=abs_errs,
+                                           lse_err=lse_err, limit=tol,
+                                           deterministic=det)
+            del q, k, v, o, lse, dout, got, again, want, plain_lse
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_streaming_bwd(flush, launches):
+    """The backward kernel at ``BWD_SHAPES`` in bf16 (the main path's
+    dtype): its time, the plain backward's, and at the cap-free shapes
+    SDPA's forward plus backward (exact exp: the library column, not the
+    same function) beside the bound.  Bytes: q, k, v, out, dout read once
+    and lse, dq, dk, dv written or read once; operations: the five
+    products of the reference's backward (S, dP, dV, dQ, dK: 10·D per
+    visible pair) at the bf16 tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.streaming_attention.ops import (
+        attention_bwd_ref, streaming_attention_bwd)
+    shapes = {}
+    for label, shape, kw in BWD_SHAPES:
+        b, hq, hkv, lq, lkv, d = shape
+        q, k, v, o, lse, dout = bwd_inputs(shape, "bfloat16", kw, seed=37)
+        scale = d ** -0.5
+        ms = cuda_ms(lambda: streaming_attention_bwd(
+            q, k, v, o, lse, dout, scale=scale, **kw), flush=flush)
+        plain = cuda_ms(lambda: attention_bwd_ref(
+            q, k, v, o, lse, dout, scale=scale, **kw), iters=3, flush=flush)
+        lib = None
+        if not (kw.get("cap") or kw.get("window")):
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            fwd = sdpa_for(qs, ks, vs, kw)
+
+            def lib_call():
+                torch.autograd.grad(fwd(), (qs, ks, vs), dout)
+            lib = cuda_ms(lib_call, flush=flush)
+        keys = kw.get("kv_len") or lkv
+        nbytes = 2.0 * (4 * b * hq * lq * d + 4 * b * hkv * keys * d) \
+            + 4.0 * b * hq * lq
+        flops = 10.0 * b * hq * d * visible_pairs(
+            lq, lkv, causal=kw.get("causal", False), window=kw.get("window"),
+            kv_len=kw.get("kv_len"), q_offset=kw.get("q_offset", 0))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        shapes[label] = dict(
+            ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib, tflops=flops / ms / 1e9, gflop=flops / 1e9,
+            shape=f"B {b}, {hq} × {hkv} heads × {d}, Lq {lq}, Lkv {lkv}, "
+                  f"bf16, {kw}")
+        log(f"[time] streaming_attention_bwd {label}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
+            + ("sdpa fwd+bwd none (softcap or window)" if lib is None else
+               f"sdpa fwd+bwd {lib:.4f} ms")
+            + f", bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP); {CARD[0]}")
+        del q, k, v, o, lse, dout
+        torch.cuda.empty_cache()
+    first = shapes[BWD_SHAPES[0][0]]
+    return dict(
+        name="streaming_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/streaming_attention_bwd.cu",
+        replaces="src/repro/core/attention_api.py:313 (attn_bwd, the custom "
+                 "VJP of the Pallas kernel: src/repro/core/"
+                 "streaming_attention.py:152 _bwd)",
+        launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=None, **{k: first[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        library="scaled_dot_product_attention forward + backward (exact "
+                "exp, not the same function)",
+        shapes=shapes)
+
+
+def train_step_window(tr, label):
+    """One more training step of ``tr`` (its step function on the next
+    batch, outside ``run``: no checkpoint) under the profiler → the
+    window's device time by group."""
+    import torch
+    tdir = ROOT / "chiprun_out" / "traces"
+    tdir.mkdir(parents=True, exist_ok=True)
+    path = str(tdir / f"{label.replace(' ', '_')}_train_step.json")
+    batch = tr._device_batch(tr.step)
+    step = torch.tensor(tr.step, dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = tr._train_step(tr.params, tr.opt_state, tr.residual, batch,
+                             step)
+        float(out[3]["loss"])
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    del out
+    return read_window(path, f"{label} training step")
+
+
+def train_model(name, cut, steps, moment_dtype):
+    """Phase 16 for one model (see ``TRAIN_MODELS``): the main path is
+    ``Trainer.run()`` with checkpoints and a ``FailureInjector``; its
+    losses must equal those of an uninterrupted run (no checkpoints) bit
+    for bit."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import FailureInjector, TrainConfig, Trainer
+    cfg = get_config(name)
+    if cut:
+        cfg = cfg.replace(num_layers=cut)
+    short = name.split("-")[0]
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, corpus="lm")
+    f = dict(layers=cfg.num_layers, steps=steps, moment_dtype=moment_dtype,
+             parts_s={})
+    t_part = [time.perf_counter()]
+
+    def part(what):
+        now = time.perf_counter()
+        f["parts_s"][what] = now - t_part[0]
+        t_part[0] = now
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tcfg = TrainConfig(steps=steps, ckpt_dir=tmp,
+                           ckpt_every=TRAIN_CKPT_EVERY, keep_ckpts=1,
+                           moment_dtype=moment_dtype)
+        tr = Trainer(cfg, dcfg, tcfg, device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_training_counts()
+        t0 = time.perf_counter()
+        metrics = tr.run(injector=FailureInjector(
+            fail_at_steps=TRAIN_FAIL_AT))            # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_training_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in tr.params.values())
+        f["checkpoints"] = sorted(os.listdir(tmp))
+        part("main run")
+        # every step once, and the steps after the restored checkpoint
+        # again up to the failure
+        restored = max(s for s in range(0, TRAIN_FAIL_AT[0] + 1,
+                                        TRAIN_CKPT_EVERY))
+        ran = steps + TRAIN_FAIL_AT[0] - restored
+        want = cfg.num_layers * ran
+        if counts["fwd"] != want or counts["bwd"] != want:
+            fail(f"train {name}: #3 forward {counts['fwd']} and backward "
+                 f"{counts['bwd']} launches, expected layers × steps run = "
+                 f"{cfg.num_layers} × {ran}")
+        if counts["fwd_by_variant"]["tensor_core"] != want \
+                or counts["bwd_by_variant"]["bf16"] != want:
+            fail(f"train {name}: launches by variant {counts}")
+        # the replayed steps appear twice in the log: the same bits again
+        by_step = {}
+        for m in metrics:
+            if m["step"] in by_step and m["loss"] != by_step[m["step"]]["loss"]:
+                fail(f"train {name}: step {m['step']} replayed after the "
+                     f"restore gave loss {m['loss']}, first "
+                     f"{by_step[m['step']]['loss']}")
+            by_step[m["step"]] = m
+        metrics = [by_step[i] for i in sorted(by_step)]
+        loss = [m["loss"] for m in metrics]
+        gnorm = [m["grad_norm"] for m in metrics]
+        if sorted(by_step) != list(range(steps)) \
+                or not np.all(np.isfinite(loss + gnorm)):
+            fail(f"train {name}: steps {sorted(by_step)}, losses {loss}, "
+                 f"grad norms {gnorm}")
+        step_ms = [m["ms"] for m in metrics[1:]]
+        p50 = float(np.percentile(step_ms, 50))
+        f.update(params_b=n_params / 1e9, losses=loss, grad_norms=gnorm,
+                 lrs=[m["lr"] for m in metrics],
+                 step_ms=[m["ms"] for m in metrics], step_ms_p50=p50,
+                 tok_s=TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3, peak_gib=peak,
+                 wall_s=wall, steps_run=ran, launches=counts)
+        f["window"] = train_step_window(tr, short)
+        log(f"[train {name}] {cfg.num_layers} layers"
+            + (f" (cut from {get_config(name).num_layers})" if cut else "")
+            + f", {n_params / 1e9:.2f} B parameters, {moment_dtype} moments, "
+            f"{TRAIN_BATCH} × {TRAIN_SEQ} tokens, {steps} steps through "
+            f"Trainer.run() with a checkpoint every {TRAIN_CKPT_EVERY} and a "
+            f"failure at {TRAIN_FAIL_AT} (restored step {restored}), "
+            f"{ran} steps run in {wall:.1f} s: losses "
+            f"{[round(x, 4) for x in loss]}, grad norms "
+            f"{[round(x, 3) for x in gnorm]}; step ms p50 {p50:.1f} (steps "
+            f"1–{steps - 1}), {f['tok_s']:.0f} tok/s; peak {peak:.2f} GiB; "
+            f"#3 forward {counts['fwd']} and backward {counts['bwd']} "
+            f"launches = {cfg.num_layers} layers × {ran} steps run; "
+            f"checkpoints left {f['checkpoints']}; {CARD[0]}")
+        del tr
+        torch.cuda.empty_cache()
+        part("profiled step")
+
+    plain = dataclasses.replace(tcfg, ckpt_dir=None)
+    tu = Trainer(cfg, dcfg, plain, device=DEV)
+    mu = tu.run()
+    del tu
+    torch.cuda.empty_cache()
+    same = [m["loss"] for m in mu] == loss
+    log(f"[train {name}] the run with a failure at {TRAIN_FAIL_AT}, resumed "
+        f"from step {restored}'s checkpoint, against an uninterrupted run "
+        f"without checkpoints: losses of all {steps} steps bit-equal: {same}")
+    if not same:
+        fail(f"train {name}: recovered losses {loss} differ from the "
+             f"uninterrupted {[m['loss'] for m in mu]}")
+    f["recovery_bit_exact"] = same
+    part("uninterrupted run")
+
+    twins = {}
+    for blk in (512, 64):
+        tw = Trainer(cfg.replace(attn_backend="jnp", block_k=blk), dcfg,
+                     plain, device=DEV)
+        twins[blk] = tw.run(num_steps=1)[0]
+        del tw
+        torch.cuda.empty_cache()
+    held = {}
+    for key, floor in TRAIN_TWIN_FLOOR.items():
+        a, b = twins[512][key], twins[64][key]
+        err = abs(metrics[0][key] - a) / abs(a)
+        spread = abs(a - b) / abs(a)
+        tol = max(3 * spread, floor)
+        held[key] = dict(kernel=metrics[0][key], plain=a, plain_64=b,
+                         rel_err=err, spread=spread, limit=tol)
+        if err > tol:
+            fail(f"train {name}: step 0 {key} {metrics[0][key]} vs the "
+                 f"plain attention's {a}: {err:.3g} over {tol:.3g}")
+    f["step0_vs_plain"] = held
+    log(f"[train {name}] step 0 against the plain attention on the card "
+        f"(the scan's custom VJP, 512- and 64-key blocks): "
+        + "; ".join(f"{k} {v['kernel']:.6g} vs {v['plain']:.6g} "
+                    f"(rel {v['rel_err']:.3g}, spread {v['spread']:.3g}, "
+                    f"limit {v['limit']:.3g})" for k, v in held.items()))
+    part("plain twins")
+    return f
+
+
+def phase_training():
+    """Phase 16: ``TRAIN_MODELS`` through ``Trainer.run()``, one at a
+    time."""
+    return {m[0]: train_model(*m) for m in TRAIN_MODELS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5636,6 +6027,19 @@ def main() -> int:
     sa[f"prefill {ENCDEC_MODEL}"] = encdec["generate"]["launches_per_prefill"]
     sa[f"scoring {ENCDEC_MODEL}"] = encdec["scoring"]["launches"]
     mark("15 vlm, encdec")
+    bwd_checks = phase_backward_checks()
+    training = phase_training()
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    bwd = time_streaming_bwd(
+        lambda: flush_buf.zero_(),
+        {f"training {m}": f["launches"]["bwd"] for m, f in training.items()})
+    del flush_buf
+    bwd["max_abs_err"] = max(bwd_checks[f"{BWD_SHAPES[0][0]} bfloat16"][
+        "abs_err"].values())
+    kernels.append(bwd)
+    for model, f in training.items():
+        sa[f"training {model}"] = f["launches"]["fwd"]
+    mark("16 training")
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -5658,6 +6062,8 @@ def main() -> int:
     summary["ssm"] = ssm
     summary["vlm"] = vlm
     summary["encdec"] = encdec
+    summary["backward_checks"] = bwd_checks
+    summary["training"] = training
     summary["phase_s"] = phase_s
     log("[summary] " + json.dumps(summary))
     log("[phases] seconds " + json.dumps({k: round(v, 1)

@@ -1,18 +1,30 @@
-"""The read half of the reference's checkpoint store (port of
-``src/repro/checkpoint/store.py``): list a directory's steps and restore
-one step's leaves, checked against the manifest's sha256.
+"""Sharding-independent, step-atomic checkpointing (port of
+``src/repro/checkpoint/store.py``), in the reference's file format, so
+each package restores the other's checkpoints.
 
-Layout (one directory per step, written by the reference's ``save``)::
+Layout (one directory per step)::
 
     <dir>/step_00000042/
         arrays.npz          # leaf path → full (unsharded) array
         manifest.json       # step, leaf paths, shapes, dtypes, sha256, extra
 
-``np.savez`` stores a bf16 leaf as raw 2-byte void values (``|V2``), and
-numpy alone has no bf16: ``restore_flat`` takes the leaf's dtype from the
-manifest and reinterprets the bytes as ``torch.bfloat16``, bit for bit.
-Saving, retention and the asynchronous writer come with the training
-slice.
+- **paths**: a tree (nested dicts, named tuples, lists of tensors or
+  arrays) flattens to ``/``-joined keys as the reference's
+  ``flatten_tree`` names them (a named tuple's field ``f`` is ``.f``);
+- **atomic**: written into ``step_X.tmp-<pid>`` then ``os.replace``d into
+  place, so a crash mid-write never leaves a step ``latest_step`` picks;
+- **verified**: the manifest carries a sha256 per leaf, checked on
+  restore;
+- **bf16**: numpy has no bf16, and ``np.savez`` stores the reference's
+  bf16 leaves as raw 2-byte void values (``|V2``); the port writes its
+  bf16 leaves the same way, bit for bit, and reads them back by the
+  manifest's (or the template's) dtype;
+- **async**: ``AsyncCheckpointer.save`` copies every leaf to host memory
+  before it returns (a CPU tensor is copied, never viewed: the optimizer
+  may update it in place later) and writes in a background thread.
+
+A ``mesh`` / ``specs`` re-shard on restore comes with tensor-parallel
+serving (ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
@@ -20,6 +32,10 @@ import hashlib
 import json
 import os
 import re
+import shutil
+import threading
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -35,7 +51,91 @@ _VOID_DTYPES = {"bfloat16": torch.bfloat16}
 
 
 def _sha(a: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+    """The reference's leaf digest: sha256 of the C-order bytes, hashed
+    from the array's own buffer (no copy of it)."""
+    raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return hashlib.sha256(raw.data).hexdigest()[:16]
+
+
+def _shas(flat: Dict[str, np.ndarray]) -> Dict[str, str]:
+    """``_sha`` of every leaf, the leaves hashed on threads (hashlib
+    releases the interpreter lock over large buffers): a full-width
+    training state is gigabytes."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return dict(zip(flat, ex.map(_sha, flat.values())))
+
+
+# --------------------------------------------------------------------------
+# tree ↔ flat dict  (paths are stable logical names)
+# --------------------------------------------------------------------------
+
+def _leaves(tree: Any, prefix: str = ""):
+    """(path, leaf) pairs in the reference's order: dict keys sorted, a
+    named tuple's fields as ``.name``, a list's items by index."""
+    join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], join(k))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from _leaves(getattr(tree, f), join("." + f))
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _leaves(x, join(i))
+    else:
+        yield prefix, tree
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array of its own (never a view of a tensor
+    the caller may write later); bf16 as raw 2-byte void values."""
+    if isinstance(leaf, np.ndarray):
+        return np.array(leaf)
+    t = leaf.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    # a card tensor's .cpu() is a fresh host copy; a CPU tensor is copied
+    a = t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
+    return a.view("V2") if leaf.dtype == torch.bfloat16 else a
+
+
+def _dtype_name(leaf) -> str:
+    if torch.is_tensor(leaf):
+        return str(leaf.dtype).replace("torch.", "")
+    return str(np.asarray(leaf).dtype)
+
+
+def flatten_tree(tree: Any) -> Dict[str, np.ndarray]:
+    """{path: host array}; bf16 leaves as void (``|V2``) arrays, as
+    ``np.savez`` stores the reference's."""
+    return {path: _host(leaf) for path, leaf in _leaves(tree)}
+
+
+def unflatten_into(reference: Any, flat: Dict[str, Any]) -> Any:
+    """Map flat path → array (or tensor) onto the structure of
+    ``reference``, a tree of tensors: each leaf a tensor of the reference
+    leaf's shape, dtype and device (void leaves reinterpreted by bit view,
+    others cast)."""
+    def build(node, prefix):
+        join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
+        if isinstance(node, dict):
+            return {k: build(node[k], join(k)) for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(getattr(node, f), join("." + f))
+                                for f in node._fields))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(x, join(i)) for i, x in enumerate(node))
+        if prefix not in flat:
+            raise KeyError(f"checkpoint missing leaf {prefix!r}")
+        arr = flat[prefix]
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(f"shape mismatch for {prefix}: ckpt "
+                             f"{tuple(arr.shape)} vs expected "
+                             f"{tuple(node.shape)}")
+        if isinstance(arr, np.ndarray):
+            arr = _to_torch(arr, _dtype_name(node))
+        return arr.to(device=node.device, dtype=node.dtype)
+    return build(reference, "")
 
 
 def steps(ckpt_dir: str) -> list:
@@ -62,8 +162,111 @@ def _to_torch(arr: np.ndarray, dtype: str) -> torch.Tensor:
             raise TypeError(f"checkpoint leaf of dtype {dtype!r} stored as "
                             f"{arr.dtype}: no bit view to torch")
         bits = np.ascontiguousarray(arr).view(f"<i{arr.dtype.itemsize}")
-        return torch.from_numpy(bits).view(want)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(bits.reshape(arr.shape)).view(want)
+    # ascontiguousarray makes a 0-d leaf (the optimizer's step) 1-d
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+
+
+# --------------------------------------------------------------------------
+# save / restore
+# --------------------------------------------------------------------------
+
+def _savez(path: str, flat: Dict[str, np.ndarray]) -> None:
+    """``np.savez``'s layout (one ``<path>.npy`` per leaf in an
+    uncompressed zip, which ``np.load`` reads), each leaf written from its
+    own buffer in one piece rather than through 16 MiB copies."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in flat.items():
+            arr = np.require(arr, requirements="C")   # 0-d stays 0-d
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                fmt.write_array_header_1_0(f, fmt.header_data_from_array_1_0(
+                    arr))
+                f.write(arr.reshape(-1).view(np.uint8).data)
+
+
+def save(ckpt_dir: str, step: int, tree: Any,
+         extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``tree`` as step ``step`` → the step's directory."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = flatten_tree(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + f".tmp-{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    _savez(os.path.join(tmp, "arrays.npz"), flat)
+    shas = _shas(flat)
+    manifest = {
+        "step": int(step),
+        "leaves": {k: {"shape": list(v.shape),
+                       "dtype": ("bfloat16" if v.dtype.kind == "V"
+                                 else str(v.dtype)),
+                       "sha256": shas[k]} for k, v in flat.items()},
+        "extra": extra or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def restore(ckpt_dir: str, reference: Any, step: Optional[int] = None,
+            mesh=None, specs: Any = None, verify: bool = True
+            ) -> Tuple[Any, int, Dict[str, Any]]:
+    """Restore onto the structure of ``reference`` (a tree of tensors) →
+    (tree, step, extra).  ``mesh`` / ``specs`` raise: the re-shard comes
+    with tensor-parallel serving."""
+    if mesh is not None or specs is not None:
+        raise NotImplementedError(
+            "checkpoint.restore(mesh=, specs=): the re-shard onto a mesh "
+            "comes with the tensor-parallel slice of the PyTorch port "
+            "(ROADMAP.md §1 item 5)")
+    flat, step, extra = restore_flat(ckpt_dir, step, verify)
+    return unflatten_into(reference, flat), step, extra
+
+
+def retain(ckpt_dir: str, keep: int = 3) -> None:
+    """Delete all but the newest ``keep`` checkpoints."""
+    for s in steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+class AsyncCheckpointer:
+    """Snapshot to host synchronously, write in a background thread."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, tree: Any,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        """Copy every leaf to host memory, then return; the write runs in
+        the background (its error surfaces at the next ``wait``)."""
+        self.wait()
+        flat = flatten_tree(tree)      # host copies (blocks on D2H only)
+
+        def _write():
+            try:
+                save(self.ckpt_dir, step, flat, extra)
+                retain(self.ckpt_dir, self.keep)
+            except BaseException as e:   # surfaced on next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def restore_flat(ckpt_dir: str, step: Optional[int] = None,
@@ -83,8 +286,9 @@ def restore_flat(ckpt_dir: str, step: Optional[int] = None,
         raw = {k: z[k] for k in z.files}
     leaves = manifest["leaves"]
     if verify:
+        shas = _shas({k: raw[k] for k in leaves})
         for k, meta in leaves.items():
-            if _sha(raw[k]) != meta["sha256"]:
+            if shas[k] != meta["sha256"]:
                 raise IOError(f"checkpoint corruption: sha mismatch at {k}")
     flat = {k: _to_torch(a, leaves[k]["dtype"]) for k, a in raw.items()}
     return flat, step, manifest.get("extra", {})

@@ -12,8 +12,9 @@ reference's names, so a config means the same in both packages:
 - ``jnp``: the online-softmax scan (plain torch here; the reference's name
   for its pure-jnp scan is kept);
 - ``pallas``: the streaming-attention kernel — the CUDA kernel
-  (``csrc/streaming_attention.cu``) on a CUDA tensor, its plain version on
-  a CPU tensor.  ``auto`` picks it where the reference's ``auto`` picks the
+  (``csrc/streaming_attention.cu``, with its backward kernel
+  ``csrc/streaming_attention_bwd.cu`` under autograd) on a CUDA tensor,
+  its plain versions on a CPU tensor.  ``auto`` picks it where the reference's ``auto`` picks the
   Pallas kernel on a TPU: static lengths, no position table, more than one
   query row, with platform ``cuda`` in place of ``tpu``.
 
@@ -220,8 +221,11 @@ def _pallas_supported(call: AttentionCall) -> bool:
     # selected, but auto resolution only picks the kernel on the card.
     auto_ok=lambda call: _pallas_supported(call) and call.platform == "cuda",
     doc="The streaming-attention kernel forward (csrc/streaming_attention.cu "
-        "on the card, its plain version on the CPU).  Static lengths only; "
-        "forward only on the card.")
+        "on the card, its plain version on the CPU) with its backward kernel "
+        "(csrc/streaming_attention_bwd.cu; the plain flash backward on the "
+        "CPU) attached as one autograd Function — kernel on the forward and "
+        "the backward, as the reference's Pallas forward carries the jnp "
+        "flash backward.  Static lengths only.")
 def _pallas(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
             q_offset, kv_len, kv_pos):
     assert kv_pos is None, "pallas backend has no ring-buffer support"

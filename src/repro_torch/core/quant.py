@@ -89,6 +89,8 @@ def quantize_dynamic(x: torch.Tensor, *, bits: int = 8) -> QTensor:
         return _quantize(x, torch.amax(torch.abs(x.to(torch.float32))), bits)
     if dev.type != "cuda":
         raise ValueError(f"quantize_dynamic: unsupported device {dev}")
+    from repro_torch.kernels.build import refuse_grad
+    refuse_grad("quantize_dynamic", x)
     code = _DYNAMIC_DTYPES.get(x.dtype)
     if code is None:
         raise TypeError(f"quantize_dynamic kernel takes float32 or bfloat16, "

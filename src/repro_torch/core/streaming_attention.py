@@ -7,8 +7,13 @@ running (max m, denominator l, weighted accumulator), so the ``l×l`` logits
 never exist.  ``naive_attention`` materialises the logits (the "PUMA"
 baseline and the correctness oracle).  Both compute in f32, take GQA
 through the ``(B, Hkv, G, Lq, D)`` grouped layout, and return q's dtype.
-Autograd runs through them as through any torch code; the reference's
-custom flash backward comes with the training slice.
+Under autograd the scan is the reference's custom VJP
+(``_StreamingAttention``, ``_fwd`` / ``_bwd``): the forward keeps ``out``
+and the per-row logsumexp ``lse = m + log(max(l, 1e-30))``, and the
+backward re-streams the KV blocks with ``p = exp(s_c − lse)`` through
+the mode's exponential, so a LUT softmax differentiates as ``exp`` does
+(autograd through the LUT itself would see its floors: at ``lut0`` a zero
+gradient).  No (Lq, Lkv) tensor is kept between the passes.
 
 ``q_offset`` and ``kv_len`` are Python ints or (B,) tensors: one position
 per batch row, as the slot engine's batched decode gives each slot its
@@ -90,6 +95,102 @@ def _blocked_pos(p: torch.Tensor, block: int) -> torch.Tensor:
     return p.reshape(bp, nb, block).movedim(1, 0)
 
 
+def _fwd_scan(qg, kb, vb, pb, q_pos, kv_len, *, scale, causal, window, cap,
+              exp_mode):
+    """Online-softmax forward over the blocked K/V → (out, lse), f32, in
+    the grouped layout."""
+    b, hkv, g, lq, _ = qg.shape
+    nb, bk = kb.shape[0], kb.shape[3]
+    dev = qg.device
+    exp = exp_fn(exp_mode, dev)
+    m = torch.full((b, hkv, g, lq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, lq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, lq, vb.shape[-1]), dtype=torch.float32,
+                      device=dev)
+    for j in range(nb):
+        kv_idx = j * bk + torch.arange(bk, dtype=torch.int32, device=dev)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb[j].float()) * scale
+        s = softcap(s, cap)
+        mask = _block_mask(causal, window, q_pos, kv_idx, pb[j], kv_len)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.where(mask, exp(s - m_new[..., None]), 0.0)
+        alpha = exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p, vb[j].float())
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def _bwd_scan(qg, kb, vb, pb, q_pos, kv_len, out, lse, dout, *, scale,
+              causal, window, cap, exp_mode):
+    """The reference's flash-style ``_bwd``: re-stream the KV blocks, with
+    δ = rowsum(dO·O), the recomputed logits, ``p = exp(s_c − lse)``, the
+    softcap's chain rule ``1 − (s_c/cap)²``, and per-block dK/dV →
+    (dq, dk, dv), f32, dk/dv blocked."""
+    nb, bk = kb.shape[0], kb.shape[3]
+    dev = qg.device
+    exp = exp_fn(exp_mode, dev)
+    dout = dout.float()
+    delta = torch.sum(dout * out, dim=-1)
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for j in range(nb):
+        kv_idx = j * bk + torch.arange(bk, dtype=torch.int32, device=dev)
+        k_blk, v_blk = kb[j].float(), vb[j].float()
+        s_c = softcap(torch.einsum("bhgqd,bhkd->bhgqk", qg, k_blk) * scale,
+                      cap)
+        mask = _block_mask(causal, window, q_pos, kv_idx, pb[j], kv_len)
+        p = exp(torch.where(mask, s_c, NEG_INF) - lse[..., None])
+        p = torch.where(mask, p, 0.0)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, dout))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dout, v_blk)
+        ds = p * (dp - delta[..., None])
+        if cap is not None:
+            ds = ds * (1.0 - (s_c / cap) ** 2)
+        ds = ds * scale                      # d(q·k)
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, k_blk)
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qg))
+    return dq, torch.stack(dks), torch.stack(dvs)
+
+
+class _StreamingAttention(torch.autograd.Function):
+    """The scan with the reference's custom VJP: saves q, k, v, out and
+    lse, never a (Lq, Lkv) tensor."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, pb, q_pos, kv_len, kw):
+        bk = kw["block_k"]
+        kb, vb = _blocked_kv(k, bk), _blocked_kv(v, bk)
+        out, lse = _fwd_scan(qg, kb, vb, pb, q_pos, kv_len,
+                             **_scan_kw(kw))
+        ctx.save_for_backward(qg, k, v, pb, q_pos, out, lse)
+        ctx.kv_len, ctx.kw = kv_len, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, pb, q_pos, out, lse = ctx.saved_tensors
+        bk, lkv = ctx.kw["block_k"], k.shape[2]
+        kb, vb = _blocked_kv(k, bk), _blocked_kv(v, bk)
+        dq, dkb, dvb = _bwd_scan(qg, kb, vb, pb, q_pos, ctx.kv_len, out, lse,
+                                 dout, **_scan_kw(ctx.kw))
+
+        def unblock(xb):                     # (nb, B, H, bk, D) → (B, H, L, D)
+            x = xb.movedim(0, 2).flatten(2, 3)
+            return x[:, :, :lkv]
+
+        return (dq, unblock(dkb).to(k.dtype), unblock(dvb).to(v.dtype),
+                None, None, None, None)
+
+
+def _scan_kw(kw):
+    return {n: kw[n] for n in ("scale", "causal", "window", "cap",
+                               "exp_mode")}
+
+
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: Optional[float] = None, causal: bool = False,
                         window: Optional[int] = None,
@@ -103,7 +204,7 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset`` is the absolute position of row 0, ``kv_len`` masks a
     partly filled cache (each an int or (B,)), ``kv_pos`` (B, Lkv) gives
     explicit slot positions (-1 = never written).  → (B, Hq, Lq, D) in q's
-    dtype.
+    dtype.  Differentiable through the reference's custom VJP.
     """
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
@@ -115,28 +216,14 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = lkv if kv_len is None else kv_len
     if kv_pos is None:
         kv_pos = torch.arange(lkv, dtype=torch.int32, device=dev)[None, :]
-    kb, vb = _blocked_kv(k, bk), _blocked_kv(v, bk)
     pb = _blocked_pos(kv_pos.to(torch.int32), bk)
-    exp = exp_fn(exp_mode, dev)
-    g = hq // hkv
-    m = torch.full((b, hkv, g, lq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hkv, g, lq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, g, lq, v.shape[-1]), dtype=torch.float32,
-                      device=dev)
-    for j in range(kb.shape[0]):
-        kv_idx = j * bk + torch.arange(bk, dtype=torch.int32, device=dev)
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb[j].float()) * scale
-        s = softcap(s, cap)
-        mask = _block_mask(causal, window, q_pos, kv_idx, pb[j], kv_len)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.where(mask, exp(s - m_new[..., None]), 0.0)
-        alpha = exp(m - m_new)
-        l = l * alpha + torch.sum(p, dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p, vb[j].float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    kw = dict(scale=scale, causal=causal, window=window, cap=cap,
+              exp_mode=exp_mode, block_k=bk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _StreamingAttention.apply(qg, k, v, pb, q_pos, kv_len, kw)
+    else:
+        out, _ = _fwd_scan(qg, _blocked_kv(k, bk), _blocked_kv(v, bk), pb,
+                           q_pos, kv_len, **_scan_kw(kw))
     return out.reshape(b, hq, lq, -1).to(q.dtype)
 
 

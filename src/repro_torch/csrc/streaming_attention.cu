@@ -6,6 +6,7 @@
 //   q    (B, Hq, Lq, D)    f32 or bf16, any row/head/batch strides, D contiguous
 //   k, v (B, Hkv, Lkv, D)  q's dtype; query head h reads kv head h / (Hq/Hkv)
 //   out  (B, Hq, Lq, D)    q's dtype, any strides
+//   lse  (B, Hq, Lq)       f32, contiguous; optional (null: not written)
 //
 // Row i sits at position q_offset + i.  Key c is visible to it when
 // c < kv_len, and (causal) c <= q_offset + i, and (window) q_offset + i - c
@@ -14,7 +15,11 @@
 // visible ? exp(s − m_new) : 0 and alpha = exp(m_prev − m_new), both through
 // the same exponential (the LUT of lut_exp.cuh at order 1 or 0, or expf for
 // exp_mode "exact"); the output is acc / max(l, 1e-30), so a row that sees
-// no key emits 0.
+// no key emits 0.  Where the caller passes lse (the training forward: the
+// backward kernel, streaming_attention_bwd.cu, reads it), each row's
+// m + log(max(l, 1e-30)) is written at the same emit step, from the m and
+// l the block already holds; serving passes none, and its output is the
+// same bits either way.
 //
 // Translation from the TPU: the TPU grid is (B·Hq, q block, kv block) with
 // the kv block a sequential axis carrying (m, l, acc) in VMEM scratch.  Here
@@ -105,6 +110,7 @@ struct Params {
   const void* v;
   const float* table;    // 128-entry LUT
   void* out;
+  float* lse;            // (B, Hq, Lq) logsumexp, or null
   long long q_sb, q_sh, q_sl;   // element strides: batch, head, row
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
@@ -334,6 +340,8 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Params p) {
     const int row = ty + TY * i;
     if (row >= nq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(long long)bh * p.lq + q0 + row] = m[i] + logf(denom);
 #pragma unroll
     for (int n = 0; n < NJ; ++n) {
       const int e = tx + TX * n;
@@ -644,6 +652,8 @@ __global__ void __launch_bounds__(THREADS, Tile<D>::MIN_BLOCKS) attention_kernel
     const int row = wr0 + g + 8 * i;
     if (row >= nq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && t == 0)
+      p.lse[(long long)bh * p.lq + q0 + row] = m[i] + logf(denom);
     bf16* orow = ob + row * p.o_sl;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -713,10 +723,10 @@ __global__ void softmax_exp_kernel(const float* __restrict__ x, float* __restric
 extern "C" {
 
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// kernel); q, k, v and out alike.  Strides are in elements.  Returns a
-// cudaError_t code.
+// kernel); q, k, v and out alike.  lse: null, or the (B, Hq, Lq) f32
+// logsumexp to write.  Strides are in elements.  Returns a cudaError_t code.
 int streaming_attention_launch(const void* q, const void* k, const void* v,
-                               const void* table, void* out, int batch, int hq,
+                               const void* table, void* out, void* lse, int batch, int hq,
                                int hkv, int lq, int lkv, int d, long long q_sb,
                                long long q_sh, long long q_sl, long long k_sb,
                                long long k_sh, long long k_sl, long long v_sb,
@@ -732,6 +742,7 @@ int streaming_attention_launch(const void* q, const void* k, const void* v,
   p.v = v;
   p.table = (const float*)table;
   p.out = out;
+  p.lse = (float*)lse;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.q_sl = q_sl;

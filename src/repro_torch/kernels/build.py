@@ -147,6 +147,19 @@ def stream(device: torch.device) -> int:
                        else device.index)
 
 
+def refuse_grad(what: str, *tensors, why: str = "") -> None:
+    """Raise before a launch whose kernel has no backward when autograd
+    would need a gradient through it: a CUDA tensor never trains silently
+    with a zero gradient.  ``why`` names what the missing backward
+    blocks."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward{why}; a gradient "
+            f"through it on the card comes with a later slice of the "
+            f"PyTorch port (ROADMAP.md §1 item 6)")
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if err != 0:

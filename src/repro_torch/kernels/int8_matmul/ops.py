@@ -177,6 +177,7 @@ def int8_matmul_2d(xv: torch.Tensor, wv: torch.Tensor, x_scale: torch.Tensor,
         return int8_matmul_2d_ref(xv, wv, x_scale, w_scale, with_acc=with_acc)
     if xv.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {xv.device}")
+    build.refuse_grad("int8_matmul", x_scale, w_scale)
     _check(xv, wv, x_scale, w_scale)
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"int8_matmul: variant in {VARIANTS}, got {variant!r}")
@@ -195,6 +196,7 @@ def int8_matmul(x: torch.Tensor, wq: QTensor) -> torch.Tensor:
         return int8_matmul_ref(x, wq)
     if dev.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {dev}")
+    build.refuse_grad("int8_matmul", x, wq[1])
     if not x.is_floating_point():
         raise TypeError(f"int8_matmul: x must be floating point, got {x.dtype}")
     wv, ws = wq

@@ -1,7 +1,8 @@
 """Public wrapper of the LUT-exp kernel (``csrc/lut_exp.cu``).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  ``lut_exp.launches`` counts kernel launches.
+raise — also when autograd would need a gradient through it (the kernel
+has no backward yet).  ``lut_exp.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ def lut_exp(x: torch.Tensor, *, order: int = 1) -> torch.Tensor:
         return lut_exp_ref(x, order=order)
     if x.device.type != "cuda":
         raise ValueError(f"lut_exp: unsupported device {x.device}")
+    build.refuse_grad("lut_exp", x, why=" (the MoE router softmax and the "
+                      "SSM discretisation train through it)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"lut_exp kernel takes float32 or bfloat16, got {x.dtype}")
     if order not in (0, 1):

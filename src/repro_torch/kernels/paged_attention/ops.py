@@ -146,6 +146,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             kv_split=kv_split)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    build.refuse_grad("paged_attention", q, k_pool, v_pool, k_scale, v_scale)
     if not torch.is_tensor(kv_len):
         kv_len = torch.full((b,), int(kv_len), dtype=torch.int32,
                             device=q.device)
@@ -224,6 +225,7 @@ def paged_combine(part_m: torch.Tensor, part_l: torch.Tensor,
                                        exp_mode=exp_mode).to(dtype)
     if part_m.device.type != "cuda":
         raise ValueError(f"paged_combine: unsupported device {part_m.device}")
+    build.refuse_grad("paged_combine", part_m, part_l, part_acc)
     b, hkv, splits, rows, d = part_acc.shape
     for name, t in dict(part_m=part_m, part_l=part_l, part_acc=part_acc).items():
         if t.dtype != torch.float32 or not t.is_contiguous() \

@@ -20,8 +20,9 @@ and are served by the slot engine; and ``encdec`` (seamless-m4t:
 stub audio frontend's embeddings: ``loss``, ``init_cache``, ``prefill``
 and ``decode_step`` only, as in the reference, which serves it through no
 engine.  The forward's attention goes through the registry
-(``cfg.attn_backend``) to the CUDA streaming-attention kernel on the card.
-Inference only: the kernel has no backward yet.
+(``cfg.attn_backend``) to the CUDA streaming-attention kernel on the card,
+and ``loss`` differentiates: every attention backward of a training step
+runs the kernel's backward (``runtime/trainer.py``).
 
 The decoders' cached path: ``init_cache(batch, max_len)`` builds the
 contiguous cache (``lm.trunk_cache_init``: ring buffers for local layers

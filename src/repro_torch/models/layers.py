@@ -115,17 +115,40 @@ def embed_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return x
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """``aten::mm.dtype`` (bf16 × bf16 → f32), which has no derivative,
+    with the reference's: its einsum's transpose takes the f32 cotangent
+    against the widened other operand and casts the result to the
+    operand's dtype, so both gradients are f32 products cast once."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = torch.mm(g, w.t().float()).to(x.dtype)
+        dw = torch.mm(x.t().float(), g).to(w.dtype)
+        return dx, dw
+
+
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final logits in f32, through ``lm_head`` or, for tied embeddings,
     the token table, then gemma2's final softcap ``cap · tanh(z / cap)``
     in f32.  On the card a bf16 ``x`` and head go through one bf16 × bf16
     GEMM with an f32 output (``aten::mm.dtype``), as the reference's einsum
     with ``preferred_element_type=f32``: exact products summed in f32, and
-    no f32 copy of the head.  Elsewhere both operands are widened to f32."""
+    no f32 copy of the head (under autograd ``_MatmulF32Out`` adds the
+    backward).  Elsewhere both operands are widened to f32."""
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     if x.device.type == "cuda" and x.dtype == head.dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
-                       out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or head.requires_grad):
+            out = _MatmulF32Out.apply(x2, head)
+        else:
+            out = torch.mm(x2, head, out_dtype=torch.float32)
         logits = out.reshape(*x.shape[:-1], head.shape[-1])
     else:
         logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))

@@ -62,7 +62,8 @@ from repro_torch.core.quant import quantize_dynamic
 from repro_torch.kernels.int8_matmul.ops import int8_matmul
 from repro_torch.kernels.lut_exp.ops import lut_exp
 from repro_torch.kernels.paged_attention.ops import paged_attention
-from repro_torch.kernels.streaming_attention.ops import streaming_attention
+from repro_torch.kernels.streaming_attention.ops import (
+    streaming_attention, streaming_attention_bwd)
 from repro_torch.serving.sampling import greedy_rows, sample_in_step
 
 #: Every launch counter of the port's kernel wrappers: (wrapper, attribute);
@@ -75,6 +76,8 @@ LAUNCH_COUNTERS = (
     (int8_matmul, "launches"), (int8_matmul, "launches_by_variant"),
     (int8_matmul, "transposes"),
     (quantize_dynamic, "launches"),
+    (streaming_attention_bwd, "launches"),
+    (streaming_attention_bwd, "launches_by_variant"),
 )
 
 

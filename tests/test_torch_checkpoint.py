@@ -1,9 +1,12 @@
-"""The port's checkpoint read path (``repro_torch.checkpoint``) against the
-reference's store: checkpoints written by ``repro.checkpoint.store.save``
-are read by the port's ``restore_flat`` / ``restore_params``, bit for bit,
-f32 and bf16 leaves alike (npz keeps a bf16 leaf as raw ``|V2`` bytes).
-No reference model is compiled: the parameters come from the reference's
-``init``, which runs eagerly here."""
+"""The port's checkpoint store (``repro_torch.checkpoint``) against the
+reference's: checkpoints written by ``repro.checkpoint.store.save`` are
+read by the port's ``restore_flat`` / ``restore_params`` / ``restore``,
+and checkpoints the port's ``save`` / ``AsyncCheckpointer`` write are
+restored by the reference's ``restore``, bit for bit, f32 and bf16 leaves
+alike (npz keeps a bf16 leaf as raw ``|V2`` bytes); retention, half-written
+and corrupt checkpoints behave as the reference's.  No reference model is
+compiled: the parameters come from the reference's ``init``, which runs
+eagerly here."""
 import json
 import os
 import subprocess
@@ -23,7 +26,7 @@ from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro_torch.checkpoint import store as T  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.params import from_flat  # noqa: E402
+from repro_torch.params import from_flat, to_flat  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "deepseek-7b-smoke"
@@ -118,6 +121,115 @@ def test_a_leaf_of_another_dtype_is_cast(written, tmp_path):
         for k, w in from_flat(J.flatten_tree(tree["params"]), cfg,
                               "cpu").items():
             assert torch.equal(bits(got[k]), bits(w)), k
+
+
+def test_port_writes_what_the_reference_restores(written, tmp_path):
+    """The port's ``save`` of the same tree: the manifest equals the
+    reference's leaf for leaf (paths, shapes, dtypes, sha256), and the
+    reference's ``restore`` gives its parameters back bit for bit."""
+    dtype, d, params = written
+    cfg = get_config(ARCH).replace(dtype=dtype)
+    port = from_flat(J.flatten_tree(params), cfg, "cpu")
+    T.save(str(tmp_path), 12, {"params": to_flat(port, cfg)},
+           extra={"note": 12})
+    manifest = lambda root: json.loads(  # noqa: E731
+        (Path(root) / "step_00000012" / "manifest.json").read_text())
+    assert manifest(tmp_path) == manifest(d)
+    ref = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+                       {"params": params})
+    tree, step, extra = J.restore(str(tmp_path), ref)
+    assert (step, extra) == (12, {"note": 12})
+    for path, a in J.flatten_tree(tree).items():
+        want = J.flatten_tree({"params": params})[path]
+        assert a.dtype == want.dtype and np.array_equal(
+            a.view(np.uint8), want.view(np.uint8)), path
+
+
+def test_restore_onto_a_tree_of_tensors(written):
+    """``restore`` maps a reference-written step onto a port template
+    (shape, dtype and device of each leaf), as ``unflatten_into`` does."""
+    dtype, d, params = written
+    cfg = get_config(ARCH).replace(dtype=dtype)
+    port = from_flat(J.flatten_tree(params), cfg, "cpu")
+    template = {"params": {k: torch.zeros_like(v)
+                           for k, v in to_flat(port, cfg).items()}}
+    tree, step, _ = T.restore(d, template, step=3)
+    assert step == 3
+    got = from_flat(tree["params"], cfg, "cpu")
+    for k, w in port.items():
+        assert torch.equal(bits(got[k]), bits(w)), k
+    bad = {"params": dict(template["params"], extra=torch.zeros(1))}
+    with pytest.raises(KeyError, match="missing leaf"):
+        T.restore(d, bad)
+    first = sorted(template["params"])[0]
+    wrong = {"params": dict(template["params"], **{first: torch.zeros(3)})}
+    with pytest.raises(ValueError, match="shape mismatch"):
+        T.restore(d, wrong)
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        T.restore(d, template, mesh=object())
+
+
+def test_named_tuple_paths_and_scalars_round_trip(tmp_path):
+    """The optimizer state's paths (``opt/.step``, ``opt/.m/...``) and a
+    0-d int32 leaf, written by either package, read by the other."""
+    from repro.optim import AdamWState as JState
+    from repro_torch.optim import AdamWState as TState
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    jt = {"opt": JState(step=jax.numpy.asarray(7, jax.numpy.int32),
+                        m={"w": w}, v={"w": w * 2})}
+    tt = {"opt": TState(step=torch.tensor(7, dtype=torch.int32),
+                        m={"w": torch.from_numpy(w)},
+                        v={"w": torch.from_numpy(w * 2)})}
+    assert sorted(T.flatten_tree(tt)) == sorted(J.flatten_tree(jt))
+    J.save(str(tmp_path / "j"), 1, jt)
+    T.save(str(tmp_path / "t"), 1, tt)
+    got, _, _ = T.restore(str(tmp_path / "j"), tt)
+    assert got["opt"].step.shape == () and int(got["opt"].step) == 7
+    assert torch.equal(got["opt"].v["w"], tt["opt"].v["w"])
+    ref = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), jt)
+    back, _, _ = J.restore(str(tmp_path / "t"), ref)
+    assert int(back["opt"].step) == 7
+    assert np.array_equal(np.asarray(back["opt"].m["w"]), w)
+
+
+def test_retention_and_half_written_steps(tmp_path):
+    """``AsyncCheckpointer`` keeps the newest ``keep`` steps, as the
+    reference's; a ``.tmp-<pid>`` directory (a write cut short) and a step
+    without a manifest are never listed or restored."""
+    tree = {"w": torch.arange(4, dtype=torch.float32)}
+    for name, mk in (("t", T.AsyncCheckpointer), ("j", J.AsyncCheckpointer)):
+        ck = mk(str(tmp_path / name), keep=2)
+        for step in (1, 2, 3, 4):
+            ck.save(step, tree if name == "t" else {"w": tree["w"].numpy()})
+        ck.wait()
+    assert T.steps(str(tmp_path / "t")) == J.steps(str(tmp_path / "j")) == [3, 4]
+    os.makedirs(tmp_path / "t" / "step_00000009.tmp-123")
+    os.makedirs(tmp_path / "t" / "step_00000008")
+    assert T.latest_step(str(tmp_path / "t")) == 4
+    got, step, _ = T.restore(str(tmp_path / "t"), tree)
+    assert step == 4 and torch.equal(got["w"], tree["w"])
+
+
+def test_async_save_copies_before_it_returns(tmp_path):
+    """A CPU tensor written in place right after ``save`` returns (as an
+    optimizer may) leaves the checkpoint with the values at ``save``."""
+    w = torch.arange(1 << 16, dtype=torch.float32)
+    ck = T.AsyncCheckpointer(str(tmp_path))
+    ck.save(1, {"w": w})
+    w.add_(1.0)
+    ck.wait()
+    flat, _, _ = T.restore_flat(str(tmp_path))
+    assert torch.equal(flat["w"], torch.arange(1 << 16, dtype=torch.float32))
+
+
+def test_async_write_errors_surface_at_wait(tmp_path):
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    ck = T.AsyncCheckpointer(str(blocker / "sub"))
+    ck.save(1, {"w": torch.zeros(2)})
+    with pytest.raises(OSError):
+        ck.wait()
+    ck.wait()                                  # the error is raised once
 
 
 def test_serve_cli_serves_a_reference_checkpoint(tmp_path):

@@ -54,13 +54,18 @@ def test_port_imports_no_jax_and_no_reference_package():
                                     "repro_torch.serving.graphs",
                                     "repro_torch.perfmodel",
                                     "repro_torch.kernels.autotune",
-                                    "repro_torch.checkpoint.store"])
+                                    "repro_torch.checkpoint.store",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.runtime.trainer",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.parallel.grad_compress",
+                                    "repro_torch.launch.train"])
 def test_serving_obs_modules_import_no_jax(module):
     """Each module of the serving observability and the captured step, and
     of the tuner and the checkpoint reader, imported alone in a fresh
     process, pulls in neither JAX nor the reference package (whose
-    ``serving/metrics.py``, ``perfmodel/model.py``, ``kernels/autotune.py``
-    and ``checkpoint/store.py`` it copies)."""
+    ``serving/metrics.py``, ``perfmodel/model.py``, ``kernels/autotune.py``,
+    ``checkpoint/store.py`` and training modules it copies)."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"bad = sorted(n for n in sys.modules if n.startswith('jax')"
@@ -81,8 +86,16 @@ NOT_YET_PORTED = {
     "kernels": set(),
     "models": set(),
     "serving": {"PagedServingEngine"},                           # item 4
-    "checkpoint": {"save", "restore", "retain", "AsyncCheckpointer",
-                   "flatten_tree", "unflatten_into"},            # item 6
+    "checkpoint": set(),
+    "optim": set(),
+    "runtime": set(),
+    "data": set(),
+    "parallel": {"param_specs", "param_pspec", "batch_specs",    # item 5
+                 "cache_specs", "cache_specs_decode", "fit_spec",
+                 "logical_axes", "shard_tree", "shardings_of",
+                 "compressed_psum", "activation_sharding",
+                 "active_mesh", "maybe_shard",
+                 "pipeline_apply", "stack_stages"},              # item 6
 }
 
 
@@ -341,16 +354,128 @@ def test_streaming_attention_card_checks_raise(bad, no_toolchain,
         sa_ops.streaming_attention(q, kv, kv, **bad)
 
 
-def test_streaming_attention_kernel_refuses_a_gradient(monkeypatch):
-    """Autograd through the card path raises and names the training slice
-    (the launch itself is stubbed: there is no card here)."""
-    monkeypatch.setattr(sa_ops, "_launch",
-                        lambda q, k, v, **kw: torch.zeros(q.shape))
-    q = _fake(np.zeros((1, 2, 5, 16), np.float32)).requires_grad_()
-    kv = _fake(np.zeros((1, 2, 5, 16), np.float32))
-    out = sa_ops.streaming_attention(q, kv, kv)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+def _stub_launches(monkeypatch):
+    """The forward and backward launches of #3 stubbed (no card here):
+    record their calls and return tensors of the right shapes."""
+    calls = []
+
+    def fwd(q, k, v, lse=False, **kw):
+        calls.append(("fwd", lse))
+        out = _fake(torch.zeros(q.shape))
+        return (out, _fake(torch.zeros(q.shape[:3]))) if lse else out
+
+    def bwd(q, k, v, out, lse, dout, **kw):
+        calls.append(("bwd", tuple(lse.shape)))
+        return (torch.ones(q.shape), torch.ones(k.shape) * 2,
+                torch.ones(v.shape) * 3)
+
+    monkeypatch.setattr(sa_ops, "_launch", fwd)
+    monkeypatch.setattr(sa_ops, "_launch_bwd", bwd)
+    return calls
+
+
+def test_streaming_attention_backward_calls_the_backward_launcher(
+        monkeypatch):
+    """Under autograd the card path asks the forward kernel for lse, saves
+    q, k, v, out and lse (nothing of Lq × Lkv), and its backward is the
+    backward kernel's launcher, whose gradients it returns."""
+    calls = _stub_launches(monkeypatch)
+    # the gradient autograd hands in is a CPU tensor here, which the
+    # backward's device checks refuse: they are held in their own tests
+    monkeypatch.setattr(sa_ops, "_check_bwd",
+                        lambda q, k, v, out, lse, dout, kw: (out, dout))
+    q = _fake(np.zeros((1, 4, 5, 16), np.float32)).requires_grad_()
+    k = _fake(np.zeros((1, 2, 7, 16), np.float32)).requires_grad_()
+    out = sa_ops.streaming_attention(q, k, k, causal=True)
+    assert calls == [("fwd", True)]
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [
+        (1, 4, 5, 16), (1, 2, 7, 16), (1, 2, 7, 16), (1, 4, 5, 16), (1, 4, 5)]
+    gq, gk = torch.autograd.grad(out.sum(), (q, k))
+    assert calls[1] == ("bwd", (1, 4, 5))
+    assert torch.equal(gq, torch.ones(q.shape))
+    assert torch.equal(gk, torch.full(k.shape, 5.0))  # as k and as v
+
+
+def test_streaming_attention_no_grad_takes_the_plain_launch(monkeypatch):
+    """Serving (no gradient) launches the forward without lse and builds no
+    autograd node."""
+    calls = _stub_launches(monkeypatch)
+    q = _fake(np.zeros((1, 2, 5, 16), np.float32))
+    out = sa_ops.streaming_attention(q, q, q)
+    assert calls == [("fwd", False)] and out.grad_fn is None
+
+
+def test_streaming_attention_grad_at_head_dim_256_raises(monkeypatch):
+    """The backward kernel stops at head dim 128: a call at 256 that needs
+    a gradient raises before its forward and names the later slice."""
+    calls = _stub_launches(monkeypatch)
+    q = _fake(torch.zeros((1, 2, 5, 256), dtype=torch.bfloat16)
+              ).requires_grad_()
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        sa_ops.streaming_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        sa_ops.streaming_attention_bwd(q, q, q, q, torch.zeros(1, 2, 5),
+                                       q, scale=1.0)
+    assert calls == []
+
+
+def test_backward_kernel_raises_without_toolchain(no_toolchain, monkeypatch):
+    _forbid(monkeypatch, sa_ops, "attention_bwd_ref")
+    q = _fake(np.zeros((1, 2, 5, 16), np.float32))
+    lse = _fake(np.zeros((1, 2, 5), np.float32))
+    before = sa_ops.streaming_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sa_ops.streaming_attention_bwd(q, q, q, q, lse, q, scale=0.25)
+    assert sa_ops.streaming_attention_bwd.launches == before
+
+
+def _refused(monkeypatch, module, launcher):
+    """Stub a wrapper's launch so that reaching it fails the test."""
+    def fail(*a, **k):
+        raise AssertionError("a gradient-requiring input reached the launch")
+    monkeypatch.setattr(module, launcher, fail)
+
+
+def test_lut_exp_refuses_a_gradient(monkeypatch):
+    """#1 has no backward yet: a CUDA input that requires a gradient
+    raises (the MoE router and the SSM discretisation would otherwise
+    train with a zero gradient through it)."""
+    _refused(monkeypatch, lut_ops, "_library")
+    x = _fake(np.zeros(8, np.float32)).requires_grad_()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        lut_ops.lut_exp(x)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        sa_ops.softmax_exp(x)
+
+
+def test_paged_attention_and_combine_refuse_a_gradient(monkeypatch):
+    _refused(monkeypatch, pa_ops, "_library")
+    q = _fake(np.zeros((2, 4, 1, 16), np.float32)).requires_grad_()
+    pool = _fake(np.zeros((5, 2, 8, 16), np.float32))
+    tbl = _fake(np.zeros((2, 2), np.int32))
+    lens = _fake(np.ones(2, np.int32))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        pa_ops.paged_attention(q, pool, pool, tbl, lens)
+    part = _fake(np.zeros((2, 2, 3, 4), np.float32)).requires_grad_()
+    acc = _fake(np.zeros((2, 2, 3, 4, 16), np.float32))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        pa_ops.paged_combine(part, part, acc, lens, page_size=8, kv_split=2)
+
+
+def test_int8_and_quantize_refuse_a_gradient(monkeypatch):
+    _refused(monkeypatch, i8_ops, "_launch")
+    _refused(monkeypatch, quant, "_quantize_library")
+    x = _fake(np.zeros((4, 32), np.float32)).requires_grad_()
+    wq = quant.quantize(torch.ones(32, 16), axis=0)
+    wq = type(wq)(_fake(wq.values), _fake(wq.scale))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        i8_ops.int8_matmul(x, wq)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        quant.quantize_dynamic(x)
+    xv = _fake(np.zeros((4, 32), np.int8))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        i8_ops.int8_matmul_2d(xv, wq.values, x[0, 0], wq.scale)
 
 
 def test_wrappers_refuse_other_devices(monkeypatch):
@@ -388,7 +513,8 @@ def test_build_flags_target_hopper():
     assert {"-O3", "-shared", "-std=c++17"} <= set(build.NVCC_FLAGS)
     assert set(build.sources()) == {"int8_matmul", "lut_exp",
                                     "paged_attention", "quantize",
-                                    "streaming_attention"}
+                                    "streaming_attention",
+                                    "streaming_attention_bwd"}
     assert len(build.source_hash()) == 16
 
 

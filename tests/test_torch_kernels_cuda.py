@@ -587,15 +587,6 @@ def test_streaming_attention_bf16_reads_strided_views(cuda_device):
         assert bf16_ulps(got, want, SA_TOL["atol"]) <= 1.0
 
 
-@pytest.mark.cuda
-def test_streaming_attention_kernel_refuses_a_gradient(cuda_device):
-    (q, k, v), kw = sa_inputs(SA_CASES[0], cuda_device)
-    q.requires_grad_()
-    out = streaming_attention(q, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
-
-
 # ------------------------------------------------------------- int8 matmul --
 
 # (leading dims, K, N): the reference kernel suite's shapes, a batch, M = 1
@@ -1762,3 +1753,107 @@ def test_vlm_and_encdec_prefill_launch_counts(cuda_device):
         torch.cuda.synchronize()
         assert streaming_attention.launches == before
         assert torch.isfinite(logits).all()
+
+
+# ------------------------------------------------ #3's backward kernel --
+
+BWD_CASES = [c for c in SA_CASES if c["d"] <= 128]
+
+
+def bwd_case(case, dev, dtype, seed=3):
+    (q, k, v), kw = sa_inputs(case, dev, seed=seed)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    g = torch.Generator().manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g).to(dev, dtype)
+    return q, k, v, dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_streaming_attention_backward_matches_plain(cuda_device, case, dtype):
+    """Autograd through the kernel: one forward launch (with lse) and one
+    backward launch, whose dq, dk, dv hold the plain backward fed the same
+    out and lse — f32 within 3e-5 of the largest gradient (sums in another
+    order), bf16 within one bf16 ulp of it — and the lse the plain
+    forward's within 1e-4."""
+    from repro_torch.kernels.streaming_attention.ops import (
+        attention_bwd_ref, attention_lse_ref, streaming_attention_bwd,
+        streaming_attention_lse)
+    q, k, v, dout, kw = bwd_case(case, cuda_device, dtype)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = streaming_attention.launches, streaming_attention_bwd.launches
+    out = streaming_attention(qs, ks, vs, **kw)
+    got = torch.autograd.grad(out, (qs, ks, vs), dout)
+    torch.cuda.synchronize()
+    assert streaming_attention.launches == f0 + 1
+    assert streaming_attention_bwd.launches == b0 + 1
+    o, lse = streaming_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, out.detach())
+    scale = q.shape[-1] ** -0.5
+    _, plain_lse = attention_lse_ref(q, k, v, scale=scale, **kw)
+    torch.testing.assert_close(lse, plain_lse, atol=1e-4, rtol=0)
+    want = attention_bwd_ref(q, k, v, o, lse, dout, scale=scale, **kw)
+    rel = 3e-5 if dtype == torch.float32 else 2.0 ** -7
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        big = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= rel * big + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streaming_attention_backward_is_deterministic(cuda_device, dtype):
+    """No atomics: two backward calls give the same bits."""
+    from repro_torch.kernels.streaming_attention.ops import (
+        streaming_attention_bwd, streaming_attention_lse)
+    case = dict(b=2, hq=8, hkv=2, lq=300, lkv=300, d=64, causal=True)
+    q, k, v, dout, kw = bwd_case(case, cuda_device, dtype)
+    o, lse = streaming_attention_lse(q, k, v, **kw)
+    a = streaming_attention_bwd(q, k, v, o, lse, dout, scale=0.125, **kw)
+    b = streaming_attention_bwd(q, k, v, o, lse, dout, scale=0.125, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_streaming_attention_backward_refuses_head_dim_256(cuda_device):
+    q = torch.zeros((1, 2, 8, 256), device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        streaming_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_lut_exp_refuses_a_gradient_on_the_card(cuda_device):
+    x = torch.zeros(8, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        lut_exp(x)
+
+
+@pytest.mark.cuda
+def test_trainer_on_the_card(cuda_device, tmp_path):
+    """``Trainer.run()`` on deepseek-7b-smoke in bf16 on the card: #3's
+    forward and backward once per layer per step, finite losses, and a
+    failure at step 3 recovered bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels.streaming_attention.ops import (
+        streaming_attention_bwd)
+    from repro_torch.runtime import FailureInjector, TrainConfig, Trainer
+    cfg = get_config("deepseek-7b-smoke")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+
+    def run(d, injector=None):
+        tcfg = TrainConfig(steps=5, ckpt_dir=str(d), ckpt_every=2, lr=5e-3,
+                           warmup=2)
+        return Trainer(cfg, dcfg, tcfg, device=cuda_device).run(
+            injector=injector)
+
+    f0, b0 = streaming_attention.launches, streaming_attention_bwd.launches
+    a = run(tmp_path / "a")
+    assert streaming_attention.launches - f0 == cfg.num_layers * 5
+    assert streaming_attention_bwd.launches - b0 == cfg.num_layers * 5
+    assert all(np.isfinite(m["loss"]) for m in a)
+    b = run(tmp_path / "b", FailureInjector(fail_at_steps=(3,)))
+    assert {m["step"]: m["loss"] for m in a} == {m["step"]: m["loss"]
+                                                 for m in b}
