@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    streaming-attention kernels' lines again, and their SASS HMMA counts
    (``cuobjdump``): each head-dim instantiation must hold tensor-core
    instructions (head dim 256 included, whose registers and spills are
-   printed on their own lines); likewise the int8 matmul's wgmma kernels
-   and their SASS IGMMA counts;
+   printed on their own lines); likewise the bf16 backward's dK/dV and dQ
+   kernels (each head dim) and the int8 matmul's wgmma kernels and their
+   SASS IGMMA counts;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
    sweep shapes and edge values, orders 0/1, f32/bf16, and an unaligned
    view);
@@ -300,7 +301,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and one profiled step's device time by group; losses bit-equal to an
    uninterrupted run's; step 0 against two twin ``Trainer``s on the plain
    attention (``TRAIN_TWIN_FLOOR``); the backward kernel timed beside its
-   plain version, SDPA's forward plus backward and its bound;
+   plain version, SDPA's forward plus backward (as a caller sees it, and
+   its kernels' device time alone from the profiler) and its bound;
 17. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -605,6 +607,7 @@ def phase_build():
     if not tc or len(hmma) != len(tc) or not all(hmma.values()):
         fail(f"streaming attention: the bf16 kernels are not all on the tensor "
              f"cores (ptxas {len(tc)}, HMMA {hmma})")
+    bwd = bwd_tensor_core(report, libs)
     wg_kernel = "wgmma_kernel"
     wg = [line for line in report["int8_matmul"] if wg_kernel in line]
     for line in wg:
@@ -617,8 +620,35 @@ def phase_build():
     if not wg or len(igmma) != len(wg) or not all(igmma.values()):
         fail(f"int8 matmul: the wgmma kernels hold no wgmma instructions "
              f"(ptxas {len(wg)}, IGMMA {igmma})")
-    return dict(ptxas=tc, ptxas_d256=d256, sass_hmma=hmma,
+    return dict(ptxas=tc, ptxas_d256=d256, sass_hmma=hmma, backward=bwd,
                 int8_wgmma_ptxas=wg, int8_sass_igmma=igmma)
+
+
+def bwd_tensor_core(report, libs):
+    """#3's bf16 backward: ptxas's line and the SASS HMMA count of each
+    head-dim instantiation of its dK/dV and dQ kernels; fails unless every
+    one of ``ops.BWD_HEAD_DIMS`` has both, each with tensor-core
+    instructions."""
+    from repro_torch.kernels.streaming_attention.ops import BWD_HEAD_DIMS
+    passes = {"dK/dV": "tensor_core11dkdv_kernel", "dQ": "tensor_core9dq_kernel"}
+    lines = [line for line in report["streaming_attention_bwd"]
+             if any(k in line for k in passes.values())]
+    for line in lines:
+        log(f"[tensor_core backward] {line}")
+    hmma = {fn: n for fn, n in sass_counts(libs["streaming_attention_bwd"],
+                                           "HMMA").items()
+            if any(k in fn for k in passes.values())}
+    out = {}
+    for name, key in passes.items():
+        counts = {fn: n for fn, n in hmma.items() if key in fn}
+        log(f"[tensor_core backward] {name}: SASS HMMA instructions per head "
+            f"dim: " + json.dumps(counts))
+        if len(counts) != len(BWD_HEAD_DIMS) or not all(counts.values()) \
+                or sum(key in line for line in lines) != len(BWD_HEAD_DIMS):
+            fail(f"backward {name}: not every head dim {BWD_HEAD_DIMS} has a "
+                 f"tensor-core kernel (HMMA {counts})")
+        out[name] = counts
+    return dict(ptxas=lines, sass_hmma=out)
 
 
 def phase_lut_exp():
@@ -5593,12 +5623,50 @@ def phase_backward_checks():
     return out
 
 
+def profiled_kernel_ms(fn, label, *, calls=10):
+    """The device time of one call of ``fn`` alone from the profiler: the
+    sum of its kernels' durations over ``calls`` calls (after one
+    warm-up), over ``calls`` → (ms or None, kernel records, launch calls).
+    None where the trace's kernel records are not one per launch call
+    (records lost) or there is none.  The trace is kept gzipped under
+    ``chiprun_out/traces``."""
+    import gzip
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    tdir = ROOT / "chiprun_out" / "traces"
+    tdir.mkdir(parents=True, exist_ok=True)
+    path = tdir / f"{label}.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    with open(path, "rb") as f_in, gzip.open(str(path) + ".gz", "wb") as f_out:
+        f_out.write(f_in.read())
+    os.remove(path)
+    spans = [e for e in events if e.get("ph") == "X"]
+    kernels = [float(e["dur"]) for e in spans if e.get("cat") == "kernel"]
+    launches = sum(1 for e in spans
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "Launch" in e.get("name", ""))
+    ok = bool(kernels) and len(kernels) == launches
+    return (sum(kernels) / 1e3 / calls if ok else None), len(kernels), launches
+
+
 def time_streaming_bwd(flush, launches):
     """The backward kernel at ``BWD_SHAPES`` in bf16 (the main path's
-    dtype): its time, the plain backward's, and at the cap-free shapes
-    SDPA's forward plus backward (exact exp: the library column, not the
-    same function) beside the bound.  Bytes: q, k, v, out, dout read once
-    and lse, dq, dk, dv written or read once; operations: the five
+    dtype): its time as a caller sees it and on the device alone, the
+    plain backward's, and at the cap-free shapes SDPA's forward plus
+    backward (exact exp: the library column, not the same function) as a
+    caller sees it, on the device alone (~1 ms of spin ahead) and as its
+    kernels' sum in a profiler trace (free of autograd's host work),
+    beside the bound.  Bytes: q, k, v, out, dout read once and lse, dq,
+    dk, dv written or read once; operations: the five
     products of the reference's backward (S, dP, dV, dQ, dK: 10·D per
     visible pair) at the bf16 tensor-core peak."""
     import torch
@@ -5612,9 +5680,11 @@ def time_streaming_bwd(flush, launches):
         scale = d ** -0.5
         ms = cuda_ms(lambda: streaming_attention_bwd(
             q, k, v, o, lse, dout, scale=scale, **kw), flush=flush)
+        device = cuda_ms(lambda: streaming_attention_bwd(
+            q, k, v, o, lse, dout, scale=scale, **kw), flush=flush, spin=True)
         plain = cuda_ms(lambda: attention_bwd_ref(
             q, k, v, o, lse, dout, scale=scale, **kw), iters=3, flush=flush)
-        lib = None
+        lib = lib_device = lib_spin = None
         if not (kw.get("cap") or kw.get("window")):
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
             fwd = sdpa_for(qs, ks, vs, kw)
@@ -5622,6 +5692,9 @@ def time_streaming_bwd(flush, launches):
             def lib_call():
                 torch.autograd.grad(fwd(), (qs, ks, vs), dout)
             lib = cuda_ms(lib_call, flush=flush)
+            lib_spin = cuda_ms(lib_call, flush=flush, spin=True)
+            lib_device, n_kernels, n_launches = profiled_kernel_ms(
+                lib_call, f"sdpa_fwd_bwd_{label.split()[0]}")
         keys = kw.get("kv_len") or lkv
         nbytes = 2.0 * (4 * b * hq * lq * d + 4 * b * hkv * keys * d) \
             + 4.0 * b * hq * lq
@@ -5631,17 +5704,28 @@ def time_streaming_bwd(flush, launches):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         shapes[label] = dict(
-            ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+            ms=ms, device_ms=device, plain_ms=plain,
+            bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib, tflops=flops / ms / 1e9, gflop=flops / 1e9,
+            library_ms=lib, library_device_ms=lib_device,
+            library_spin_ms=lib_spin,
+            tflops=flops / ms / 1e9, gflop=flops / 1e9,
+            bound_share=max(t_bytes, t_ops) / ms,
             shape=f"B {b}, {hq} × {hkv} heads × {d}, Lq {lq}, Lkv {lkv}, "
                   f"bf16, {kw}")
         log(f"[time] streaming_attention_bwd {label}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; device alone {device:.4f} ms), "
+            f"plain {plain:.3f} ms, "
             + ("sdpa fwd+bwd none (softcap or window)" if lib is None else
-               f"sdpa fwd+bwd {lib:.4f} ms")
+               f"sdpa fwd+bwd {lib:.4f} ms (device alone {lib_spin:.4f} ms; "
+               f"its kernels by the profiler "
+               + (f"{lib_device:.4f} ms" if lib_device is not None else
+                  f"not measured: {n_kernels} kernel records for "
+                  f"{n_launches} launch calls")
+               + ")")
             + f", bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP); {CARD[0]}")
+            f"{flops / 1e9:.2f} GFLOP; the kernel at "
+            f"{100 * max(t_bytes, t_ops) / ms:.1f}% of it); {CARD[0]}")
         del q, k, v, o, lse, dout
         torch.cuda.empty_cache()
     first = shapes[BWD_SHAPES[0][0]]
@@ -5737,7 +5821,7 @@ def train_model(name, cut, steps, moment_dtype):
                  f"{counts['bwd']} launches, expected layers × steps run = "
                  f"{cfg.num_layers} × {ran}")
         if counts["fwd_by_variant"]["tensor_core"] != want \
-                or counts["bwd_by_variant"]["bf16"] != want:
+                or counts["bwd_by_variant"]["tensor_core"] != want:
             fail(f"train {name}: launches by variant {counts}")
         # the replayed steps appear twice in the log: the same bits again
         by_step = {}
@@ -5773,7 +5857,8 @@ def train_model(name, cut, steps, moment_dtype):
             f"{[round(x, 3) for x in gnorm]}; step ms p50 {p50:.1f} (steps "
             f"1–{steps - 1}), {f['tok_s']:.0f} tok/s; peak {peak:.2f} GiB; "
             f"#3 forward {counts['fwd']} and backward {counts['bwd']} "
-            f"launches = {cfg.num_layers} layers × {ran} steps run; "
+            f"launches = {cfg.num_layers} layers × {ran} steps run "
+            f"(backward by variant {counts['bwd_by_variant']}); "
             f"checkpoints left {f['checkpoints']}; {CARD[0]}")
         del tr
         torch.cuda.empty_cache()

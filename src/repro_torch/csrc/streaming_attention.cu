@@ -95,6 +95,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
 #include "lut_exp.cuh"
 #include "mma_ptx.cuh"
 
@@ -126,35 +127,10 @@ struct Params {
   int o_pair;            // every output row 4-byte aligned: paired bf16 stores
 };
 
-// The kv tiles of KT keys that a q tile whose rows sit at positions
-// qpos0 .. qpos0 + nq - 1 can see: the window's first key up to the causal
-// bound of its last row and kv_len.
-struct TileRange {
-  int begin, end;
-};
-template <int KT>
-__device__ __forceinline__ TileRange tile_range(const Params& p, int qpos0, int nq) {
-  int kv_end = p.kv_len;
-  if (p.causal) kv_end = min(kv_end, qpos0 + nq);
-  const int kv_begin = p.window > 0 ? max(0, qpos0 - p.window + 1) : 0;
-  return {kv_begin / KT, kv_end > 0 ? (kv_end + KT - 1) / KT : 0};
-}
-
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int col) {
-  bool ok = col < p.kv_len;
-  if (p.causal) ok = ok && col <= qpos;
-  if (p.window > 0) ok = ok && qpos - col < p.window;
-  return ok;
-}
-
-// Does any row at positions r0 .. r1 see any key of the KT-key tile at c0?
-// The last key the tile holds below kv_len is the one the window reaches
-// first.
-template <int KT>
-__device__ __forceinline__ bool sees_any(const Params& p, int r0, int r1, int c0) {
-  const int cmax = min(c0 + KT - 1, p.kv_len - 1);
-  return c0 <= cmax && (!p.causal || c0 <= r1) && (p.window <= 0 || r0 - cmax < p.window);
-}
+using repro::sees_any;
+using repro::tile_range;
+using repro::TileRange;
+using repro::visible;
 
 // ------------------------------------------------------------------ f32 --
 
@@ -397,43 +373,13 @@ struct Tile {
   static constexpr int MIN_BLOCKS = D <= 64 ? 4 : 1;
 };
 
-// Byte offset of chunk c (8 bf16) of row r.  The 8 rows an ldmatrix phase
-// reads at one logical chunk land in 8 distinct 16-byte bank quads.
-template <int CH>
-__device__ __forceinline__ int swz(int r, int c) {
-  int pc;
-  if constexpr (CH >= 8) pc = c ^ (r & 7);
-  else pc = c ^ ((r / (8 / CH)) & (CH - 1));
-  return (r * CH + pc) * 16;
-}
+using repro::swz;
 
-// Rows [0, n) of a ROWS-row tile of D-wide rows (row stride sl) into
-// shared memory; rows past n and chunks past D read as 0.  vec: cp.async
-// (asynchronous, the caller commits); else staged through registers.
+// Rows [0, n) of a ROWS-row tile into shared memory (attention_tile.cuh).
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(const __nv_bfloat16* base, long long sl, int n,
                                           uint8_t* dst, int vec, int tid) {
-  constexpr int CH = Tile<D>::CH, DC = D / 8;
-  static_assert(ROWS * CH % THREADS == 0, "a tile's chunks split evenly");
-#pragma unroll
-  for (int it = 0; it < ROWS * CH / THREADS; ++it) {
-    const int i = tid + it * THREADS;
-    const int r = i / CH, c = i % CH;
-    const bool ok = r < n && c < DC;
-    uint8_t* d = dst + swz<CH>(r, c);
-    const __nv_bfloat16* src = base + r * sl + c * 8;
-    if (vec) {
-      repro::cp_async16(d, ok ? src : base, ok);
-    } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (ok) {
-        const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) w[e] = (uint32_t)s[2 * e] | ((uint32_t)s[2 * e + 1] << 16);
-      }
-      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
+  repro::load_tile<D, ROWS, THREADS>(base, sl, n, dst, vec, tid);
 }
 
 // The exponential of exp mode MODE, a compile-time constant: the 32 calls

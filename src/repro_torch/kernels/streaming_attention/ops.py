@@ -24,7 +24,8 @@ and lse — nothing of size Lq × Lkv; its backward is the hand-written
 backward kernel (``csrc/streaming_attention_bwd.cu``, the reference's
 ``_bwd``: δ, dK/dV, dQ, no atomics) through ``streaming_attention_bwd``,
 counted in ``streaming_attention_bwd.launches`` (one per backward call,
-three kernels) and ``.launches_by_variant`` (by input dtype).  On the
+three kernels) and ``.launches_by_variant`` (``BWD_VARIANTS``: bf16 on
+the tensor cores, f32 on the CUDA cores, as the forward).  On the
 CPU the same Function runs the plain forward and backward of ``ref.py``.
 The backward kernel takes head dims up to 128: a call at 256 that needs a
 gradient raises ``NotImplementedError`` before its forward.
@@ -49,8 +50,8 @@ VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 _EXP_MODES = {"lut": 0, "lut0": 1, "exact": 2}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (8, 16, 32, 64, 128)   # the backward kernel's
-# the backward kernel's variant per input dtype (both on the CUDA cores)
-BWD_VARIANTS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# dtype → the backward kernels the C entry point launches for it
+BWD_VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 BLOCK_K = 64          # key rows per kv tile (the kernel's online-softmax step)
 MAX_HEAD_BATCH = 65535
 

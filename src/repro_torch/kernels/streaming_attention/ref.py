@@ -29,12 +29,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            kv_len=kv_len)
 
 
-def _one_block(q, k, v, scale, q_offset, kv_len):
-    """The grouped f32 q, the keys and values as one block, their
-    positions, the row positions and the key count."""
+def _blocks(q, k, v, scale, q_offset, kv_len, block_k=None):
+    """The grouped f32 q, the keys and values in blocks of ``block_k`` (one
+    block of every key by default), their positions, the row positions and
+    the key count."""
     hkv, lkv = k.shape[1], k.shape[2]
     qg = _sa._split_heads(q.float(), hkv)
-    bk = max(lkv, 1)
+    bk = block_k or max(lkv, 1)
     pos = torch.arange(lkv, dtype=torch.int32, device=q.device)[None, :]
     return (qg, _sa._blocked_kv(k, bk), _sa._blocked_kv(v, bk),
             _sa._blocked_pos(pos, bk),
@@ -47,16 +48,20 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None, causal: bool = False,
                       window: Optional[int] = None,
                       cap: Optional[float] = None, exp_mode: str = "lut",
-                      q_offset: int = 0, kv_len: Optional[int] = None
+                      q_offset: int = 0, kv_len: Optional[int] = None,
+                      block_k: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (``attention_ref``'s output, the f32 per-row logsumexp (B, Hq,
     Lq) = m + log(max(l, 1e-30))): what the forward kernel writes when it
-    is asked for ``lse``."""
+    is asked for ``lse``.  The lse's online softmax takes the keys in
+    blocks of ``block_k`` (None: one block); at ``lut0`` the lse depends on
+    the blocking, so a check of the kernel passes the kernel's own
+    (``ops.block_k``)."""
     out = attention_ref(q, k, v, scale=scale, causal=causal, window=window,
                         cap=cap, exp_mode=exp_mode, q_offset=q_offset,
                         kv_len=kv_len)
-    qg, kb, vb, pb, q_pos, kv_len, scale = _one_block(q, k, v, scale,
-                                                      q_offset, kv_len)
+    qg, kb, vb, pb, q_pos, kv_len, scale = _blocks(q, k, v, scale, q_offset,
+                                                   kv_len, block_k)
     _, lse = _sa._fwd_scan(qg, kb, vb, pb, q_pos, kv_len, scale=scale,
                            causal=causal, window=window, cap=cap,
                            exp_mode=exp_mode)
@@ -75,8 +80,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exponential, the softcap's chain rule → (dq, dk, dv) in q's, k's and
     v's dtypes.  ``out`` (B, Hq, Lq, D) and ``lse`` (B, Hq, Lq) are the
     forward's."""
-    qg, kb, vb, pb, q_pos, kv_len, scale = _one_block(q, k, v, scale,
-                                                      q_offset, kv_len)
+    qg, kb, vb, pb, q_pos, kv_len, scale = _blocks(q, k, v, scale, q_offset,
+                                                   kv_len)
     grouped = lambda t: _sa._split_heads(t.float(), k.shape[1])  # noqa: E731
     dq, dkb, dvb = _sa._bwd_scan(
         qg, kb, vb, pb, q_pos, kv_len, grouped(out),

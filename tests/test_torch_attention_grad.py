@@ -23,7 +23,13 @@ inputs (so ``lse`` on some rows), and the products sum in other orders
 the reference's own residuals handed over, ``ATTN_CASES[1]``, 31 of 3,072
 dv elements up to 1.5e-2 away).  At ``lut0`` at most 2% of the elements
 may leave the reference's tolerance, and every element stays within one
-table step (2^-7) of the largest gradient.  One intra-op thread; ~30 s alone."""
+table step (2^-7) of the largest gradient.
+
+The bf16 backward kernel has no CPU path, so its arithmetic (P and dS
+split into bf16 hi + lo before the products) is emulated in torch and
+held against the reference on bf16-rounded inputs
+(``test_tensor_core_backward_arithmetic_holds_jax``).  One intra-op
+thread; ~40 s alone."""
 import os
 
 import numpy as np
@@ -37,6 +43,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import attention_api as j_api  # noqa: E402
 from repro_torch.core import attention_api as t_api  # noqa: E402
+from repro_torch.kernels.lut_exp.ref import lut_exp_ref  # noqa: E402
 from repro_torch.kernels.streaming_attention import ops as sa_ops  # noqa: E402
 from tests.test_kernels import ATTN_CASES  # noqa: E402
 
@@ -138,3 +145,77 @@ def test_plain_lse_and_backward_are_the_scans():
     want = torch_grads(arrays, kw, "jnp", block_k=k.shape[2])
     for g, e in zip(got, want):
         np.testing.assert_allclose(g.numpy(), e, atol=1e-6, rtol=1e-6)
+
+
+def _hi_lo(x):
+    """f32 x as the bf16 backward kernel feeds it to the tensor cores: hi,
+    its upper 16 bits, plus lo = bf16(x − hi) (``repro::split_bf16``)."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def tensor_core_grads(q, k, v, w, kw):
+    """dq, dk, dv as the bf16 backward kernel computes them from bf16 q, k,
+    v and dout (held here as f32): the forward kernel's bf16 output and f32
+    lse, δ = Σ dout·out, S and dP from exact products, P and dS in f32,
+    then split hi + lo before the dV, dK and dQ products, and each output
+    rounded once to bf16."""
+    kw = dict(kw)
+    mode, cap = kw.pop("exp_mode"), kw.get("cap")
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    g, scale = hq // hkv, d ** -0.5
+    out, lse = sa_ops.attention_lse_ref(q, k, v, scale=scale, exp_mode=mode,
+                                        **kw)
+    out = out.to(torch.bfloat16).float()
+    kx, vx = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    x = torch.einsum("bhqd,bhkd->bhqk", q, kx) * scale
+    if cap:
+        x = cap * torch.tanh(x / cap)
+    pos = kw.get("q_offset", 0) + torch.arange(lq)[:, None]
+    key = torch.arange(lkv)[None, :]
+    vis = key < (lkv if kw.get("kv_len") is None else kw["kv_len"])
+    if kw.get("causal"):
+        vis = vis & (key <= pos)
+    if kw.get("window"):
+        vis = vis & (pos - key < kw["window"])
+    z = torch.where(vis, x - lse[..., None], 0.0)
+    p = torch.exp(z) if mode == "exact" else lut_exp_ref(
+        z, order=0 if mode == "lut0" else 1)
+    p = torch.where(vis, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", w, vx) - (w * out).sum(-1)[..., None]
+    if cap:
+        dp = dp * (1 - (x / cap) ** 2)
+    ds = _hi_lo(torch.where(vis, p * dp * scale, 0.0))
+    p = _hi_lo(p)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q).reshape(b, hkv, g, lkv, d)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, w).reshape(b, hkv, g, lkv, d)
+    return [t.to(torch.bfloat16).float().numpy()
+            for t in (dq, dk.sum(2), dv.sum(2))]
+
+
+@pytest.mark.parametrize("case", [c for c in ATTN_CASES if c["d"] <= 128])
+def test_tensor_core_backward_arithmetic_holds_jax(case):
+    """The bf16 backward kernel's arithmetic, emulated in torch (P and dS
+    split into bf16 hi + lo before their products, every output rounded
+    once to bf16), against ``jax.grad`` of the reference's ``pallas``
+    backend on the same bf16-rounded inputs in f32: within 2^-7 of the
+    largest gradient (one bf16 ulp), the card checks' ``BWD_TOL``.  One
+    intra-op thread; ~8 s alone for the seven cases."""
+    arrays, kw = inputs(case, case.get("exp_mode", "lut"))
+    arrays = [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+              for a in arrays]
+
+    def pallas(q, k, v, w_):
+        return jax.grad(lambda a, b_, c: jnp.sum(j_api.attention(
+            a, b_, c, backend="pallas", **kw) * w_), argnums=(0, 1, 2))(
+                q, k, v)
+    fn = pallas if kw.get("cap") is not None and not kw.get("causal") \
+        else jax.jit(pallas)
+    want = [np.asarray(x) for x in fn(*map(jnp.asarray, arrays))]
+    got = tensor_core_grads(*(torch.from_numpy(a) for a in arrays), kw)
+    for name, a, e in zip("qkv", got, want):
+        assert a.shape == e.shape, name
+        err = np.abs(a - e).max() / np.abs(e).max()
+        assert err <= 2.0 ** -7, (f"d{name}", err)

@@ -296,6 +296,17 @@ def test_streaming_attention_variant_follows_dtype(dtype, variant, d):
     assert sa_ops.kernel_variant(dtype, d) == variant
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
+                                           (torch.float32, "cuda_core")])
+def test_streaming_attention_backward_variant_follows_dtype(dtype, variant):
+    """The backward's variants carry the forward's names: bf16 runs on the
+    tensor-core kernels, f32 on the CUDA-core kernels, and the launch
+    counter holds exactly these two."""
+    assert sa_ops.BWD_VARIANTS[dtype] == variant == sa_ops.VARIANTS[dtype]
+    assert set(sa_ops.streaming_attention_bwd.launches_by_variant) == {
+        "tensor_core", "cuda_core"}
+
+
 @pytest.mark.parametrize("dtype,d,err", [
     (torch.float16, 64, TypeError), (torch.float64, 64, TypeError),
     (torch.int8, 64, TypeError), (torch.bfloat16, 24, ValueError),

@@ -1757,11 +1757,23 @@ def test_vlm_and_encdec_prefill_launch_counts(cuda_device):
 
 # ------------------------------------------------ #3's backward kernel --
 
-BWD_CASES = [c for c in SA_CASES if c["d"] <= 128]
+BWD_CASES = [c for c in SA_CASES if c["d"] <= 128] + [
+    # the order-0 LUT: integer q and k, whose logits are exact on both
+    # sides (an ulp of s on a table boundary moves p by a table step)
+    dict(b=1, hq=4, hkv=2, lq=96, lkv=96, d=64, causal=True,
+         exp_mode="lut0", integers=True),
+    # GQA 6:1 at D 128, Lq and Lkv not multiples of 16
+    dict(b=1, hq=6, hkv=1, lq=83, lkv=141, d=128, causal=False),
+    # D 64 with q_offset and kv_len
+    dict(b=2, hq=4, hkv=4, lq=50, lkv=180, d=64, causal=True, q_offset=110,
+         kv_len=157),
+]
 
 
 def bwd_case(case, dev, dtype, seed=3):
-    (q, k, v), kw = sa_inputs(case, dev, seed=seed)
+    case = dict(case)
+    integers = case.pop("integers", False)
+    (q, k, v), kw = sa_inputs(case, dev, seed=seed, integers=integers)
     q, k, v = (t.to(dtype) for t in (q, k, v))
     g = torch.Generator().manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=g).to(dev, dtype)
@@ -1776,7 +1788,8 @@ def test_streaming_attention_backward_matches_plain(cuda_device, case, dtype):
     backward launch, whose dq, dk, dv hold the plain backward fed the same
     out and lse — f32 within 3e-5 of the largest gradient (sums in another
     order), bf16 within one bf16 ulp of it — and the lse the plain
-    forward's within 1e-4."""
+    forward's within 1e-4 (at ``lut0`` at the kernel's key blocking, on
+    which its lse depends, as in the forward's lut0 test)."""
     from repro_torch.kernels.streaming_attention.ops import (
         attention_bwd_ref, attention_lse_ref, streaming_attention_bwd,
         streaming_attention_lse)
@@ -1791,7 +1804,10 @@ def test_streaming_attention_backward_matches_plain(cuda_device, case, dtype):
     o, lse = streaming_attention_lse(q, k, v, **kw)
     assert torch.equal(o, out.detach())
     scale = q.shape[-1] ** -0.5
-    _, plain_lse = attention_lse_ref(q, k, v, scale=scale, **kw)
+    blocking = (block_k(dtype, q.shape[-1]) if kw.get("exp_mode") == "lut0"
+                else None)
+    _, plain_lse = attention_lse_ref(q, k, v, scale=scale, block_k=blocking,
+                                     **kw)
     torch.testing.assert_close(lse, plain_lse, atol=1e-4, rtol=0)
     want = attention_bwd_ref(q, k, v, o, lse, dout, scale=scale, **kw)
     rel = 3e-5 if dtype == torch.float32 else 2.0 ** -7
@@ -1803,16 +1819,39 @@ def test_streaming_attention_backward_matches_plain(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_streaming_attention_backward_is_deterministic(cuda_device, dtype):
+@pytest.mark.parametrize("d", [64, 128])
+def test_streaming_attention_backward_is_deterministic(cuda_device, dtype, d):
     """No atomics: two backward calls give the same bits."""
     from repro_torch.kernels.streaming_attention.ops import (
         streaming_attention_bwd, streaming_attention_lse)
-    case = dict(b=2, hq=8, hkv=2, lq=300, lkv=300, d=64, causal=True)
+    case = dict(b=2, hq=8, hkv=2, lq=300, lkv=300, d=d, causal=True)
     q, k, v, dout, kw = bwd_case(case, cuda_device, dtype)
     o, lse = streaming_attention_lse(q, k, v, **kw)
     a = streaming_attention_bwd(q, k, v, o, lse, dout, scale=0.125, **kw)
     b = streaming_attention_bwd(q, k, v, o, lse, dout, scale=0.125, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
+                                           (torch.float32, "cuda_core")])
+def test_streaming_attention_backward_counts_its_variant(cuda_device, dtype,
+                                                         variant):
+    """A bf16 backward launches the tensor-core kernels, an f32 one the
+    CUDA-core kernels: one launch counted under its variant, none under
+    the other."""
+    from repro_torch.kernels.streaming_attention.ops import (
+        BWD_VARIANTS, streaming_attention_bwd, streaming_attention_lse)
+    case = dict(b=1, hq=4, hkv=2, lq=70, lkv=70, d=64, causal=True)
+    q, k, v, dout, kw = bwd_case(case, cuda_device, dtype)
+    o, lse = streaming_attention_lse(q, k, v, **kw)
+    before = dict(streaming_attention_bwd.launches_by_variant)
+    streaming_attention_bwd(q, k, v, o, lse, dout, scale=0.125, **kw)
+    torch.cuda.synchronize()
+    after = streaming_attention_bwd.launches_by_variant
+    assert BWD_VARIANTS[dtype] == variant
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == variant) for n in ("tensor_core", "cuda_core")}
 
 
 @pytest.mark.cuda
