@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``cuobjdump``): each head-dim instantiation must hold tensor-core
    instructions (head dim 256 included, whose registers and spills are
    printed on their own lines); likewise the bf16 backward's dK/dV and dQ
-   kernels (each head dim) and the int8 matmul's wgmma kernels and their
-   SASS IGMMA counts;
+   kernels (each head dim; at 256 a dV and a dK kernel, their lines again
+   on their own) and the int8 matmul's wgmma kernels and their SASS IGMMA
+   counts;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
    sweep shapes and edge values, orders 0/1, f32/bf16, and an unaligned
    view);
@@ -36,9 +37,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    prefill — weighted by the number of steps of that kind, and phase 7's
    passes held to the same steps), every candidate (block_q × pages per
    split) timed on kernel #2 and held against the plain version at its
-   own config: each candidate's predicted and measured ms, the winner
-   against ``DEFAULT_CONFIG``, the bf16 winner on the int8 pool, and how
-   far the roofline's ranking agreed with the measured one;
+   own config (each step kind's synthetic pool drawn once a pool, not
+   once a candidate): each candidate's predicted and measured ms, the
+   winner against ``DEFAULT_CONFIG``, the bf16 winner on the int8 pool,
+   and how far the roofline's ranking agreed with the measured one;
 5. hold the streaming-attention kernel to its plain version at BERT-large
    widths (16 × 64, l 512 and 4096) and deepseek widths (32 × 128, causal,
    l 2048), f32 and bf16, with GQA 4:1, window, softcap, q_offset/kv_len,
@@ -290,19 +292,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    lse, bf16 and f32, at ``BWD_SHAPES`` (bert-large 8 × 16 × 512 × 64;
    deepseek-7b 8 × 32 × 512 × 128 causal; grok's 2 × 48:8 × 1024 × 128
    with cap 30; seamless's cross shape, 8 × 16 rows against 256 frames;
-   a window + kv_len + q_offset case), within ``BWD_TOL``, and bit-equal
-   over two calls; then ``Trainer.run()`` on bert-large at full width and
-   depth (24 layers) and deepseek-7b at full width cut to 4 of 30 layers,
-   seeded weights, 8 and 6 steps of 8 × 512 tokens (masked-LM and
-   next-token losses), a checkpoint every 3 steps into a temporary
-   directory and a ``FailureInjector`` failure at step 4 (restore step 3,
-   resume): finite losses and gradient norms, #3's forward and backward
-   launched layers × the steps run, step ms p50, tokens/s, peak memory
-   and one profiled step's device time by group; losses bit-equal to an
-   uninterrupted run's; step 0 against two twin ``Trainer``s on the plain
-   attention (``TRAIN_TWIN_FLOOR``); the backward kernel timed beside its
-   plain version, SDPA's forward plus backward (as a caller sees it, and
-   its kernels' device time alone from the profiler) and its bound;
+   a window + kv_len + q_offset case; at head dim 256 gemma2-9b's 8 ×
+   16:8 × 512 causal with cap 50 and gemma3-12b's 2 × 16:8 × 2,048 local
+   (window 1,024) and global layers), within ``BWD_TOL``, and bit-equal
+   over two calls; then ``Trainer.run()`` (``TRAIN_MODELS``) on
+   bert-large at full width and depth (24 layers) and deepseek-7b at full
+   width cut to 4 of 30 layers, seeded weights, 8 and 6 steps of 8 × 512
+   tokens (the masked-LM loss; the reference's labelled loss, each
+   position against its label, the pipeline's own token), a checkpoint
+   every 3 steps into a temporary directory and a ``FailureInjector``
+   failure at step 4 (restore step 3, resume), losses bit-equal to an
+   uninterrupted run's; and at head dim 256, without checkpoints,
+   gemma2-9b cut to 4 of 42 layers on 8 × 512 tokens and gemma3-12b cut
+   to 6 of 48 on 2 × 2,048 (its local window bites), 4 steps each: for
+   every model finite losses and gradient norms, #3's forward and
+   backward launched layers × the steps run (every bf16 backward on the
+   tensor cores), step ms p50, tokens/s, peak memory and one profiled
+   step's device time by group; step 0 against the plain attention at
+   two key blockings (``step0``; gemma3-12b in f32, ``TRAIN_TWIN_F32``)
+   within ``TRAIN_TWIN_FLOOR``'s rule; the backward kernel timed beside
+   its plain version, SDPA's forward plus backward where no softcap rules
+   it out (a window or a q_offset through a mask; as a caller sees it,
+   and its kernels' device time alone from the profiler) and its bound;
 17. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -626,27 +637,32 @@ def phase_build():
 
 def bwd_tensor_core(report, libs):
     """#3's bf16 backward: ptxas's line and the SASS HMMA count of each
-    head-dim instantiation of its dK/dV and dQ kernels; fails unless every
-    one of ``ops.BWD_HEAD_DIMS`` has both, each with tensor-core
-    instructions."""
+    instantiation of its dK/dV kernels (``<D, part>``: both outputs, or at
+    D 256 a dV and a dK kernel) and its dQ kernels (``<D>``); fails unless
+    every head dim of ``ops.BWD_HEAD_DIMS`` has both passes and every
+    instantiation a ptxas line and tensor-core instructions."""
+    import re
     from repro_torch.kernels.streaming_attention.ops import BWD_HEAD_DIMS
     passes = {"dK/dV": "tensor_core11dkdv_kernel", "dQ": "tensor_core9dq_kernel"}
     lines = [line for line in report["streaming_attention_bwd"]
              if any(k in line for k in passes.values())]
     for line in lines:
         log(f"[tensor_core backward] {line}")
+        if "ILi256E" in line:
+            log(f"[tensor_core backward D 256] {line}")
     hmma = {fn: n for fn, n in sass_counts(libs["streaming_attention_bwd"],
                                            "HMMA").items()
             if any(k in fn for k in passes.values())}
     out = {}
     for name, key in passes.items():
         counts = {fn: n for fn, n in hmma.items() if key in fn}
-        log(f"[tensor_core backward] {name}: SASS HMMA instructions per head "
-            f"dim: " + json.dumps(counts))
-        if len(counts) != len(BWD_HEAD_DIMS) or not all(counts.values()) \
-                or sum(key in line for line in lines) != len(BWD_HEAD_DIMS):
+        dims = {int(re.search(r"ILi(\d+)E", fn).group(1)) for fn in counts}
+        log(f"[tensor_core backward] {name}: SASS HMMA instructions per "
+            f"instantiation: " + json.dumps(counts))
+        if dims != set(BWD_HEAD_DIMS) or not all(counts.values()) \
+                or sum(key in line for line in lines) != len(counts):
             fail(f"backward {name}: not every head dim {BWD_HEAD_DIMS} has a "
-                 f"tensor-core kernel (HMMA {counts})")
+                 f"tensor-core kernel with a ptxas line (HMMA {counts})")
         out[name] = counts
     return dict(ptxas=lines, sass_hmma=out)
 
@@ -961,11 +977,12 @@ def phase_tuner(steps):
         if any("measured_s" not in r for r in report):
             fail(f"tuner {tag}: a candidate was not measured")
         worst = 0.0
+        built = {name: synthetic_step(seg, geom, DEV)     # drawn once a pool
+                 for name, seg in wl.items()}
         for r in report:
             c = KernelConfig(**r["config"])
-            for name, seg in wl.items():
-                args, kw = synthetic_step(seg, geom, DEV)
-                kw.update(config_kwargs(c))
+            for name, (args, kw) in built.items():
+                kw = dict(kw, **config_kwargs(c))
                 got = paged_attention_varlen(*args, **kw)
                 want = paged_attention_varlen_reference(
                     *args, **dict(kw, kv_split=c.kv_split
@@ -4144,22 +4161,26 @@ GQA_SHAPES = (
 
 def sdpa_for(q, k, v, kw):
     """One SDPA call of the same function as kernel #3 with keywords
-    ``kw`` (causal and/or kv_len, no softcap or window; the exponential
-    exact): GQA through ``enable_gqa``, a kv_len cut or a causal block whose
-    query rows do not end at the last key through a boolean mask."""
+    ``kw`` (causal, kv_len, window, q_offset; no softcap; the exponential
+    exact): GQA through ``enable_gqa``, a kv_len cut, a window or a causal
+    block whose query rows do not end at the last key through a boolean
+    mask."""
     import torch
     import torch.nn.functional as F
     lq, lkv = q.shape[2], k.shape[2]
     gqa = dict(enable_gqa=True) if q.shape[1] != k.shape[1] else {}
-    kv_len = kw.get("kv_len")
-    if kv_len is None and (not kw.get("causal") or lq == lkv):
+    kv_len, window = kw.get("kv_len"), kw.get("window")
+    if kv_len is None and window is None and not kw.get("q_offset") \
+            and (not kw.get("causal") or lq == lkv):
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=bool(kw.get("causal")), **gqa)
-    rows = torch.arange(lq, device=DEV)[:, None]
+    rows = kw.get("q_offset", 0) + torch.arange(lq, device=DEV)[:, None]
     keys = torch.arange(lkv, device=DEV)[None, :]
     mask = keys < (kv_len or lkv)
     if kw.get("causal"):
         mask = mask & (keys <= rows)
+    if window:
+        mask = mask & (rows - keys < window)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   **gqa)
 
@@ -5503,25 +5524,43 @@ def phase_encdec():
 # ------------------------------------------------------------- phase 16 --
 
 # Phase 16: training through ``Trainer.run()`` (name, layers kept — None:
-# full depth —, steps, AdamW moment dtype): bert-large bidirectional at
-# head dim 64, deepseek-7b causal at 128 cut to 4 of 30 layers (its 6.9 B
-# parameters in bf16 with f32 AdamW moments and the gradients need ~83
-# GB).  TrainConfig's defaults otherwise (the reference's: lr 3e-4,
-# warmup 10, clip 1.0) on TRAIN_BATCH × TRAIN_SEQ tokens, a checkpoint
-# every TRAIN_CKPT_EVERY steps, one kept.  The run fails at TRAIN_FAIL_AT,
-# restores step 3's checkpoint and resumes.  deepseek's state is 9.9 GB a
-# checkpoint with bf16 moments (16.5 with f32), and every checkpoint goes
-# to disk: bf16 moments (the reference's ``moment_dtype`` option) and 6
-# steps (2 checkpoints) keep the script's disk writes near 30 GB.
-TRAIN_MODELS = (("bert-large", None, 8, "float32"),
-                ("deepseek-7b", 4, 6, "bfloat16"))
-TRAIN_BATCH, TRAIN_SEQ = 8, 512
+# full depth —, steps, AdamW moment dtype, (batch, sequence), whether the
+# run checkpoints and recovers): bert-large bidirectional at head dim 64,
+# deepseek-7b causal at 128 cut to 4 of 30 layers (its 6.9 B parameters
+# in bf16 with f32 AdamW moments and the gradients need ~83 GB), and at
+# head dim 256 gemma2-9b cut to 4 of 42 layers (2 local + 2 global; its
+# window of 4,096 does not bite at 512 tokens) and gemma3-12b cut to 6 of
+# 48 (one whole 5 local : 1 global period) at 2 × 2,048 tokens, so that
+# its local window of 1,024 bites (whole, ~18.5 and ~24 GB of bf16
+# weights, 4× that with AdamW's moments and the gradients).
+# TrainConfig's defaults otherwise (the reference's: lr 3e-4, warmup 10,
+# clip 1.0).  A recovering run writes a checkpoint every TRAIN_CKPT_EVERY
+# steps, one kept, fails at TRAIN_FAIL_AT, restores step 3's checkpoint
+# and resumes.  deepseek's state is 9.9 GB a checkpoint with bf16 moments
+# (16.5 with f32), and every checkpoint goes to disk: bf16 moments (the
+# reference's ``moment_dtype`` option) and 6 steps (2 checkpoints) keep
+# the script's disk writes near 30 GB; the gemmas (10–14 GB a checkpoint)
+# take none, recovery being held on the first two.
+TRAIN_MODELS = (("bert-large", None, 8, "float32", (8, 512), True),
+                ("deepseek-7b", 4, 6, "bfloat16", (8, 512), True),
+                ("gemma2-9b", 4, 4, "bfloat16", (8, 512), False),
+                ("gemma3-12b", 6, 4, "bfloat16", (2, 2048), False))
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, (4,)
 # Step 0 with the plain attention on the card (the scan's custom VJP) at
 # two blockings: the kernel's loss and gradient norm must sit within 3×
 # their spread, and within these relative floors (bf16: each attention
 # output rounds once, at another place in each schedule).
 TRAIN_TWIN_FLOOR = {"loss": 2e-3, "grad_norm": 2e-2}
+# Models whose step 0 is held in f32 (the kernel path's f32 kernels against
+# the plain attention in f32, the same rule), the bf16 readings logged
+# beside.  Under the reference's labels (each position scored against its
+# own token) a tied-embedding model predicts them from the start, so
+# gemma3-12b's step-0 loss is ~2e-4, set by a few near-tied tokens, and in
+# bf16 the rounding of the whole network decides it: measured on an H100,
+# bf16 moved it 18% and the gradient norm 43% from f32, and the plain
+# attention's blockings 512, 64 and 32 lay 2% and 4% apart, while in f32
+# the kernel path held the plain one within 3e-5 and 5e-5.
+TRAIN_TWIN_F32 = ("gemma3-12b",)
 # The backward kernel against its plain version, from the forward kernel's
 # own out and lse: (label, (B, Hq, Hkv, Lq, Lkv, D), keywords).
 BWD_SHAPES = (
@@ -5533,7 +5572,15 @@ BWD_SHAPES = (
     ("seamless cross 8x16 rows vs 256 frames", (8, 16, 16, 16, 256, 64), {}),
     ("window 128, kv_len 400, q_offset 100 (GQA 4:1)",
      (2, 32, 8, 300, 420, 128),
-     dict(causal=True, window=128, kv_len=400, q_offset=100)))
+     dict(causal=True, window=128, kv_len=400, q_offset=100)),
+    # head dim 256: gemma2-9b's training batch (every layer: its window
+    # does not bite at 512), gemma3-12b's local and global layers
+    ("gemma2-9b 8x512 (GQA 2:1, cap 50)", (8, 16, 8, 512, 512, 256),
+     dict(causal=True, cap=50.0)),
+    ("gemma3-12b 2x2048 local (GQA 2:1, window 1024)",
+     (2, 16, 8, 2048, 2048, 256), dict(causal=True, window=1024)),
+    ("gemma3-12b 2x2048 global (GQA 2:1)", (2, 16, 8, 2048, 2048, 256),
+     dict(causal=True)))
 # max|kernel − plain| over max|plain|, per gradient: f32 sums in another
 # order over up to 6 × 1,024 rows; bf16 within one bf16 ulp of the
 # largest element (both sides round their f32 sums once to bf16).
@@ -5685,7 +5732,7 @@ def time_streaming_bwd(flush, launches):
         plain = cuda_ms(lambda: attention_bwd_ref(
             q, k, v, o, lse, dout, scale=scale, **kw), iters=3, flush=flush)
         lib = lib_device = lib_spin = None
-        if not (kw.get("cap") or kw.get("window")):
+        if not kw.get("cap"):
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
             fwd = sdpa_for(qs, ks, vs, kw)
 
@@ -5694,7 +5741,7 @@ def time_streaming_bwd(flush, launches):
             lib = cuda_ms(lib_call, flush=flush)
             lib_spin = cuda_ms(lib_call, flush=flush, spin=True)
             lib_device, n_kernels, n_launches = profiled_kernel_ms(
-                lib_call, f"sdpa_fwd_bwd_{label.split()[0]}")
+                lib_call, "sdpa_fwd_bwd_" + "_".join(label.split()[:3]))
         keys = kw.get("kv_len") or lkv
         nbytes = 2.0 * (4 * b * hq * lq * d + 4 * b * hkv * keys * d) \
             + 4.0 * b * hq * lq
@@ -5716,7 +5763,7 @@ def time_streaming_bwd(flush, launches):
         log(f"[time] streaming_attention_bwd {label}: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s; device alone {device:.4f} ms), "
             f"plain {plain:.3f} ms, "
-            + ("sdpa fwd+bwd none (softcap or window)" if lib is None else
+            + ("sdpa fwd+bwd none (softcap)" if lib is None else
                f"sdpa fwd+bwd {lib:.4f} ms (device alone {lib_spin:.4f} ms; "
                f"its kernels by the profiler "
                + (f"{lib_device:.4f} ms" if lib_device is not None else
@@ -5766,11 +5813,11 @@ def train_step_window(tr, label):
     return read_window(path, f"{label} training step")
 
 
-def train_model(name, cut, steps, moment_dtype):
+def train_model(name, cut, steps, moment_dtype, shape, recover):
     """Phase 16 for one model (see ``TRAIN_MODELS``): the main path is
-    ``Trainer.run()`` with checkpoints and a ``FailureInjector``; its
-    losses must equal those of an uninterrupted run (no checkpoints) bit
-    for bit."""
+    ``Trainer.run()`` — with ``recover``, with checkpoints and a
+    ``FailureInjector``, and its losses must equal those of an
+    uninterrupted run (no checkpoints) bit for bit."""
     import dataclasses
     import tempfile
     import torch
@@ -5781,10 +5828,11 @@ def train_model(name, cut, steps, moment_dtype):
     if cut:
         cfg = cfg.replace(num_layers=cut)
     short = name.split("-")[0]
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, corpus="lm")
+    batch, seq = shape
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, corpus="lm")
     f = dict(layers=cfg.num_layers, steps=steps, moment_dtype=moment_dtype,
-             parts_s={})
+             batch=batch, seq=seq, recover=recover, parts_s={})
     t_part = [time.perf_counter()]
 
     def part(what):
@@ -5793,7 +5841,7 @@ def train_model(name, cut, steps, moment_dtype):
         t_part[0] = now
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        tcfg = TrainConfig(steps=steps, ckpt_dir=tmp,
+        tcfg = TrainConfig(steps=steps, ckpt_dir=tmp if recover else None,
                            ckpt_every=TRAIN_CKPT_EVERY, keep_ckpts=1,
                            moment_dtype=moment_dtype)
         tr = Trainer(cfg, dcfg, tcfg, device=DEV)
@@ -5802,7 +5850,7 @@ def train_model(name, cut, steps, moment_dtype):
         reset_training_counts()
         t0 = time.perf_counter()
         metrics = tr.run(injector=FailureInjector(
-            fail_at_steps=TRAIN_FAIL_AT))            # the main path
+            fail_at_steps=TRAIN_FAIL_AT) if recover else None)  # the main path
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_training_counts()
@@ -5810,11 +5858,11 @@ def train_model(name, cut, steps, moment_dtype):
         n_params = sum(p.numel() for p in tr.params.values())
         f["checkpoints"] = sorted(os.listdir(tmp))
         part("main run")
-        # every step once, and the steps after the restored checkpoint
-        # again up to the failure
+        # every step once, and after a failure the steps after the
+        # restored checkpoint again up to it
         restored = max(s for s in range(0, TRAIN_FAIL_AT[0] + 1,
                                         TRAIN_CKPT_EVERY))
-        ran = steps + TRAIN_FAIL_AT[0] - restored
+        ran = steps + (TRAIN_FAIL_AT[0] - restored if recover else 0)
         want = cfg.num_layers * ran
         if counts["fwd"] != want or counts["bwd"] != want:
             fail(f"train {name}: #3 forward {counts['fwd']} and backward "
@@ -5843,16 +5891,17 @@ def train_model(name, cut, steps, moment_dtype):
         f.update(params_b=n_params / 1e9, losses=loss, grad_norms=gnorm,
                  lrs=[m["lr"] for m in metrics],
                  step_ms=[m["ms"] for m in metrics], step_ms_p50=p50,
-                 tok_s=TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3, peak_gib=peak,
+                 tok_s=batch * seq / p50 * 1e3, peak_gib=peak,
                  wall_s=wall, steps_run=ran, launches=counts)
         f["window"] = train_step_window(tr, short)
         log(f"[train {name}] {cfg.num_layers} layers"
             + (f" (cut from {get_config(name).num_layers})" if cut else "")
             + f", {n_params / 1e9:.2f} B parameters, {moment_dtype} moments, "
-            f"{TRAIN_BATCH} × {TRAIN_SEQ} tokens, {steps} steps through "
-            f"Trainer.run() with a checkpoint every {TRAIN_CKPT_EVERY} and a "
-            f"failure at {TRAIN_FAIL_AT} (restored step {restored}), "
-            f"{ran} steps run in {wall:.1f} s: losses "
+            f"{batch} × {seq} tokens, {steps} steps through Trainer.run() "
+            + (f"with a checkpoint every {TRAIN_CKPT_EVERY} and a failure at "
+               f"{TRAIN_FAIL_AT} (restored step {restored}), " if recover
+               else "without checkpoints, ")
+            + f"{ran} steps run in {wall:.1f} s: losses "
             f"{[round(x, 4) for x in loss]}, grad norms "
             f"{[round(x, 3) for x in gnorm]}; step ms p50 {p50:.1f} (steps "
             f"1–{steps - 1}), {f['tok_s']:.0f} tok/s; peak {peak:.2f} GiB; "
@@ -5865,46 +5914,80 @@ def train_model(name, cut, steps, moment_dtype):
         part("profiled step")
 
     plain = dataclasses.replace(tcfg, ckpt_dir=None)
-    tu = Trainer(cfg, dcfg, plain, device=DEV)
-    mu = tu.run()
-    del tu
-    torch.cuda.empty_cache()
-    same = [m["loss"] for m in mu] == loss
-    log(f"[train {name}] the run with a failure at {TRAIN_FAIL_AT}, resumed "
-        f"from step {restored}'s checkpoint, against an uninterrupted run "
-        f"without checkpoints: losses of all {steps} steps bit-equal: {same}")
-    if not same:
-        fail(f"train {name}: recovered losses {loss} differ from the "
-             f"uninterrupted {[m['loss'] for m in mu]}")
-    f["recovery_bit_exact"] = same
-    part("uninterrupted run")
-
-    twins = {}
-    for blk in (512, 64):
-        tw = Trainer(cfg.replace(attn_backend="jnp", block_k=blk), dcfg,
-                     plain, device=DEV)
-        twins[blk] = tw.run(num_steps=1)[0]
-        del tw
+    if recover:
+        tu = Trainer(cfg, dcfg, plain, device=DEV)
+        mu = tu.run()
+        del tu
         torch.cuda.empty_cache()
+        same = [m["loss"] for m in mu] == loss
+        log(f"[train {name}] the run with a failure at {TRAIN_FAIL_AT}, "
+            f"resumed from step {restored}'s checkpoint, against an "
+            f"uninterrupted run without checkpoints: losses of all {steps} "
+            f"steps bit-equal: {same}")
+        if not same:
+            fail(f"train {name}: recovered losses {loss} differ from the "
+                 f"uninterrupted {[m['loss'] for m in mu]}")
+        f["recovery_bit_exact"] = same
+        part("uninterrupted run")
+
+    f32 = name in TRAIN_TWIN_F32
+    c = cfg.replace(dtype="float32") if f32 else cfg
+    kernel = step0(c, dcfg) if f32 else metrics[0]
+    twins = {blk: step0(c.replace(attn_backend="jnp", block_k=blk), dcfg)
+             for blk in (512, 64)}
     held = {}
     for key, floor in TRAIN_TWIN_FLOOR.items():
         a, b = twins[512][key], twins[64][key]
-        err = abs(metrics[0][key] - a) / abs(a)
+        err = abs(kernel[key] - a) / abs(a)
         spread = abs(a - b) / abs(a)
         tol = max(3 * spread, floor)
-        held[key] = dict(kernel=metrics[0][key], plain=a, plain_64=b,
+        held[key] = dict(kernel=kernel[key], plain=a, plain_64=b,
                          rel_err=err, spread=spread, limit=tol)
         if err > tol:
-            fail(f"train {name}: step 0 {key} {metrics[0][key]} vs the "
+            fail(f"train {name}: step 0 {key} {kernel[key]} vs the "
                  f"plain attention's {a}: {err:.3g} over {tol:.3g}")
-    f["step0_vs_plain"] = held
+    f["step0_vs_plain"] = dict(held, dtype=c.dtype)
     log(f"[train {name}] step 0 against the plain attention on the card "
-        f"(the scan's custom VJP, 512- and 64-key blocks): "
+        f"in {c.dtype} (the scan's custom VJP, 512- and 64-key blocks): "
         + "; ".join(f"{k} {v['kernel']:.6g} vs {v['plain']:.6g} "
                     f"(rel {v['rel_err']:.3g}, spread {v['spread']:.3g}, "
                     f"limit {v['limit']:.3g})" for k, v in held.items()))
+    if f32:
+        bf = step0(cfg.replace(attn_backend="jnp", block_k=512), dcfg)
+        f["step0_bf16_not_held"] = dict(kernel=metrics[0]["loss"],
+                                        plain=bf["loss"],
+                                        kernel_grad_norm=metrics[0]["grad_norm"],
+                                        plain_grad_norm=bf["grad_norm"])
+        log(f"[train {name}] step 0 in bfloat16, logged and not held "
+            f"(TRAIN_TWIN_F32): loss {metrics[0]['loss']:.6g} vs the plain "
+            f"attention's {bf['loss']:.6g} (f32: {held['loss']['plain']:.6g})"
+            f", grad norm {metrics[0]['grad_norm']:.6g} vs "
+            f"{bf['grad_norm']:.6g} (f32: {held['grad_norm']['plain']:.6g})")
     part("plain twins")
     return f
+
+
+def step0(cfg, dcfg):
+    """Step 0's loss and gradient norm as ``Trainer.run`` logs them — the
+    parameters its generator draws from ``TrainConfig.seed``, the
+    pipeline's first batch, the gradients' global norm before clipping —
+    without the optimizer's state (an f32 AdamW over a full-width model
+    would not fit beside it)."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import accumulated_grads, global_norm
+    from repro_torch.runtime import TrainConfig
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(
+        TrainConfig().seed), DEV)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in TokenPipeline(dcfg).shard_batch(0).items()}
+    loss, grads, _ = accumulated_grads(model.loss, params, batch, 1)
+    out = dict(loss=float(loss), grad_norm=float(global_norm(grads)))
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_training():

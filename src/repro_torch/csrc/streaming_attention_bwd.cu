@@ -37,7 +37,8 @@
 //   dkdv          one block per (batch·kv head, 64-key tile).  The block
 //                 loops over the G query heads of its group and over the q
 //                 tiles that can see its keys (causal and window bounds),
-//                 recomputing S and P, then dV += Pᵀ·dO, dP, dS, dK += dSᵀ·Q.
+//                 recomputing S and P, then dV += Pᵀ·dO, dP, dS, dK += dSᵀ·Q
+//                 (bf16 at D 256: two launches, a dV and a dK block a tile).
 //   dq            one block per (batch·q head, 64-row q tile).  The block
 //                 loops over the key tiles the q tile can see, recomputing
 //                 S, P and dP, and dQ += dS·K.
@@ -83,8 +84,26 @@
 // logits a thread for Sᵀ and for dPᵀ) rather than 64.  There the dK/dV
 // kernel still sits at 255 registers with a few bytes spilled; a 16-row
 // step spills nothing but re-reads K and V once per 16 rows, and ran
-// slower at both D 128 training shapes.  D ∈ {16, 32, 64, 128} are
+// slower at both D 128 training shapes.  D ∈ {16, 32, 64, 128, 256} are
 // instantiations; D 8 runs as D 16 with the head dim zero-filled.
+// D 256 (gemma2, gemma3): a warp's dK and dV for 16 keys would be 256
+// accumulator registers a thread, so each output gets blocks of its own,
+// two launches over the same grid (Part): a dV block computes Sᵀ → Pᵀ
+// and dV += Pᵀ·dO, holding no V and staging no δ (97 KB of shared memory,
+// two blocks an SM); a dK block computes Sᵀ and dPᵀ → dSᵀ and dK += dSᵀ·Q
+// (129 KB, one block an SM).  Sᵀ is computed twice, ~10% more products
+// over the three passes; both blocks compute it from the same exact
+// products in the same k-step order, so P is the same in each.  The dK/dV
+// pass steps 32 query rows, the dQ pass 16 keys (97 KB, two blocks an
+// SM); K and V (dK/dV) or Q and dO (dQ) are re-read by ldmatrix per
+// k-step.  Measured on the card (tools/streaming_attention_bwd_variants.py
+// at gemma2's and gemma3's training shapes, device alone): 16-key dQ steps
+// ran 6–14% faster than 32-key steps (the forward's) at all three shapes,
+// and are kept; 16-row dK/dV steps ran faster at gemma2's 512 tokens and
+// gemma3's global layers but slower at its local ones (window 1,024), and
+// are not.  Splitting dK's and dV's head dim across two warps that share
+// Sᵀ and dPᵀ through shared memory (the other way to 128 accumulators)
+// was not tried.  ptxas: 250–255 registers, no spill, at D 256.
 // The two passes compute Sᵀ and S in two orientations: each k-step of an
 // mma adds the same 16 exact products to the same accumulator, in the same
 // k-step order, so the two agree unless the tensor core's multi-term adder
@@ -95,13 +114,17 @@
 // f32 → cuda_core::dkdv_kernel and dq_kernel, the precision path of the
 // checks (no bf16 split reaches the f32 check's 3e-5, as in the forward):
 // every product on the CUDA cores in f32, 256 threads holding 4 × 4
-// register tiles of the 64 × 64 logits as the forward's f32 kernel does,
-// P and dS through shared memory.
+// register tiles of the 64 × 64 logits as the forward's f32 kernel does
+// (2 × 2 of 32 × 32 at D 256: four resident 64-row tiles of 257 floats
+// would pass the 227 KB of shared memory a block gets), P and dS through
+// shared memory.
 //
 // Bound: at the training shapes (BERT-large 8 × 16 × 512 × 64, deepseek-7b
-// 8 × 32 × 512 × 128 causal) the work is operations at the bf16 tensor-core
-// peak (10·D per visible pair); the bf16 kernels issue about twice that
-// (S and dP twice, three products split in two).
+// 8 × 32 × 512 × 128 causal, gemma3-12b 2 × 16:8 × 2,048 × 256) the work
+// is operations at the bf16 tensor-core peak (10·D per visible pair), at
+// gemma2-9b's 8 × 16:8 × 512 × 256 bytes; the bf16 kernels issue about
+// twice those operations (S and dP twice, three products split in two;
+// S three times at D 256).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,13 +220,21 @@ int launch_delta(const Params& p, int batch, cudaStream_t stream) {
 
 namespace cuda_core {
 
-constexpr int BQ = 64;                      // query rows per q tile
-constexpr int BK = 64;                      // key rows per kv tile
 constexpr int THREADS = 256;
 constexpr int TX = 16, TY = THREADS / TX;   // thread grid over (rows, cols)
-constexpr int RI = BQ / TY;                 // rows (or keys) per thread
-constexpr int CJ = BK / TX;                 // key columns per thread
-constexpr int PS = BK + 1;                  // row stride of the P / dS tile
+
+// A block's tiles: B query rows a q tile, B keys a kv tile — 64, or 32 at
+// D 256, where the four resident 64-row tiles of D + 1 floats (K, V, Q,
+// dO) would take 263 KB of shared memory, past the 227 KB a block gets.
+template <int D>
+struct Shape {
+  static constexpr int B = D > 128 ? 32 : 64;
+  static constexpr int RI = B / TY;                // rows (or keys) per thread
+  static constexpr int CJ = B / TX;                // key columns per thread
+  static constexpr int PS = B + 1;                 // row stride of the P / dS tile
+  static constexpr int NJ = (D + TX - 1) / TX;     // output columns per thread
+  static constexpr int SMEM_FLOATS = repro::LUT_K + 4 * B * (D + 1) + B * PS + 2 * B;
+};
 
 __device__ __forceinline__ float attn_exp(float x, const float* tab, int mode) {
   if (mode == 2) return expf(x);
@@ -221,14 +252,9 @@ __device__ __forceinline__ void load_tile(const float* base, long long sl, int n
   }
 }
 
-template <int D>
-constexpr int smem_floats() {
-  return repro::LUT_K + 4 * 64 * (D + 1) + BQ * PS + 2 * BQ;
-}
-
 // s[i][c] += Σ_e a[row_i][e] · b[key_c][e]: rows ty + TY·i of a, keys
 // tx + TX·c of b, both tiles with row stride D + 1.
-template <int D>
+template <int D, int RI, int CJ>
 __device__ __forceinline__ void tile_dot(const float* a, const float* b, int ty, int tx,
                                          float (&s)[RI][CJ]) {
   constexpr int DS = D + 1;
@@ -250,10 +276,11 @@ __device__ __forceinline__ void tile_dot(const float* a, const float* b, int ty,
   }
 }
 
-// The softmax weights and the logits' gradient of one 64 × 64 tile, in the
+// The softmax weights and the logits' gradient of one B × B tile, in the
 // thread's registers: from S (raw q·k sums) and dP, with the rows' lse and
 // δ in shared memory.  p[i][c] = visible ? exp(s_c − lse) : 0 and
 // ds[i][c] = p (dp − δ) (1 − (s_c/cap)²) scale.
+template <int RI, int CJ>
 __device__ __forceinline__ void tile_grads(const Params& p, const float* tab,
                                            const float* lse_s, const float* delta_s,
                                            int qpos0, int nq, int c0, int ty, int tx,
@@ -282,8 +309,9 @@ __device__ __forceinline__ void tile_grads(const Params& p, const float* tab,
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
-  constexpr int DS = D + 1;
-  constexpr int NJ = (D + TX - 1) / TX;     // output columns per thread
+  using SH = Shape<D>;
+  constexpr int DS = D + 1, BQ = SH::B, BK = SH::B, RI = SH::RI, CJ = SH::CJ, PS = SH::PS,
+                NJ = SH::NJ;
   extern __shared__ float smem[];
   float* tab = smem;
   float* ks = tab + repro::LUT_K;           // BK × DS
@@ -399,8 +427,9 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
-  constexpr int DS = D + 1;
-  constexpr int NJ = (D + TX - 1) / TX;
+  using SH = Shape<D>;
+  constexpr int DS = D + 1, BQ = SH::B, BK = SH::B, RI = SH::RI, CJ = SH::CJ, PS = SH::PS,
+                NJ = SH::NJ;
   extern __shared__ float smem[];
   float* tab = smem;
   float* ks = tab + repro::LUT_K;           // BK × DS
@@ -488,7 +517,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
 
 template <int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
+  constexpr int B = Shape<D>::B;
+  const size_t smem = sizeof(float) * Shape<D>::SMEM_FLOATS;
   cudaError_t err = cudaFuncSetAttribute(
       dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -497,7 +527,7 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   const int rc = launch_delta<float>(p, batch, stream);
   if (rc != 0) return rc;
-  const int k_tiles = (p.lkv + BK - 1) / BK, q_tiles = (p.lq + BQ - 1) / BQ;
+  const int k_tiles = (p.lkv + B - 1) / B, q_tiles = (p.lq + B - 1) / B;
   if (k_tiles > 0) {
     dkdv_kernel<D><<<dim3(k_tiles, batch * p.hkv), THREADS, smem, stream>>>(p);
     err = cudaGetLastError();
@@ -521,6 +551,10 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 16 * WARPS;            // the block's keys (dK/dV) or queries (dQ)
 constexpr int STAGES = 2;                   // depth of the streamed tiles' ring
 
+// What a dK/dV block accumulates: dK and dV (D <= 128), or at D 256 one of
+// them, in blocks of their own (two launches; the header says why).
+enum Part { BOTH = 0, DV = 1, DK = 2 };
+
 template <int D>
 struct Tile {
   static constexpr int DP = D < 16 ? 16 : D;     // head dim in shared memory
@@ -528,17 +562,23 @@ struct Tile {
   static constexpr int KS = DP / 16;             // k16 steps over the head dim
   static constexpr int NO = DP / 8;              // n8 tiles over the head dim
   // D <= 64: the warp's own A fragments (K and V, or Q and dO) stay in
-  // registers; D = 128: its 128 accumulator registers leave no room, and
+  // registers; D >= 128: its 128 accumulator registers leave no room, and
   // they are re-read by ldmatrix at each k-step.
   static constexpr bool OWN_REGS = D <= 64;
+  // D 256: a warp's dK and dV for 16 keys would be 256 registers a thread.
+  static constexpr bool SPLIT = D > 128;
   static constexpr int BQ = D <= 64 ? 64 : 32;   // query rows per step of the dK/dV pass
-  static constexpr int KT = 64;                  // key rows per step of the dQ pass
+  static constexpr int KT = D <= 128 ? 64 : 16;  // key rows per step of the dQ pass
   static constexpr int TAB_BYTES = repro::LUT_K * 4;
   static constexpr int OWN_BYTES = ROWS * DP * 2;     // one of the block's own tiles
   static constexpr int Q_BYTES = BQ * DP * 2;         // one streamed Q or dO tile
   static constexpr int K_BYTES = KT * DP * 2;         // one streamed K or V tile
-  static constexpr int DKDV_SMEM =
-      TAB_BYTES + 2 * OWN_BYTES + STAGES * (2 * Q_BYTES + 2 * BQ * 4);
+  // A dV block holds no V and stages no δ.
+  template <int PART>
+  static constexpr int dkdv_smem() {
+    constexpr int n = PART == DV ? 1 : 2;
+    return TAB_BYTES + n * OWN_BYTES + STAGES * (2 * Q_BYTES + n * BQ * 4);
+  }
   static constexpr int DQ_SMEM = TAB_BYTES + 2 * OWN_BYTES + STAGES * 2 * K_BYTES;
 };
 
@@ -582,8 +622,9 @@ __device__ __forceinline__ void ld_bt(uint32_t (&b)[4], const uint8_t* tile, int
 // (!full).  p = exp(x − lse) with x = softcap(s·scale), ds = p (dp − δ)
 // (1 − (x/cap)²) scale; masked elements are 0 (selected: whatever the
 // exponential gave them).  The exponential is the template's; the cap and
-// the mask are tile-uniform branches around whole loops.
-template <int MODE, int NT, class L, class Dl, class V>
+// the mask are tile-uniform branches around whole loops.  Without DS
+// (a dV block) only p, by the same operations: dp is left as it is.
+template <int MODE, bool DS, int NT, class L, class Dl, class V>
 __device__ __forceinline__ void tile_grads(const Params& p, const float* tab, bool full,
                                            float (&s)[NT][4], float (&dp)[NT][4], L li, Dl di,
                                            V vis) {
@@ -599,9 +640,9 @@ __device__ __forceinline__ void tile_grads(const Params& p, const float* tab, bo
         const float x = __fmul_rn(p.cap, tanhf(s[n][e] / p.cap));
         const float u = x / p.cap;
         s[n][e] = x;
-        dp[n][e] = (dp[n][e] - di(n, e)) * (1.0f - u * u);
+        if constexpr (DS) dp[n][e] = (dp[n][e] - di(n, e)) * (1.0f - u * u);
       }
-  } else {
+  } else if constexpr (DS) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -613,25 +654,28 @@ __device__ __forceinline__ void tile_grads(const Params& p, const float* tab, bo
     for (int e = 0; e < 4; ++e) {
       const float w = attn_exp<MODE>(s[n][e] - li(n, e), tab);
       s[n][e] = w;
-      dp[n][e] = __fmul_rn(w * dp[n][e], p.scale);
+      if constexpr (DS) dp[n][e] = __fmul_rn(w * dp[n][e], p.scale);
     }
   if (!full) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (!vis(n, e)) s[n][e] = dp[n][e] = 0.0f;
+        if (!vis(n, e)) {
+          s[n][e] = 0.0f;
+          if constexpr (DS) dp[n][e] = 0.0f;
+        }
   }
 }
 
 // The exp mode as a uniform branch around the template's three copies.
-template <int NT, class L, class Dl, class V>
+template <bool DS, int NT, class L, class Dl, class V>
 __device__ __forceinline__ void tile_grads_mode(const Params& p, const float* tab, bool full,
                                                 float (&s)[NT][4], float (&dp)[NT][4], L li,
                                                 Dl di, V vis) {
-  if (p.exp_mode == 2) tile_grads<2>(p, tab, full, s, dp, li, di, vis);
-  else if (p.exp_mode == 1) tile_grads<1>(p, tab, full, s, dp, li, di, vis);
-  else tile_grads<0>(p, tab, full, s, dp, li, di, vis);
+  if (p.exp_mode == 2) tile_grads<2, DS>(p, tab, full, s, dp, li, di, vis);
+  else if (p.exp_mode == 1) tile_grads<1, DS>(p, tab, full, s, dp, li, di, vis);
+  else tile_grads<0, DS>(p, tab, full, s, dp, li, di, vis);
 }
 
 // acc += X·B: X (16 rows × 16·KSTEPS) in C fragments, whose n8 tiles 2kk
@@ -688,20 +732,22 @@ __device__ __forceinline__ void store_rows(bf16* out, long long sl, int r0, int 
 
 // ------------------------------------------------------------ dK/dV pass --
 
-template <int D>
+template <int D, int PART>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
   using TL = Tile<D>;
   constexpr int CH = TL::CH, KS = TL::KS, NO = TL::NO, BQ = TL::BQ;
   constexpr int NT = BQ / 8;                // n8 tiles of queries per step
+  constexpr bool WANT_DV = PART != DK, WANT_DK = PART != DV;
+  constexpr int NV = WANT_DK ? 2 : 1;       // own tiles (K, V) and staged rows (lse, δ)
   static_assert(2 * BQ <= THREADS, "one thread per staged lse or δ");
   extern __shared__ __align__(128) uint8_t smem[];
   float* tab = reinterpret_cast<float*>(smem);
   uint8_t* ks = smem + TL::TAB_BYTES;       // the block's keys
-  uint8_t* vs = ks + TL::OWN_BYTES;
-  uint8_t* qs = vs + TL::OWN_BYTES;         // STAGES Q tiles
+  uint8_t* vs = ks + TL::OWN_BYTES;         // ... and values (dK)
+  uint8_t* qs = ks + NV * TL::OWN_BYTES;    // STAGES Q tiles
   uint8_t* gs = qs + STAGES * TL::Q_BYTES;  // STAGES dO tiles
   float* lse_s = reinterpret_cast<float*>(gs + STAGES * TL::Q_BYTES);   // STAGES × BQ
-  float* delta_s = lse_s + STAGES * BQ;                                 // STAGES × BQ
+  float* delta_s = lse_s + STAGES * BQ;                                 // STAGES × BQ (dK)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -723,7 +769,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
                      p.q_sl, nq, qs + st * TL::Q_BYTES, p.vec, tid);
     load_tile<D, BQ>((const bf16*)p.dout + b * p.do_sb + h * p.do_sh + (long long)q0 * p.do_sl,
                      p.do_sl, nq, gs + st * TL::Q_BYTES, p.vec, tid);
-    if (tid < 2 * BQ) {
+    if (tid < NV * BQ) {
       const int i = tid % BQ;
       const float* src = tid < BQ ? p.lse : p.delta;
       float* dst = (tid < BQ ? lse_s : delta_s) + st * BQ + i;
@@ -735,7 +781,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
   const bf16* kb = (const bf16*)p.k + b * p.k_sb + hk * p.k_sh + (long long)c0 * p.k_sl;
   const bf16* vb = (const bf16*)p.v + b * p.v_sb + hk * p.v_sh + (long long)c0 * p.v_sl;
   load_tile<D, ROWS>(kb, p.k_sl, nk, ks, p.vec, tid);
-  load_tile<D, ROWS>(vb, p.v_sl, nk, vs, p.vec, tid);
+  if constexpr (WANT_DK) load_tile<D, ROWS>(vb, p.v_sl, nk, vs, p.vec, tid);
   if (n_it > 0) issue(0, 0);
   repro::cp_async_commit();
   if (p.exp_mode != 2)
@@ -750,15 +796,19 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       ld_a<CH>(kf[kk], ks, wr0, kk, lane);
-      ld_a<CH>(vf[kk], vs, wr0, kk, lane);
+      if constexpr (WANT_DK) ld_a<CH>(vf[kk], vs, wr0, kk, lane);
     }
   }
 
-  float dk[NO][4], dv[NO][4];               // keys wr0 + g (+ 8), columns 8n + 2t (+ 1)
+  // keys wr0 + g (+ 8), columns 8n + 2t (+ 1)
+  float dk[WANT_DK ? NO : 1][4], dv[WANT_DV ? NO : 1][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (WANT_DK) dk[n][e] = 0.0f;
+      if constexpr (WANT_DV) dv[n][e] = 0.0f;
+    }
 
   for (int it = 0; it < n_it; ++it) {
     if (it > 0) {
@@ -784,8 +834,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
     const bool full = nq == BQ && kw0 + 15 < p.kv_len && (!p.causal || kw0 + 15 <= qpos0) &&
                       (p.window <= 0 || qpos0 + BQ - 1 - kw0 < p.window);
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: s[n][e] at key wr0 + g + 8(e / 2), query
-    // 8n + 2t + e % 2 of the step.
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (dK): s[n][e] at key wr0 + g + 8(e / 2),
+    // query 8n + 2t + e % 2 of the step.
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -796,24 +846,27 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
       uint32_t ka[4], va[4];
       if constexpr (!TL::OWN_REGS) {
         ld_a<CH>(ka, ks, wr0, kk, lane);
-        ld_a<CH>(va, vs, wr0, kk, lane);
+        if constexpr (WANT_DK) ld_a<CH>(va, vs, wr0, kk, lane);
       }
       const uint32_t* kx = TL::OWN_REGS ? kf[TL::OWN_REGS ? kk : 0] : ka;
       const uint32_t* vx = TL::OWN_REGS ? vf[TL::OWN_REGS ? kk : 0] : va;
 #pragma unroll
       for (int n2 = 0; n2 < NT / 2; ++n2) {
-        uint32_t bq[4], bg[4];
+        uint32_t bq[4];
         ld_b<CH>(bq, qt, n2, kk, lane);
-        ld_b<CH>(bg, gt, n2, kk, lane);
         repro::mma_bf16(s[2 * n2], kx, bq[0], bq[1]);
         repro::mma_bf16(s[2 * n2 + 1], kx, bq[2], bq[3]);
-        repro::mma_bf16(dp[2 * n2], vx, bg[0], bg[1]);
-        repro::mma_bf16(dp[2 * n2 + 1], vx, bg[2], bg[3]);
+        if constexpr (WANT_DK) {
+          uint32_t bg[4];
+          ld_b<CH>(bg, gt, n2, kk, lane);
+          repro::mma_bf16(dp[2 * n2], vx, bg[0], bg[1]);
+          repro::mma_bf16(dp[2 * n2 + 1], vx, bg[2], bg[3]);
+        }
       }
     }
 
-    // Pᵀ and dSᵀ; lse and δ are per column (query).
-    tile_grads_mode(
+    // Pᵀ and dSᵀ (Pᵀ alone in a dV block); lse and δ are per column (query).
+    tile_grads_mode<WANT_DK>(
         p, tab, full, s, dp,
         [&](int n, int e) { return lse_c[8 * n + 2 * t + (e & 1)]; },
         [&](int n, int e) { return delta_c[8 * n + 2 * t + (e & 1)]; },
@@ -824,14 +877,16 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const Params p) {
 
     // dV += Pᵀ·dO and dK += dSᵀ·Q: the C fragments of query tiles 2kk and
     // 2kk + 1 are the A fragment of query step kk.
-    split_product<BQ / 16, NO, CH>(dv, s, gt, lane);
-    split_product<BQ / 16, NO, CH>(dk, dp, qt, lane);
+    if constexpr (WANT_DV) split_product<BQ / 16, NO, CH>(dv, s, gt, lane);
+    if constexpr (WANT_DK) split_product<BQ / 16, NO, CH>(dk, dp, qt, lane);
   }
 
-  store_rows<D, NO>((bf16*)p.dk + b * p.dk_sb + hk * p.dk_sh + (long long)c0 * p.dk_sl,
-                    p.dk_sl, wr0, nk, dk, p.pair, lane);
-  store_rows<D, NO>((bf16*)p.dv + b * p.dv_sb + hk * p.dv_sh + (long long)c0 * p.dv_sl,
-                    p.dv_sl, wr0, nk, dv, p.pair, lane);
+  if constexpr (WANT_DK)
+    store_rows<D, NO>((bf16*)p.dk + b * p.dk_sb + hk * p.dk_sh + (long long)c0 * p.dk_sl,
+                      p.dk_sl, wr0, nk, dk, p.pair, lane);
+  if constexpr (WANT_DV)
+    store_rows<D, NO>((bf16*)p.dv + b * p.dv_sb + hk * p.dv_sh + (long long)c0 * p.dv_sl,
+                      p.dv_sl, wr0, nk, dv, p.pair, lane);
 }
 
 // --------------------------------------------------------------- dQ pass --
@@ -950,7 +1005,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
     }
 
     // P and dS; lse and δ are per row.
-    tile_grads_mode(
+    tile_grads_mode<true>(
         p, tab, full, s, dp, [&](int, int e) { return lse_r[e >> 1]; },
         [&](int, int e) { return delta_r[e >> 1]; },
         [&](int n, int e) {
@@ -963,6 +1018,17 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
 
   store_rows<D, NO>((bf16*)p.dq + b * p.dq_sb + h * p.dq_sh + (long long)q0 * p.dq_sl,
                     p.dq_sl, wr0, nq, dq, p.pair, lane);
+}
+
+// One dK/dV launch of the given part over (batch · kv head, key tile).
+template <int D, int PART>
+cudaError_t launch_dkdv(const Params& p, int batch, int k_tiles, cudaStream_t stream) {
+  constexpr int smem = Tile<D>::template dkdv_smem<PART>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      dkdv_kernel<D, PART>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<D, PART><<<dim3(batch * p.hkv, k_tiles), THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -981,18 +1047,19 @@ int launch(Params p, int batch, cudaStream_t stream) {
   for (long long s : out_strides) pair = pair && s % 2 == 0;
   p.pair = pair;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::DKDV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             TL::DQ_SMEM);
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int k_tiles = (p.lkv + ROWS - 1) / ROWS, q_tiles = (p.lq + ROWS - 1) / ROWS;
   if (k_tiles > 65535 || q_tiles > 65535) return (int)cudaErrorInvalidValue;
   const int rc = launch_delta<bf16>(p, batch, stream);
   if (rc != 0) return rc;
   if (k_tiles > 0) {
-    dkdv_kernel<D><<<dim3(batch * p.hkv, k_tiles), THREADS, TL::DKDV_SMEM, stream>>>(p);
-    err = cudaGetLastError();
+    if constexpr (TL::SPLIT) {
+      err = launch_dkdv<D, DK>(p, batch, k_tiles, stream);
+      if (err == cudaSuccess) err = launch_dkdv<D, DV>(p, batch, k_tiles, stream);
+    } else {
+      err = launch_dkdv<D, BOTH>(p, batch, k_tiles, stream);
+    }
     if (err != cudaSuccess) return (int)err;
   }
   dq_kernel<D><<<dim3(batch * p.hq, q_tiles), THREADS, TL::DQ_SMEM, stream>>>(p);
@@ -1007,7 +1074,7 @@ extern "C" {
 
 // dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the tensor-core
 // kernels); q, k, v, out, dout, dq, dk, dv alike.  lse and delta f32
-// (B, Hq, Lq) contiguous.  Strides are in elements.  Head dims 8–128.
+// (B, Hq, Lq) contiguous.  Strides are in elements.  Head dims 8–256.
 // Returns a cudaError_t code.
 int streaming_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* lse,
@@ -1065,6 +1132,7 @@ int streaming_attention_bwd_launch(
       case 32: return cuda_core::launch<32>(p, batch, s);
       case 64: return cuda_core::launch<64>(p, batch, s);
       case 128: return cuda_core::launch<128>(p, batch, s);
+      case 256: return cuda_core::launch<256>(p, batch, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1075,6 +1143,7 @@ int streaming_attention_bwd_launch(
       case 32: return tensor_core::launch<32>(p, batch, s);
       case 64: return tensor_core::launch<64>(p, batch, s);
       case 128: return tensor_core::launch<128>(p, batch, s);
+      case 256: return tensor_core::launch<256>(p, batch, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

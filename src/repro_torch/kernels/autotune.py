@@ -267,7 +267,9 @@ def _replay_s(run, device: torch.device, iters: int) -> float:
 
 def measure_step_s(config: KernelConfig, geom: KernelGeom,
                    workloads: Dict[str, Workload], *, device="cuda",
-                   iters: int = 3, weights: Weights = None) -> float:
+                   iters: int = 3, weights: Weights = None,
+                   steps: Optional[Dict[str, Tuple[tuple, dict]]] = None
+                   ) -> float:
     """Time the real call on a synthetic pool built from the workloads
     (``synthetic_step``), summed over the workloads, each times its weight.
 
@@ -279,15 +281,18 @@ def measure_step_s(config: KernelConfig, geom: KernelGeom,
     ``device="cpu"`` it is the plain version, timed with the host clock.
     Each workload counts with its *minimum* over ``iters`` repetitions —
     the noise-robust microbenchmark estimator (scheduler hiccups only ever
-    add time)."""
+    add time).  ``steps`` holds each workload's ``synthetic_step`` built
+    once on the device, so that a sweep draws its pools once, not once per
+    candidate."""
     from repro_torch.kernels.paged_attention.varlen import (
         paged_attention_varlen, varlen_layout)
     dev = resolve_device(device)
     w = weights or {}
     total = 0.0
     for name, segments in workloads.items():
-        args, kw = synthetic_step(segments, geom, dev)
-        kw.update(config_kwargs(config))
+        args, kw = (steps or {}).get(name) or synthetic_step(segments, geom,
+                                                              dev)
+        kw = dict(kw, **config_kwargs(config))
         kw["layout"] = varlen_layout(kw["cu_seqlens"], args[4],
                                      args[0].shape[0], config.block_q, dev)
         run = lambda: paged_attention_varlen(*args, **kw)  # noqa: E731
@@ -341,10 +346,13 @@ def tune(geom: KernelGeom, *, platform: str = "cuda",
     order = sorted(range(len(cands)), key=lambda i: report[i]["predicted_s"])
     if measure:
         finalists = order[:max(1, top_k_measure)]
+        dev = resolve_device(platform)
+        steps = {name: synthetic_step(seg, geom, dev)
+                 for name, seg in wl.items()}
         for i in finalists:
             report[i]["measured_s"] = measure_step_s(
                 cands[i], geom, wl, device=platform, iters=iters,
-                weights=weights)
+                weights=weights, steps=steps)
         best = min(finalists, key=lambda i: report[i]["measured_s"])
     else:
         best = order[0]

@@ -23,12 +23,12 @@ asks the kernel for the f32 per-row logsumexp too, and saves q, k, v, out
 and lse — nothing of size Lq × Lkv; its backward is the hand-written
 backward kernel (``csrc/streaming_attention_bwd.cu``, the reference's
 ``_bwd``: δ, dK/dV, dQ, no atomics) through ``streaming_attention_bwd``,
-counted in ``streaming_attention_bwd.launches`` (one per backward call,
-three kernels) and ``.launches_by_variant`` (``BWD_VARIANTS``: bf16 on
-the tensor cores, f32 on the CUDA cores, as the forward).  On the
-CPU the same Function runs the plain forward and backward of ``ref.py``.
-The backward kernel takes head dims up to 128: a call at 256 that needs a
-gradient raises ``NotImplementedError`` before its forward.
+counted in ``streaming_attention_bwd.launches`` (one per backward call
+of three kernels, four for bf16 at head dim 256, where dV and dK are
+launched apart) and ``.launches_by_variant`` (``BWD_VARIANTS``: bf16 on
+the tensor cores, f32 on the CUDA cores, as the forward), at every head
+dim the forward takes (``BWD_HEAD_DIMS``).  On the CPU the same Function
+runs the plain forward and backward of ``ref.py``.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 _EXP_MODES = {"lut": 0, "lut0": 1, "exact": 2}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (8, 16, 32, 64, 128)   # the backward kernel's
+BWD_HEAD_DIMS = HEAD_DIMS   # the backward kernel's
 # dtype → the backward kernels the C entry point launches for it
 BWD_VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 BLOCK_K = 64          # key rows per kv tile (the kernel's online-softmax step)
@@ -217,22 +217,11 @@ def _launch_bwd(q, k, v, out, lse, dout, *, scale, causal, window, cap,
     return dq, dk, dv
 
 
-def _check_bwd_head_dim(d: int) -> None:
-    """Raise where the backward kernel does not reach: head dim 256."""
-    if d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"streaming_attention: the backward kernel takes head dims "
-            f"{BWD_HEAD_DIMS}, not {d}; training at head dim 256 (gemma2, "
-            f"gemma3) comes with a later slice of the PyTorch port "
-            f"(ROADMAP.md)")
-
-
 def _check_bwd(q, k, v, out, lse, dout, kw):
     """The backward kernel's checks → (out, dout) with a contiguous head
     dim."""
     _check_cuda(q, k, v, kw["cap"], kw["window"], kw["exp_mode"],
                 kw["q_offset"], kw["kv_len"])
-    _check_bwd_head_dim(q.shape[-1])
     for name, t, dt in (("out", out, q.dtype), ("dout", dout, q.dtype),
                         ("lse", lse, torch.float32)):
         if t.device != q.device or t.dtype != dt:
@@ -341,7 +330,6 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"streaming_attention: unsupported device {q.device}")
     _check_cuda(q, k, v, cap, window, exp_mode, q_offset, kv_len)
     if grad:
-        _check_bwd_head_dim(q.shape[-1])
         return _Attention.apply(q, k, v, kw)
     return _launch(q, k, v, **kw)
 

@@ -49,6 +49,14 @@ from tests.test_kernels import ATTN_CASES  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 MODES = ("lut", "lut0", "exact")
+# Head dim 256 (gemma2, gemma3), GQA 2:1: causal with gemma2's softcap 50,
+# causal with a window that bites, and q_offset with kv_len.
+D256_CASES = [
+    dict(b=1, hq=4, hkv=2, lq=40, lkv=40, d=256, causal=True, cap=50.0),
+    dict(b=1, hq=4, hkv=2, lq=48, lkv=48, d=256, causal=True, window=12),
+    dict(b=1, hq=4, hkv=2, lq=24, lkv=64, d=256, causal=True, q_offset=33,
+         kv_len=50),
+]
 
 
 def inputs(case, exp_mode, seed=0):
@@ -114,6 +122,27 @@ def test_attention_grads_match_jax(case, exp_mode):
     for name, got, want in zip(
             "qkv", torch_grads(arrays, kw, "pallas"), want_pallas):
         hold(got, want, exp_mode, f"pallas d{name}")
+
+
+@pytest.mark.parametrize("exp_mode", MODES)
+@pytest.mark.parametrize("case", D256_CASES)
+def test_plain_backward_at_head_dim_256_matches_jax(case, exp_mode):
+    """At head dim 256 the port's plain backward (the ``pallas`` backend's
+    CPU path: ``attention_lse_ref`` then ``attention_bwd_ref``, what the
+    card's backward kernel is held to) against ``jax.grad`` of the
+    reference's ``pallas`` backend (its custom VJP, ``_bwd``), at the
+    module's tolerance and ``lut0`` rule."""
+    arrays, kw = inputs(case, exp_mode)
+
+    def pallas(q, k, v, w):
+        return jax.grad(lambda a, b_, c: jnp.sum(j_api.attention(
+            a, b_, c, backend="pallas", **kw) * w), argnums=(0, 1, 2))(
+                q, k, v)
+    want = [np.asarray(g) for g in jax.jit(pallas)(*map(jnp.asarray,
+                                                         arrays))]
+    for name, got, e in zip("qkv", torch_grads(arrays, kw, "pallas"), want):
+        assert got.shape == e.shape, name
+        hold(got, e, exp_mode, f"pallas d{name}")
 
 
 def test_lut0_gradient_is_not_the_lut_derivative():
@@ -195,14 +224,17 @@ def tensor_core_grads(q, k, v, w, kw):
             for t in (dq, dk.sum(2), dv.sum(2))]
 
 
-@pytest.mark.parametrize("case", [c for c in ATTN_CASES if c["d"] <= 128])
+@pytest.mark.parametrize("case", ATTN_CASES + D256_CASES)
 def test_tensor_core_backward_arithmetic_holds_jax(case):
     """The bf16 backward kernel's arithmetic, emulated in torch (P and dS
     split into bf16 hi + lo before their products, every output rounded
     once to bf16), against ``jax.grad`` of the reference's ``pallas``
     backend on the same bf16-rounded inputs in f32: within 2^-7 of the
-    largest gradient (one bf16 ulp), the card checks' ``BWD_TOL``.  One
-    intra-op thread; ~8 s alone for the seven cases."""
+    largest gradient (one bf16 ulp), the card checks' ``BWD_TOL``.  At head
+    dim 256 the kernel computes dV and dK in blocks of their own; each
+    recomputes Sᵀ from the same exact products in the same k-step order,
+    so P is the same in both and the arithmetic is the one emulated here.
+    One intra-op thread; ~8 s alone for the seven cases."""
     arrays, kw = inputs(case, case.get("exp_mode", "lut"))
     arrays = [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
               for a in arrays]

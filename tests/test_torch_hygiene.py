@@ -417,18 +417,45 @@ def test_streaming_attention_no_grad_takes_the_plain_launch(monkeypatch):
     assert calls == [("fwd", False)] and out.grad_fn is None
 
 
-def test_streaming_attention_grad_at_head_dim_256_raises(monkeypatch):
-    """The backward kernel stops at head dim 128: a call at 256 that needs
-    a gradient raises before its forward and names the later slice."""
+def test_streaming_attention_grad_at_head_dim_256_reaches_the_backward_launch(
+        monkeypatch):
+    """The backward kernel takes head dim 256 (gemma2, gemma3): a backward
+    call there passes its checks and reaches the backward launch, and under
+    autograd the forward is asked for lse and the backward launched; no
+    CUDA tensor takes the plain backward.  A head dim the kernels lack
+    still raises before any launch."""
     calls = _stub_launches(monkeypatch)
-    q = _fake(torch.zeros((1, 2, 5, 256), dtype=torch.bfloat16)
-              ).requires_grad_()
-    with pytest.raises(NotImplementedError, match="head dim 256"):
-        sa_ops.streaming_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sa_ops.streaming_attention_bwd(q, q, q, q, torch.zeros(1, 2, 5),
-                                       q, scale=1.0)
-    assert calls == []
+    _forbid(monkeypatch, sa_ops, "attention_bwd_ref")
+    assert 256 in sa_ops.BWD_HEAD_DIMS
+
+    def bf16(*shape):
+        return _fake(torch.zeros(shape, dtype=torch.bfloat16))
+    q, k, lse = bf16(1, 4, 5, 256), bf16(1, 2, 7, 256), _fake(
+        torch.zeros((1, 4, 5)))
+    dq, dk, dv = sa_ops.streaming_attention_bwd(q, k, k, q, lse, q,
+                                                scale=0.0625, causal=True)
+    assert calls == [("bwd", (1, 4, 5))]
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    for d in (24, 512):
+        x = bf16(1, 2, 5, d).requires_grad_()
+        with pytest.raises((ValueError, NotImplementedError),
+                           match=f"head dim {d}|not {d}"):
+            sa_ops.streaming_attention(x, x, x)
+        with pytest.raises((ValueError, NotImplementedError),
+                           match=f"head dim {d}|not {d}"):
+            sa_ops.streaming_attention_bwd(x, x, x, x, _fake(
+                torch.zeros((1, 2, 5))), x, scale=1.0)
+    assert len(calls) == 1
+    # the gradient autograd hands in is a CPU tensor here, which the
+    # backward's device checks refuse: they ran in the call above
+    monkeypatch.setattr(sa_ops, "_check_bwd",
+                        lambda q, k, v, out, lse, dout, kw: (out, dout))
+    qg, kg = bf16(1, 4, 5, 256).requires_grad_(), bf16(
+        1, 2, 7, 256).requires_grad_()
+    out = sa_ops.streaming_attention(qg, kg, kg, causal=True, cap=50.0)
+    gq, gk = torch.autograd.grad(out.sum(), (qg, kg))
+    assert calls[1:] == [("fwd", True), ("bwd", (1, 4, 5))]
+    assert gq.shape == qg.shape and gk.shape == kg.shape
 
 
 def test_backward_kernel_raises_without_toolchain(no_toolchain, monkeypatch):

@@ -1757,7 +1757,7 @@ def test_vlm_and_encdec_prefill_launch_counts(cuda_device):
 
 # ------------------------------------------------ #3's backward kernel --
 
-BWD_CASES = [c for c in SA_CASES if c["d"] <= 128] + [
+BWD_CASES = SA_CASES + [
     # the order-0 LUT: integer q and k, whose logits are exact on both
     # sides (an ulp of s on a table boundary moves p by a table step)
     dict(b=1, hq=4, hkv=2, lq=96, lkv=96, d=64, causal=True,
@@ -1767,6 +1767,13 @@ BWD_CASES = [c for c in SA_CASES if c["d"] <= 128] + [
     # D 64 with q_offset and kv_len
     dict(b=2, hq=4, hkv=4, lq=50, lkv=180, d=64, causal=True, q_offset=110,
          kv_len=157),
+    # D 256 (gemma2, gemma3; SA_CASES hold a window with cap 50 and a
+    # q_offset + kv_len case): GQA 2:1 with cap 50 on ragged Lq and Lkv,
+    # a causal window that bites, and the order-0 LUT on integer q and k
+    dict(b=1, hq=4, hkv=2, lq=83, lkv=141, d=256, causal=False, cap=50.0),
+    dict(b=2, hq=4, hkv=2, lq=200, lkv=200, d=256, causal=True, window=64),
+    dict(b=1, hq=4, hkv=2, lq=96, lkv=96, d=256, causal=True,
+         exp_mode="lut0", integers=True),
 ]
 
 
@@ -1819,7 +1826,7 @@ def test_streaming_attention_backward_matches_plain(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_streaming_attention_backward_is_deterministic(cuda_device, dtype, d):
     """No atomics: two backward calls give the same bits."""
     from repro_torch.kernels.streaming_attention.ops import (
@@ -1855,11 +1862,27 @@ def test_streaming_attention_backward_counts_its_variant(cuda_device, dtype,
 
 
 @pytest.mark.cuda
-def test_streaming_attention_backward_refuses_head_dim_256(cuda_device):
-    q = torch.zeros((1, 2, 8, 256), device=cuda_device, dtype=torch.bfloat16,
-                    requires_grad=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        streaming_attention(q, q, q)
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
+                                           (torch.float32, "cuda_core")])
+def test_streaming_attention_backward_launches_at_head_dim_256(cuda_device,
+                                                              dtype, variant):
+    """A gradient at head dim 256 (gemma2, gemma3) launches the backward
+    kernel of its dtype, once, with finite gradients of the inputs'
+    shapes."""
+    from repro_torch.kernels.streaming_attention.ops import (
+        streaming_attention_bwd)
+    case = dict(b=1, hq=4, hkv=2, lq=40, lkv=40, d=256, causal=True)
+    q, k, v, dout, kw = bwd_case(case, cuda_device, dtype)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    before = dict(streaming_attention_bwd.launches_by_variant)
+    got = torch.autograd.grad(streaming_attention(qs, ks, vs, **kw),
+                              (qs, ks, vs), dout)
+    torch.cuda.synchronize()
+    after = streaming_attention_bwd.launches_by_variant
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == variant) for n in ("tensor_core", "cuda_core")}
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape and bool(torch.isfinite(g).all())
 
 
 @pytest.mark.cuda

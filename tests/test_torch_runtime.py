@@ -15,6 +15,7 @@ auto-resume, unrecoverable without a checkpoint, the straggler log,
 compressed gradients learn, error feedback accumulates; the CLI; the
 refusals.  One intra-op thread; ~15 s alone."""
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -49,28 +50,76 @@ def mk_trainer(tmp_path, cfg=None, **kw):
     return Trainer(cfg, dcfg, TrainConfig(**base), device="cpu")
 
 
-def test_trainer_matches_reference_from_its_checkpoint(tmp_path):
+# The twin's configurations (overrides on both sides, whether the port runs
+# free from step 0, rtol): deepseek-7b-smoke, and the two families that
+# train at head dim 256 on the card — gemma2-9b-smoke widened to it
+# (softcaps 50 and 30, GQA 2:1, tied embeddings, post-block norms; its
+# window of 8 bites at 24 tokens) and gemma3-12b-smoke (QK-norm, two RoPE
+# thetas, one whole 5 local : 1 global period twice).  gemma3-12b-smoke's
+# f32 gradients are the least accurate: each package's sits a median
+# 2.2e-5 (per leaf, over the leaf's largest element) from the reference's
+# float64 gradient at step 0, the port's and the reference's alike, and
+# step 3's gradient norms are 1.1e-5 apart from the same state; it is
+# held at 2e-5, the others at 1e-5.
+TWINS = {"deepseek-7b-smoke": ({}, True, 1e-5),
+         "gemma2-9b-smoke": (dict(head_dim=256), False, 1e-5),
+         "gemma3-12b-smoke": ({}, False, 2e-5)}
+
+
+@pytest.mark.parametrize("arch", list(TWINS))
+def test_trainer_matches_reference_from_its_checkpoint(tmp_path, arch):
+    """The port's ``Trainer`` against the reference's over 4 f32 steps
+    (module docstring).  deepseek-7b-smoke: the port resumes the
+    reference's step-0 checkpoint and runs free beside it.  The gemmas:
+    each step starts from the reference's checkpoint of that step.  Their
+    free runs part by more than 1e-5 after the second update because
+    AdamW's first moves turn f32 noise into whole steps: a few gradient
+    elements of ~1e-7 (the largest ~1e-2) come out with opposite signs in
+    the two frameworks (the port's nearer a float64 gradient), and each
+    moves its weight by about ±lr (measured, gemma3-12b-smoke: step 3's
+    loss 6.8e-5 apart, its gradient norm 7.1e-3).  Alone, one intra-op
+    thread: deepseek-7b-smoke ~9 s, gemma2-9b-smoke ~8 s,
+    gemma3-12b-smoke ~16 s."""
+    over, free, rtol = TWINS[arch]
     kw = dict(steps=4, ckpt_dir=str(tmp_path), ckpt_every=100, lr=5e-3,
               warmup=2)
-    jcfg = j_get_config(ARCH).replace(dtype="float32")
+    jcfg = j_get_config(arch).replace(dtype="float32", **over)
     jtr = JTrainer(jcfg, JDataConfig(vocab_size=jcfg.vocab_size, seq_len=24,
-                                     global_batch=4), JTrainConfig(**kw))
+                                     global_batch=4),
+                   JTrainConfig(**kw) if free else JTrainConfig(
+                       **dict(kw, ckpt_every=1, keep_ckpts=5)))
     jtr.init()
     jtr.save()
     jtr.ckpt.wait()
-    ttr = mk_trainer(tmp_path, get_config(ARCH).replace(dtype="float32"),
-                     **{k: v for k, v in kw.items() if k != "ckpt_dir"})
-    got = ttr.run()                              # auto-resumes step 0
-    want = jtr.run()
+    tcfg = get_config(arch).replace(dtype="float32", **over)
+    tkw = {k: v for k, v in kw.items() if k != "ckpt_dir"}
+    if free:
+        ttr = mk_trainer(tmp_path, tcfg, **tkw)
+        got = ttr.run()                          # auto-resumes step 0
+        want = jtr.run()
+    else:
+        want = jtr.run()                         # a checkpoint every step
+        jtr.ckpt.wait()
+        got = []
+        for step in range(4):                # each from a copy of its state
+            name = f"step_{step:08d}"
+            shutil.copytree(tmp_path / name, tmp_path / f"port{step}" / name)
+            ttr = mk_trainer(tmp_path / f"port{step}", tcfg, **tkw)
+            ttr.restore(step=step)
+            got += ttr.run(num_steps=1)      # ... and writes step + 1 there
     assert [m["step"] for m in got] == [m["step"] for m in want] == [0, 1, 2, 3]
     for key in ("loss", "lr", "grad_norm"):
         np.testing.assert_allclose([m[key] for m in got],
-                                   [m[key] for m in want], rtol=1e-5,
+                                   [m[key] for m in want], rtol=rtol,
                                    err_msg=key)
     # the port wrote step 4 last (after the reference's own step 4): the
     # reference restores it onto its tree
     ttr.save()
     ttr.ckpt.wait()
+    if not free:
+        shutil.rmtree(tmp_path / "step_00000004")
+        shutil.copytree(tmp_path / "port3" / "step_00000004",
+                        tmp_path / "step_00000004")
     jtr.restore(step=4)
     assert jtr.step == 4
     np.testing.assert_allclose(
