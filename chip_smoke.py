@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    counts;
 3. hold the LUT-exp kernel bit-equal to its plain version (the reference
    sweep shapes and edge values, orders 0/1, f32/bf16, and an unaligned
-   view);
+   view), and its backward kernel bit-equal to the plain backward
+   (``lut_exp_bwd_ref``) at phase 16's training shapes (``LUT_BWD_SHAPES``:
+   granite-moe's router, falcon-mamba's chunk Ā, zamba2's four Mamba-2
+   exponentials) and on an edge vector (±inf, NaN, the underflow cut, a
+   run in [-87, -70] with small gradients), f32 and bf16, aligned and
+   not; order 0 gives zeros without a launch;
 4. hold the paged-attention kernel (split pass + combine) to its plain
    version cut into the same splits, at full-width shapes (32 heads of 128,
    page size 16, ~1000 pages, 8 lanes with 37 to ~2000 live rows, shuffled
@@ -314,6 +319,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    its plain version, SDPA's forward plus backward where no softcap rules
    it out (a window or a q_offset through a mask; as a caller sees it,
    and its kernels' device time alone from the profiler) and its bound;
+   and then, through #1's backward kernel (``TRAIN_LUT_MODELS``),
+   granite-moe-3b-a800m at full depth (8 × 512; the router on #1 every
+   layer), zamba2-1.2b at full depth (4 × 512; Mamba-2's decays on #1, the
+   shared block on #3) and falcon-mamba-7b cut to 2 of 64 layers (2 ×
+   512; Mamba-1's chunk Ā on #1), 4 steps, bf16 moments, no checkpoint:
+   #1's forward and backward launches = the formula per step
+   (``lut_launches_per_step``: zamba2's backward skips the last chunk's two
+   state exponentials, which no loss reads), #3's = the attention calls;
+   step 0
+   against a run whose #1 is its plain version under autograd (the loss
+   bit for bit, the gradient norm within ``max(3 × the spread of two
+   plain runs, 1e-5)``); #1's backward timed at ``LUT_BWD_SHAPES`` (as a
+   caller sees it, device alone, host per call) beside the plain backward,
+   ``g · exp(x)`` (the exact exponential's backward, a yardstick) and its
+   bound;
 17. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -732,6 +752,62 @@ def phase_lut_exp():
                  f"LUT on x <= 0")
     log(f"[lut_exp] lut_exp_nonpos (the tensor-core attention kernel's form) "
         f"bit-equal to the plain version on {x.size} values x <= 0, orders 0/1")
+
+
+def phase_lut_exp_bwd():
+    """#1's backward kernel against its plain backward (``lut_exp_bwd_ref``
+    on the card) bit for bit, at ``LUT_BWD_SHAPES`` and on the edge vector
+    (aligned and one element off the 16-byte grid), f32 and bf16: one
+    launch at order 1; order 0 zeros and no launch → per case, max|Δ|."""
+    import torch
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.kernels.lut_exp.ops import lut_exp_bwd
+    from repro_torch.kernels.lut_exp.ref import lut_exp_bwd_ref
+    gen = torch.Generator(device=DEV).manual_seed(41)
+    cases = [(label, torch.rand(shape, device=DEV, generator=gen) * -hi,
+              torch.randn(shape, device=DEV, generator=gen))
+             for label, shape, hi in LUT_BWD_SHAPES]
+    # the edges, then a run in [-87, -70] whose gradient is 1e-3 × N(0, 1),
+    # so g·A and g·A·ln2/K are subnormal there
+    rng = np.random.default_rng(43)
+    x = np.concatenate([np.float32(LUT_BWD_EDGES),
+                        rng.uniform(-87, -70, 4099)]).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    g[len(LUT_BWD_EDGES):] *= np.float32(1e-3)
+    x, g = torch.from_numpy(x).to(DEV), torch.from_numpy(g).to(DEV)
+    cases += [("edges + [-87, -70] run", x, g),
+              ("edges + run, unaligned", x, g)]
+    out = {}
+    for label, x32, g32 in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dt), g32.to(dt)
+            if label.endswith("unaligned"):           # one element a thread
+                x, g = x[1:], g[1:]
+            before = lut_exp.bwd_launches
+            got = lut_exp_bwd(x, g)
+            zero = lut_exp_bwd(x, g, order=0)
+            want = lut_exp_bwd_ref(x, g)
+            torch.cuda.synchronize()
+            launched = lut_exp.bwd_launches - before
+            if launched != 1 or zero.any():
+                fail(f"lut_exp_bwd {label} {dt}: {launched} launches, order "
+                     f"0 nonzero: {bool(zero.any())}")
+            if not bits_equal(got, want):
+                bad = int((got.float() != want.float()).sum())
+                fail(f"lut_exp_bwd {label} {dt}: not bit-equal to the plain "
+                     f"backward ({bad} values differ)")
+            err = float((got.float() - want.float()).abs().nan_to_num().max())
+            out[f"{label} {str(dt)[6:]}"] = dict(max_abs_err=err,
+                                                 values=x.numel())
+            del x, g, got, zero, want
+        del x32, g32
+    del cases
+    torch.cuda.empty_cache()
+    log(f"[lut_exp backward] bit-equal to the plain backward in "
+        f"{len(out)} cases (f32 and bf16 at {len(LUT_BWD_SHAPES)} training "
+        f"shapes and the edge vector, aligned and not), one launch each at "
+        f"order 1, zeros and none at order 0")
+    return out
 
 
 def make_stream(spec, *, hq=None, hkv=None, d=None, ps=None, n_pages=None,
@@ -1387,9 +1463,12 @@ def phase_bert():
 
 
 def bits_equal(a, b) -> bool:
+    """Equal shapes, dtypes and bits (f32 through int32, bf16 through
+    int16)."""
     import torch
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.view(torch.int32), b.view(torch.int32))
+        a.view(view), b.view(view))
 
 
 # (leading dims, K, N, x dtype): the reference kernel suite's shapes, its
@@ -1981,6 +2060,7 @@ def step_kind_indices(kinds):
 
 KERNEL_GROUPS = (("paged_attention_kernel", "paged split pass"),
                  ("paged_combine", "paged combine"),
+                 ("lut_exp_bwd_kernel", "#1 backward"),
                  ("lut_exp_kernel", "#1 lut_exp"),
                  ("dkdv_kernel", "#3 backward"), ("dq_kernel", "#3 backward"),
                  ("delta_kernel", "#3 backward"),
@@ -3816,6 +3896,7 @@ def phase_timing(engine_facts, vocab):
     kernels.append(time_streaming(flush, engine_facts))
     kernels.append(time_int8(flush, engine_facts["int8_bert"]))
     kernels.append(time_quantize(flush, engine_facts["int8_bert"]))
+    kernels.append(time_lut_exp_bwd(flush, engine_facts["lut_exp_bwd"]))
     return kernels
 
 
@@ -3841,6 +3922,65 @@ def lut_exp_entry(x, flush):
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=med["library_ms"])
+
+
+def time_lut_exp_bwd(flush, checks):
+    """#1's backward kernel at ``LUT_BWD_SHAPES`` (f32): as a caller sees
+    it, device alone and host per call, beside the plain backward and
+    ``torch.mul(g, eˣ)`` — what autograd launches for ``torch.exp``'s
+    backward, a yardstick (the exact exponential's derivative, not the
+    same function; no PyTorch call computes this one: ``library_ms`` is
+    null).  Bound: x and g read once, gx written once (12 bytes a value)
+    against 9 f32 operations a value → the kernels-line entry (its
+    launches are phase 16's, set by ``main``)."""
+    import torch
+    from repro_torch.kernels.lut_exp.ops import lut_exp_bwd
+    from repro_torch.kernels.lut_exp.ref import lut_exp_bwd_ref
+    gen = torch.Generator(device=DEV).manual_seed(47)
+    shapes = {}
+    for label, shape, hi in LUT_BWD_SHAPES:
+        x = torch.rand(shape, device=DEV, generator=gen) * -hi
+        g = torch.randn(shape, device=DEV, generator=gen)
+        ex = torch.exp(x)
+        med = interleaved_ms({
+            "ms": lambda: cuda_ms(lambda: lut_exp_bwd(x, g), flush=flush),
+            "device_ms": lambda: cuda_ms(lambda: lut_exp_bwd(x, g),
+                                         flush=flush, spin=True),
+            "yardstick_ms": lambda: cuda_ms(lambda: torch.mul(g, ex),
+                                            flush=flush)})
+        t_bytes = 12.0 * x.numel() / HBM_BYTES_PER_S * 1e3
+        t_ops = 9.0 * x.numel() / PEAK_FLOPS["float32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        e = dict(ms=med["ms"], device_ms=med["device_ms"],
+                 host_ms=host_ms(lambda: lut_exp_bwd(x, g)),
+                 plain_ms=cuda_ms(lambda: lut_exp_bwd_ref(x, g), iters=5,
+                                  flush=flush),
+                 bound_ms=bound,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_share=bound / med["ms"],
+                 yardstick_ms=med["yardstick_ms"],
+                 mbytes=12.0 * x.numel() / 1e6, shape=f"{shape} f32")
+        shapes[label] = e
+        log(f"[time] lut_exp_bwd at {label}: kernel {e['ms']:.4f} ms, device "
+            f"alone {e['device_ms']:.4f} ms, host per call "
+            f"{e['host_ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, g·exp(x) "
+            f"(torch.exp's backward, a yardstick) {e['yardstick_ms']:.4f} "
+            f"ms, bound {bound:.4f} ms ({e['mbytes']:.1f} MB; the kernel at "
+            f"{100 * e['bound_share']:.1f}% of it); {CARD[0]}")
+        del x, g, ex
+    torch.cuda.empty_cache()
+    head = shapes[LUT_BWD_SHAPES[1][0]]       # falcon's chunk Ā, the largest
+    return dict(
+        name="lut_exp_bwd", route="cuda", source="src/repro_torch/csrc/lut_exp.cu",
+        replaces="src/repro/core/lut_exp.py:79 (no Pallas site: jax.grad "
+                 "through the jnp LUT of the TPU kernel "
+                 "src/repro/kernels/lut_exp/kernel.py:95)",
+        launches=0, max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None, yardstick_ms=head["yardstick_ms"],
+        yardstick="torch.mul(g, exp(x)): torch.exp's backward (exact exp, "
+                  "not the same function)",
+        shape=head["shape"], shapes=shapes)
 
 
 def time_int8(flush, facts):
@@ -5541,10 +5681,46 @@ def phase_encdec():
 # reference's ``moment_dtype`` option) and 6 steps (2 checkpoints) keep
 # the script's disk writes near 30 GB; the gemmas (10–14 GB a checkpoint)
 # take none, recovery being held on the first two.
+#
+# Then the families that train through #1's backward kernel, 4 steps,
+# bf16 moments, no checkpoint (recovery is held on the first two):
+# granite-moe-3b-a800m at full
+# depth, 8 × 512 (~26 GB of state with bf16 moments, ~90 KB a token a
+# layer of saved activations); zamba2-1.2b at full depth, **4 × 512**
+# (its Mamba-2 chunks save ~450 KB a token a layer, measured on the CPU
+# at its width: ~70 GB at 8 × 512); falcon-mamba-7b **cut to 2 of 64
+# layers** (~14.6 GB of bf16 weights whole, 4× with moments and
+# gradients) at **2 × 512** (its chunk Ā is 512 KB a token a layer in
+# f32, ~5.2 MB with the log-depth scan's intermediates).
 TRAIN_MODELS = (("bert-large", None, 8, "float32", (8, 512), True),
                 ("deepseek-7b", 4, 6, "bfloat16", (8, 512), True),
                 ("gemma2-9b", 4, 4, "bfloat16", (8, 512), False),
-                ("gemma3-12b", 6, 4, "bfloat16", (2, 2048), False))
+                ("gemma3-12b", 6, 4, "bfloat16", (2, 2048), False),
+                ("granite-moe-3b-a800m", None, 4, "bfloat16", (8, 512),
+                 False),
+                ("zamba2-1.2b", None, 4, "bfloat16", (4, 512), False),
+                ("falcon-mamba-7b", 2, 4, "bfloat16", (2, 512), False))
+# The models whose step 0 is held against #1's plain version under
+# autograd (``step0_plain_lut``) instead of the plain attention
+TRAIN_LUT_MODELS = ("granite-moe-3b-a800m", "zamba2-1.2b", "falcon-mamba-7b")
+TRAIN_LUT_FLOOR = 1e-5
+# #1's backward at phase 16's training shapes, f32 as the models call it
+# (label, shape, inputs drawn in [-hi, 0]): granite-moe's router softmax
+# (8 · 512 tokens × 40 experts), falcon-mamba's chunk Ā (B 2, 128 rows,
+# d_inner 8192, state 16) and zamba2's four Mamba-2 exponentials a chunk
+# (B 4, 64 heads, chunk 128): the intra-chunk decay, exp(s_cum) and the
+# tail, exp(s_end)
+LUT_BWD_SHAPES = (
+    ("granite-moe router (8·512, 40)", (8 * 512, 40), 16.0),
+    ("falcon-mamba chunk Ā (2, 128, 8192, 16)", (2, 128, 8192, 16), 16.0),
+    ("zamba2 intra-chunk decay (4, 64, 128, 128)", (4, 64, 128, 128), 60.0),
+    ("zamba2 exp(s_cum) / tail (4, 128, 64)", (4, 128, 64), 60.0),
+    ("zamba2 exp(s_end) (4, 64)", (4, 64), 60.0))
+# The backward's edges: the underflow cut and both sides of it, 0, a large
+# input, the non-finite ones (a run in [-87, -70] with small gradients
+# follows them)
+LUT_BWD_EDGES = (-1e30, -87.0, -86.99, 0.0, 88.0, float("inf"),
+                 float("-inf"), float("nan"))
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, (4,)
 # Step 0 with the plain attention on the card (the scan's custom VJP) at
 # two blockings: the kernel's loss and gradient norm must sit within 3×
@@ -5596,6 +5772,7 @@ def reset_training_counts():
     for v in streaming_attention_bwd.launches_by_variant:
         streaming_attention_bwd.launches_by_variant[v] = 0
     lut_exp.launches = 0
+    lut_exp.bwd_launches = 0
 
 
 def read_training_counts():
@@ -5606,7 +5783,35 @@ def read_training_counts():
                 fwd_by_variant=dict(streaming_attention.launches_by_variant),
                 bwd=streaming_attention_bwd.launches,
                 bwd_by_variant=dict(streaming_attention_bwd.launches_by_variant),
-                lut_exp=lut_exp.launches)
+                lut_exp=lut_exp.launches, lut_exp_bwd=lut_exp.bwd_launches)
+
+
+def attention_calls(cfg) -> int:
+    """#3's forward launches in one training forward: one per attention
+    layer, one per period for the hybrid's shared block, none for
+    Mamba-1."""
+    from repro_torch.models.lm import period_layout
+    if cfg.family == "hybrid":
+        return period_layout(cfg)[1]
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def lut_launches_per_step(cfg, seq):
+    """#1's (forward, backward) launches in one training step at the LUT's
+    order 1: the router, once per MoE layer each way; Mamba-1's Ā, once
+    per chunk per layer each way; Mamba-2's four exponentials a chunk per
+    layer forward, and backward all but the last chunk's two that carry
+    the state (the final state feeds no loss, so autograd never reaches
+    them); none elsewhere (#3 inlines its own)."""
+    if cfg.family == "moe":
+        return cfg.num_layers, cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        chunks = -(-seq // cfg.ssm_chunk)
+        if cfg.ssm_variant == "mamba2":
+            fwd = cfg.num_layers * 4 * chunks
+            return fwd, fwd - 2 * cfg.num_layers
+        return cfg.num_layers * chunks, cfg.num_layers * chunks
+    return 0, 0
 
 
 def bwd_inputs(shape, dtype, kw, seed):
@@ -5863,14 +6068,20 @@ def train_model(name, cut, steps, moment_dtype, shape, recover):
         restored = max(s for s in range(0, TRAIN_FAIL_AT[0] + 1,
                                         TRAIN_CKPT_EVERY))
         ran = steps + (TRAIN_FAIL_AT[0] - restored if recover else 0)
-        want = cfg.num_layers * ran
+        want = attention_calls(cfg) * ran
         if counts["fwd"] != want or counts["bwd"] != want:
             fail(f"train {name}: #3 forward {counts['fwd']} and backward "
-                 f"{counts['bwd']} launches, expected layers × steps run = "
-                 f"{cfg.num_layers} × {ran}")
+                 f"{counts['bwd']} launches, expected attention calls × "
+                 f"steps run = {attention_calls(cfg)} × {ran}")
         if counts["fwd_by_variant"]["tensor_core"] != want \
                 or counts["bwd_by_variant"]["tensor_core"] != want:
             fail(f"train {name}: launches by variant {counts}")
+        lut_fwd, lut_bwd = lut_launches_per_step(cfg, seq)
+        if (counts["lut_exp"], counts["lut_exp_bwd"]) != (lut_fwd * ran,
+                                                          lut_bwd * ran):
+            fail(f"train {name}: #1 forward {counts['lut_exp']} and backward "
+                 f"{counts['lut_exp_bwd']} launches, expected ({lut_fwd}, "
+                 f"{lut_bwd}) a step × {ran}")
         # the replayed steps appear twice in the log: the same bits again
         by_step = {}
         for m in metrics:
@@ -5906,8 +6117,11 @@ def train_model(name, cut, steps, moment_dtype, shape, recover):
             f"{[round(x, 3) for x in gnorm]}; step ms p50 {p50:.1f} (steps "
             f"1–{steps - 1}), {f['tok_s']:.0f} tok/s; peak {peak:.2f} GiB; "
             f"#3 forward {counts['fwd']} and backward {counts['bwd']} "
-            f"launches = {cfg.num_layers} layers × {ran} steps run "
-            f"(backward by variant {counts['bwd_by_variant']}); "
+            f"launches = {attention_calls(cfg)} attention calls × {ran} "
+            f"steps run (backward by variant {counts['bwd_by_variant']}); "
+            f"#1 forward {counts['lut_exp']} and backward "
+            f"{counts['lut_exp_bwd']} = {lut_launches_per_step(cfg, seq)}"
+            f" a step × {ran}; "
             f"checkpoints left {f['checkpoints']}; {CARD[0]}")
         del tr
         torch.cuda.empty_cache()
@@ -5930,6 +6144,11 @@ def train_model(name, cut, steps, moment_dtype, shape, recover):
         f["recovery_bit_exact"] = same
         part("uninterrupted run")
 
+    if name in TRAIN_LUT_MODELS:
+        f["step0_vs_plain_lut"] = hold_step0_plain_lut(name, cfg, dcfg,
+                                                       metrics[0])
+        part("plain twins")
+        return f
     f32 = name in TRAIN_TWIN_F32
     c = cfg.replace(dtype="float32") if f32 else cfg
     kernel = step0(c, dcfg) if f32 else metrics[0]
@@ -5990,6 +6209,76 @@ def step0(cfg, dcfg):
     return out
 
 
+def step0_plain_lut(cfg, dcfg, deterministic=False):
+    """``step0`` with #1 replaced, where the models call it (``models.moe``,
+    ``models.mamba``), by its plain version under autograd (the plain
+    graph on the card: no #1 launch).  With ``deterministic``, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    names each reduction that has no deterministic kernel (``warnings``)."""
+    import warnings
+    import torch
+    import repro_torch.models.mamba as mamba
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels.lut_exp import lut_exp, lut_exp_ref
+    saved = (mamba.lut_exp, moe.lut_exp)
+    before = (lut_exp.launches, lut_exp.bwd_launches)
+    mamba.lut_exp = moe.lut_exp = (
+        lambda z, order=1: lut_exp_ref(z, order=order))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                out = step0(cfg, dcfg)
+            finally:
+                torch.use_deterministic_algorithms(False)
+    finally:
+        mamba.lut_exp, moe.lut_exp = saved
+    if (lut_exp.launches, lut_exp.bwd_launches) != before:
+        fail(f"step 0 with the plain #1 launched #1: {before} → "
+             f"{(lut_exp.launches, lut_exp.bwd_launches)}")
+    if deterministic:
+        out["warnings"] = sorted({str(w.message).split(". ")[0][:160]
+                                  for w in caught})
+    return out
+
+
+def hold_step0_plain_lut(name, cfg, dcfg, kernel):
+    """Step 0 of the run through #1's kernels (``kernel``: its logged loss
+    and gradient norm) against two runs with #1's plain version: the loss
+    bit for bit (the forward kernel is bit-exact and the forward has no
+    atomics), the gradient norm within max(3 × the two plain runs' spread,
+    ``TRAIN_LUT_FLOOR``) relative (the backward kernel is bit-exact too:
+    what moves the norm is a reduction whose order varies from run to run,
+    which a third plain run under ``use_deterministic_algorithms``'s
+    warn-only mode names)."""
+    plain = [step0_plain_lut(cfg, dcfg) for _ in range(2)]
+    det = step0_plain_lut(cfg, dcfg, deterministic=True)
+    a, b = plain[0]["grad_norm"], plain[1]["grad_norm"]
+    err = abs(kernel["grad_norm"] - a) / abs(a)
+    spread = abs(a - b) / abs(a)
+    limit = max(3 * spread, TRAIN_LUT_FLOOR)
+    out = dict(loss=kernel["loss"], plain_loss=[p["loss"] for p in plain],
+               grad_norm=kernel["grad_norm"], plain_grad_norm=[a, b],
+               rel_err=err, spread=spread, limit=limit,
+               deterministic_grad_norm=det["grad_norm"],
+               nondeterministic=det["warnings"])
+    log(f"[train {name}] step 0 against #1's plain version under autograd "
+        f"on the card: loss {kernel['loss']!r} vs {plain[0]['loss']!r} / "
+        f"{plain[1]['loss']!r} (bit for bit); grad norm "
+        f"{kernel['grad_norm']!r} vs {a!r} / {b!r} (rel {err:.3g}, two plain "
+        f"runs' spread {spread:.3g}, limit {limit:.3g}); deterministic "
+        f"algorithms: grad norm {det['grad_norm']!r}, warnings "
+        + json.dumps(det["warnings"]))
+    if any(p["loss"] != kernel["loss"] for p in plain):
+        fail(f"train {name}: step 0 loss {kernel['loss']!r} differs from the "
+             f"plain #1's {[p['loss'] for p in plain]}")
+    if err > limit:
+        fail(f"train {name}: step 0 grad norm {kernel['grad_norm']} vs the "
+             f"plain #1's {a}: {err:.3g} over {limit:.3g}")
+    return out
+
+
 def phase_training():
     """Phase 16: ``TRAIN_MODELS`` through ``Trainer.run()``, one at a
     time."""
@@ -6018,6 +6307,7 @@ def main() -> int:
     built = phase_build()
     mark("1-2 card, build")
     phase_lut_exp()
+    lut_bwd_checks = phase_lut_exp_bwd()
     mark("3 LUT exp")
     phase_paged_attention()
     mark("4 paged attention")
@@ -6126,6 +6416,7 @@ def main() -> int:
     facts["bert"], facts["scoring"] = bert, scoring
     facts["int8_bert"] = int8_bert
     facts["build"] = built
+    facts["lut_exp_bwd"] = lut_bwd_checks
     kernels = phase_timing(facts, cfg.vocab_size)
     kernels[0]["tuner"] = {
         tag: {k: t[k] for k in ("winner", "winner_ms", "default_ms",
@@ -6207,6 +6498,16 @@ def main() -> int:
     kernels.append(bwd)
     for model, f in training.items():
         sa[f"training {model}"] = f["launches"]["fwd"]
+        if f["launches"]["lut_exp"]:
+            by_name["lut_exp"]["launches_by_path"][f"training {model}"] = (
+                f["launches"]["lut_exp"])
+    lut_bwd = by_name["lut_exp_bwd"]
+    lut_bwd["launches_by_path"] = {
+        f"training {m}": f["launches"]["lut_exp_bwd"]
+        for m, f in training.items() if f["launches"]["lut_exp_bwd"]}
+    lut_bwd["launches"] = sum(lut_bwd["launches_by_path"].values())
+    if not lut_bwd["launches"]:
+        fail("phase 16 launched #1's backward kernel no time")
     mark("16 training")
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
@@ -6231,6 +6532,7 @@ def main() -> int:
     summary["vlm"] = vlm
     summary["encdec"] = encdec
     summary["backward_checks"] = bwd_checks
+    summary["lut_exp_backward_checks"] = lut_bwd_checks
     summary["training"] = training
     summary["phase_s"] = phase_s
     log("[summary] " + json.dumps(summary))

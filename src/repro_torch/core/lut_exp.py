@@ -37,18 +37,25 @@ def make_table(k: int = K, device=None) -> torch.Tensor:
 
 def pow2_int(n: torch.Tensor) -> torch.Tensor:
     """Exact ``2^n`` for integer-valued f32 ``n`` via the exponent field;
-    ``n <= -127`` flushes to 0."""
-    n_i = torch.clamp(n, -127.0, 127.0).to(torch.int32)
+    ``n <= -127`` flushes to 0.  A NaN ``n`` (from a NaN input) counts as
+    -127, as the kernel's ``fmaxf`` clamp reads it, so the result does not
+    hang on how a device converts NaN to an integer."""
+    n_i = torch.clamp(torch.nan_to_num(n, nan=-127.0), -127.0,
+                      127.0).to(torch.int32)
     bits = torch.where(n_i <= -127, torch.zeros_like(n_i), (n_i + 127) << 23)
     return bits.view(torch.float32)
 
 
 def decompose(x: torch.Tensor, k: int = K):
-    """Split ``x`` into (n, d, r_scaled) with e^x = 2^n · 2^(d/k) · e^(r_scaled·ln2/k)."""
+    """Split ``x`` into (n, d, r_scaled) with e^x = 2^n · 2^(d/k) · e^(r_scaled·ln2/k).
+    A non-finite ``x`` makes ``fk`` NaN; its table index is 0, as the
+    kernel's ``fmaxf`` clamp reads it (a NaN converted to an integer is
+    INT_MIN on the CPU: an out-of-range gather)."""
     t = x.to(torch.float32) * LOG2E
     n = torch.floor(t)
     fk = (t - n) * k
-    d = torch.clamp(torch.floor(fk), 0.0, float(k - 1))
+    d = torch.clamp(torch.nan_to_num(torch.floor(fk), nan=0.0), 0.0,
+                    float(k - 1))
     return n, d.to(torch.int32), fk - d
 
 

@@ -15,6 +15,12 @@
 // not once per 256 elements, while each thread's first load is in flight.
 // Unaligned arrays and the tail past the last whole vector go one element
 // a thread.
+//
+// The backward (lut_exp_bwd_kernel: no Pallas site; the derivative that
+// jax.grad takes through src/repro/core/lut_exp.py:79) has the same
+// structure over two inputs: x and the incoming gradient g are read once,
+// gx written once (lut_exp_grad in lut_exp.cuh), 16-byte vectors when all
+// three pointers are aligned.  Bound: bytes, 12 a value in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +85,68 @@ __global__ void __launch_bounds__(THREADS) lut_exp_kernel(
     from_f32(out + i, repro::lut_exp(to_f32(x[i]), tab, order));
 }
 
+// One 16-byte vector of x and one of g: 4 f32 or 8 bf16 gradients, through
+// f32 (a bf16 g is widened exactly; gx is rounded once at the end).
+__device__ __forceinline__ uint4 grad_vec(uint4 xin, uint4 gin, const float* tab, float) {
+  const uint32_t x[4] = {xin.x, xin.y, xin.z, xin.w};
+  const uint32_t g[4] = {gin.x, gin.y, gin.z, gin.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = __float_as_uint(
+        repro::lut_exp_grad(__uint_as_float(x[i]), __uint_as_float(g[i]), tab));
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ uint4 grad_vec(uint4 xin, uint4 gin, const float* tab,
+                                          __nv_bfloat16) {
+  const uint32_t x[4] = {xin.x, xin.y, xin.z, xin.w};
+  const uint32_t g[4] = {gin.x, gin.y, gin.z, gin.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = repro::lut_exp_grad(__uint_as_float(x[i] << 16),
+                                         __uint_as_float(g[i] << 16), tab);
+    const float hi = repro::lut_exp_grad(__uint_as_float(x[i] & 0xFFFF0000u),
+                                         __uint_as_float(g[i] & 0xFFFF0000u), tab);
+    o[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS) lut_exp_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ gx,
+    const float* __restrict__ table, long long n) {
+  __shared__ float tab[repro::LUT_K];
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  const long long nv = VEC ? n / V : 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const uint4* gv = reinterpret_cast<const uint4*>(g);
+  uint4 cx = make_uint4(0, 0, 0, 0), cg = cx;
+  if (tid < nv) {
+    cx = __ldg(xv + tid);
+    cg = __ldg(gv + tid);
+  }
+  for (int i = threadIdx.x; i < repro::LUT_K; i += THREADS) tab[i] = table[i];
+  __syncthreads();
+  uint4* ov = reinterpret_cast<uint4*>(gx);
+  for (long long i = tid; i < nv; i += stride) {
+    uint4 nx = make_uint4(0, 0, 0, 0), ng = nx;
+    if (i + stride < nv) {
+      nx = __ldg(xv + i + stride);
+      ng = __ldg(gv + i + stride);
+    }
+    ov[i] = grad_vec(cx, cg, tab, T());
+    cx = nx;
+    cg = ng;
+  }
+  for (long long i = nv * V + tid; i < n; i += stride)
+    from_f32(gx + i, repro::lut_exp_grad(to_f32(x[i]), to_f32(g[i]), tab));
+}
+
 // SMs × the blocks of THREADS that fit on one (queried once per kernel).
 template <typename K>
 long long resident_blocks(K kernel, int* cache) {
@@ -115,6 +183,27 @@ int launch(const void* x, void* out, const void* table, long long n, int order,
              : launch_as<T, false>(x, out, table, n, order, stream);
 }
 
+template <typename T, bool VEC>
+int bwd_launch_as(const void* x, const void* g, void* gx, const void* table, long long n,
+                  cudaStream_t stream) {
+  static int grid = 0;
+  const long long per_block = (long long)THREADS * (VEC ? 16 / (long long)sizeof(T) : 1);
+  long long blocks = (n + per_block - 1) / per_block;
+  const long long cap = resident_blocks(lut_exp_bwd_kernel<T, VEC>, &grid);
+  if (blocks > cap) blocks = cap;
+  lut_exp_bwd_kernel<T, VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      (const T*)x, (const T*)g, (T*)gx, (const float*)table, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_launch(const void* x, const void* g, void* gx, const void* table, long long n,
+               cudaStream_t stream) {
+  const bool vec = (((uintptr_t)x | (uintptr_t)g | (uintptr_t)gx) & 15) == 0;
+  return vec ? bwd_launch_as<T, true>(x, g, gx, table, n, stream)
+             : bwd_launch_as<T, false>(x, g, gx, table, n, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -126,6 +215,17 @@ int lut_exp_launch(const void* x, void* out, const void* table, long long n,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(x, out, table, n, order, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, out, table, n, order, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// gx = d lut_exp(x) / dx · g at order 1, all three of dtype (0 = float32,
+// 1 = bfloat16).  Returns a cudaError_t code.
+int lut_exp_bwd_launch(const void* x, const void* g, void* gx, const void* table,
+                       long long n, int dtype, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return bwd_launch<float>(x, g, gx, table, n, s);
+  if (dtype == 1) return bwd_launch<__nv_bfloat16>(x, g, gx, table, n, s);
   return (int)cudaErrorInvalidValue;
 }
 

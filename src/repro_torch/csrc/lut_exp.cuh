@@ -39,6 +39,33 @@ __device__ __forceinline__ float lut_exp(float x, const float* tab, int order) {
   return x < LUT_UNDERFLOW_X ? 0.0f : out;
 }
 
+// The derivative of lut_exp at order 1 times an incoming gradient g: the
+// floors and the exponent bitcast carry none, so only the residual
+// r = (t - n)·K - d moves with x, and
+//
+//   gx = ((((g · A) · ln2/K) + 0) · K) · log2e,   A = 2^n · T[d],
+//
+// each operation rounded once, in the order in which autograd of the plain
+// version (repro_torch/core/lut_exp.py) takes them: the floors' zero
+// gradients are added where their paths join, which turns a product that
+// underflowed to -0 into +0 (jax.vjp of the reference multiplies in the
+// same order).  A recomputes n and d from x with lut_exp's clamps (a NaN x
+// reads n = -127, so A = 0 and gx = +0; a NaN g gives NaN), and x < -87,
+// -inf included, gives 0.  At order 0 the derivative is 0: the caller
+// launches nothing.
+__device__ __forceinline__ float lut_exp_grad(float x, float g, const float* tab) {
+  const float t = __fmul_rn(x, LUT_LOG2E);
+  const float n = floorf(t);
+  const float fk = __fmul_rn(__fsub_rn(t, n), (float)LUT_K);
+  const float d = fminf(fmaxf(floorf(fk), 0.0f), (float)(LUT_K - 1));
+  const int ni = (int)fminf(fmaxf(n, -127.0f), 127.0f);
+  const float p2 = ni <= -127 ? 0.0f : __int_as_float((ni + 127) << 23);
+  const float a = __fmul_rn(p2, tab[(int)d]);
+  const float gr = __fadd_rn(__fmul_rn(__fmul_rn(g, a), LUT_LN2_OVER_K), 0.0f);
+  const float gx = __fmul_rn(__fmul_rn(gr, (float)LUT_K), LUT_LOG2E);
+  return x < LUT_UNDERFLOW_X ? 0.0f : gx;
+}
+
 // The same function as lut_exp, bit for bit, for every x <= 0 (the
 // softmax's s − m and m_prev − m_new), in fewer and cheaper instructions:
 // no floorf and no float → int conversion (the card's conversion pipe),

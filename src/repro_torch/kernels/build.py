@@ -151,7 +151,9 @@ def refuse_grad(what: str, *tensors, why: str = "") -> None:
     """Raise before a launch whose kernel has no backward when autograd
     would need a gradient through it: a CUDA tensor never trains silently
     with a zero gradient.  ``why`` names what the missing backward
-    blocks."""
+    blocks.  #1 (``lut_exp``) and #3 (``streaming_attention``) have
+    backward kernels; #2, #4, the quantiser and #3's ``softmax_exp``
+    check refuse."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

@@ -103,11 +103,33 @@ def _router_exp(cfg: ModelConfig):
     return lambda z: lut_exp(z, order=order)
 
 
+class _BmmF32Out(torch.autograd.Function):
+    """``aten::bmm.dtype`` (bf16 × bf16 → f32), which has no derivative,
+    with the reference's, as ``layers._MatmulF32Out`` for the unembed: its
+    einsum's transpose takes the f32 cotangent against the widened other
+    operand and casts the result to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.bmm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da = torch.bmm(g, w.transpose(1, 2).float()).to(a.dtype)
+        dw = torch.bmm(a.transpose(1, 2).float(), g).to(w.dtype)
+        return da, dw
+
+
 def _bmm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, N, K) @ (E, K, M) summed and returned in f32, as the reference's
     down einsum (no cast after it): on the card bf16 × bf16 → f32 through
-    ``aten::bmm.dtype``, elsewhere both operands widened to f32."""
+    ``aten::bmm.dtype`` (under autograd ``_BmmF32Out`` adds the backward),
+    elsewhere both operands widened to f32."""
     if a.device.type == "cuda" and a.dtype == w.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _BmmF32Out.apply(a, w)
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.to(torch.float32), w.to(torch.float32))
 

@@ -11,8 +11,11 @@ The step loop is built from the port's layers:
 
 The step runs eagerly on ``device`` (the card unless the caller names the
 CPU): ``Model.loss`` forward, autograd backward — every attention of the
-step on kernel #3 and its backward kernel on the card —, the optimizer
-update into new tensors.  Parameters are drawn by ``params.init_params``
+step on kernel #3 and its backward kernel on the card, every LUT
+exponential outside attention (the MoE router, the SSM discretisation) on
+kernel #1 and its backward kernel —, the optimizer update into new
+tensors (one layer slice at a time for per-layer leaves over
+``STREAM_LEAF_BYTES``).  Parameters are drawn by ``params.init_params``
 with a ``torch.Generator`` seeded by ``TrainConfig.seed`` (the reference
 draws from ``jax.random.PRNGKey(seed)``: other numbers; a twin starts from
 the reference's checkpoint instead).
@@ -46,6 +49,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.lm import layer_keys
 from repro_torch.optim import (AdamWConfig, AdamWState, accumulated_grads,
                                adamw_init, adamw_update, cosine_schedule)
 from repro_torch.parallel import compress_with_feedback, feedback_init
@@ -87,6 +91,13 @@ class TrainConfig:
     log_every: int = 10
     straggler_timeout_ms: float = 0.0     # 0 = disabled
     skip_straggler_steps: bool = False
+
+
+# A per-layer leaf (stacked on dim 0) whose f32 copy is larger than this is
+# updated one layer slice at a time (``adamw_update``'s ``scan_subtree``:
+# the same bits, the f32 temporaries of one slice): granite-moe's expert
+# stacks, 1.0 B values each, would otherwise need ~20 GB of them at once.
+STREAM_LEAF_BYTES = 1 << 30
 
 
 class Trainer:
@@ -134,8 +145,11 @@ class Trainer:
             grads, residual = compress_with_feedback(grads, residual)
             grads = {k: g.float() for k, g in grads.items()}
         lr = self.schedule(step)
+        streamed = [k for k in layer_keys(self.model_cfg)
+                    if k in params and params[k].numel() * 4 > STREAM_LEAF_BYTES]
         params, opt_state, om = adamw_update(grads, opt_state, params,
-                                             self.opt_cfg, lr=lr)
+                                             self.opt_cfg, lr=lr,
+                                             scan_subtree=streamed)
         return params, opt_state, residual, {"loss": loss, "lr": lr, **om}
 
     # ------------------------------------------------------------- ckpt glue

@@ -78,6 +78,7 @@ LAUNCH_COUNTERS = (
     (quantize_dynamic, "launches"),
     (streaming_attention_bwd, "launches"),
     (streaming_attention_bwd, "launches_by_variant"),
+    (lut_exp, "bwd_launches"),
 )
 
 

@@ -475,16 +475,61 @@ def _refused(monkeypatch, module, launcher):
     monkeypatch.setattr(module, launcher, fail)
 
 
+def _stub_lut_launches(monkeypatch):
+    """#1's forward and backward launches stubbed (no card here): each
+    records its call and returns a recognisable result."""
+    calls = []
+
+    def fwd(x, order):
+        calls.append(("fwd", order))
+        return torch.ones(x.shape).as_subclass(_FakeCuda)
+
+    def bwd(x, g):
+        calls.append(("bwd", tuple(x.shape)))
+        return torch.full(x.shape, 2.0).as_subclass(_FakeCuda)
+
+    monkeypatch.setattr(lut_ops, "_launch", fwd)
+    monkeypatch.setattr(lut_ops, "_launch_bwd", bwd)
+    _forbid(monkeypatch, lut_ops, "lut_exp_ref")
+    _forbid(monkeypatch, lut_ops, "lut_exp_bwd_ref")
+    return calls
+
+
 def test_lut_exp_refuses_a_gradient(monkeypatch):
-    """#1 has no backward yet: a CUDA input that requires a gradient
-    raises (the MoE router and the SSM discretisation would otherwise
-    train with a zero gradient through it)."""
-    _refused(monkeypatch, lut_ops, "_library")
+    """#1 has a backward kernel now: a CUDA input that requires a gradient
+    builds ``_LutExp`` (saving x) and its backward reaches the backward
+    launcher once, at order 1; at order 0 the backward returns zeros and
+    launches nothing.  ``softmax_exp`` (the tensor-core attention's form
+    of the LUT, a check, not a main-path launch) has no backward and still
+    refuses."""
+    calls = _stub_lut_launches(monkeypatch)
     x = _fake(np.zeros(8, np.float32)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lut_ops.lut_exp(x)
+    out = lut_ops.lut_exp(x)
+    assert type(out.grad_fn).__name__ == "_LutExpBackward"
+    assert [tuple(t.shape) for t in out.grad_fn.saved_tensors] == [(8,)]
+    gx, = torch.autograd.grad(out, x, _fake(np.ones(8, np.float32)))
+    assert calls == [("fwd", 1), ("bwd", (8,))]
+    assert torch.equal(gx, torch.full((8,), 2.0))
+    gx0, = torch.autograd.grad(lut_ops.lut_exp(x, order=0), x,
+                               _fake(np.ones(8, np.float32)))
+    assert calls[2:] == [("fwd", 0)] and not gx0.any()
+    _refused(monkeypatch, sa_ops, "_library")
     with pytest.raises(NotImplementedError, match="no backward"):
         sa_ops.softmax_exp(x)
+
+
+def test_lut_exp_no_grad_takes_the_plain_launch(monkeypatch):
+    """Serving, the captured step, the sampler and the slot engine (no
+    gradient) launch the forward alone and build no autograd node: under
+    ``no_grad`` and for an input that needs no gradient alike."""
+    calls = _stub_lut_launches(monkeypatch)
+    x = _fake(np.zeros(8, np.float32)).requires_grad_()
+    with torch.no_grad():
+        out = lut_ops.lut_exp(x)
+    assert out.grad_fn is None
+    out = lut_ops.lut_exp(_fake(np.zeros(8, np.float32)), order=0)
+    assert out.grad_fn is None
+    assert calls == [("fwd", 1), ("fwd", 0)]
 
 
 def test_paged_attention_and_combine_refuse_a_gradient(monkeypatch):

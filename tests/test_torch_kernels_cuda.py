@@ -1885,11 +1885,90 @@ def test_streaming_attention_backward_launches_at_head_dim_256(cuda_device,
         assert g.shape == t.shape and bool(torch.isfinite(g).all())
 
 
+# The backward's edges: the underflow cut and both sides of it, 0, a large
+# input, the non-finite ones
+BWD_EDGES = np.array([-1e30, -87.0, -86.99, 0.0, 88.0, np.inf, -np.inf,
+                      np.nan], np.float32)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.cuda
-def test_lut_exp_refuses_a_gradient_on_the_card(cuda_device):
-    x = torch.zeros(8, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        lut_exp(x)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lut_exp_backward_kernel_bit_exact(cuda_device, rng, dtype, offset):
+    """#1's backward kernel against its plain version (``lut_exp_bwd_ref``)
+    on the card, bit for bit: the edges, a wide sweep and a run in
+    [-87, -70] with small g (subnormal intermediates, which the kernel
+    keeps as torch does), 16-byte vectors (offset 0) and a start off the
+    grid (offset 1: one element a thread); one launch at order 1, none at
+    order 0 (zeros)."""
+    from repro_torch.kernels.lut_exp.ops import lut_exp_bwd
+    from repro_torch.kernels.lut_exp.ref import lut_exp_bwd_ref
+    x = np.concatenate([BWD_EDGES, rng.uniform(-100, 90, 100003),
+                        rng.uniform(-87, -70, 4099)]).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    g[-4099:] *= np.float32(1e-3)
+    dt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(cuda_device, dt)[offset:]
+    gt = torch.from_numpy(g).to(cuda_device, dt)[offset:]
+    before = lut_exp.bwd_launches
+    got = lut_exp_bwd(xt, gt)
+    zero = lut_exp_bwd(xt, gt, order=0)
+    torch.cuda.synchronize()
+    assert lut_exp.bwd_launches == before + 1
+    assert torch.equal(_bits(got), _bits(lut_exp_bwd_ref(xt, gt)))
+    assert got.dtype == dt and not zero.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lut_exp_gradient_on_the_card_launches_the_backward(cuda_device, rng,
+                                                            dtype):
+    """A gradient through #1 on the card: the forward kernel once, the
+    backward kernel once (a (B, L, E) router-like input, its incoming
+    gradient non-contiguous), equal to the plain backward; under
+    ``no_grad`` no node and no backward launch."""
+    from repro_torch.kernels.lut_exp.ref import lut_exp_bwd_ref
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.uniform(-20, 0, (4, 33, 40)).astype(
+        np.float32)).to(cuda_device, dt).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(40, 33, 4)).astype(
+        np.float32)).to(cuda_device, dt).permute(2, 1, 0)
+    before = (lut_exp.launches, lut_exp.bwd_launches)
+    gx, = torch.autograd.grad(lut_exp(x), x, g)
+    torch.cuda.synchronize()
+    assert (lut_exp.launches, lut_exp.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.equal(_bits(gx), _bits(lut_exp_bwd_ref(x.detach(), g)))
+    with torch.no_grad():
+        assert lut_exp(x).grad_fn is None
+    assert lut_exp.bwd_launches == before[1] + 1
+
+
+@pytest.mark.cuda
+def test_moe_down_product_differentiates_on_the_card(cuda_device, rng):
+    """The MoE down product's bf16 × bf16 → f32 bmm (``aten::bmm.dtype``,
+    no derivative of its own) under autograd: ``_BmmF32Out``'s gradients
+    equal autograd of the widened f32 product on the CPU within one bf16
+    ulp (f32 sums in another order, each rounded once to bf16)."""
+    from repro_torch.models.moe import _bmm_f32
+    a = torch.from_numpy(rng.normal(size=(4, 24, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(4, 64, 48)).astype(
+        np.float32)).to(torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(4, 24, 48)).astype(np.float32))
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        ad, wd = (t.to(dev).requires_grad_() for t in (a, w))
+        out = _bmm_f32(ad, wd)
+        assert out.dtype == torch.float32
+        grads.append([t.cpu().float() for t in torch.autograd.grad(
+            out, (ad, wd), g.to(dev))])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-6)
 
 
 @pytest.mark.cuda

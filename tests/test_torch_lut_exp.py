@@ -1,6 +1,7 @@
-"""PyTorch port vs JAX reference: the LUT exponential and int8 KV-row
-quantisation, bit for bit (atol=0), on the CPU.  The CUDA kernel against
-its plain version on the card is in ``test_torch_kernels_cuda.py``."""
+"""PyTorch port vs JAX reference: the LUT exponential, its backward and
+int8 KV-row quantisation, bit for bit (atol=0), on the CPU.  The CUDA
+kernels against their plain versions on the card are in
+``test_torch_kernels_cuda.py``.  One intra-op thread; ~28 s alone."""
 import os
 import sys
 
@@ -20,6 +21,7 @@ import repro_torch.core.lut_exp  # noqa: E402,F401
 from repro_torch.core.streaming_attention import quantize_kv_rows as t_quant  # noqa: E402
 from repro_torch.kernels.lut_exp import lut_exp as t_kernel_lut_exp  # noqa: E402
 from repro_torch.kernels.lut_exp import lut_exp_ref  # noqa: E402
+from repro_torch.kernels.lut_exp.ref import lut_exp_bwd_ref  # noqa: E402
 
 # both packages re-export the function under the module's name
 jlut = sys.modules["repro.core.lut_exp"]
@@ -27,6 +29,10 @@ tlut = sys.modules["repro_torch.core.lut_exp"]
 
 SHAPES = [(7,), (128,), (3, 5, 11), (256, 128), (1, 1), (1000,)]
 EDGES = np.array([-1e30, -100.0, 0.0, 80.0], np.float32)
+# The backward's edges: the underflow cut and both sides of it, 0, a large
+# input, the non-finite ones
+BWD_EDGES = np.array([-1e30, -87.0, -86.99, 0.0, 88.0, np.inf, -np.inf,
+                      np.nan], np.float32)
 
 
 def bits(a) -> np.ndarray:
@@ -180,3 +186,94 @@ def test_lut_exp_nonpos_formula_is_the_plain_lut(rng, order):
     normal = (x == 0) | (np.abs(x) >= np.finfo(np.float32).tiny)
     assert (~normal).sum() == 1 and want[~normal] == bits(np.float32(1.0))
     np.testing.assert_array_equal(got[normal], want[normal])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lut_exp_non_finite_inputs_match_the_reference(dtype):
+    """``[-inf, nan, inf]`` → ``[0, nan, nan]`` at order 1, as the JAX core
+    gives (its ``UNDERFLOW_X`` mask zeroes −inf; ``jnp.take`` does not
+    fault) and the card's kernel (``fmaxf`` reads a NaN table index as 0).
+    The plain version used to gather at ``int(NaN)`` (INT_MIN on the
+    CPU) and raise ``IndexError``; now a NaN index reads 0, as the kernel's
+    clamp does, and no finite input changes a bit (the sweeps above)."""
+    x = np.array([-np.inf, np.nan, np.inf], np.float32)
+    want = np.asarray(jlut.lut_exp(jnp.asarray(x).astype(getattr(jnp, dtype)))
+                      .astype(jnp.float32))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    for got in (tlut.lut_exp(xt), t_kernel_lut_exp(xt), lut_exp_ref(xt)):
+        got = to_np(got)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert got[0] == want[0] == 0.0 and np.isnan(got[1:]).all()
+
+
+def bwd_inputs(rng):
+    """x: the edges, a wide uniform sweep, and a run in [-87, -70] with
+    small g, where g·A and g·A·ln2/K are subnormal; g: N(0, 1)."""
+    x = np.concatenate([BWD_EDGES, rng.uniform(-100, 90, 20000),
+                        rng.uniform(-87, -70, 4000)]).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    g[-4000:] *= np.float32(1e-3)
+    return x, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", [0, 1])
+def test_lut_exp_bwd_ref_is_autograd_of_the_plain_version(rng, dtype, order):
+    """atol=0: ``lut_exp_bwd_ref`` (the closed form the card's backward
+    kernel computes) equals ``torch.autograd.grad`` of ``lut_exp_ref``, the
+    plain graph, bit for bit, over the edges (±inf, NaN, the underflow cut)
+    and the subnormal run; and the wrapper's ``_LutExp`` on the CPU gives
+    the same bits.  At order 0 the plain graph does not depend on x (its
+    floors carry no gradient): the closed form and the wrapper give
+    zeros."""
+    x, g = bwd_inputs(rng)
+    dt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(dt).requires_grad_()
+    gt = torch.from_numpy(g).to(dt)
+    got = lut_exp_bwd_ref(xt.detach(), gt, order=order)
+    via_wrapper, = torch.autograd.grad(t_kernel_lut_exp(xt, order=order), xt,
+                                       gt)
+    assert got.dtype == dt and via_wrapper.dtype == dt
+    view = torch.int16 if dtype == "bfloat16" else torch.int32
+    if order == 0:
+        assert not lut_exp_ref(xt, order=0).requires_grad
+        assert not got.any() and not via_wrapper.any()
+        return
+    want, = torch.autograd.grad(lut_exp_ref(xt, order=order), xt, gt)
+    assert torch.equal(got.view(view), want.view(view))
+    assert torch.equal(via_wrapper.view(view), want.view(view))
+    # −1e30, −inf: 0; NaN x: A = 0 (n reads −127), so +0
+    assert got[0] == 0 and got[6] == 0 and got[7] == 0
+    assert not torch.signbit(got[[0, 6, 7]]).any()
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_lut_exp_bwd_matches_jax_vjp(rng, order):
+    """The plain backward against ``jax.vjp`` of the reference's eager
+    ``lut_exp`` in f32: bit for bit wherever |g·A·ln2/K| ≥ 2^-126, and
+    within 2^-126·128·log2e absolute elsewhere, where XLA on the CPU
+    flushes a subnormal intermediate (g·A or g·A·ln2/K) to 0 and torch
+    keeps it (ROADMAP §3-B: XLA reads −2^-149 as −0).  One input is left
+    out: a NaN x, for which XLA converts the NaN exponent to the integer 0
+    (A = 1) where the port and the card's kernel clamp it to −127 (A = 0;
+    the forward gives NaN either way).  At order 0 both give 0."""
+    x, g = bwd_inputs(rng)
+    _, vjp = jax.vjp(lambda v: jlut.lut_exp(v, order=order), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = lut_exp_bwd_ref(torch.from_numpy(x), torch.from_numpy(g),
+                          order=order).numpy()
+    if order == 0:
+        assert not want.any() and not got.any()
+        return
+    n, d, _ = tlut.decompose(torch.from_numpy(x))
+    a = (tlut.pow2_int(n) * tlut.make_table()[d.long()]).numpy()
+    with np.errstate(all="ignore"):
+        normal = np.abs(g * a * np.float32(tlut.LN2 / tlut.K)) >= np.float32(
+            2.0 ** -126)
+    keep = ~np.isnan(x)
+    assert (normal & keep).sum() > 15000 and (~normal & keep).sum() > 1000
+    np.testing.assert_array_equal(bits(got[normal & keep]),
+                                  bits(want[normal & keep]))
+    flushed = ~normal & keep
+    assert np.abs(got[flushed] - want[flushed]).max() <= (
+        2.0 ** -126 * 128 * tlut.LOG2E)

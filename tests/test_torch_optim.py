@@ -10,7 +10,7 @@ leaves within 1 bf16 ulp, since a 2-ulp f32 difference can cross one bf16
 rounding): an ulp of an input moves a result by an ulp of its largest
 term, which cancellation (``b1·m + (1 − b1)·g`` of opposite signs) can
 make many ulps of a small result.
-One intra-op thread; ~10 s alone."""
+One intra-op thread; ~11 s alone."""
 import os
 
 import numpy as np
@@ -154,3 +154,38 @@ def test_accumulated_grads_match_reference(microbatches):
     for k in w0:
         assert tg[k].dtype == torch.float32
         assert ulps(tg[k], jg[k]) <= 2, k
+
+
+def test_trainer_streams_large_per_layer_leaves_with_the_same_bits(
+        monkeypatch):
+    """The Trainer updates a per-layer leaf over ``STREAM_LEAF_BYTES`` in
+    f32 one layer slice at a time (granite-moe's expert stacks on the
+    card): with the threshold at 0 every per-layer leaf of
+    deepseek-7b-smoke streams, and two steps leave the same bits as the
+    whole-leaf update."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models.lm import layer_keys
+    from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.runtime import trainer as trainer_mod
+    cfg = get_config("deepseek-7b-smoke").replace(dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)
+    seen = []
+    update = trainer_mod.adamw_update
+
+    def spy(*a, scan_subtree=None, **k):
+        seen.append(sorted(scan_subtree or ()))
+        return update(*a, scan_subtree=scan_subtree, **k)
+    monkeypatch.setattr(trainer_mod, "adamw_update", spy)
+    runs = []
+    for limit in (trainer_mod.STREAM_LEAF_BYTES, 0):
+        monkeypatch.setattr(trainer_mod, "STREAM_LEAF_BYTES", limit)
+        tr = Trainer(cfg, dcfg, TrainConfig(steps=2, lr=5e-3, warmup=1),
+                     device="cpu")
+        tr.run()
+        runs.append(tr)
+    keys = sorted(layer_keys(cfg))
+    assert seen == [[], [], keys, keys]
+    for k, p in runs[0].params.items():
+        assert torch.equal(p, runs[1].params[k]), k
+        assert torch.equal(runs[0].opt_state.v[k], runs[1].opt_state.v[k]), k
