@@ -146,6 +146,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    step's logits equal bit for bit to an engine on the parameters in
    memory, and a leaf that no longer matches its manifest raises
    ``IOError``;
+7f. the padded oracle, on phase 7's weights while they are resident:
+   ``EngineCore(mode="padded")`` serves phase 7's 8 requests on the bf16
+   and the int8 pool, each step one right-aligned (lanes, C) block (C 1
+   on decode-only steps, the chunk of 256 otherwise; idle lanes at
+   kv_len 0), eagerly: #2's block entry (``paged_attention``, the
+   counterpart of ``paged_attention_4d``) and its combine each launched
+   layers × steps, the pool drained, 0 standalone #1 launches (greedy),
+   greedy streams = phase 7's captured ragged streams by the margin rule;
+   the padded step p50 beside phase 7's captured step p50.  One block
+   (``PADDED_BLOCK``: a full chunk, a 100-token first chunk whose 156
+   padding rows sit at negative positions, five decodes, an idle lane)
+   at the depth of ``step_check_cut`` through #2 against its plain
+   version in bf16 and in f32 (phase 7's rule), every layer's kernel
+   output finite and its rows that see no key exactly zero; #2 timed at
+   the pass's two block shapes (8 × 1 decode, 8 × 256 with one chunk
+   lane) beside its plain version and SDPA on a gathered view, with its
+   bound (the ``padded_block`` entry of the kernels line);
 8. hold the activation quantisation kernel (``quantize_dynamic``)
    bit-equal to its plain version, int8 values and scale, f32 and bf16:
    ragged and unaligned sizes, all zeros, exact .5 ties, an outlier,
@@ -3392,6 +3409,357 @@ def phase_front_door(eng, prompts, want):
     return facts
 
 
+# ------------------------------------------------------ the padded oracle --
+
+#: phase 7f's block of the step check: (live rows, kv_len) per lane at
+#: C = ENGINE["chunk_size"]: a full chunk mid-prompt, a prompt's first
+#: 100 tokens (156 padding rows at positions −156 … −1), five decodes (at
+#: kv 37 the padding rows reach −218) and an idle lane (kv_len 0)
+PADDED_BLOCK = ([(ENGINE["chunk_size"], 3 * ENGINE["chunk_size"]), (100, 100)]
+                + [(1, kv) for kv in KV_LENS[:5]] + [(0, 0)])
+
+
+def padded_pass(eng, prompts, targets=frozenset()):
+    """Serve phase 7's requests once through the padded engine ``eng``;
+    kernel counts zeroed just before and read just after → facts of the
+    pass, and the (lanes, V) logits row of every (uid, token index) in
+    ``targets``, read from the step that committed the token (the padded
+    step is eager: its own logits, no rerun)."""
+    import torch
+    from repro_torch.serving import Request
+    reqs, seen = {}, {}
+    inner_step, inner_plans = eng._step, eng.scheduler.plans_for
+
+    def step(**a):
+        seen["logits"] = inner_step(**a)
+        return seen["logits"]
+
+    def plans_for(wants):
+        seen["plans"], pre = inner_plans(wants)
+        return seen["plans"], pre
+    eng._step, eng.scheduler.plans_for = step, plans_for
+    for i, p in enumerate(prompts):
+        reqs[i] = Request(uid=i, prompt=p, max_new=MAX_NEW)
+        eng.submit(reqs[i])
+    eng.finished.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_paged_counts()
+    step_ms, kinds, logits, steps, rows = [], [], {}, 0, [0, 0]
+    t0 = time.perf_counter()
+    while eng.scheduler.has_work():
+        before = {u: len(r.tokens) for u, r in reqs.items()}
+        s0 = time.perf_counter()
+        out = eng.step()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        if not out.lanes:
+            continue
+        steps += 1
+        rows[0] += out.live_rows
+        rows[1] += out.padded_rows
+        kinds.append("decode" if out.padded_rows == ENGINE["lanes"]
+                     else "chunk")
+        if out.kernel_config is not None:
+            fail(f"padded step recorded a kernel config {out.kernel_config}")
+        for i, plan in enumerate(seen["plans"]):
+            u = plan.run.req.uid
+            for j in range(before[u], len(reqs[u].tokens)):
+                if (u, j) in targets:
+                    logits[u, j] = seen["logits"][i].float().cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_paged_counts()
+    eng._step = inner_step
+    del eng.scheduler.plans_for                     # the spy
+    streams = {u: list(r.tokens) for u, r in reqs.items()}
+    if any(len(t) != MAX_NEW or not all(0 <= x < eng.cfg.vocab_size for x in t)
+           for t in streams.values()):
+        fail("padded engine: a request did not produce MAX_NEW in-vocab "
+             "tokens")
+    for kernel in ("paged_attention", "paged_combine"):
+        if launches[kernel] != eng.cfg.num_layers * steps:
+            fail(f"padded engine: {kernel} launched {launches[kernel]} times, "
+                 f"expected layers × steps = {eng.cfg.num_layers} × {steps}")
+    if eng.pages_in_use != 0 or eng.kv.free_pages != eng.kv.num_pages:
+        fail(f"padded engine: {eng.pages_in_use} pages in use after the drain")
+    gen = sum(len(t) for t in streams.values())
+    return dict(streams=streams, logits=logits, steps=steps,
+                decode_steps=kinds.count("decode"),
+                chunk_steps=kinds.count("chunk"), launches=launches,
+                wall_s=wall, tok_s=gen / wall, live_rows=rows[0],
+                padded_rows=rows[1],
+                step_ms_p50=float(np.percentile(step_ms, 50)),
+                step_ms_p99=float(np.percentile(step_ms, 99)),
+                decode_step_ms_p50=float(np.median(
+                    [t for t, k in zip(step_ms, kinds) if k == "decode"])),
+                chunk_step_ms_p50=float(np.median(
+                    [t for t, k in zip(step_ms, kinds) if k == "chunk"])),
+                trace_count=eng.trace_count,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def swap_block_attention(fn):
+    """Put ``fn`` where the padded branch calls kernel #2's block entry
+    (``models/layers.py`` for int8 pools, the registry's ``paged``
+    backend for float ones) → the previous function, to put back."""
+    import repro_torch.core.attention_api as A
+    import repro_torch.models.layers as L
+    old = L.paged_attention
+    L.paged_attention = A.paged_attention = fn
+    return old
+
+
+def make_block(spec, c, cfg, pool, seed):
+    """A padded block of ``spec`` ((live rows, kv_len) per lane) at
+    width ``c`` over ``pool``'s pages, drawn without replacement from a
+    shuffled page order → (tokens, table, kv_len, q_len) on the card, and
+    each row's position (kv_len − c + i)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ps, n_pages = pool["k"].shape[3], pool["k"].shape[1] - 1
+    need = [-(-kv // ps) for _, kv in spec]
+    width = 1 << (max(max(need), 1) - 1).bit_length()
+    perm = rng.permutation(n_pages)
+    table = np.full((len(spec), width), n_pages, np.int32)
+    off = 0
+    for i, k in enumerate(need):
+        table[i, :k] = perm[off:off + k]
+        off += k
+    tokens = rng.integers(0, cfg.vocab_size, (len(spec), c)).astype(np.int32)
+    kv_len = np.array([kv for _, kv in spec], np.int32)
+    q_len = np.array([n for n, _ in spec], np.int32)
+    pos = kv_len[:, None] - c + np.arange(c)[None]
+    dev = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
+    return tuple(map(dev, (tokens, table, kv_len, q_len))), pos
+
+
+def padded_block_vs_plain(cfg, params, label, floor):
+    """One padded block step (``PADDED_BLOCK`` at C = chunk_size) over a
+    pool of random history at the depth of ``step_check_cut``, through
+    kernel #2's block entry and through its plain version (at 8 pages per
+    online-softmax step and at 1), with phase 7's rule
+    (``phase_step_vs_plain``): the kernel within 3× the spread between the
+    two plain schedules (``floor`` at least), greedy picks equal on every
+    lane whose top-2 margin exceeds twice the gap.  Every layer's kernel
+    output is finite, and its rows that see no key — the idle lane's, and
+    padding rows at negative positions — are exactly zero, as the plain
+    version's are.  Each run rewrites the block's rows with the same
+    values before attending, so all three read the same history."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention_reference
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.models.lm import lm_prefill_chunk_paged, trunk_cache_init
+    depth = cfg.num_layers
+    cfg, params, _ = step_check_cut(cfg, params, None)
+    pool = trunk_cache_init(cfg, ENGINE["num_pages"] + 1, ENGINE["page_size"],
+                            DEV)
+    g = torch.Generator(device=DEV).manual_seed(3)
+    for leaf in pool.values():
+        leaf.normal_(generator=g)
+    c = ENGINE["chunk_size"]
+    args, pos = make_block(PADDED_BLOCK, c, cfg, pool, seed=7)
+    outs = []
+
+    def recorded(*a, **kw):
+        outs.append(paged_attention(*a, **kw))
+        return outs[-1]
+
+    def run(fn):
+        old = swap_block_attention(fn)
+        try:
+            return lm_prefill_chunk_paged(cfg, params, args[0], pool,
+                                          *args[1:])[0]
+        finally:
+            swap_block_attention(old)
+    zero_paged_counts()
+    k_logits = run(recorded)
+    torch.cuda.synchronize()
+    launches = read_paged_counts()
+    p_logits = run(lambda *a, **kw: paged_attention_reference(
+        *a, **{**kw, "block_pages": 8}))
+    p1_logits = run(lambda *a, **kw: paged_attention_reference(
+        *a, **{**kw, "block_pages": 1}))
+    torch.cuda.synchronize()
+    if launches["paged_attention"] != cfg.num_layers or \
+            launches["paged_combine"] != cfg.num_layers:
+        fail(f"padded {label} block: {launches} launches, not one split pass "
+             f"and one combine per layer ({cfg.num_layers})")
+    dead = torch.from_numpy(pos < 0).to(DEV)[:, None, :, None]   # (B,1,C,1)
+    dead_rows = int((pos < 0).sum())
+    for i, o in enumerate(outs):
+        if not torch.isfinite(o).all():
+            fail(f"padded {label} block: layer {i}'s kernel output not finite")
+        if o.masked_select(dead).abs().max() != 0:
+            fail(f"padded {label} block: layer {i}: a row that sees no key "
+                 f"(idle lane, negative position) is not zero")
+    for lg in (k_logits, p_logits, p1_logits):
+        if lg.shape != (len(PADDED_BLOCK), cfg.vocab_size) or \
+                not torch.isfinite(lg).all():
+            fail(f"padded {label} block: logits {tuple(lg.shape)} not finite")
+    err = float((k_logits - p_logits).abs().max())
+    spread = float((p1_logits - p_logits).abs().max())
+    tol = max(3.0 * spread, floor)
+    top2 = torch.topk(p_logits, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    agree = (k_logits.argmax(-1) == p_logits.argmax(-1)).cpu().numpy()
+    decided = margin > 2 * err
+    log(f"[padded block {label}] lanes (live rows, kv_len) {PADDED_BLOCK} at "
+        f"C {c}, {cfg.num_layers} of {depth} layers: kernel vs plain "
+        f"max|Δlogit| {err:.3g}; plain 8-page vs 1-page schedule {spread:.3g} "
+        f"(limit {tol:.3g}); greedy picks agree on {int(agree.sum())}/"
+        f"{len(agree)} lanes, {int(decided.sum())} with a top-2 margin > "
+        f"2×max|Δ|; {dead_rows} rows see no key: zero in every layer's "
+        f"kernel output; launches {launches}")
+    if err > tol:
+        fail(f"padded {label} block logits differ by {err} > {tol}")
+    if not agree[decided].all():
+        fail(f"padded {label} block: greedy pick differs on a lane with a "
+             f"clear margin")
+    return dict(max_abs_logit=err, plain_schedule_spread=spread, limit=tol,
+                agree=int(agree.sum()), decided=int(decided.sum()),
+                lanes=len(agree), layers=cfg.num_layers,
+                zero_rows=dead_rows, launches=launches)
+
+
+def time_padded_block(spec, flush, seed):
+    """Kernel #2's block entry (split pass + combine) at a padded block of
+    ``spec`` ((live rows, kv_len) per lane; C the most live rows) over a
+    bf16 pool at phase 7's widths, beside its plain version and SDPA on a
+    gathered view (each lane's K/V padded to the longest lane, a boolean
+    mask of each row's visible keys; exact exp, not the same function) →
+    times, bound and error.  The bound counts what the call computes:
+    every row of the block, padding rows included, sees its visible keys;
+    each lane's kv_len rows are read once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_reference)
+    from repro_torch.kernels.paged_attention.ops import default_kv_split
+    c = max(n for n, _ in spec)
+    s = make_stream([(1, kv) for _, kv in spec], pool="bfloat16",
+                    n_pages=ENGINE["num_pages"], seed=seed)
+    hq, hkv, d, ps = s["hq"], s["hkv"], s["d"], s["k"].shape[2]
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((len(spec), hq, c, d), generator=g, device=DEV).bfloat16()
+    table = s["table"][s["cu"][:len(spec)].long()].contiguous()
+    kv_len = torch.tensor([kv for _, kv in spec], dtype=torch.int32,
+                          device=DEV)
+    a = (q, s["k"], s["v"], table, kv_len)
+    split = default_kv_split(ps)
+    got = paged_attention(*a)
+    want = paged_attention_reference(*a, block_pages=8, kv_split=split)
+    err = bf16_ulps(got, want)
+    if not err <= 1.0:
+        fail(f"paged_attention block {spec}: {err:.2f} bf16 ulp beyond atol "
+             f"2e-5 (limit 1)")
+    lmax = max(kv for _, kv in spec)
+    views = lane_views(s, range(len(spec)))
+    kg = torch.cat([F.pad(k, (0, 0, 0, lmax - k.shape[2])) for k, _ in views])
+    vg = torch.cat([F.pad(v, (0, 0, 0, lmax - v.shape[2])) for _, v in views])
+    qpos = kv_len[:, None] - c + torch.arange(c, device=DEV)[None]   # (B, C)
+    mask = (torch.arange(lmax, device=DEV)[None, None, :]
+            <= qpos[:, :, None])[:, None]                       # (B,1,C,L)
+    med = interleaved_ms({
+        "ms": lambda: cuda_ms(lambda: paged_attention(*a), flush=flush),
+        "library_ms": lambda: cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask), flush=flush)})
+    plain = cuda_ms(lambda: paged_attention_reference(*a, block_pages=8),
+                    iters=5, flush=flush)
+    rows_kv = sum(kv for _, kv in spec)
+    nbytes = (rows_kv * hkv * 2 * d * 2 + 2 * q.numel() * 2
+              + table.numel() * 4 + kv_len.numel() * 4)
+    vis = int(torch.clamp(qpos + 1, min=0).sum())
+    flops = 4.0 * d * hq * vis
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return dict(**med, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_bf16_ulps=err, bytes=nbytes, flops=flops, kv_split=split,
+                shape=f"({len(spec)} lanes, C {c}) block, (live rows, kv) "
+                      f"{spec}, {hq} heads × {d}, ps {ps}, "
+                      f"{table.shape[1]} table slots, bf16 pool, both "
+                      f"launches; SDPA on a gathered bf16 view with a "
+                      f"visibility mask")
+
+
+def phase_padded(cfg, params, prompts, ragged, compiled):
+    """Phase 7f, the padded oracle: ``EngineCore(mode="padded")`` serves
+    phase 7's requests at full width on the bf16 and the int8 pool, with
+    phase 7's resident weights.  Each pass: #2's split pass and combine
+    each launched layers × steps (one per layer per block step, eager),
+    the pool drained, and the greedy streams equal to phase 7's captured
+    ragged streams (``ragged``) by the margin rule (``hold_by_margin``:
+    the (lanes, C) block's products are not the (T,) stream's, so bf16
+    streams may fork at near-ties).  Then one block step held against the
+    plain version in bf16 and f32 (``padded_block_vs_plain``, which also
+    holds the rows that see no key at zero), and #2 timed at the padded
+    pass's two block shapes (``time_padded_block``).  → facts."""
+    import torch
+    from repro_torch.serving import EngineCore
+    t0 = time.perf_counter()
+    facts = {}
+    wave = [[(i, p) for i, p in enumerate(prompts)]]
+    for tag, kv_quant in (("bf16", False), ("int8", True)):
+        c = cfg.replace(kv_quant=kv_quant)
+        make = lambda c=c: EngineCore(c, params, device=DEV,  # noqa: E731
+                                      mode="padded", **ENGINE)
+        make_ragged = lambda c=c: EngineCore(c, params, device=DEV,  # noqa: E731
+                                             **ENGINE)
+        eng = make()
+        run = padded_pass(eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+        forks = hold_by_margin(
+            f"padded {tag}", run["streams"], dict(enumerate(ragged[tag])),
+            fresh_run(make, lambda e, t: padded_pass(e, prompts, t)),
+            fresh_run(make_ragged, lambda e, t: serve_waves(e, wave,
+                                                            targets=t)))
+        ragged_p50 = compiled[tag]["step_ms_p50"]
+        facts[tag] = dict({k: v for k, v in run.items()
+                           if k not in ("streams", "logits")}, forks=forks,
+                          ragged_captured_step_ms_p50=ragged_p50)
+        log(f"[padded {tag}] {run['steps']} block steps ({run['decode_steps']} "
+            f"decode at C 1, {run['chunk_steps']} at C "
+            f"{ENGINE['chunk_size']}), {run['trace_count']} block shapes; "
+            f"step ms p50 {run['step_ms_p50']:.2f} (decode "
+            f"{run['decode_step_ms_p50']:.2f}, chunk "
+            f"{run['chunk_step_ms_p50']:.2f}) p99 {run['step_ms_p99']:.2f}, "
+            f"beside phase 7's captured ragged step p50 {ragged_p50:.2f}; "
+            f"{run['tok_s']:.1f} generated tok/s; live / computed rows "
+            f"{run['live_rows']} / {run['padded_rows']}; peak "
+            f"{run['peak_gib']:.2f} GiB; launches {run['launches']} = layers "
+            f"× steps; pool drained; streams equal phase 7's"
+            + (f" save near-tie forks {forks}" if forks else "") + f"; {CARD[0]}")
+    facts["block_bf16"] = padded_block_vs_plain(cfg, params, "bf16", 1e-2)
+    c32 = cfg.replace(dtype="float32")
+    cut, cut_params, _ = step_check_cut(c32, params, None)
+    p32 = {k: v.float() for k, v in cut_params.items()}
+    facts["block_f32"] = padded_block_vs_plain(cut, p32, "f32", 1e-3)
+    del p32, cut_params
+    torch.cuda.empty_cache()
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    flush = lambda: flush_buf.zero_()  # noqa: E731
+    kv_lens = decode_kv_lens()
+    n_chunk, kv_chunk = MIXED_CHUNK
+    facts["time"] = {
+        "decode block": time_padded_block([(1, kv) for kv in kv_lens], flush,
+                                          seed=31),
+        "chunk block": time_padded_block(
+            [(n_chunk, kv_chunk)] + [(1, kv) for kv in kv_lens[:7]], flush,
+            seed=32)}
+    del flush_buf
+    for k, t in facts["time"].items():
+        log(f"[time] paged_attention padded {k} ({t['shape']}): kernel "
+            f"{t['ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms (medians of 5 "
+            f"interleaved rounds), plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes'] / 1e6:.1f} "
+            f"MB, {t['flops'] / 1e9:.2f} GFLOP); {t['max_bf16_ulps']:.2f} bf16 "
+            f"ulp beyond atol 2e-5; {CARD[0]}")
+    facts["seconds"] = time.perf_counter() - t0
+    log(f"[padded] phase 7f took {facts['seconds']:.1f} s")
+    return facts
+
+
 def step_check_cut(cfg, params, pool):
     """``cfg`` cut to ``STEP_CHECK_LAYERS`` layers, or two whole periods of
     its pattern where that is more (gemma3: 12), with the first layers'
@@ -6380,6 +6748,8 @@ def main() -> int:
     mark("7c-7d sampling, front door")
     ckpt = phase_checkpoint(cfg, params, prompts)
     mark("7e checkpoint")
+    padded = phase_padded(cfg, params, prompts, greedy_streams, compiled)
+    mark("7f padded oracle")
     slot = {}
     for tag, kv_quant in (("bf16", False), ("int8", True)):
         c = cfg.replace(kv_quant=kv_quant)
@@ -6393,7 +6763,9 @@ def main() -> int:
                       "prefix int8": prefix["int8"]["launches"],
                       "spec (a)": spec["scripted"]["launches"],
                       "sampled bf16": sampled["bf16"]["launches"],
-                      "sampled int8": sampled["int8"]["launches"]}
+                      "sampled int8": sampled["int8"]["launches"],
+                      "padded bf16": padded["bf16"]["launches"],
+                      "padded int8": padded["int8"]["launches"]}
     facts["sampled"] = sampled
     scoring = {"bf16": phase_scoring(cfg, params, "bf16", floor=1e-2)}
     steps["f32"] = phase_step_f32(cfg, params)       # widens params to f32
@@ -6426,7 +6798,13 @@ def main() -> int:
     families = phase_families()
     mark("11 dense families")
     by_name = {k["name"]: k for k in kernels}
-    by_name["paged_combine"].setdefault("launches_by_path", {})
+    by_name["paged_combine"].setdefault("launches_by_path", {}).update({
+        f"padded {tag}": padded[tag]["launches"]["paged_combine"]
+        for tag in ("bf16", "int8")})
+    by_name["paged_attention"]["padded_block"] = dict(
+        padded["time"], launches={tag: padded[tag]["launches"]
+                                  ["paged_attention"]
+                                  for tag in ("bf16", "int8")})
     for model, f in families.items():
         for pool in ("bf16", "int8"):
             for k in ("paged_attention", "paged_combine"):
@@ -6520,6 +6898,7 @@ def main() -> int:
     summary["tuner"] = tuner
     summary["config_arms"] = arms
     summary["checkpoint"] = ckpt
+    summary["padded"] = padded
     summary["slot_engine"] = slot
     summary["step_vs_plain"] = steps
     summary["streaming_attention_checks"] = sa_worst

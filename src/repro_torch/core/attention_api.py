@@ -4,8 +4,8 @@
 Backends are registered with :func:`register_backend`; each carries a
 ``supports`` predicate (validates an explicit choice) and an ``auto_ok``
 gate (``backend="auto"`` takes the first eligible name in ``_AUTO_ORDER``).
-The port registers the reference's contiguous backends under the
-reference's names, so a config means the same in both packages:
+The port registers the reference's backends under the reference's names,
+so a config means the same in both packages:
 
 - ``naive``: materialised logits, the oracle;
 - ``naive_decode``: the same for single-row queries;
@@ -16,18 +16,22 @@ reference's names, so a config means the same in both packages:
   ``csrc/streaming_attention_bwd.cu`` under autograd) on a CUDA tensor,
   its plain versions on a CPU tensor.  ``auto`` picks it where the reference's ``auto`` picks the
   Pallas kernel on a TPU: static lengths, no position table, more than one
-  query row, with platform ``cuda`` in place of ``tpu``.
+  query row, with platform ``cuda`` in place of ``tpu``;
+- ``paged``: the padded paged convention (``page_table`` (B, P) and
+  ``kv_len`` (B,) over page pools): kernel #2's block entry
+  (``kernels/paged_attention.paged_attention``, ``csrc/paged_attention.cu``
+  on the card, its plain version on the CPU);
+- ``paged_varlen``: the ragged convention (``q_pos`` (T,) and per-token
+  table rows (T, P)): :func:`ragged_attention` over one packed stream,
+  block shapes from a ``KernelConfig`` (``kernels/autotune.py``) — the
+  caller's, else the tuner's active config.  The model's ragged branch
+  (``models/layers.py::attn_apply_ragged``) calls :func:`ragged_attention`
+  itself, with the q-block layout it computed once per step.
 
-The ragged paged call of the serving step is not a registered backend
-here: the model's ragged branch (``models/layers.py``) calls
-:func:`ragged_attention`, the counterpart of the reference's
-``paged_varlen`` backend, whose block shapes come from a ``KernelConfig``
-(``kernels/autotune.py``) — the caller's, else the tuner's active config.
-The ring backend comes with the sharded slice.
-
-All backends share one signature: ``fn(q, k, v, **kwargs)`` with q
-``(B, Hq, Lq, D)``, k/v ``(B, Hkv, Lkv, D)``, ``Hq % Hkv == 0``, returning
-``(B, Hq, Lq, D)`` in q's dtype.
+The ring backend comes with the sharded slice.  All contiguous backends
+share one signature: ``fn(q, k, v, **kwargs)`` with q ``(B, Hq, Lq, D)``,
+k/v ``(B, Hkv, Lkv, D)``, ``Hq % Hkv == 0``, returning ``(B, Hq, Lq, D)``
+in q's dtype; the paged ones take page pools ``(N, Hkv, ps, D)`` for k/v.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from repro_torch.core.streaming_attention import (naive_attention,
                                                   streaming_attention)
 from repro_torch.kernels.autotune import (KernelConfig, active_config,
                                          config_kwargs)
+from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
 from repro_torch.kernels.streaming_attention import (
     streaming_attention as streaming_attention_kernel)
@@ -55,6 +60,8 @@ class AttentionCall:
     platform: str                 # the tensors' device type: cuda | cpu
     static_lengths: bool          # q_offset / kv_len are python ints (or None)
     has_kv_pos: bool              # ring-buffer position table supplied
+    has_page_table: bool = False  # k/v are page pools + a (B, P) page table
+    is_ragged: bool = False       # packed (1, Hq, T, D) stream + q_pos (T,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,8 +76,11 @@ class BackendSpec:
 _REGISTRY: Dict[str, BackendSpec] = {}
 
 #: resolution order for ``backend="auto"`` — first auto-eligible backend
-#: wins (the reference's order, less the backends not ported).
-_AUTO_ORDER: Tuple[str, ...] = ("pallas", "naive_decode", "jnp", "naive")
+#: wins (the reference's order, less ``ring``).  "paged_varlen"/"paged"
+#: are the only backends that read page pools (varlen for packed ragged
+#: streams, paged for (lanes, C) blocks); "naive" is the last resort.
+_AUTO_ORDER: Tuple[str, ...] = ("paged_varlen", "paged", "pallas",
+                                "naive_decode", "jnp", "naive")
 
 
 def register_backend(name: str, *, supports: Callable[[AttentionCall], bool],
@@ -117,13 +127,15 @@ def _is_static(x) -> bool:
     return x is None or isinstance(x, (int, float))
 
 
-def describe_call(q, k, *, q_offset=0, kv_len=None,
-                  kv_pos=None) -> AttentionCall:
+def describe_call(q, k, *, q_offset=0, kv_len=None, kv_pos=None,
+                  page_table=None, q_pos=None) -> AttentionCall:
     return AttentionCall(
         lq=q.shape[2], lkv=k.shape[2],
         platform=q.device.type,
         static_lengths=_is_static(q_offset) and _is_static(kv_len),
-        has_kv_pos=kv_pos is not None)
+        has_kv_pos=kv_pos is not None,
+        has_page_table=page_table is not None,
+        is_ragged=q_pos is not None)
 
 
 def resolve_backend(backend: str, call: AttentionCall, *,
@@ -159,13 +171,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_offset=0,
               kv_len=None,
               kv_pos: Optional[torch.Tensor] = None,
+              page_table: Optional[torch.Tensor] = None,
+              q_pos: Optional[torch.Tensor] = None,
+              cu_seqlens: Optional[torch.Tensor] = None,
+              kernel_config: Optional[KernelConfig] = None,
               fallback: bool = False) -> torch.Tensor:
-    """The single attention entry point (see module docstring)."""
-    call = describe_call(q, k, q_offset=q_offset, kv_len=kv_len, kv_pos=kv_pos)
+    """The single attention entry point (see module docstring).
+
+    ``page_table`` switches the calling convention to *paged*: k/v are page
+    pools ``(N, Hkv, page_size, D)``, ``page_table`` the (B, P) physical
+    page of each table slot and ``kv_len`` the (B,) live rows per lane,
+    query rows included (``Lq > 1`` is a chunked-prefill block at
+    positions ``kv_len - Lq + i``, the causal intra-chunk mask implied).
+    Only the ``paged`` backend resolves such calls.  ``q_pos`` switches it
+    to *ragged*: q is one packed stream ``(1, Hq, T, D)``, ``page_table``
+    holds per-token rows ``(T, P)`` and ``q_pos`` (T,) each token's
+    position; only ``paged_varlen`` resolves those, with ``cu_seqlens``
+    (the lane boundaries) and ``kernel_config`` (its block shapes)."""
+    call = describe_call(q, k, q_offset=q_offset, kv_len=kv_len, kv_pos=kv_pos,
+                         page_table=page_table, q_pos=q_pos)
     spec = resolve_backend(backend, call, fallback=fallback)
-    return spec.fn(q, k, v, scale=scale, causal=causal, window=window,
-                   cap=cap, block_k=block_k, exp_mode=exp_mode,
-                   q_offset=q_offset, kv_len=kv_len, kv_pos=kv_pos)
+    kw = dict(scale=scale, causal=causal, window=window, cap=cap,
+              block_k=block_k, exp_mode=exp_mode, q_offset=q_offset,
+              kv_len=kv_len, kv_pos=kv_pos)
+    if page_table is not None:
+        kw["page_table"] = page_table
+    if q_pos is not None:
+        kw.update(q_pos=q_pos, cu_seqlens=cu_seqlens,
+                  kernel_config=kernel_config)
+    return spec.fn(q, k, v, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -174,7 +208,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @register_backend(
     "naive",
-    supports=lambda call: True,
+    supports=lambda call: not call.has_page_table,
     doc="Materialised-logits reference (PUMA dataflow): O(l²) memory; the "
         "correctness oracle every other backend is tested against.")
 def _naive(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
@@ -187,7 +221,7 @@ def _naive(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
 
 @register_backend(
     "naive_decode",
-    supports=lambda call: call.lq == 1,
+    supports=lambda call: call.lq == 1 and not call.has_page_table,
     doc="Single-token decode: the logits row is O(L) already, so the KV-block "
         "scan buys nothing.")
 def _naive_decode(q, k, v, **kw):
@@ -196,7 +230,7 @@ def _naive_decode(q, k, v, **kw):
 
 @register_backend(
     "jnp",
-    supports=lambda call: True,
+    supports=lambda call: not call.has_page_table,
     doc="The streaming scan (HASTILY §IV): online softmax over KV blocks, "
         "O(l) memory, dynamic lengths and positions.  Plain torch in the "
         "port; the name is the reference's.")
@@ -211,7 +245,8 @@ def _jnp(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
 def _pallas_supported(call: AttentionCall) -> bool:
     # The kernel wants static lengths, no position tables, and multi-row
     # queries (decode rows go to naive_decode).
-    return call.static_lengths and not call.has_kv_pos and call.lq > 1
+    return (call.static_lengths and not call.has_kv_pos
+            and not call.has_page_table and call.lq > 1)
 
 
 @register_backend(
@@ -234,6 +269,60 @@ def _pallas(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
         q, k, v, scale=scale, causal=causal, window=window, cap=cap,
         exp_mode=exp_mode, q_offset=int(q_offset),
         kv_len=None if kv_len is None else int(kv_len))
+
+
+@register_backend(
+    "paged",
+    supports=lambda call: call.has_page_table and not call.is_ragged
+    and not call.has_kv_pos,
+    doc="Paged attention: reads KV pages in place from the pool through the "
+        "(B, P) page table — kernel #2's block entry "
+        "(csrc/paged_attention.cu: a split pass and paged_combine) on the "
+        "card, its plain page-block scan on the CPU.  Lq == 1 is decode; "
+        "Lq > 1 is a chunked-prefill block (causal intra-chunk mask "
+        "implied).  No gathered contiguous cache view is made.")
+def _paged(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
+           q_offset, kv_len, kv_pos, page_table):
+    assert kv_pos is None, "paged backend has no ring-buffer support"
+    assert kv_len is not None, "paged calls must pass per-lane kv_len"
+    assert causal or q.shape[2] == 1, \
+        "paged chunks are causal by construction — bidirectional multi-row " \
+        "paged attention is not supported"
+    # Query row i sits at position kv_len - Lq + i, so the per-row bound is
+    # both the length mask and the causal intra-chunk mask; block_k is a
+    # streaming-scan tile size (page blocks follow the page size).
+    del causal, q_offset, block_k
+    return paged_attention(q, k, v, page_table, kv_len, scale=scale, cap=cap,
+                           window=window, exp_mode=exp_mode)
+
+
+@register_backend(
+    "paged_varlen",
+    supports=lambda call: call.has_page_table and call.is_ragged
+    and not call.has_kv_pos,
+    doc="Ragged (varlen) paged attention: q is one packed (1, Hq, T, D) "
+        "token stream with per-token page-table rows (T, P) and per-token "
+        "causal bounds q_pos (T,) — the token-level serving step, no "
+        "(lanes, C) padding.  cu_seqlens lane boundaries switch on the "
+        "q-block-tiled dataflow; block shapes come from the KernelConfig "
+        "(ragged_attention): kernel #2 on the card, its plain version on "
+        "the CPU.")
+def _paged_varlen(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
+                  q_offset, kv_len, kv_pos, page_table, q_pos,
+                  cu_seqlens=None, kernel_config=None):
+    assert kv_pos is None, "ragged backend has no ring-buffer support"
+    assert causal, "ragged paged streams are causal by construction"
+    assert q.shape[0] == 1, \
+        f"ragged q is one packed (1, Hq, T, D) stream, got batch {q.shape[0]}"
+    # Positions live in q_pos; kv_len/q_offset are the padded convention's
+    # fields and block_k a streaming-scan tile size.
+    del causal, q_offset, kv_len, block_k
+    qt = q[0].transpose(0, 1).contiguous()              # (T, Hq, D)
+    out = ragged_attention(qt, k, v, page_table, q_pos,
+                           kernel_config=kernel_config, cu_seqlens=cu_seqlens,
+                           scale=scale, cap=cap, window=window,
+                           exp_mode=exp_mode)
+    return out.transpose(0, 1)[None]                    # (1, Hq, T, D)
 
 
 # --------------------------------------------------------------------------

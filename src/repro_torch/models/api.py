@@ -1,6 +1,7 @@
 """Uniform model API (port of ``src/repro/models/api.py``):
 ``build_model(cfg)`` → a ``Model`` with ``init``, ``loss``,
-``init_cache``, ``prefill``, ``decode_step`` and ``step_ragged``; and
+``init_cache``, ``prefill``, ``decode_step``, ``prefill_chunk_paged``
+and ``step_ragged``; and
 ``init_params``, ``batch_specs``, ``cache_specs`` and ``input_specs``.
 
 The families: ``bert`` (``prefill`` encodes a batch and returns the
@@ -14,7 +15,7 @@ the frontend's patch embeddings ahead of the tokens, whose rows ``loss``
 does not score), ``ssm`` (falcon-mamba: Mamba-1 layers,
 ``models/mamba.py``) and ``hybrid`` (zamba2: Mamba-2 layers,
 ``models/mamba2.py``, and a shared attention block), whose O(1) state
-the page pool cannot hold: they have every entry but ``step_ragged``
+the page pool cannot hold: they have every entry but the two paged steps
 and are served by the slot engine; and ``encdec`` (seamless-m4t:
 ``models/encdec.py``), whose batch carries ``frames`` (B, L_src, D), the
 stub audio frontend's embeddings: ``loss``, ``init_cache``, ``prefill``
@@ -35,8 +36,11 @@ prefix), each → (last-row f32 logits (B, V), caches), the caches written
 in place (the reference returns new ones).  encdec's ``prefill(params,
 {"frames", "tokens"}, caches)`` → (logits, ``{"self": caches, "cross":
 the cross K/V}``), and its ``decode_step`` carries ``"cross"`` through
-unchanged.  ``step_ragged`` is ``lm.lm_step_ragged``, the paged serving
-step.
+unchanged.  The attention decoders' two paged serving steps:
+``step_ragged`` is ``lm.lm_step_ragged`` and ``prefill_chunk_paged``
+``lm.lm_prefill_chunk_paged``, the padded block.  The reference gives
+both to the SSM families too, whose O(1) state the pool cannot hold;
+here they are None there.
 
 The specs are the reference's ``jax.ShapeDtypeStruct`` stand-ins as
 ``torch.empty(..., device="meta")`` tensors: shapes and dtypes, no
@@ -68,6 +72,10 @@ class Model:
     init_cache: Optional[Callable] = None    # (batch, max_len, device=None) → caches
     prefill: Optional[Callable] = None       # (params, batch, caches) → (logits, state)
     decode_step: Optional[Callable] = None   # (params, token, state, index) → (logits, state)
+    # (params, tokens (B, C), pools, page_table (B, P), kv_len (B,),
+    # q_len (B,)) → (last-row logits (B, V), pools): the padded-block
+    # serving step (EngineCore mode="padded"'s workhorse)
+    prefill_chunk_paged: Optional[Callable] = None
     # (params, tokens (T,), pools, token_pages (T, P), pos (T,), last_idx
     # (lanes,) or (lanes, 1+k), ...) → logits: the ragged serving step
     step_ragged: Optional[Callable] = None
@@ -155,6 +163,9 @@ def build_model(cfg: ModelConfig) -> Model:
                      init_cache=init_cache,
                      prefill=functools.partial(_lm_prefill, cfg),
                      decode_step=functools.partial(LM.lm_decode_step, cfg),
+                     prefill_chunk_paged=(
+                         functools.partial(LM.lm_prefill_chunk_paged, cfg)
+                         if ragged else None),
                      step_ragged=(functools.partial(LM.lm_step_ragged, cfg)
                                   if ragged else None))
     raise NotImplementedError(f"family {cfg.family!r}: the port builds the "

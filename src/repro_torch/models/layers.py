@@ -5,8 +5,10 @@ embeddings, the untied and tied unembed with the final logit softcap, the
 gated and plain MLP, and the branches of the attention layer: the
 full-sequence branch (``attn_apply``, through the attention registry),
 cache-free or over a contiguous cache (``attn_cache_init``: a ring buffer,
-an int8 cache or a plain one), and the ragged (``token_pages``) branch of
-the paged serving step (``attn_apply_ragged``).  Each reads the layer's
+an int8 cache or a plain one), the padded-block (``page_table``) branch
+of the paged serving step, over the page pool (``attn_apply`` with a
+``page_table``), and its ragged (``token_pages``) branch
+(``attn_apply_ragged``).  Each reads the layer's
 ``kind``: a ``local`` layer attends within ``cfg.window`` and rotates with
 ``cfg.local_rope_theta`` when it is set.
 Functions on tensors; parameters are plain tensors.  Projections, the MLP
@@ -27,6 +29,7 @@ from repro_torch.core.streaming_attention import (
     quantize_kv_rows, streaming_attention_quantized)
 from repro_torch.device import dense
 from repro_torch.kernels.autotune import KernelConfig
+from repro_torch.kernels.paged_attention.ops import paged_attention
 
 Params = Dict[str, torch.Tensor]
 
@@ -338,9 +341,16 @@ def _ring_write(cache: Params, k: torch.Tensor, v: torch.Tensor, idx) -> None:
 def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                pos: torch.Tensor, kind: str = "global",
                causal: bool = True, cache: Optional[Params] = None,
-               cache_index=None) -> torch.Tensor:
-    """The full-sequence branches of the reference ``attn_apply``
-    (layers.py:160-433).  x (B, L, D), pos (L,) or (B, L) positions (RoPE).
+               cache_index=None, page_table: Optional[torch.Tensor] = None,
+               q_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The full-sequence and padded-block branches of the reference
+    ``attn_apply`` (layers.py:160-433).  x (B, L, D), pos (L,) or (B, L)
+    positions (RoPE).
+
+    With a ``page_table`` (B, P), ``cache`` is one layer's page pool
+    (``_attend_padded``): a right-aligned block, ``cache_index`` (B,)
+    the row of each lane's first block row and ``q_len`` (B,) its live
+    rows (None: all).
 
     Without a cache the whole sequence attends itself.  With one
     (``attn_cache_init``), the new K/V rows are written at ``cache_index``
@@ -363,6 +373,12 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     b, l, _ = x.shape
     q, k, v, window = _qkv(cfg, p, x, pos, kind)
     scale = cfg.attn_scale or cfg.d_head ** -0.5
+    if page_table is not None:
+        out = _attend_padded(cfg, q, k, v, window, causal=causal, cache=cache,
+                             cache_index=cache_index, page_table=page_table,
+                             q_len=q_len)
+        out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
+        return dense_apply(p["wo"], out)
     q_offset, kv_len, kv_pos = 0, None, None
     if cache is not None and "pos" in cache:
         _ring_write(cache, k, v, cache_index)
@@ -395,3 +411,70 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     kv_pos=kv_pos, fallback=True)
     out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
     return dense_apply(p["wo"], out)
+
+
+def _attend_padded(cfg: ModelConfig, q, k, v, window, *, causal: bool,
+                   cache: Params, cache_index: torch.Tensor,
+                   page_table: torch.Tensor,
+                   q_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """The padded-block branch of the reference ``attn_apply``
+    (layers.py:236-339, the ``page_table`` half) → (B, Hq, L, Dh).
+
+    ``cache`` is the layer's pool views {"k", "v"[, "ks", "vs"]}, (N+1,
+    Hkv, ps, Dh) (scales (N+1, Hkv, ps)), page N the scratch page.  Row
+    ``i`` of lane ``b`` sits at position ``cache_index[b] + i``; rows
+    ``i >= L - q_len[b]`` are live.  Each live row's K/V is written at
+    (its page, position mod ps), quantised on the way in for an int8 pool,
+    in place; padding rows — their positions may be negative, an idle
+    lane's all are — write to the scratch page, the table lookup clamped
+    first, with floor division and floor modulo as ``jnp`` computes them.
+    Several padding rows may write one (scratch page, offset): which one
+    lands is not fixed, and nothing reads it.  Attention then reads the
+    pool through the table with ``kv_len = cache_index + L``: kernel #2's
+    block entry on the card, its plain version on the CPU (the registry's
+    ``paged`` backend for float pools, ``paged_attention`` itself with the
+    row scales for int8 ones, as in the reference).  A row that sees no
+    key (an idle lane's, a negative position's) comes out zero."""
+    b, _, l, _ = q.shape
+    ps = cache["k"].shape[2]
+    scratch = cache["k"].shape[0] - 1
+    idx = cache_index.to(torch.int32)
+    kv_len = idx + l
+    rows = idx[:, None] + torch.arange(l, dtype=torch.int32,
+                                       device=q.device)[None]      # (B, L)
+    if q_len is None:
+        live = torch.ones(rows.shape, dtype=torch.bool, device=q.device)
+    else:
+        live = (torch.arange(l, dtype=torch.int32, device=q.device)[None]
+                >= l - q_len.to(torch.int32)[:, None])
+    slot = torch.clamp(torch.div(rows, ps, rounding_mode="floor"), 0,
+                       page_table.shape[1] - 1)
+    pids = torch.where(live, torch.gather(page_table, 1, slot.long()),
+                       scratch).long()
+    off = torch.remainder(rows, ps).long()
+
+    def put(pool, val):
+        # val (B, Hkv, L, …) → rows-major (B, L, Hkv, …), one row per
+        # (page, offset); the transient is O(B·L), never a gathered view
+        pool[pids, :, off] = val.transpose(1, 2).to(pool.dtype)
+
+    kw = dict(scale=cfg.attn_scale or cfg.d_head ** -0.5,
+              cap=cfg.attn_softcap, window=window, exp_mode=cfg.exp_mode)
+    table = page_table.to(torch.int32).contiguous()
+    if "ks" in cache:                       # int8 pool: values + row scales
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        put(cache["k"], kq)
+        put(cache["v"], vq)
+        put(cache["ks"], ks)
+        put(cache["vs"], vs)
+        return paged_attention(q.contiguous(), cache["k"], cache["v"], table,
+                               kv_len, k_scale=cache["ks"],
+                               v_scale=cache["vs"], **kw)
+    put(cache["k"], k)
+    put(cache["v"], v)
+    return attention(q.contiguous(), cache["k"], cache["v"],
+                     backend=backend_for_config(cfg.attn_backend,
+                                                cfg.attn_impl),
+                     causal=causal, block_k=cfg.block_k, fallback=True,
+                     kv_len=kv_len, page_table=table, **kw)

@@ -3,12 +3,14 @@
 ``lm_apply``, ``cross_entropy``, ``lm_loss``) that BERT encoding and the
 decoders' scoring run cache-free and the decoders' cached path runs over
 a contiguous cache (``trunk_cache_init``, ``lm_prefill``,
-``lm_decode_step``), and the ragged serving path of the decoders
-(``trunk_apply_ragged``, ``lm_step_ragged``) over the page pool.  The
-decoders are the dense family, the vision-language family (``vlm``: a
-dense trunk whose full-sequence forward takes the frontend's patch
-embeddings, ``prefix_embed`` (B, Lp, D), ahead of the tokens; the ragged
-step serves it as text, as the reference's does) and the MoE family,
+``lm_decode_step``), and the decoders' two serving steps over the page
+pool: the padded block (``lm_prefill_chunk_paged``, the engine's oracle
+mode) and the ragged stream (``trunk_apply_ragged``,
+``lm_step_ragged``).  The decoders are the dense family, the
+vision-language family (``vlm``: a dense trunk whose full-sequence
+forward takes the frontend's patch embeddings, ``prefix_embed`` (B, Lp,
+D), ahead of the tokens; the ragged step serves it as text, as the
+reference's does) and the MoE family,
 whose layers run ``models/moe.py::moe_apply`` in place of the MLP; the
 full-sequence forward sums the MoE layers' load-balancing losses
 (``aux``) and ``lm_loss`` adds ``cfg.router_aux_weight`` times it, as the
@@ -214,13 +216,21 @@ def layer_caches(cfg: ModelConfig, caches: Dict[str, torch.Tensor]
 def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 pos: torch.Tensor, causal: bool = True,
                 caches: Optional[Dict[str, torch.Tensor]] = None,
-                cache_index=None, with_aux: bool = False
+                cache_index=None, with_aux: bool = False,
+                page_table: Optional[torch.Tensor] = None,
+                q_len: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Every layer (``_block``) over the whole sequence; with ``caches``
     (``trunk_cache_init``) each layer writes its K/V rows at
     ``cache_index`` in place and attends over its cache → (x, with
     ``with_aux`` the f32 sum of the MoE layers' load-balancing losses —
-    0 for a dense trunk —, else None)."""
+    0 for a dense trunk —, else None).  With a ``page_table`` (B, P)
+    ``caches`` is the page pool and x a right-aligned block of ``q_len``
+    (B,) live rows per lane (``layers.attn_apply``'s padded branch); an
+    MoE layer routes every row of the block, padding included, as the
+    reference."""
+    if page_table is not None:
+        _ragged_family(cfg)
     if cfg.family in SSM_FAMILIES:
         x = _ssm_trunk(cfg, params, x, pos=pos, causal=causal, caches=caches,
                        cache_index=cache_index)
@@ -235,7 +245,8 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         p = _layer(cfg, params, i)
         x, aux = _block(cfg, p, x, lambda h: L.attn_apply(
             cfg, p, h, pos=pos, kind=kind, causal=causal, cache=views[i],
-            cache_index=cache_index), with_aux=with_aux)
+            cache_index=cache_index, page_table=page_table, q_len=q_len),
+            with_aux=with_aux)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -281,7 +292,9 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
              causal: bool = True,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              cache_index=None,
-             logits_rows: Optional[int] = None, with_aux: bool = False):
+             logits_rows: Optional[int] = None, with_aux: bool = False,
+             page_table: Optional[torch.Tensor] = None,
+             q_len: Optional[torch.Tensor] = None):
     """tokens (B, L) → f32 logits (B, L', V) (the reference's ``lm_apply``),
     or with ``with_aux`` (logits, the summed MoE load-balancing loss).
     ``prefix_embed`` (B, Lp, D) (vlm patches) is cast to the stream's dtype
@@ -291,7 +304,9 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ``cache_index`` an int or (B,) (each batch row its own position, (B,
     L') positions), and every layer writes its K/V rows into ``caches`` in
     place.  ``logits_rows=n`` unembeds only the last n positions (the
-    (B, L', V) logits are the largest activation)."""
+    (B, L', V) logits are the largest activation).  ``page_table`` (B, P)
+    and ``q_len`` (B,): ``caches`` is the page pool and the tokens a
+    right-aligned block (``lm_prefill_chunk_paged``)."""
     if tokens.device.type == "cuda":
         configure_matmul_precision()
     lp = 0 if prefix_embed is None else prefix_embed.shape[1]
@@ -301,7 +316,8 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     x, aux = trunk_apply(cfg, params, x, pos=pos, causal=causal,
                          caches=caches, cache_index=cache_index,
-                         with_aux=with_aux)
+                         with_aux=with_aux, page_table=page_table,
+                         q_len=q_len)
     x = L.norm(cfg, params, "final_norm", x)
     if logits_rows is not None:
         x = x[:, -logits_rows:]
@@ -360,6 +376,32 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
     place (port of the reference's ``lm_decode_step``)."""
     logits = lm_apply(cfg, params, token[:, None], caches=caches,
                       cache_index=index)
+    return logits[:, -1], caches
+
+
+def lm_prefill_chunk_paged(cfg: ModelConfig, params: Params,
+                           tokens: torch.Tensor,
+                           caches: Dict[str, torch.Tensor],
+                           page_table: torch.Tensor, kv_len: torch.Tensor,
+                           q_len: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The padded-block serving step (port of the reference's
+    ``lm_prefill_chunk_paged``): a right-aligned (B, C) block of tokens
+    per lane — ``q_len[b]`` live tokens ending at row ``kv_len[b] - 1``,
+    the rest left-padding.  Decode lanes are ``q_len == 1``, prefill
+    lanes a chunk of ``q_len <= C`` prompt tokens, idle lanes ``q_len ==
+    0`` (``kv_len`` 0).  Every live row's K/V is written in place at its
+    (page, offset) through ``page_table`` (B, P) and attention runs
+    through the table (kernel #2's block entry on the card); padding rows
+    write to the pool's scratch page.  → (the last row's f32 logits
+    (B, V), caches), the pool written in place.  The last row is the
+    lane's newest live token, so the caller samples from it exactly when
+    the step consumed the lane's final known token."""
+    c = tokens.shape[1]
+    offset = kv_len.to(torch.int32) - c                 # the block's start
+    logits = lm_apply(cfg, params, tokens, caches=caches,
+                      cache_index=offset, page_table=page_table,
+                      q_len=q_len.to(torch.int32), logits_rows=1)
     return logits[:, -1], caches
 
 

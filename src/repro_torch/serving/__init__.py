@@ -1,10 +1,12 @@
-"""Request-level serving for the port: EngineCore over a paged KV pool, the
-slot-contiguous ServingEngine for the cache layouts the pool rejects, the
-in-step sampler, and the asyncio front door."""
+"""Request-level serving for the port: EngineCore over a paged KV pool (the
+ragged stream, or the padded-block oracle) and its deprecated
+PagedServingEngine shim, the slot-contiguous ServingEngine for the cache
+layouts the pool rejects, the in-step sampler, and the asyncio front
+door."""
 from repro_torch.serving.api import (Request, RequestState, StepOutput,
                                      UnsupportedCacheLayout)
 from repro_torch.serving.core import EngineCore, greedy_token, greedy_tokens
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import PagedServingEngine, ServingEngine
 from repro_torch.serving.metrics import (Counter, Gauge, Histogram,
                                          MetricsRegistry, start_metrics_server,
                                          write_metrics_json)
@@ -26,7 +28,8 @@ from repro_torch.serving.tracing import (RequestSpan, RequestTracer,
 
 __all__ = ["AsyncLMServer", "Counter", "EngineCore", "Gauge", "Histogram",
            "InvalidRequest", "LanePlan", "MetricsRegistry", "NGramProposer",
-           "PagedKVCache", "PrefixHit", "RadixPrefixCache", "RaggedBatch",
+           "PagedKVCache", "PagedServingEngine", "PrefixHit",
+           "RadixPrefixCache", "RaggedBatch",
            "Request", "RequestSpan", "RequestState", "RequestTracer",
            "RunningRequest", "SamplingParams", "Scheduler", "ServerClosed",
            "ServerOverloaded", "ServingEngine", "ServingObservability",

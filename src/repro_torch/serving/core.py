@@ -1,5 +1,7 @@
 """EngineCore: one ``step()`` drives every serving phase through the pool
-(port of ``src/repro/serving/core.py``, ragged mode).
+(port of ``src/repro/serving/core.py``), in one of two packings:
+``mode="ragged"`` (the default; below) or ``mode="padded"``, the
+reference's equivalence oracle (at the end).
 
 Each step the scheduler packs chunked prefill and decodes into one dense
 ``(T,)`` token stream (``RaggedBatch``), bucketed to a few widths; the
@@ -47,9 +49,24 @@ card kernel's pages per split) come from a ``KernelConfig``: the
 (``kernels/autotune.py``) for (model, platform), resolved once at
 construction and recorded in every step's ``StepOutput.kernel_config``.
 
-Later slices of the port bring the rest of the reference engine:
-tensor-parallel meshes and the padded oracle mode; asking for either
-raises ``NotImplementedError`` here.
+The padded oracle (``mode="padded"``): each step runs one right-aligned
+``(lanes, C)`` block (``Scheduler.schedule``, then
+``models/lm.py::lm_prefill_chunk_paged``): per lane ``q_len`` live tokens
+ending at row ``kv_len - 1``, dead rows left-padding, idle lanes at
+``kv_len`` 0; C is 1 on a decode-only step and ``chunk_size`` whenever a
+lane prefills, and the table width is bucketed to a power of two.  Its
+attention is kernel #2's block entry on the card (one split pass and one
+combine per layer per step).  The step comes back as (lanes, V) logits;
+greedy lanes take ``greedy_rows`` and sampling lanes draw one row each
+through ``sampling.sample_row`` (the in-step sampler on one row, #1 on
+the card), so both modes share one sampling semantics.  It runs eagerly,
+never captured (``capture`` is not read): an oracle, not a fast path.
+``trace_count`` counts its distinct (C, table width) shapes, the
+counterpart of the reference's ``jit`` traces.  Speculative decoding
+needs the ragged step (``ValueError``, as in the reference).
+
+A tensor-parallel mesh comes with a later slice of the port; asking for
+one raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -65,15 +82,17 @@ from repro_torch.device import DeviceLike, configure_matmul_precision, resolve_d
 from repro_torch.kernels.paged_attention.varlen import validate_cu_seqlens
 from repro_torch.kernels.autotune import KernelConfig, resolve_config
 from repro_torch.models.api import build_model
-from repro_torch.models.lm import SSM_FAMILIES, lm_step_ragged
+from repro_torch.models.lm import (SSM_FAMILIES, lm_prefill_chunk_paged,
+                                   lm_step_ragged)
 from repro_torch.serving.api import (Request, RequestState, StepOutput,
                                      UnsupportedCacheLayout)
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.paged import PagedKVCache
 from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.sampling import (InvalidRequest, greedy_rows,
-                                          stop_hit, validate_stop_tokens)
-from repro_torch.serving.scheduler import RaggedBatch, Scheduler
+                                          sample_row, stop_hit,
+                                          validate_stop_tokens)
+from repro_torch.serving.scheduler import LanePlan, RaggedBatch, Scheduler
 from repro_torch.serving.spec import NGramProposer
 from repro_torch.serving.tracing import ServingObservability
 
@@ -107,6 +126,15 @@ def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                           cu, kernel_config, greedy=greedy, sampling=sampling)
 
 
+def _padded_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                 kv: PagedKVCache, tokens, table, kv_len,
+                 q_len) -> torch.Tensor:
+    """One padded block step on device tensors → the lanes' last-row f32
+    logits (lanes, V); the pool is written in place."""
+    return lm_prefill_chunk_paged(cfg, params, tokens, kv.pool, table, kv_len,
+                                  q_len)[0]
+
+
 def _later(feature: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported yet: it lands with the {slice_name} slice "
@@ -118,11 +146,15 @@ class EngineCore:
     ``step()`` → finished requests accumulate in ``finished``; ``run()``
     drains everything.  Runs on ``cuda`` unless ``device`` says otherwise.
 
-    ``kernel_config`` pins the varlen attention's block shapes; by default
-    the engine resolves them once, here, from the tuner's table for
-    (``cfg.name``, the device's platform: ``cpu`` | ``cuda``), as the
-    reference does.  ``seed`` is accepted and ignored, as the reference
-    ignores it: seeds are per request (``SamplingParams.seed``).
+    ``mode`` is ``"ragged"`` (the packed stream, captured on the card
+    unless ``capture=False``) or ``"padded"`` (the (lanes, C) block
+    oracle, eager).  ``kernel_config`` pins the varlen attention's block
+    shapes; by default the engine resolves them once, here, from the
+    tuner's table for (``cfg.name``, the device's platform: ``cpu`` |
+    ``cuda``), as the reference does (the padded block reads none of them:
+    its kernel runs at its default split).  ``seed`` is accepted and
+    ignored, as the reference ignores it: seeds are per request
+    (``SamplingParams.seed``).
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor], *,
@@ -136,11 +168,14 @@ class EngineCore:
                  kernel_config: Optional[KernelConfig] = None,
                  mesh=None, device: DeviceLike = None, metrics: bool = True,
                  registry=None, trace_ring: int = 512, capture: bool = True):
-        if mode == "padded":
-            raise _later("mode='padded' (the padded-block oracle)",
-                         "other-families and contiguous-path")
-        if mode != "ragged":
-            raise ValueError(f"unknown EngineCore mode {mode!r}")
+        if mode not in ("ragged", "padded"):
+            raise ValueError(f"unknown EngineCore mode {mode!r}; "
+                             f"expected 'ragged' or 'padded'")
+        if speculative and mode != "ragged":
+            # The verify step is the ragged step (drafted rows ride the
+            # packed stream); the padded block extracts last-row logits
+            # only and has no lane room for 1 + k chunks.
+            raise ValueError("speculative decoding requires mode='ragged'")
         if speculative and spec_k < 1:
             raise ValueError(f"speculative decoding needs spec_k >= 1, "
                              f"got {spec_k}")
@@ -161,8 +196,10 @@ class EngineCore:
                 raise ValueError(f"parameter {name!r} lives on {t.device}, "
                                  f"the engine on {self.device}")
         self.cfg = cfg
+        self.mode = mode
         self.params = params
         self.lanes = lanes
+        self.chunk_size = chunk_size
         self.max_len = max_len or num_pages * page_size
         # One observability bundle for the whole stack (serving/tracing.py);
         # ``registry=`` lets several engines share one.
@@ -199,18 +236,27 @@ class EngineCore:
         # The step closes over the config, weights and pool, never over the
         # engine: an engine holds no reference cycle, so dropping it frees
         # its pool and graphs at once.
-        self._step = functools.partial(_ragged_step, cfg, params, self.kv,
-                                       self.kernel_config)
-        self.graphs = StepGraphs(
-            self._step, lanes=lanes, vocab=cfg.vocab_size, device=self.device,
-            verify_rows=self.spec_k + 1 if speculative else None,
-            on_capture=self.obs.step_traced)
+        if mode == "padded":
+            self._step = functools.partial(_padded_step, cfg, params, self.kv)
+            self.graphs = None
+            self._block_shapes = set()      # (C, table width) seen so far
+        else:
+            self._step = functools.partial(_ragged_step, cfg, params, self.kv,
+                                           self.kernel_config)
+            self.graphs = StepGraphs(
+                self._step, lanes=lanes, vocab=cfg.vocab_size,
+                device=self.device,
+                verify_rows=self.spec_k + 1 if speculative else None,
+                on_capture=self.obs.step_traced)
         self.obs.g_mesh.set(1)
         self.obs.g_coll_per_tok.set(0)
 
     @property
     def trace_count(self) -> int:
-        """Step captures so far: the reference's count of jit traces."""
+        """The reference's count of jit traces: step captures (ragged), or
+        distinct (C, table width) block shapes (padded)."""
+        if self.graphs is None:
+            return len(self._block_shapes)
         return self.graphs.captures
 
     # ------------------------------------------------------------------ API
@@ -233,11 +279,12 @@ class EngineCore:
         return self.scheduler.abort(uid)
 
     def step(self) -> StepOutput:
-        """Schedule → one packed model step → commit/finish, recorded in
-        ``obs``."""
+        """Schedule → one model step in the engine's packing (ragged
+        stream / padded block) → commit/finish, recorded in ``obs``."""
         self.obs.step_begin()
         t0 = time.perf_counter()
-        out = self._step_ragged()
+        out = (self._step_ragged() if self.mode == "ragged"
+               else self._step_padded())
         s = self.scheduler
         self.obs.record_step(
             out, dur_ms=(time.perf_counter() - t0) * 1e3, sched=s,
@@ -248,6 +295,50 @@ class EngineCore:
 
     def _step_ragged(self) -> StepOutput:
         return self._run_stream(*self.scheduler.schedule_ragged())
+
+    def _step_padded(self) -> StepOutput:
+        """The right-aligned (lanes, C) block step (the oracle mode)."""
+        return self._run_block(*self.scheduler.schedule())
+
+    def _block_arrays(self, plans: List[LanePlan]) -> Dict[str, np.ndarray]:
+        """The padded step's host inputs for ``plans``: ``tokens`` (lanes,
+        C) right-aligned, ``table`` (lanes, P) scratch-filled, ``kv_len``
+        and ``q_len`` (lanes,), idle lanes at 0.  C is 1 when every lane
+        decodes one row, else ``chunk_size``; P the longest table rounded
+        up to a power of two (the reference's retrace bucketing)."""
+        c = 1 if all(p.q_len == 1 for p in plans) else self.chunk_size
+        width = max(len(p.run.pages) for p in plans)
+        width = 1 << max(width - 1, 0).bit_length()
+        b = self.lanes
+        tokens = np.zeros((b, c), np.int32)
+        kv_len = np.zeros((b,), np.int32)
+        q_len = np.zeros((b,), np.int32)
+        table = np.full((b, width), self.kv.scratch, np.int32)
+        for i, p in enumerate(plans):
+            tokens[i, c - p.q_len:] = p.stream_tokens()
+            kv_len[i] = p.run.rows + p.q_len
+            q_len[i] = p.q_len
+            table[i, :len(p.run.pages)] = p.run.pages
+        return dict(tokens=tokens, table=table, kv_len=kv_len, q_len=q_len)
+
+    def _run_block(self, plans: List[LanePlan], preempted) -> StepOutput:
+        """Execute lane plans as one right-aligned (lanes, C) block,
+        eagerly; a new (C, table width) shape counts as a trace."""
+        if not plans:
+            return StepOutput(
+                tokens={}, finished=(), preempted=preempted, lanes=0,
+                prefill_tokens=0, decode_tokens=0,
+                prefix_hit_tokens=self.scheduler.prefix_hit_tokens_step)
+        arrays = self._block_arrays(plans)
+        shape = (arrays["tokens"].shape[1], arrays["table"].shape[1])
+        if shape not in self._block_shapes:
+            self._block_shapes.add(shape)
+            self.obs.step_traced()
+        logits = self._step(**{k: torch.from_numpy(v).to(self.device)
+                               for k, v in arrays.items()})
+        return self._finish(plans, preempted, logits=logits,
+                            live=sum(p.q_len for p in plans),
+                            padded=arrays["tokens"].size)
 
     def step_arrays(self, batch: RaggedBatch) -> Dict[str, np.ndarray]:
         """The step function's host inputs for ``batch``: its packed
@@ -320,11 +411,17 @@ class EngineCore:
         return dict(temperature=temp, top_k=top_k, top_p=top_p, seed=seed,
                     counter=counter)
 
-    def _finish(self, plans, preempted, *, picks: np.ndarray, live: int,
-                padded: int) -> StepOutput:
+    def _finish(self, plans, preempted, *, live: int, padded: int,
+                picks: Optional[np.ndarray] = None,
+                logits: Optional[torch.Tensor] = None) -> StepOutput:
         """Advance cursors, commit or verify each sampling lane's tokens,
         check stop sequences / eos / max_new after every committed token,
         retire finished requests.
+
+        The ragged step hands back ``picks``, drawn on the device, (lanes,)
+        or (lanes, 1 + k); the padded block its (lanes, V) ``logits``:
+        greedy lanes take ``greedy_rows`` (one transfer for the step) and
+        each sampling lane draws its row through ``sample_row``.
 
         A drafting lane streamed ``1 + d`` rows; its picks ``g[0..d]`` are
         the greedy tokens at every drafted position, and it commits
@@ -341,6 +438,8 @@ class EngineCore:
                        if p.run.req.state is RequestState.DECODE)
         drafted = sum(len(p.drafts) for p in plans)
         accepted = 0
+        if logits is not None:
+            greedy = greedy_rows(logits).cpu().numpy()
         for i, p in enumerate(plans):
             run, req = p.run, p.run.req
             if not p.sample:
@@ -353,8 +452,13 @@ class EngineCore:
                 while acc < len(p.drafts) and int(g[acc]) == p.drafts[acc]:
                     acc += 1
                 commit = [int(t) for t in g[:acc + 1]]
-            else:
+            elif picks is not None:
                 commit = [int(picks[i, 0] if picks.ndim == 2 else picks[i])]
+            elif req.sampling.greedy:
+                commit = [int(greedy[i])]
+            else:
+                commit = [sample_row(logits[i], req.sampling,
+                                     len(req.tokens))]
             done = stopped = False
             n = 0
             start = len(req.tokens)
@@ -405,7 +509,8 @@ class EngineCore:
                           prefix_hit_tokens=(
                               self.scheduler.prefix_hit_tokens_step),
                           drafted_tokens=drafted, accepted_tokens=accepted,
-                          kernel_config=self.kernel_config.describe())
+                          kernel_config=(self.kernel_config.describe()
+                                         if self.mode == "ragged" else None))
 
     def run(self, max_steps: int = 100_000) -> List[Request]:
         steps = 0

@@ -1,6 +1,6 @@
 """The slot-contiguous serving engine (port of ``src/repro/serving/engine.py``:
-``_EngineBase`` and ``ServingEngine``; its ``PagedServingEngine`` shim over
-``EngineCore`` is not ported).
+``_EngineBase``, ``ServingEngine``, and the deprecated ``PagedServingEngine``
+shim over ``EngineCore``, at the end).
 
 ``ServingEngine`` serves the vlm family as text, as the reference's does,
 and refuses the encoder-decoder (``NotImplementedError``): its prefill
@@ -51,6 +51,7 @@ from __future__ import annotations
 import collections
 import functools
 import time
+import warnings
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,13 +62,13 @@ from repro_torch.device import (DeviceLike, configure_matmul_precision,
                                 resolve_device)
 from repro_torch.models.api import Model, build_model
 from repro_torch.serving.api import Request, RequestState
-from repro_torch.serving.core import greedy_token
+from repro_torch.serving.core import EngineCore, greedy_token
 from repro_torch.serving.graphs import CapturedCall
 from repro_torch.serving.sampling import (InvalidRequest, greedy_rows,
                                           sample_row, stop_hit,
                                           validate_stop_tokens)
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["PagedServingEngine", "Request", "ServingEngine"]
 
 TIMINGS_KEPT = 4096        # the newest host timings an engine keeps
 
@@ -270,3 +271,71 @@ class ServingEngine(_EngineBase):
                 self.active[s] = None           # recycle immediately
         self.decode_ms.append((time.perf_counter() - t0) * 1e3)
         return len(live)
+
+
+class PagedServingEngine:
+    """Deprecated shim: ``PagedServingEngine(...)`` ≡ ``EngineCore(...)``
+    (the reference's, kept for its callers).
+
+    ``slots`` maps to ``lanes``; ``submit`` / ``step`` / ``run`` and the
+    introspection surface (``queue`` / ``active`` / ``finished`` / ``kv`` /
+    ``pages_in_use`` / ``page_tables``) delegate to the core, which runs
+    on the card unless ``device`` says otherwise.  Building one warns with
+    a ``DeprecationWarning``."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor], *,
+                 slots: int = 4, page_size: int = 16, num_pages: int = 64,
+                 max_len: Optional[int] = None, seed: int = 0,
+                 chunk_size: Optional[int] = None,
+                 prefix_cache: bool = False, device: DeviceLike = None):
+        warnings.warn(
+            "PagedServingEngine is deprecated: build "
+            "repro_torch.serving.EngineCore directly (same constructor, "
+            "request-level step API)", DeprecationWarning, stacklevel=2)
+        self.core = EngineCore(cfg, params, lanes=slots, page_size=page_size,
+                               num_pages=num_pages, max_len=max_len,
+                               seed=seed, chunk_size=chunk_size or page_size,
+                               prefix_cache=prefix_cache, device=device)
+        self.cfg = cfg
+        self.slots = slots
+
+    # delegated API ---------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.core.submit(req)
+
+    def step(self) -> int:
+        return self.core.step().lanes
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        return self.core.run(max_steps)
+
+    # compat introspection --------------------------------------------------
+    @property
+    def kv(self):
+        return self.core.kv
+
+    @property
+    def max_len(self) -> int:
+        return self.core.max_len
+
+    @property
+    def finished(self) -> List[Request]:
+        return self.core.finished
+
+    @property
+    def queue(self) -> List[Request]:
+        return [r.req for r in self.core.scheduler.waiting]
+
+    @property
+    def active(self) -> List[Optional[Request]]:
+        live: List[Optional[Request]] = [
+            r.req for r in self.core.scheduler.running]
+        return live + [None] * (self.slots - len(live))
+
+    @property
+    def page_tables(self) -> List[List[int]]:
+        return self.core.page_tables
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.core.pages_in_use

@@ -19,6 +19,9 @@ graph (``serving/graphs.py``) reads them by address, and stream order puts
 the copy ahead of the step that reads it.  ``obs`` (the engine's
 ``ServingObservability``) counts the copies.
 
+``gather`` turns page tables into contiguous views of the pool: an
+oracle for the tests, never on a serving step.
+
 ``check_pageable`` refuses, at construction, a model whose cache the pool
 cannot page: a Mamba layer's state is O(1) per sequence, with no length
 axis to page, and a local layer whose window is narrower than a page
@@ -29,7 +32,9 @@ from __future__ import annotations
 
 import heapq
 import weakref
-from typing import List
+from typing import Dict, List
+
+import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models.lm import trunk_cache_init
@@ -160,3 +165,24 @@ class PagedKVCache:
         if self.obs is not None:
             self.obs.cow_copy()
         return fresh
+
+    # ------------------------------------------------------------- pool ops
+    def gather(self, pool: Dict[str, torch.Tensor],
+               tbl: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Page tables (B, P) → contiguous views of ``pool``, leaf by leaf:
+        ``k``/``v`` (L, N+1, Hkv, ps, Dh) → (L, B, Hkv, P·ps, Dh), the int8
+        scales (L, N+1, Hkv, ps) → (L, B, Hkv, P·ps) — the contiguous
+        cache's layout (``models/lm.py::trunk_cache_init``), row ``r`` of
+        lane ``b`` read from page ``tbl[b, r // ps]``.
+
+        This is the O(B·H·L·D) copy the in-place paths never make; it
+        remains only as an oracle for holding the paged attention against
+        the contiguous backends (tests).  No serving step calls it."""
+        tbl = tbl.long()
+        out = {}
+        for name, leaf in pool.items():
+            g = leaf[:, tbl]                    # (L, B, P, Hkv, ps, ...)
+            g = g.movedim(2, 3)                 # P next to the in-page row
+            s = g.shape
+            out[name] = g.reshape(s[:3] + (s[3] * s[4],) + s[5:])
+        return out

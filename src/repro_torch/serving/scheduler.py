@@ -1,5 +1,6 @@
 """Continuous-batching scheduler: requests → one packed token stream per
-step (port of ``src/repro/serving/scheduler.py``, numpy only).
+step, or one right-aligned block of lane plans for the padded oracle
+(port of ``src/repro/serving/scheduler.py``, numpy only).
 
 A request is a cursor (``rows``) into its known tokens (prompt ⊕
 generated).  Each step a resident request streams the next
@@ -412,7 +413,10 @@ class Scheduler:
         return plans
 
     def begin_step(self) -> Dict[int, int]:
-        """Admit waiters and split the token budget → ticket → q_len."""
+        """Admit waiters and split the token budget → ticket → q_len.
+        Then exactly one of :meth:`plans_for` (the padded block, the
+        engine's ``mode="padded"`` oracle) or :meth:`batch_for` (the ragged
+        stream) finishes the step."""
         self._evicted_now = []
         self.prefix_hit_tokens_step = 0
         self.trimmed_prefill_step = 0
@@ -420,6 +424,19 @@ class Scheduler:
         self._drafts = {}
         self._admit()
         return self._plan_wants()
+
+    def plans_for(self, wants: Dict[int, int]
+                  ) -> Tuple[List[LanePlan], Tuple[int, ...]]:
+        """Finish a step as padded-block lane plans → (plans, preempted):
+        pages granted for every budgeted token, no trim to a bucket."""
+        plans = self._grant_plans(wants)
+        return plans, tuple(self._evicted_now)
+
+    def schedule(self) -> Tuple[List[LanePlan], Tuple[int, ...]]:
+        """→ (lane plans for this step, uids preempted while planning).
+        The engine runs these as one right-aligned (lanes, C) block — the
+        padded step; :meth:`schedule_ragged` is the packed-stream twin."""
+        return self.plans_for(self.begin_step())
 
     # -------------------------------------------------------- ragged plan
     def _bucket_up(self, t: int) -> int:

@@ -25,6 +25,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+import torch
 
 from repro.checkpoint.store import flatten_tree
 from repro.configs import get_config as j_get_config
@@ -87,6 +88,81 @@ def _spy_batches(eng, log):
     eng.scheduler.batch_for = spy
 
 
+def _spy_blocks(eng, log, logits, side):
+    """A padded engine's step: record each step's plans and its block
+    inputs (tokens, table, kv_len, q_len as numpy) in ``log``, and its
+    (lanes, V) logits in ``logits[side]``."""
+    inner_plans = eng.scheduler.plans_for
+
+    def spy_plans(wants):
+        plans, pre = inner_plans(wants)
+        log.append({"plans": plans})
+        return plans, pre
+    eng.scheduler.plans_for = spy_plans
+    inner = eng._step
+    if side == "jax":
+        def spy(p, pool, tbl, toks, kv_len, q_len):
+            out, pool = inner(p, pool, tbl, toks, kv_len, q_len)
+            log[-1].update(table=np.asarray(tbl), tokens=np.asarray(toks),
+                           kv_len=np.asarray(kv_len), q_len=np.asarray(q_len))
+            logits[side] = np.asarray(out)
+            return out, pool
+    else:
+        def spy(**arrays):
+            out = inner(**arrays)
+            log[-1].update({k: v.numpy() for k, v in arrays.items()})
+            logits[side] = out.numpy()
+            return out
+    eng._step = spy
+
+
+def pool_leaves(pool, scratch):
+    """A page pool as {leaf: (layers, pages, …) f32 numpy} in layer order,
+    the scratch page (``scratch``) dropped: the reference's scanned
+    ``periods/{j}`` leaf ``[n]`` is layer ``n·len(pattern) + j``."""
+    live = slice(0, scratch)
+    if "periods" in pool:
+        per = pool["periods"]
+        out = {}
+        for name in per["0"]:
+            stack = np.stack([np.asarray(per[str(j)][name].astype(jnp.float32))
+                              for j in range(len(per))], axis=1)
+            out[name] = stack.reshape((-1,) + stack.shape[2:])[:, live]
+        return out
+    return {k: v[:, live].to(torch.float32).numpy() for k, v in pool.items()}
+
+
+def assert_pools_close(je, te, cfg, step):
+    """The two pools outside the scratch page: every written row at the
+    (page, offset) the reference wrote it — the same rows all zero in
+    both — and values within the model step's tolerance
+    (``tests/test_torch_model_step.py``: f32 atol = rtol = 1e-4; an int8
+    pool's dequantised rows within one quantisation step, the largest row
+    scale); in bf16 within 4 bf16 steps of the leaf's scale (2^-5·max|x|:
+    both round per op in different places, and a layer's rows inherit the
+    ulps of the layers before it; an int8 row's scale follows its absmax).
+    The scratch page is left out: several padding rows write one (page,
+    offset) there and which lands is not fixed."""
+    a, b = (pool_leaves(e.kv.pool, e.kv.scratch) for e in (je, te))
+    assert a.keys() == b.keys(), (a.keys(), b.keys())
+    step_size = 0.0
+    if "ks" in a:                        # int8: the dequantised rows
+        step_size = float(a["ks"].max())
+        for x in (a, b):
+            for k in ("k", "v"):
+                x[k] = x[k] * x.pop(k + "s")[..., None]
+    for k in a:
+        zeros = [np.all(x == 0, axis=-1) for x in (a[k], b[k])]
+        np.testing.assert_array_equal(zeros[0], zeros[1],
+                                      f"step {step}: {k}'s written rows")
+        if cfg.dtype == "float32":
+            atol, rtol = max(1e-4, step_size), 1e-4
+        else:
+            atol, rtol = 2 ** -5 * float(np.abs(a[k]).max()), 2 ** -7
+        np.testing.assert_allclose(b[k], a[k], atol=atol, rtol=rtol,
+                                   err_msg=f"step {step}: {k}")
+
+
 def cache_tree(cache):
     """A prefix cache as plain data: page → (block path, LRU stamp), its
     version and its stats; None when the cache is off."""
@@ -147,7 +223,7 @@ def _spy_logits(je, jc, logits, monkeypatch):
 
 def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
               on_step=None, waves=None, proposer=None, built=None,
-              sampling=None, tie_rule=None):
+              sampling=None, tie_rule=None, mode="ragged", pools=False):
     """Drive both engines to completion → dict of per-run facts.
     ``on_step(je, te, step)`` runs after every step's checks.  ``waves``
     lists the request indices submitted together, each wave once both
@@ -156,22 +232,31 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
     result when the caller already has it; ``sampling`` lists each
     request's ``SamplingParams`` keyword arguments (None: greedy);
     ``tie_rule`` applies the near-tie rule to the pool (default: to int8
-    pools only)."""
+    pools only).  ``mode="padded"`` runs both engines' padded-block
+    oracle: each step's plans and block inputs (tokens, table, kv_len,
+    q_len) are compared in place of the packed stream, and the near-tie
+    rule reads each step's (lanes, V) logits.  ``pools=True`` holds the
+    two page pools after every step (``assert_pools_close``) until a
+    request forks (its later rows hold other tokens' K/V)."""
     tie_rule = kv_quant if tie_rule is None else tie_rule
     jc, tc, jparams, tparams = built or build(dtype, kv_quant)
-    kw = dict(engine_kw, seed=7)
+    kw = dict(engine_kw, seed=7, mode=mode)
     je = JEngine(jc, jparams, **kw, **(
         {} if proposer is None else dict(proposer=proposer())))
     te = TEngine(tc, tparams, device="cpu", **kw, **(
         {} if proposer is None else dict(proposer=proposer())))
     jb, tb = [], []
-    _spy_batches(je, jb)
-    _spy_batches(te, tb)
-
     # logits of every step the near-tie rule reads
     logits = {}
-    if tie_rule:
-        _spy_logits(je, jc, logits, monkeypatch)
+    padded = mode == "padded"
+    if padded:
+        _spy_blocks(je, jb, logits, "jax")
+        _spy_blocks(te, tb, logits, "torch")
+    else:
+        _spy_batches(je, jb)
+        _spy_batches(te, tb)
+        if tie_rule:
+            _spy_logits(je, jc, logits, monkeypatch)
 
     reqs = {}
     forked, near_ties, steps, preempted, mixed = set(), [], 0, [], False
@@ -191,22 +276,37 @@ def run_twins(monkeypatch, *, dtype, kv_quant, prompts, max_new, engine_kw,
             outs.append((oj, ot))
             steps += 1
             a, b = jb[-1], tb[-1]
+            a_plans = a["plans"] if padded else a.plans
             plan = [(p.run.req.uid, p.q_len, tuple(p.drafts))
-                    for p in a.plans]
+                    for p in a_plans]
             assert plan == [(p.run.req.uid, p.q_len, tuple(p.drafts))
-                            for p in b.plans], steps
-            live = np.array([a.plans[i].run.req.uid not in forked
-                             if i >= 0 else True for i in a.lane_id])
-            np.testing.assert_array_equal(a.tokens[live], b.tokens[live])
-            for f in ("pos", "lane_id", "table", "cu_seqlens"):
-                np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
-            assert (a.live, a.width) == (b.live, b.width)
+                            for p in (b["plans"] if padded else b.plans)], steps
+            if padded and plan:
+                live = np.array([i >= len(plan) or plan[i][0] not in forked
+                                 for i in range(len(a["tokens"]))])
+                np.testing.assert_array_equal(a["tokens"][live],
+                                              b["tokens"][live])
+                for f in ("table", "kv_len", "q_len"):
+                    np.testing.assert_array_equal(a[f], b[f], f)
+            elif not padded:
+                live = np.array([a.plans[i].run.req.uid not in forked
+                                 if i >= 0 else True for i in a.lane_id])
+                np.testing.assert_array_equal(a.tokens[live], b.tokens[live])
+                for f in ("pos", "lane_id", "table", "cu_seqlens"):
+                    np.testing.assert_array_equal(getattr(a, f),
+                                                  getattr(b, f), f)
+                assert (a.live, a.width) == (b.live, b.width)
             assert _state(je) == _state(te), steps
+            if pools and not forked:       # a fork writes other rows
+                assert_pools_close(je, te, tc, steps)
             for f in ("preempted", "finished", "prefix_hit_tokens",
                       "drafted_tokens", "accepted_tokens"):
                 assert getattr(oj, f) == getattr(ot, f), (steps, f)
             assert _shapes(ot.kernel_config) == oj.kernel_config, steps
-            assert (ot.kernel_config is None) == (ot.lanes == 0), steps
+            assert (ot.kernel_config is None) == (ot.lanes == 0
+                                                  or padded), steps
+            assert (ot.live_rows, ot.padded_rows) == (oj.live_rows,
+                                                      oj.padded_rows), steps
             preempted += list(oj.preempted)
             mixed |= oj.mixed
             for uid, (jr, tr) in reqs.items():

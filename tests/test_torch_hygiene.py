@@ -85,7 +85,8 @@ NOT_YET_PORTED = {
              "sharded_softmax", "sharded_softmax_tree", "tree_allreduce"},
     "kernels": set(),
     "models": set(),
-    "serving": {"PagedServingEngine"},                           # item 4
+    "serving": set(),
+    "perfmodel": set(),
     "checkpoint": set(),
     "optim": set(),
     "runtime": set(),
@@ -167,7 +168,25 @@ def test_engine_without_device_raises_without_card(no_card):
     EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mode="padded"), dict(mesh=2)])
+def test_padded_engine_without_device_raises_without_card(no_card):
+    """The padded oracle has no CPU fallback either: without a card it
+    raises unless told ``device="cpu"``, and so does the deprecated shim
+    over ``EngineCore``."""
+    from repro_torch.serving import PagedServingEngine
+    cfg = get_config("deepseek-7b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8,
+                   mode="padded")
+    with pytest.warns(DeprecationWarning), pytest.raises(RuntimeError,
+                                                         match="CUDA"):
+        PagedServingEngine(cfg, params, slots=2, page_size=8, num_pages=8)
+    eng = EngineCore(cfg, params, lanes=2, page_size=8, num_pages=8,
+                     mode="padded", device="cpu")
+    assert eng.mode == "padded" and eng.graphs is None
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=2)])
 def test_later_slices_raise_not_implemented(kw):
     cfg = get_config("deepseek-7b-smoke")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -1998,3 +1998,82 @@ def test_trainer_on_the_card(cuda_device, tmp_path):
     b = run(tmp_path / "b", FailureInjector(fail_at_steps=(3,)))
     assert {m["step"]: m["loss"] for m in a} == {m["step"]: m["loss"]
                                                  for m in b}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16", "int8"])
+def test_paged_block_rows_that_see_no_key_emit_zero(cuda_device, pool_dtype):
+    """#2's block entry as the padded step calls it: an idle lane (kv_len
+    0, an all-scratch table) and a chunk's padding rows at negative
+    positions see no key; the kernel gives them exactly 0, finite, as the
+    plain version does, and the live rows hold the plain version cut into
+    the kernel's splits."""
+    rng = np.random.default_rng(17)
+    c, ps, n = 16, 8, 9
+    q = torch.from_numpy(rng.normal(size=(3, 4, c, 32)).astype(np.float32))
+    kv = [rng.normal(size=(n + 1, 2, ps, 32)).astype(np.float32)
+          for _ in range(2)]
+    table = torch.tensor([[0, 1, 2], [5, n, n], [n, n, n]], dtype=torch.int32)
+    kv_len = torch.tensor([20, 6, 0], dtype=torch.int32)
+    kw = {}
+    if pool_dtype == "int8":
+        (k, ks), (v, vs) = (quantize_kv_rows(torch.from_numpy(a))
+                            for a in kv)
+        kw = dict(k_scale=ks.to(cuda_device), v_scale=vs.to(cuda_device))
+    else:
+        k, v = (torch.from_numpy(a).to(getattr(torch, pool_dtype))
+                for a in kv)
+    q = q.to(torch.float32 if pool_dtype == "float32" else torch.bfloat16)
+    dev = lambda t: t.to(cuda_device).contiguous()  # noqa: E731
+    got = paged_attention(dev(q), dev(k), dev(v), dev(table), dev(kv_len),
+                          **kw)
+    torch.cuda.synchronize()
+    want = paged_attention_reference(
+        q, k, v, table, kv_len, kv_split=default_kv_split(ps),
+        **{n_: t.cpu() for n_, t in kw.items()})
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert not got[2].any() and not got[1, :, :c - 6].any()
+    live = got[0], got[1, :, c - 6:]
+    ref = want[0], want[1, :, c - 6:]
+    for a, b in zip(live, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2
+                                   if a.dtype == torch.bfloat16 else 2e-5,
+                                   rtol=1e-2 if a.dtype == torch.bfloat16
+                                   else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_padded_engine_on_the_card(cuda_device, kv_quant):
+    """``EngineCore(mode="padded")`` on the card, deepseek-7b-smoke in f32:
+    #2's split pass and combine each launched layers × block steps, the
+    pool drained, and the greedy streams of the CPU's padded engine on the
+    same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serving import EngineCore, Request
+    cfg = get_config("deepseek-7b-smoke").replace(dtype="float32",
+                                                  kv_quant=kv_quant)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (3, 21, 9, 14, 6)]
+    streams = {}
+    for dev in ("cpu", cuda_device):
+        eng = EngineCore(cfg, {k: t.to(dev) for k, t in params.items()},
+                         lanes=3, page_size=8, num_pages=24, chunk_size=8,
+                         mode="padded", device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new=5))
+        n0, c0 = paged_attention.launches, paged_attention.combine_launches
+        steps = 0
+        while eng.scheduler.has_work():
+            steps += eng.step().lanes > 0
+        if dev != "cpu":
+            assert paged_attention.launches - n0 == cfg.num_layers * steps
+            assert (paged_attention.combine_launches - c0
+                    == cfg.num_layers * steps)
+        assert eng.pages_in_use == 0
+        streams[str(dev)] = {r.uid: r.tokens for r in eng.finished}
+    assert streams["cpu"] == streams[str(cuda_device)]

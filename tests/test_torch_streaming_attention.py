@@ -137,7 +137,7 @@ def test_plain_version_differentiates_on_cpu():
 
 def test_builtin_backends_are_the_references_names():
     assert set(t_api.list_backends()) == {"naive", "naive_decode", "jnp",
-                                          "pallas"}
+                                          "pallas", "paged", "paged_varlen"}
     assert set(t_api.list_backends()) <= set(j_api.list_backends())
 
 
