@@ -35,6 +35,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (GQA 12:1); and at phase 13's: granite-moe's 24 × 8 heads of 64 (GQA
    3:1) and grok-1's 48 × 8 of 128 (GQA 6:1) with softcap 30; and at
    phase 15's: internvl2-1b's 14 × 2 of 64 (GQA 7:1: 56 rows a q-block);
+   and at phase 17's head band, a rank's 16 × 16 of 128 at mesh 2;
 4a. the kernel-config tuner on the card: ``tune(geom_for(deepseek-7b, page
    size 16), platform="cuda", measure=True)`` for the bf16 and the int8
    pool over phase 7's own steps (packed by its scheduler in a dry run on
@@ -351,7 +352,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    caller sees it, device alone, host per call) beside the plain backward,
    ``g · exp(x)`` (the exact exponential's backward, a yardstick) and its
    bound;
-17. print the card's name and power limit, then ``{"ok": true, "device":
+17. tensor-parallel serving, after every other model is freed: #2 timed
+   at a rank's head band of deepseek-7b at mesh 2 (16 of 32 heads, the
+   decode step beside SDPA on gathered views, and a mixed step), then
+   ``launch.mesh.spawn`` starts 2 ranks on this card over gloo
+   (``TP_RANKS``; ``tp_rank``), each drawing phase 7's seeded deepseek-7b
+   weights at full width and serving phase 7c's traffic (requests 4–7
+   sampled) through ``EngineCore(mesh=2)`` on the bf16 pool and then the
+   int8 pool, eagerly: the ranks' streams equal (a hash all-gathered),
+   #2's split passes and combines on each rank = layers × steps, the pool
+   drained, ``measure_collective_bytes(width)`` = the reference's
+   ``collective_bytes_per_token`` × width at the wire's itemsize over 4
+   (the port gathers the bf16 attention output, the reference an f32
+   one); rank 0 then serves the same traffic through a single-device
+   eager engine while rank 1 waits: streams token-identical, the logits
+   rows of every request's first two tokens bit-equal, and the streams
+   held to phase 7c's captured ones by the margin rule; then the paper's
+   multi-core softmax across the 2 ranks at the sampler's shape ((8,
+   102,400) f32 split on the vocabulary; ``sharded_softmax`` and
+   ``sharded_softmax_tree`` against ``lut_softmax`` within 3e-6, the
+   butterfly one round per reduce), ``ring_attention`` (2 × 1,024, 32 ×
+   128, causal, the sequence split) and ``distributed_decode_attention``
+   (kv 1,024) against the plain single-device attention within atol 5e-5,
+   rtol 1e-4 (the reference tests' tolerances); the mesh step p50 beside
+   the single-device eager p50, the all-gathers' wall time a step, and
+   the phase's own seconds;
+18. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Phase 3 also holds #1 bit for bit at phase 14's shapes (falcon's chunk
@@ -469,6 +495,15 @@ VLM_MODEL, VLM_BATCH, VLM_PROMPT = "internvl2-1b", 8, 128
 ENCDEC_MODEL, ENCDEC_BATCH, ENCDEC_PROMPT = "seamless-m4t-large-v2", 8, 16
 ENCDEC_SCORE = (2, 1024)
 GEN_NEW = 32
+# Phase 17: tensor-parallel serving in TP_RANKS gloo ranks on the card; the
+# multi-core softmax at the sampler's shape and ring attention at
+# deepseek's scoring shape (B, heads, L, D), held to the reference tests'
+# tolerances
+TP_RANKS = 2
+TP_TIMEOUT_S = 420
+TP_SOFTMAX = (8, 102400)
+TP_RING = (2, 32, 1024, 128)
+TP_ATTN_TOL = dict(atol=5e-5, rtol=1e-4)
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -924,6 +959,12 @@ def phase_paged_attention():
         for pool in ("bfloat16", "int8"):
             cases.append((f"{fname} {pool}", fam, 8,
                           dict(pool=pool, n_pages=FAMILY_PAGES, **shape), kw))
+    # phase 17's head band: a rank of deepseek-7b at mesh TP_RANKS holds
+    # HQ / TP_RANKS of the heads, a head count #2 runs at nowhere else
+    for pool in ("bfloat16", "int8"):
+        cases.append((f"deepseek band {HQ // TP_RANKS}×{HQ // TP_RANKS}×{D} "
+                      f"(mesh {TP_RANKS}) {pool}", tiled, 8,
+                      dict(pool=pool, hq=HQ // TP_RANKS), {}))
     for i, (name, spec, bq, mk, kw) in enumerate(cases):
         s = make_stream(spec, seed=i, **mk)
         args = (s["q"], s["k"], s["v"], s["table"], s["pos"])
@@ -1996,7 +2037,7 @@ def step_logits(eng, batch):
          for k, v in eng.step_arrays(batch).items()}
     lg = lm_step_ragged(eng.cfg, eng.params, a["tokens"], eng.kv.pool,
                         a["table"], a["pos"], a["last_idx"], a["cu"],
-                        eng.kernel_config)
+                        eng.kernel_config, tp_axis=eng.tp_axis)
     return lg[:len(batch.plans)].cpu().numpy()
 
 
@@ -2497,7 +2538,7 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
     for wave in waves:
         w = dict(step_ms=[], steps=0, prefill_tokens=0, hit_tokens=0,
                  drafted=0, accepted=0, ttft_ms={},
-                 captures=eng.graphs.captures)
+                 captures=eng.trace_count)
         t_sub = time.perf_counter()
         for uid, prompt, *sp in wave:
             reqs[uid] = Request(uid=uid, prompt=prompt, max_new=MAX_NEW,
@@ -2505,7 +2546,7 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
             eng.submit(reqs[uid])
         while eng.scheduler.has_work():
             before = {u: len(r.tokens) for u, r in reqs.items()}
-            n0, c0 = read_paged_counts()["paged_attention"], eng.graphs.captures
+            n0, c0 = read_paged_counts()["paged_attention"], eng.trace_count
             if len(step_log) in profile_at:
                 eng.obs.arm_profiler(1, profile_at[len(step_log)])
             s0 = time.perf_counter()
@@ -2520,7 +2561,7 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
                 preempted=len(out.preempted),
                 sampled=bool(out.lanes) and seen[eng, "sampled"],
                 width=out.padded_rows, ms=(now - s0) * 1e3,
-                captures=eng.graphs.captures - c0,
+                captures=eng.trace_count - c0,
                 launches=read_paged_counts()["paged_attention"] - n0))
             if out.lanes and out.kernel_config != eng.kernel_config.describe():
                 fail(f"a step recorded kernel config {out.kernel_config}, "
@@ -2547,7 +2588,7 @@ def serve_waves(eng, waves, targets=frozenset(), profile_at=None):
                         logits[u, j] = (lg[i] if lg.ndim == 2
                                         else lg[i, j - before[u]])
         w["wall_s"] = time.perf_counter() - t_sub
-        w["captures"] = eng.graphs.captures - w["captures"]
+        w["captures"] = eng.trace_count - w["captures"]
         w["generated"] = sum(len(reqs[u].tokens) for u, *_ in wave)
         per_wave.append(w)
     torch.cuda.synchronize()
@@ -6653,6 +6694,309 @@ def phase_training():
     return {m[0]: train_model(*m) for m in TRAIN_MODELS}
 
 
+# --------------------------------------------------------- phase 17: TP --
+
+def tp_checks(axis):
+    """The paper's multi-core softmax and the ring attention across the
+    ranks of ``axis`` (each rank's block of seeded inputs drawn whole on
+    every rank), held against their plain single-device versions on the
+    card → facts of this rank's run."""
+    import torch
+    from repro_torch.core import (distributed_decode_attention,
+                                  ring_attention, sharded_softmax,
+                                  sharded_softmax_tree, tree_allreduce)
+    from repro_torch.core import multicore_softmax
+    from repro_torch.core.lut_softmax import lut_softmax
+    from repro_torch.core.streaming_attention import naive_attention
+    from repro_torch.kernels.lut_exp import lut_exp
+    from repro_torch.parallel.collectives import all_gather
+    n, r = axis.size, axis.index
+    g = torch.Generator(device=DEV).manual_seed(17)
+    out = {}
+    # the sampler's shape, split on the vocabulary
+    x = torch.randn(TP_SOFTMAX, generator=g, device=DEV) * 5
+    cols = x.shape[1] // n
+    local = x[:, r * cols:(r + 1) * cols].contiguous()
+    want = lut_softmax(x, exp=lut_exp)
+    l0, c0 = lut_exp.launches, multicore_softmax.COUNTS["tree_rounds"]
+    t0 = time.perf_counter()
+    got = all_gather(sharded_softmax(local, axis), axis, dim=1)
+    torch.cuda.synchronize()
+    out["softmax_ms"] = (time.perf_counter() - t0) * 1e3
+    l1, c1 = lut_exp.launches, multicore_softmax.COUNTS["tree_rounds"]
+    tree = all_gather(sharded_softmax_tree(local, axis), axis, dim=1)
+    c2 = multicore_softmax.COUNTS["tree_rounds"]
+    one = tree_allreduce(torch.ones(4, device=DEV), torch.add, axis)
+    c3 = multicore_softmax.COUNTS["tree_rounds"]
+    out.update(
+        softmax_err=float((got - want).abs().max()),
+        softmax_tree_err=float((tree - got).abs().max()),
+        softmax_lut_launches=l1 - l0,
+        rounds=dict(sharded_softmax=c1 - c0, sharded_softmax_tree=c2 - c1,
+                    tree_allreduce=c3 - c2),
+        tree_sum=float(one[0]))
+    # ring attention at deepseek's scoring shape, the sequence split
+    b, h, seq, d = TP_RING
+    q, k, v = (torch.randn((b, h, seq, d), generator=g, device=DEV)
+               for _ in range(3))
+    part = lambda t: t[:, :, r * (seq // n):(r + 1) * (seq // n)].contiguous()  # noqa: E731
+    t0 = time.perf_counter()
+    ring = all_gather(ring_attention(part(q), part(k), part(v), axis,
+                                     causal=True), axis, dim=2)
+    torch.cuda.synchronize()
+    out["ring_ms"] = (time.perf_counter() - t0) * 1e3
+    want = naive_attention(q, k, v, causal=True, exp_mode="lut")
+    out["ring_err"] = float((ring - want).abs().max())
+    out["ring_ok"] = bool(torch.allclose(ring, want, **TP_ATTN_TOL))
+    # one decode row against the split cache of seq rows
+    qd = torch.randn((b, h, 1, d), generator=g, device=DEV)
+    t0 = time.perf_counter()
+    dec = distributed_decode_attention(qd, part(k), part(v), axis,
+                                       kv_len=seq)
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    want = naive_attention(qd, k, v, causal=True, q_offset=seq - 1,
+                           kv_len=seq, exp_mode="lut")
+    out["decode_err"] = float((dec - want).abs().max())
+    out["decode_ok"] = bool(torch.allclose(dec, want, **TP_ATTN_TOL))
+    return out
+
+
+def tp_rank(prompts, want):
+    """One rank of phase 17 (started by ``launch.mesh.spawn`` into a gloo
+    group of ``TP_RANKS`` on this card): phase 7's seeded deepseek-7b
+    weights at full width, phase 7c's traffic through ``EngineCore(mesh=
+    TP_RANKS)`` on each pool, rank 0's single-device eager twin (the other
+    ranks wait at a barrier), then ``tp_checks`` → facts of this rank.
+    ``want`` is phase 7c's captured streams per pool."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.params import init_params
+    from repro_torch.parallel import collectives
+    from repro_torch.serving import EngineCore
+    rank = dist.get_rank()
+    t_start = time.perf_counter()
+    cfg = get_config(MODEL)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    facts = dict(rank=rank, weights_s=time.perf_counter() - t_start)
+    traffic, sps = sampled_traffic(prompts)
+    targets = frozenset((u, j) for u in range(len(prompts)) for j in (0, 1))
+    serve = lambda eng, tg: serve_waves(eng, [traffic], tg)  # noqa: E731
+    gather_s = [0.0]
+    plain_gather = dist.all_gather
+
+    def timed_gather(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = plain_gather(*a, **kw)
+        torch.cuda.synchronize()
+        gather_s[0] += time.perf_counter() - t0
+        return r
+    for tag, kv_quant in (("bf16", False), ("int8", True)):
+        c = cfg.replace(kv_quant=kv_quant)
+        make = lambda **kw: EngineCore(c, params, device=DEV,  # noqa: E731
+                                       **dict(ENGINE, **kw))
+        eng = make(mesh=TP_RANKS)
+        collectives.reset_traffic()
+        gather_s[0] = 0.0
+        dist.all_gather = timed_gather
+        try:
+            run = serve(eng, targets)
+        finally:
+            dist.all_gather = plain_gather
+        traffic_of_run = dict(collectives.TRAFFIC)
+        width = eng.scheduler.token_buckets[-1]
+        counts = read_paged_counts()
+        measured = eng.measure_collective_bytes(width)
+        set_paged_counts(counts)
+        itemsize = torch.empty((), dtype=getattr(torch, c.dtype)).element_size()
+        h = hashlib.sha256(json.dumps(run["streams"], sort_keys=True)
+                           .encode()).digest()[:8]
+        hashes = collectives.all_gather(
+            torch.tensor([list(h)], dtype=torch.int64, device=DEV),
+            eng.tp_axis, dim=0)
+        f = dict(
+            steps=run["steps"], keys=run["keys"], launches=run["launches"],
+            trace_count=eng.trace_count, step_ms_p50=run["step_ms_p50"],
+            step_ms_p99=run["step_ms_p99"], tok_s=run["tok_s"],
+            wall_s=run["wall_s"], peak_gib=run["peak_gib"],
+            gather_ms_per_step=gather_s[0] / run["steps"] * 1e3,
+            gathers=traffic_of_run, width=width, measured_bytes=measured,
+            bytes_per_token=eng.collective_bytes_per_token,
+            wire_itemsize=itemsize,
+            pool_shape=list(eng.kv.pool["k"].shape),
+            pool_specs={k: list(v) for k, v in eng.pool_specs.items()},
+            pages_in_use=eng.pages_in_use,
+            free_pages=eng.kv.free_pages, num_pages=eng.kv.num_pages,
+            ranks_agree=bool((hashes == hashes[0]).all()),
+            streams=run["streams"])
+        del eng
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            single = fresh_run(lambda: make(capture=False), serve)(targets)
+            f["single_step_ms_p50"] = single["step_ms_p50"]
+            f["single_step_ms_p99"] = single["step_ms_p99"]
+            f["single_tok_s"] = single["tok_s"]
+            f["single_identical"] = single["streams"] == run["streams"]
+            f["logits_rows"] = len(run["logits"])
+            f["logits_bit_equal"] = bool(
+                set(run["logits"]) == set(single["logits"]) and all(
+                    bits_equal(torch.from_numpy(run["logits"][t]),
+                               torch.from_numpy(single["logits"][t]))
+                    for t in run["logits"]))
+            f["logits_max_gap"] = max(
+                (float(np.abs(run["logits"][t] - single["logits"][t]).max())
+                 for t in run["logits"] if t in single["logits"]),
+                default=None)
+            # the single-device eager streams stand for the mesh's (equal,
+            # or the parent fails): held to phase 7c's captured streams
+            f["forks_vs_phase7c"] = hold_by_margin(
+                f"tp {tag} vs phase 7c", single["streams"], want[tag],
+                fresh_run(lambda: make(capture=False), serve),
+                fresh_run(make, serve), sampling=sps)
+        facts[tag] = f
+        dist.barrier()
+    mesh = Mesh((TP_RANKS,), ("model",))
+    facts["checks"] = tp_checks(mesh.axis("model"))
+    facts["rank_s"] = time.perf_counter() - t_start
+    return facts
+
+
+def phase_tp_serving(prompts, want):
+    """Phase 17 (see the module docstring) → its facts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[tp] {CARD[0]}; before spawning {TP_RANKS} ranks: "
+        f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free on the card")
+    # #2 at a rank's head band (a head count the kernel never ran at)
+    band = get_config(MODEL).replace(
+        num_heads=get_config(MODEL).num_heads // TP_RANKS,
+        num_kv_heads=get_config(MODEL).num_kv_heads // TP_RANKS)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    flush = lambda: flush_buf.zero_()  # noqa: E731
+    decode = [(1, kv) for kv in decode_kv_lens()]
+    counts = read_paged_counts()
+    times = dict(
+        time_decode=time_family_paged(
+            band, decode, f"deepseek-7b band {band.num_heads} of "
+            f"{band.num_heads * TP_RANKS} heads (mesh {TP_RANKS}) decode",
+            flush, library=sdpa_gqa_decode),
+        time_mixed=time_family_paged(
+            band, [MIXED_CHUNK] + decode[:7], f"deepseek-7b band "
+            f"{band.num_heads} heads (mesh {TP_RANKS}) mixed step", flush))
+    set_paged_counts(counts)
+    del flush_buf
+    torch.cuda.empty_cache()
+    t_spawn = time.perf_counter()
+    ranks = spawn(tp_rank, TP_RANKS, prompts, want, timeout=TP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t_spawn
+    cfg = get_config(MODEL)
+    facts = dict(band=times, spawn_s=spawn_s, launches={})
+    for tag in ("bf16", "int8"):
+        per = [r_[tag] for r_ in ranks]
+        lead = per[0]
+        streams = [p.pop("streams") for p in per]
+        label = f"tp mesh {TP_RANKS} {tag}"
+        if any(s_ != streams[0] for s_ in streams) or not all(
+                p["ranks_agree"] for p in per):
+            fail(f"{label}: the ranks served different streams")
+        if not lead["single_identical"]:
+            fail(f"{label}: the mesh streams differ from rank 0's "
+                 f"single-device eager streams")
+        if not lead["logits_bit_equal"]:
+            fail(f"{label}: the logits rows of the first two tokens differ "
+                 f"from the single-device engine's (max gap "
+                 f"{lead['logits_max_gap']})")
+        for r_, p in enumerate(per):
+            want_n = cfg.num_layers * p["steps"]
+            for k in ("paged_attention", "paged_combine"):
+                if p["launches"][k] != want_n:
+                    fail(f"{label} rank {r_}: {k} launched "
+                         f"{p['launches'][k]} times, expected layers × steps "
+                         f"= {want_n}")
+            expect = p["bytes_per_token"] * p["width"] * p["wire_itemsize"] // 4
+            if p["measured_bytes"] != expect or not expect:
+                fail(f"{label} rank {r_}: measure_collective_bytes("
+                     f"{p['width']}) = {p['measured_bytes']}, expected "
+                     f"collective_bytes_per_token × width × "
+                     f"{p['wire_itemsize']} / 4 = {expect}")
+            if p["pages_in_use"] or p["free_pages"] != p["num_pages"]:
+                fail(f"{label} rank {r_}: the pool is not drained "
+                     f"({p['pages_in_use']} pages in use)")
+            if p["pool_shape"][2] != cfg.num_kv_heads // TP_RANKS:
+                fail(f"{label} rank {r_}: pool {p['pool_shape']} is not a "
+                     f"head band")
+        facts["launches"][tag] = {f"rank {r_}": p["launches"]
+                                  for r_, p in enumerate(per)}
+        facts[tag] = dict(per[0], rank1={k: per[1][k] for k in (
+            "step_ms_p50", "gather_ms_per_step", "measured_bytes")})
+        log(f"[{label}] {lead['steps']} eager mesh steps ({lead['trace_count']}"
+            f" (T, P) keys), streams of both ranks = rank 0's single-device "
+            f"eager streams token for token, the first two tokens' logits "
+            f"rows ({lead['logits_rows']}) bit-equal; held to phase 7c's "
+            f"captured streams: forks {lead['forks_vs_phase7c']}; mesh step "
+            f"p50 {lead['step_ms_p50']:.2f} ms p99 {lead['step_ms_p99']:.2f} "
+            f"(rank 1 {per[1]['step_ms_p50']:.2f}) beside the single-device "
+            f"eager p50 {lead['single_step_ms_p50']:.2f} p99 "
+            f"{lead['single_step_ms_p99']:.2f}; all-gathers "
+            f"{lead['gather_ms_per_step']:.2f} ms of wall time a step "
+            f"({lead['gathers']['all_gather_calls']} calls, "
+            f"{lead['gathers']['all_gather_bytes'] / 1e6:.1f} MB received a "
+            f"rank); {lead['tok_s']:.1f} generated tok/s (single "
+            f"{lead['single_tok_s']:.1f}); #2 launches "
+            f"{[p['launches'] for p in per]} = {cfg.num_layers} × steps on "
+            f"each rank; measure_collective_bytes({lead['width']}) = "
+            f"{lead['measured_bytes']} = {lead['bytes_per_token']} B/token "
+            f"(the reference's f32 formula) × width × "
+            f"{lead['wire_itemsize']}/4; pool band {lead['pool_shape']} "
+            f"(spec {lead['pool_specs']['k']}), drained; peak "
+            f"{lead['peak_gib']:.2f} GiB a rank")
+    for r_, rk in enumerate(ranks):
+        c = rk["checks"]
+        if c["softmax_err"] > 3e-6 or c["softmax_tree_err"] > 1e-6:
+            fail(f"tp rank {r_}: sharded softmax off by {c['softmax_err']} "
+                 f"(tree {c['softmax_tree_err']})")
+        rounds = (TP_RANKS - 1).bit_length()
+        if c["rounds"] != dict(sharded_softmax=0,
+                               sharded_softmax_tree=2 * rounds,
+                               tree_allreduce=rounds) or \
+                c["tree_sum"] != TP_RANKS:
+            fail(f"tp rank {r_}: butterfly rounds {c['rounds']}, sum "
+                 f"{c['tree_sum']} (log2 {TP_RANKS} = {rounds} a reduce)")
+        if c["softmax_lut_launches"] != 1:
+            fail(f"tp rank {r_}: sharded_softmax launched #1 "
+                 f"{c['softmax_lut_launches']} times, not once")
+        if not (c["ring_ok"] and c["decode_ok"]):
+            fail(f"tp rank {r_}: ring attention max|Δ| {c['ring_err']}, "
+                 f"distributed decode {c['decode_err']} (atol 5e-5, rtol "
+                 f"1e-4)")
+    c = ranks[0]["checks"]
+    facts["checks"] = [rk["checks"] for rk in ranks]
+    facts["rank_s"] = [rk["rank_s"] for rk in ranks]
+    facts["weights_s"] = [rk["weights_s"] for rk in ranks]
+    facts["phase_s"] = time.perf_counter() - t0
+    log(f"[tp] multi-core softmax over {TP_RANKS} ranks at {TP_SOFTMAX} f32: "
+        f"max|Δ| {c['softmax_err']:.3g} vs lut_softmax (limit 3e-6), tree "
+        f"vs all-reduce {c['softmax_tree_err']:.3g} (limit 1e-6), butterfly "
+        f"rounds {c['rounds']}, #1 once a call; {c['softmax_ms']:.2f} ms; "
+        f"ring attention {TP_RING} causal max|Δ| {c['ring_err']:.3g} "
+        f"({c['ring_ms']:.1f} ms), distributed decode at kv {TP_RING[2]} "
+        f"max|Δ| {c['decode_err']:.3g} ({c['decode_ms']:.1f} ms), atol "
+        f"5e-5 rtol 1e-4; ranks' seconds {[round(s_, 1) for s_ in facts['rank_s']]}"
+        f" (weights {[round(s_, 1) for s_ in facts['weights_s']]}); spawn to "
+        f"join {spawn_s:.1f} s; phase {facts['phase_s']:.1f} s")
+    return facts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6735,13 +7079,13 @@ def main() -> int:
     spec = phase_spec(cfg, params, prompts, greedy_streams["bf16"],
                       compiled["bf16"])
     mark("7b speculation")
-    sampled = {}
+    sampled, sampled_streams = {}, {}
     for tag, kv_quant in (("bf16", False), ("int8", True)):
         f, eng = phase_sampled(cfg, params, kv_quant, prompts,
                                greedy_streams[tag], compiled[tag])
         if tag == "bf16":
             door = phase_front_door(eng, prompts, f["streams"])
-        f.pop("streams")
+        sampled_streams[tag] = f.pop("streams")
         sampled[tag] = f
         del eng
         torch.cuda.empty_cache()
@@ -6887,6 +7231,17 @@ def main() -> int:
     if not lut_bwd["launches"]:
         fail("phase 16 launched #1's backward kernel no time")
     mark("16 training")
+    tp = phase_tp_serving(prompts, sampled_streams)
+    for tag in ("bf16", "int8"):
+        for r_, n in tp["launches"][tag].items():
+            for k in ("paged_attention", "paged_combine"):
+                by_name[k]["launches_by_path"][
+                    f"mesh {TP_RANKS} {tag} {r_}"] = n[k]
+            by_name["lut_exp"]["launches_by_path"][
+                f"mesh {TP_RANKS} sampled {tag} {r_}"] = n["lut_exp"]
+    by_name["paged_attention"]["families"][
+        f"{MODEL} band (mesh {TP_RANKS})"] = tp["band"]
+    mark("17 tensor-parallel serving")
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -6913,6 +7268,7 @@ def main() -> int:
     summary["backward_checks"] = bwd_checks
     summary["lut_exp_backward_checks"] = lut_bwd_checks
     summary["training"] = training
+    summary["tp_serving"] = tp
     summary["phase_s"] = phase_s
     log("[summary] " + json.dumps(summary))
     log("[phases] seconds " + json.dumps({k: round(v, 1)

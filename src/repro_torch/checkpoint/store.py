@@ -23,8 +23,8 @@ Layout (one directory per step)::
   before it returns (a CPU tensor is copied, never viewed: the optimizer
   may update it in place later) and writes in a background thread.
 
-A ``mesh`` / ``specs`` re-shard on restore comes with tensor-parallel
-serving (ROADMAP.md §1 item 5).
+A ``mesh`` / ``specs`` re-shard on restore comes with the training half
+of tensor parallelism (ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
@@ -217,12 +217,12 @@ def restore(ckpt_dir: str, reference: Any, step: Optional[int] = None,
             ) -> Tuple[Any, int, Dict[str, Any]]:
     """Restore onto the structure of ``reference`` (a tree of tensors) →
     (tree, step, extra).  ``mesh`` / ``specs`` raise: the re-shard comes
-    with tensor-parallel serving."""
+    with the training half of tensor parallelism."""
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "checkpoint.restore(mesh=, specs=): the re-shard onto a mesh "
-            "comes with the tensor-parallel slice of the PyTorch port "
-            "(ROADMAP.md §1 item 5)")
+            "comes with the training half of the tensor-parallel slice of "
+            "the PyTorch port (ROADMAP.md §1 item 5)")
     flat, step, extra = restore_flat(ckpt_dir, step, verify)
     return unflatten_into(reference, flat), step, extra
 

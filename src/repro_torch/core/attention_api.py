@@ -26,9 +26,15 @@ so a config means the same in both packages:
   block shapes from a ``KernelConfig`` (``kernels/autotune.py``) — the
   caller's, else the tuner's active config.  The model's ragged branch
   (``models/layers.py::attn_apply_ragged``) calls :func:`ragged_attention`
-  itself, with the q-block layout it computed once per step.
+  itself, with the q-block layout it computed once per step.  With an
+  ``axis_name`` (a mesh axis of ``launch/mesh.py``) q/k/v carry this
+  rank's head band against its local pool band, and the full head axis
+  is rebuilt with one all-gather;
+- ``ring``: ring attention (``core/ring_attention.py``) over a KV
+  sequence split across the ranks of ``axis_name``; only an explicit
+  axis makes a call eligible (the reference's "inside shard_map").
 
-The ring backend comes with the sharded slice.  All contiguous backends
+All contiguous backends
 share one signature: ``fn(q, k, v, **kwargs)`` with q ``(B, Hq, Lq, D)``,
 k/v ``(B, Hkv, Lkv, D)``, ``Hq % Hkv == 0``, returning ``(B, Hq, Lq, D)``
 in q's dtype; the paged ones take page pools ``(N, Hkv, ps, D)`` for k/v.
@@ -40,6 +46,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.ring_attention import ring_attention
 from repro_torch.core.streaming_attention import (naive_attention,
                                                   streaming_attention)
 from repro_torch.kernels.autotune import (KernelConfig, active_config,
@@ -48,6 +55,7 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.varlen import paged_attention_varlen
 from repro_torch.kernels.streaming_attention import (
     streaming_attention as streaming_attention_kernel)
+from repro_torch.parallel.collectives import all_gather
 
 AttentionFn = Callable[..., torch.Tensor]
 
@@ -62,6 +70,7 @@ class AttentionCall:
     has_kv_pos: bool              # ring-buffer position table supplied
     has_page_table: bool = False  # k/v are page pools + a (B, P) page table
     is_ragged: bool = False       # packed (1, Hq, T, D) stream + q_pos (T,)
+    inside_shard_map: bool = False  # an axis_name (a mesh axis) was given
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +85,12 @@ class BackendSpec:
 _REGISTRY: Dict[str, BackendSpec] = {}
 
 #: resolution order for ``backend="auto"`` — first auto-eligible backend
-#: wins (the reference's order, less ``ring``).  "paged_varlen"/"paged"
-#: are the only backends that read page pools (varlen for packed ragged
-#: streams, paged for (lanes, C) blocks); "naive" is the last resort.
+#: wins (the reference's order).  "paged_varlen"/"paged" are the only
+#: backends that read page pools (varlen for packed ragged streams, paged
+#: for (lanes, C) blocks), "ring" is only eligible with an axis, "naive"
+#: is the last resort.
 _AUTO_ORDER: Tuple[str, ...] = ("paged_varlen", "paged", "pallas",
-                                "naive_decode", "jnp", "naive")
+                                "naive_decode", "jnp", "ring", "naive")
 
 
 def register_backend(name: str, *, supports: Callable[[AttentionCall], bool],
@@ -128,14 +138,16 @@ def _is_static(x) -> bool:
 
 
 def describe_call(q, k, *, q_offset=0, kv_len=None, kv_pos=None,
-                  page_table=None, q_pos=None) -> AttentionCall:
+                  page_table=None, q_pos=None,
+                  axis_name=None) -> AttentionCall:
     return AttentionCall(
         lq=q.shape[2], lkv=k.shape[2],
         platform=q.device.type,
         static_lengths=_is_static(q_offset) and _is_static(kv_len),
         has_kv_pos=kv_pos is not None,
         has_page_table=page_table is not None,
-        is_ragged=q_pos is not None)
+        is_ragged=q_pos is not None,
+        inside_shard_map=axis_name is not None)
 
 
 def resolve_backend(backend: str, call: AttentionCall, *,
@@ -175,6 +187,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_pos: Optional[torch.Tensor] = None,
               cu_seqlens: Optional[torch.Tensor] = None,
               kernel_config: Optional[KernelConfig] = None,
+              axis_name=None,
               fallback: bool = False) -> torch.Tensor:
     """The single attention entry point (see module docstring).
 
@@ -187,9 +200,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to *ragged*: q is one packed stream ``(1, Hq, T, D)``, ``page_table``
     holds per-token rows ``(T, P)`` and ``q_pos`` (T,) each token's
     position; only ``paged_varlen`` resolves those, with ``cu_seqlens``
-    (the lane boundaries) and ``kernel_config`` (its block shapes)."""
+    (the lane boundaries) and ``kernel_config`` (its block shapes).
+    ``axis_name`` — a mesh axis (``launch/mesh.py::MeshAxis``) or a
+    process group — makes the call a rank's part of a split one: the
+    ragged backend's head band, or the ``ring`` backend's sequence
+    block."""
     call = describe_call(q, k, q_offset=q_offset, kv_len=kv_len, kv_pos=kv_pos,
-                         page_table=page_table, q_pos=q_pos)
+                         page_table=page_table, q_pos=q_pos,
+                         axis_name=axis_name)
     spec = resolve_backend(backend, call, fallback=fallback)
     kw = dict(scale=scale, causal=causal, window=window, cap=cap,
               block_k=block_k, exp_mode=exp_mode, q_offset=q_offset,
@@ -199,6 +217,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_pos is not None:
         kw.update(q_pos=q_pos, cu_seqlens=cu_seqlens,
                   kernel_config=kernel_config)
+    if axis_name is not None:
+        kw["axis_name"] = axis_name
     return spec.fn(q, k, v, **kw)
 
 
@@ -208,7 +228,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @register_backend(
     "naive",
-    supports=lambda call: not call.has_page_table,
+    supports=lambda call: not call.inside_shard_map
+    and not call.has_page_table,
     doc="Materialised-logits reference (PUMA dataflow): O(l²) memory; the "
         "correctness oracle every other backend is tested against.")
 def _naive(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
@@ -221,7 +242,8 @@ def _naive(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
 
 @register_backend(
     "naive_decode",
-    supports=lambda call: call.lq == 1 and not call.has_page_table,
+    supports=lambda call: call.lq == 1 and not call.inside_shard_map
+    and not call.has_page_table,
     doc="Single-token decode: the logits row is O(L) already, so the KV-block "
         "scan buys nothing.")
 def _naive_decode(q, k, v, **kw):
@@ -230,7 +252,8 @@ def _naive_decode(q, k, v, **kw):
 
 @register_backend(
     "jnp",
-    supports=lambda call: not call.has_page_table,
+    supports=lambda call: not call.inside_shard_map
+    and not call.has_page_table,
     doc="The streaming scan (HASTILY §IV): online softmax over KV blocks, "
         "O(l) memory, dynamic lengths and positions.  Plain torch in the "
         "port; the name is the reference's.")
@@ -246,7 +269,8 @@ def _pallas_supported(call: AttentionCall) -> bool:
     # The kernel wants static lengths, no position tables, and multi-row
     # queries (decode rows go to naive_decode).
     return (call.static_lengths and not call.has_kv_pos
-            and not call.has_page_table and call.lq > 1)
+            and not call.inside_shard_map and not call.has_page_table
+            and call.lq > 1)
 
 
 @register_backend(
@@ -274,7 +298,7 @@ def _pallas(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
 @register_backend(
     "paged",
     supports=lambda call: call.has_page_table and not call.is_ragged
-    and not call.has_kv_pos,
+    and not call.inside_shard_map and not call.has_kv_pos,
     doc="Paged attention: reads KV pages in place from the pool through the "
         "(B, P) page table — kernel #2's block entry "
         "(csrc/paged_attention.cu: a split pass and paged_combine) on the "
@@ -306,10 +330,13 @@ def _paged(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
         "(lanes, C) padding.  cu_seqlens lane boundaries switch on the "
         "q-block-tiled dataflow; block shapes come from the KernelConfig "
         "(ragged_attention): kernel #2 on the card, its plain version on "
-        "the CPU.")
+        "the CPU.  With axis_name q/k/v carry this rank's head band against "
+        "its local pool band; one all-gather rebuilds the head axis "
+        "(HASTILY's reduce-and-gather with the online-softmax reduce kept "
+        "per-head-local).")
 def _paged_varlen(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
                   q_offset, kv_len, kv_pos, page_table, q_pos,
-                  cu_seqlens=None, kernel_config=None):
+                  cu_seqlens=None, kernel_config=None, axis_name=None):
     assert kv_pos is None, "ragged backend has no ring-buffer support"
     assert causal, "ragged paged streams are causal by construction"
     assert q.shape[0] == 1, \
@@ -322,7 +349,29 @@ def _paged_varlen(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
                            kernel_config=kernel_config, cu_seqlens=cu_seqlens,
                            scale=scale, cap=cap, window=window,
                            exp_mode=exp_mode)
+    if axis_name is not None:
+        # Head bands concatenate in axis order — pure data movement, so
+        # per-head outputs are bitwise what one device would compute.
+        out = all_gather(out, axis_name, dim=1)
     return out.transpose(0, 1)[None]                    # (1, Hq, T, D)
+
+
+@register_backend(
+    "ring",
+    supports=lambda call: call.inside_shard_map
+    and not call.has_page_table,
+    doc="Ring attention across ranks: KV blocks travel a mesh axis one hop "
+        "a step while resident Q streams them (HASTILY §IV lifted to the "
+        "ranks; core/ring_attention.py).  Only with an axis_name.")
+def _ring(q, k, v, *, scale, causal, window, cap, block_k, exp_mode,
+          q_offset, kv_len, kv_pos, axis_name):
+    del block_k  # the ring hop is the block
+    if (kv_pos is not None or kv_len is not None
+            or not _is_static(q_offset) or q_offset != 0):
+        raise ValueError("ring backend: positions derive from the mesh; "
+                         "kv_pos/kv_len/q_offset are not supported")
+    return ring_attention(q, k, v, axis_name, scale=scale, causal=causal,
+                          window=window, cap=cap, exp_mode=exp_mode)
 
 
 # --------------------------------------------------------------------------

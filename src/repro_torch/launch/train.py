@@ -3,7 +3,8 @@
 
 The reference's flags, plus ``--device`` (the card by default, ``cpu``
 for the plain path; no card and no ``--device cpu`` raises).  ``--mesh``
-and ``--distributed`` raise: they come with the tensor-parallel slice.
+and ``--distributed`` raise: they come with the training half of the
+tensor-parallel slice.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
 from repro_torch.runtime import TrainConfig, Trainer
 
-_LATER = ("comes with the tensor-parallel slice of the PyTorch port "
-          "(ROADMAP.md §1 item 5)")
+_LATER = ("comes with the training half of the tensor-parallel slice of "
+          "the PyTorch port (ROADMAP.md §1 item 5)")
 
 
 def main(argv=None) -> None:

@@ -30,6 +30,7 @@ from repro_torch.core.streaming_attention import (
 from repro_torch.device import dense
 from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.parallel.collectives import all_gather, axis_index
 
 Params = Dict[str, torch.Tensor]
 
@@ -208,7 +209,7 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       cu_seqlens: Optional[torch.Tensor],
                       kernel_config: Optional[KernelConfig] = None,
                       attend: Callable = None,
-                      layout=None) -> torch.Tensor:
+                      layout=None, tp_axis=None) -> torch.Tensor:
     """The ragged branch of the reference ``attn_apply`` (layers.py:238-349).
 
     ``x`` is one (1, T, d_model) packed stream, ``pos`` (T,) each token's
@@ -227,9 +228,27 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     (``varlen_layout``), computed once per step rather than per layer, at
     ``kernel_config``'s ``block_q``; ``None`` consults the tuner's active
     config (``attention_api.ragged_attention``).
+
+    ``tp_axis`` — a mesh axis (``launch/mesh.py::MeshAxis``) or process
+    group — when this rank of a tensor-parallel engine holds one band of
+    the KV heads (``cache["k"]`` (N+1, Hkv/n, ps, Dh)): q/k/v are sliced
+    to the rank's head band after RoPE and QK-norm, the band's rows are
+    written (an int8 pool quantises the band's rows only) and attended,
+    and one all-gather rebuilds the (T, Hq, Dh) head axis in rank order
+    before ``wo``.  The gather moves exactly what one device feeds
+    ``wo``, so every rank's output is bitwise the single-device one.
     """
     _, t, _ = x.shape
     q, k, v, window = _qkv(cfg, p, x, pos[None], kind)
+    # the local pool's head count tells the shard factor
+    shards = 1 if tp_axis is None else cfg.num_kv_heads // cache["k"].shape[1]
+    if shards > 1:
+        hkv_l = cache["k"].shape[1]
+        hq_l = cfg.num_heads // shards
+        band = axis_index(tp_axis)
+        q = q[:, band * hq_l:(band + 1) * hq_l]
+        k = k[:, band * hkv_l:(band + 1) * hkv_l]
+        v = v[:, band * hkv_l:(band + 1) * hkv_l]
 
     ps = cache["k"].shape[2]
     slot = torch.clamp(torch.div(pos, ps, rounding_mode="floor"), 0,
@@ -258,7 +277,9 @@ def attn_apply_ragged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     out = ragged_attention(qt, cache["k"], cache["v"], token_pages, pos,
                            kernel_config=kernel_config, attend=attend,
                            cu_seqlens=cu_seqlens, layout=layout,
-                           **kw)                                # (T, Hq, Dh)
+                           **kw)                                # (T, Hq', Dh)
+    if shards > 1:
+        out = all_gather(out, tp_axis, dim=1)                   # (T, Hq, Dh)
     return dense_apply(p["wo"], out.reshape(1, t, cfg.num_heads * cfg.d_head))
 
 

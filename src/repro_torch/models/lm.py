@@ -63,6 +63,7 @@ from repro_torch.models.mamba import MAMBA_KEYS, mamba_apply, mamba_cache_init
 from repro_torch.models.mamba2 import (MAMBA2_KEYS, mamba2_apply,
                                        mamba2_cache_init)
 from repro_torch.models.moe import moe_apply
+from repro_torch.parallel.ctx import maybe_shard
 
 Params = Dict[str, torch.Tensor]
 SSM_FAMILIES = ("ssm", "hybrid")
@@ -242,6 +243,8 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if with_aux else None)
     for i, kind in enumerate(cfg.layer_kinds()):
+        # the reference's sequence-parallel carry constraint (lm.py:181)
+        x = maybe_shard(x, ("dp", "sp", None))
         p = _layer(cfg, params, i)
         x, aux = _block(cfg, p, x, lambda h: L.attn_apply(
             cfg, p, h, pos=pos, kind=kind, causal=causal, cache=views[i],
@@ -322,6 +325,8 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if logits_rows is not None:
         x = x[:, -logits_rows:]
     logits = L.unembed(cfg, params, x)
+    # the reference keeps the vocab dim sharded through the loss (lm.py:293)
+    logits = maybe_shard(logits, ("dp", None, "tp"))
     return (logits, aux) if with_aux else logits
 
 
@@ -458,23 +463,29 @@ def trunk_apply_ragged(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                        token_pages: torch.Tensor,
                        cu_seqlens: Optional[torch.Tensor],
                        kernel_config: Optional[KernelConfig] = None,
-                       attend: Optional[Callable] = None) -> torch.Tensor:
+                       attend: Optional[Callable] = None,
+                       tp_axis=None) -> torch.Tensor:
     """Every layer over the packed stream, writing its pool rows in place.
     The lane boundaries are validated and cut into q-blocks of
     ``kernel_config.block_q`` rows once, here, for all layers (the
     reference's ``jit`` hoists the same work).  An MoE layer routes every
     row of the stream, dead padding rows included, as the reference; the
-    load-balancing loss is not computed (the reference drops it)."""
+    load-balancing loss is not computed (the reference drops it).
+    ``tp_axis``: every attention layer attends this rank's head band
+    (``layers.attn_apply_ragged``)."""
     kernel_config = ragged_kernel_config(kernel_config, x.device.type)
     layout = varlen_layout(cu_seqlens, pos, x.shape[1],
                            kernel_config.block_q, x.device)
     views = layer_caches(cfg, caches)
     for i, kind in enumerate(_ragged_family(cfg)):
+        # the reference's sequence-parallel carry constraint (lm.py:181)
+        x = maybe_shard(x, ("dp", "sp", None))
         p = _layer(cfg, params, i)
         x, _ = _block(cfg, p, x, lambda h: L.attn_apply_ragged(
             cfg, p, h, pos=pos, kind=kind, cache=views[i],
             token_pages=token_pages, cu_seqlens=cu_seqlens,
-            kernel_config=kernel_config, attend=attend, layout=layout))
+            kernel_config=kernel_config, attend=attend, layout=layout,
+            tp_axis=tp_axis))
     return x
 
 
@@ -485,7 +496,8 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    kernel_config: Optional[KernelConfig] = None, *,
                    greedy: bool = False,
                    sampling: Optional[Dict[str, torch.Tensor]] = None,
-                   attend: Optional[Callable] = None) -> torch.Tensor:
+                   attend: Optional[Callable] = None,
+                   tp_axis=None) -> torch.Tensor:
     """The token-level (ragged) serving step over one packed (T,) stream.
 
     ``tokens``/``pos`` (T,), ``token_pages`` (T, P), ``last_idx`` (lanes,)
@@ -502,6 +514,13 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (``kernels/autotune.py``; ``None`` consults the tuner's active config).
     ``attend`` replaces the varlen attention (default: through the kernel
     wrapper).
+
+    ``tp_axis`` — a mesh axis or process group — when this rank of
+    ``EngineCore(mesh=N)`` holds one KV-head band of the pool: every
+    attention layer (the dense, MoE and vlm trunks alike) attends its
+    band and all-gathers the head axis (``layers.attn_apply_ragged``);
+    embed, norms, MLP / experts, unembed and sampling run replicated and
+    unchanged.
     """
     if last_idx.dim() not in (1, 2):
         raise ValueError(f"last_idx must be (lanes,) or (lanes, 1 + k), got "
@@ -511,11 +530,13 @@ def lm_step_ragged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = trunk_apply_ragged(cfg, params, x, pos=pos, caches=caches,
                            token_pages=token_pages, cu_seqlens=cu_seqlens,
                            kernel_config=kernel_config,
-                           attend=attend)
+                           attend=attend, tp_axis=tp_axis)
     x = L.norm(cfg, params, "final_norm", x)
     # gather before unembedding: only the picked rows are needed
     x = x[0][last_idx.long()]
     logits = L.unembed(cfg, params, x)
+    logits = maybe_shard(logits, ("dp", "tp") if last_idx.dim() == 1
+                         else ("dp", None, "tp"))
     # Deferred import: repro_torch.serving imports this module.
     if sampling is not None:
         from repro_torch.serving.sampling import sample_in_step

@@ -6,7 +6,8 @@ wire; the quantisation error is carried in a per-leaf f32 residual and
 re-injected next step (error feedback), so the *accumulated* update is
 unbiased (Karimireddy et al., 2019).  The trees are the port's flat
 ``{key: tensor}`` dicts.  ``compressed_psum``, the explicit collective,
-comes with tensor-parallel serving (ROADMAP.md §1 item 5).
+comes with the training half of tensor parallelism (ROADMAP.md §1 item
+5).
 """
 from __future__ import annotations
 

@@ -34,7 +34,8 @@ Fault-tolerance contract (the reference's, held by
 
 Checkpoints hold ``{"params", "opt", "residual"}`` under the reference's
 leaf paths (``params.to_flat``), so each package resumes the other's.  A
-``mesh`` (the elastic re-shard) comes with tensor-parallel serving.
+``mesh`` (the elastic re-shard) comes with the training half of
+tensor parallelism (ROADMAP.md §1 item 5), after tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -55,8 +56,9 @@ from repro_torch.optim import (AdamWConfig, AdamWState, accumulated_grads,
 from repro_torch.parallel import compress_with_feedback, feedback_init
 from repro_torch.params import from_flat, to_flat
 
-_MESH = ("a mesh (the elastic re-shard) comes with the tensor-parallel "
-         "slice of the PyTorch port (ROADMAP.md §1 item 5)")
+_MESH = ("a mesh (the elastic re-shard) comes with the training half of "
+         "the tensor-parallel slice of the PyTorch port (ROADMAP.md §1 "
+         "item 5)")
 
 
 class SimulatedFailure(RuntimeError):

@@ -65,8 +65,23 @@ never captured (``capture`` is not read): an oracle, not a fast path.
 counterpart of the reference's ``jit`` traces.  Speculative decoding
 needs the ragged step (``ValueError``, as in the reference).
 
-A tensor-parallel mesh comes with a later slice of the port; asking for
-one raises ``NotImplementedError`` here.
+Tensor-parallel serving (``mesh=N``): SPMD over the N ranks of a
+``torch.distributed`` process group (``launch/mesh.py``; gloo, so N ranks
+may share one card).  Every rank builds the same engine from the full,
+replicated params and runs the same host scheduling — free heap,
+refcounts, page tables, prefix cache and sampler seeds are identical on
+every rank — but its pool holds only its band of the KV heads
+(``PagedKVCache(heads=Hkv/N)``, ``parallel/sharding.py::pool_specs``).
+Each layer of the ragged step slices its band of q/k/v, writes and
+attends it, and rebuilds the head axis with one all-gather before
+``wo`` (``layers.attn_apply_ragged``): HASTILY's reduce-and-gather, the
+online-softmax reduce kept per head.  The gather only moves data, so
+every rank's picks equal the single-device engine's.  ``mesh=None`` and
+``mesh=1`` take the single-device path: no process group, no
+collective.  The mesh step runs eagerly, op by op: gloo's collectives
+are host calls, which a CUDA graph cannot capture, so ``capture`` is not
+read and ``trace_count`` counts the distinct (stream width, table width)
+keys, as the padded oracle counts its block shapes.
 """
 from __future__ import annotations
 
@@ -81,9 +96,12 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, configure_matmul_precision, resolve_device
 from repro_torch.kernels.paged_attention.varlen import validate_cu_seqlens
 from repro_torch.kernels.autotune import KernelConfig, resolve_config
+from repro_torch.launch.mesh import LAUNCH_HINT, Mesh, world_size
 from repro_torch.models.api import build_model
 from repro_torch.models.lm import (SSM_FAMILIES, lm_prefill_chunk_paged,
-                                   lm_step_ragged)
+                                   lm_step_ragged, trunk_cache_init)
+from repro_torch.parallel.collectives import TRAFFIC
+from repro_torch.parallel.sharding import pool_specs, shardings_of
 from repro_torch.serving.api import (Request, RequestState, StepOutput,
                                      UnsupportedCacheLayout)
 from repro_torch.serving.graphs import StepGraphs
@@ -118,12 +136,14 @@ def greedy_tokens(logits) -> np.ndarray:
 def _ragged_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  kv: PagedKVCache, kernel_config: KernelConfig, tokens, pos,
                  table, last_idx, cu, *, greedy: bool = False,
-                 sampling=None) -> torch.Tensor:
+                 sampling=None, tp_axis=None) -> torch.Tensor:
     """One ragged step on device tensors → the ``last_idx`` rows' f32
     logits, or the picks, of ``last_idx``'s shape, with ``greedy`` (the
-    greedy ones) or ``sampling`` (the sampler's)."""
+    greedy ones) or ``sampling`` (the sampler's); ``tp_axis``: this rank's
+    head band of a mesh step."""
     return lm_step_ragged(cfg, params, tokens, kv.pool, table, pos, last_idx,
-                          cu, kernel_config, greedy=greedy, sampling=sampling)
+                          cu, kernel_config, greedy=greedy, sampling=sampling,
+                          tp_axis=tp_axis)
 
 
 def _padded_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
@@ -133,12 +153,6 @@ def _padded_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     logits (lanes, V); the pool is written in place."""
     return lm_prefill_chunk_paged(cfg, params, tokens, kv.pool, table, kv_len,
                                   q_len)[0]
-
-
-def _later(feature: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported yet: it lands with the {slice_name} slice "
-        f"of the PyTorch port (see ROADMAP.md)")
 
 
 class EngineCore:
@@ -154,7 +168,11 @@ class EngineCore:
     ``cuda``), as the reference does (the padded block reads none of them:
     its kernel runs at its default split).  ``seed`` is accepted and
     ignored, as the reference ignores it: seeds are per request
-    (``SamplingParams.seed``).
+    (``SamplingParams.seed``).  ``mesh`` is ``None`` / ``1`` (one
+    device), an int N > 1 (the "model" axis over the N ranks of the
+    initialised default group) or a ``launch/mesh.py::Mesh`` with a
+    "model" axis; every rank constructs and drives the engine alike
+    (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor], *,
@@ -171,6 +189,17 @@ class EngineCore:
         if mode not in ("ragged", "padded"):
             raise ValueError(f"unknown EngineCore mode {mode!r}; "
                              f"expected 'ragged' or 'padded'")
+        self.mesh = self._resolve_mesh(mesh)
+        n = self.mesh_size
+        if self.mesh is not None:
+            if mode != "ragged":
+                raise ValueError("mesh > 1 requires mode='ragged' (the "
+                                 "padded oracle step is single-device)")
+            if cfg.num_heads % n or cfg.num_kv_heads % n:
+                raise ValueError(
+                    f"mesh of {n} ranks must divide num_heads="
+                    f"{cfg.num_heads} and num_kv_heads={cfg.num_kv_heads}")
+        self.tp_axis = None if self.mesh is None else self.mesh.axis("model")
         if speculative and mode != "ragged":
             # The verify step is the ragged step (drafted rows ride the
             # packed stream); the padded block extracts last-row logits
@@ -179,8 +208,6 @@ class EngineCore:
         if speculative and spec_k < 1:
             raise ValueError(f"speculative decoding needs spec_k >= 1, "
                              f"got {spec_k}")
-        if mesh not in (None, 1):
-            raise _later("a tensor-parallel mesh", "TP-serving")
         if (build_model(cfg).step_ragged is None
                 and cfg.family not in SSM_FAMILIES):
             # the reference's words and kind; the SSM families reach the
@@ -205,8 +232,16 @@ class EngineCore:
         # ``registry=`` lets several engines share one.
         self.obs = ServingObservability(enabled=metrics, registry=registry,
                                         ring_capacity=trace_ring)
+        # A rank's pool is its block of the whole pool under the sharding
+        # rules: the KV heads (dim 2) split over "model", page ids whole.
+        self.pool_specs, heads = None, None
+        if self.mesh is not None:
+            whole = trunk_cache_init(cfg, num_pages + 1, page_size, "meta")
+            self.pool_specs = pool_specs(whole, self.mesh)
+            _, count = shardings_of(self.pool_specs, self.mesh)["k"][2]
+            heads = cfg.num_kv_heads // count
         self.kv = PagedKVCache(cfg, num_pages, page_size, device=self.device,
-                               obs=self.obs)
+                               obs=self.obs, heads=heads)
         self.prefix_cache = (RadixPrefixCache(self.kv, max_pages=cache_pages,
                                               obs=self.obs)
                              if prefix_cache else None)
@@ -236,10 +271,15 @@ class EngineCore:
         # The step closes over the config, weights and pool, never over the
         # engine: an engine holds no reference cycle, so dropping it frees
         # its pool and graphs at once.
+        self._shapes = set()        # eager steps' (C | T, table width) keys
         if mode == "padded":
             self._step = functools.partial(_padded_step, cfg, params, self.kv)
             self.graphs = None
-            self._block_shapes = set()      # (C, table width) seen so far
+        elif self.mesh is not None:
+            self._step = functools.partial(_ragged_step, cfg, params, self.kv,
+                                           self.kernel_config,
+                                           tp_axis=self.tp_axis)
+            self.graphs = None
         else:
             self._step = functools.partial(_ragged_step, cfg, params, self.kv,
                                            self.kernel_config)
@@ -248,15 +288,38 @@ class EngineCore:
                 device=self.device,
                 verify_rows=self.spec_k + 1 if speculative else None,
                 on_capture=self.obs.step_traced)
-        self.obs.g_mesh.set(1)
-        self.obs.g_coll_per_tok.set(0)
+        self.obs.g_mesh.set(self.mesh_size)
+        self.obs.g_coll_per_tok.set(self.collective_bytes_per_token)
+
+    @staticmethod
+    def _resolve_mesh(mesh):
+        """Normalise ``mesh``: None / 1 / a one-rank Mesh → None (the
+        single-device path); an int N > 1 → a ("model",) mesh over the
+        default group, which must hold exactly N ranks; a port ``Mesh``
+        with a "model" axis passes through."""
+        if mesh is None:
+            return None
+        if isinstance(mesh, int):
+            if mesh <= 1:
+                return None
+            n = world_size()
+            if n != mesh:
+                raise ValueError(
+                    f"mesh of {mesh} ranks requested but only {n} in the "
+                    f"default process group: {LAUNCH_HINT}")
+            return Mesh((mesh,), ("model",))
+        if "model" not in mesh.axis_names:
+            raise ValueError(f"serving mesh needs a 'model' axis, got "
+                             f"{mesh.axis_names}")
+        return mesh if mesh.size > 1 else None
 
     @property
     def trace_count(self) -> int:
-        """The reference's count of jit traces: step captures (ragged), or
-        distinct (C, table width) block shapes (padded)."""
+        """The reference's count of jit traces: step captures (ragged),
+        or the distinct (T, table width) keys of the eager mesh step, or
+        the distinct (C, table width) block shapes (padded)."""
         if self.graphs is None:
-            return len(self._block_shapes)
+            return len(self._shapes)
         return self.graphs.captures
 
     # ------------------------------------------------------------------ API
@@ -330,15 +393,18 @@ class EngineCore:
                 prefill_tokens=0, decode_tokens=0,
                 prefix_hit_tokens=self.scheduler.prefix_hit_tokens_step)
         arrays = self._block_arrays(plans)
-        shape = (arrays["tokens"].shape[1], arrays["table"].shape[1])
-        if shape not in self._block_shapes:
-            self._block_shapes.add(shape)
-            self.obs.step_traced()
+        self._count_shape(arrays["tokens"].shape[1], arrays["table"].shape[1])
         logits = self._step(**{k: torch.from_numpy(v).to(self.device)
                                for k, v in arrays.items()})
         return self._finish(plans, preempted, logits=logits,
                             live=sum(p.q_len for p in plans),
                             padded=arrays["tokens"].size)
+
+    def _count_shape(self, width: int, table_width: int) -> None:
+        """An eager step's key: a new one counts as a trace."""
+        if (width, table_width) not in self._shapes:
+            self._shapes.add((width, table_width))
+            self.obs.step_traced()
 
     def step_arrays(self, batch: RaggedBatch) -> Dict[str, np.ndarray]:
         """The step function's host inputs for ``batch``: its packed
@@ -377,7 +443,9 @@ class EngineCore:
                 prefix_hit_tokens=self.scheduler.prefix_hit_tokens_step)
         arrays = self.step_arrays(batch)
         sampling = self._sampling_inputs(plans)
-        if self.capture:
+        if self.graphs is None:
+            self._count_shape(batch.width, arrays["table"].shape[1])
+        if self.capture and self.graphs is not None:
             picks = self.graphs.run(**arrays, sampling=sampling)
         else:
             dev = lambda a: {k: torch.from_numpy(v).to(self.device)  # noqa: E731
@@ -525,6 +593,59 @@ class EngineCore:
     @property
     def pages_in_use(self) -> int:
         return self.kv.num_pages - self.kv.free_pages
+
+    @property
+    def mesh_size(self) -> int:
+        """Ranks on the serving mesh's model axis (1 = single-device)."""
+        return 1 if self.mesh is None else int(self.mesh.shape["model"])
+
+    @property
+    def collective_bytes_per_token(self) -> int:
+        """Per-rank bytes *received* by the step's collectives for each
+        token row streamed, by the reference's formula: one head
+        all-gather per attention layer, ``Hq · Dh · 4 · (N−1)/N`` each — the
+        reference gathers the f32 pre-``wo`` attention output.  0
+        off-mesh.  The port gathers what its single-device path feeds
+        ``wo``, the attention output in the model's dtype, so on a bf16
+        model :meth:`measure_collective_bytes` reads half of this × width
+        (the real bytes)."""
+        n = self.mesh_size
+        if n == 1:
+            return 0
+        per_layer = self.cfg.num_heads * self.cfg.d_head * 4
+        return self.cfg.num_layers * per_layer * (n - 1) // n
+
+    def measure_collective_bytes(self, width: Optional[int] = None) -> int:
+        """*Measured* per-rank collective bytes of one ragged step at
+        stream width ``width`` (default: the widest token bucket) and the
+        current table-width high-water mark: the bytes this rank received
+        through the all-gather wrapper (``parallel/collectives.py``)
+        while the step ran.  The reference walks the compiled HLO; the port
+        runs the step — every rank must call this together — on dead rows
+        whose all-scratch table writes only the scratch page.  Publishes
+        the ``collective_bytes_per_step`` gauge; 0 off-mesh.  Equals
+        ``collective_bytes_per_token × width`` where the model's dtype is
+        f32 (every packed row, live or dead, runs every layer's gather)."""
+        if self.mesh is None:
+            self.obs.g_coll_per_step.set(0)
+            return 0
+        t = int(width or self.scheduler.token_buckets[-1])
+        lanes = self.lanes
+        cu = np.full((lanes + 2,), t, np.int32)
+        cu[0] = 0
+        last_idx = (np.zeros((lanes, self.spec_k + 1), np.int32)
+                    if self.speculative else np.zeros((lanes,), np.int32))
+        arrays = dict(
+            tokens=np.zeros((t,), np.int32), pos=np.zeros((t,), np.int32),
+            table=np.full((t, self.scheduler._table_pages), self.kv.scratch,
+                          np.int32),
+            last_idx=last_idx, cu=cu)
+        before = TRAFFIC["all_gather_bytes"]
+        self._step(**{k: torch.from_numpy(v).to(self.device)
+                      for k, v in arrays.items()}, greedy=True)
+        total = TRAFFIC["all_gather_bytes"] - before
+        self.obs.g_coll_per_step.set(total)
+        return total
 
     @property
     def prefix_stats(self) -> dict:

@@ -22,6 +22,12 @@ the copy ahead of the step that reads it.  ``obs`` (the engine's
 ``gather`` turns page tables into contiguous views of the pool: an
 oracle for the tests, never on a serving step.
 
+A rank of a tensor-parallel engine (``EngineCore(mesh=N)``) holds one
+band of the KV heads: ``heads=Hkv/N`` makes every ``k``/``v`` leaf
+(L, N+1, Hkv/N, ps, Dh) and every int8 scale (L, N+1, Hkv/N, ps) — the
+rank's block of the whole pool under ``parallel/sharding.py::
+pool_specs``.  Page ids and all accounting are the same on every rank.
+
 ``check_pageable`` refuses, at construction, a model whose cache the pool
 cannot page: a Mamba layer's state is O(1) per sequence, with no length
 axis to page, and a local layer whose window is narrower than a page
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import heapq
 import weakref
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -70,13 +76,19 @@ def check_pageable(cfg: ModelConfig, page_size: int) -> None:
 
 class PagedKVCache:
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int, *,
-                 device=None, obs=None):
+                 device=None, obs=None, heads: Optional[int] = None):
         check_pageable(cfg, page_size)
         self.num_pages = num_pages
         self.obs = obs                              # ServingObservability
         self.page_size = page_size
         self.scratch = num_pages                    # sink page for dead rows
-        self.pool = trunk_cache_init(cfg, num_pages + 1, page_size, device)
+        self.heads = cfg.num_kv_heads if heads is None else heads
+        if self.heads < 1 or cfg.num_kv_heads % self.heads:
+            raise ValueError(f"a head band of {self.heads} does not divide "
+                             f"num_kv_heads={cfg.num_kv_heads}")
+        # the pool's shapes read the KV head count alone
+        band = cfg.replace(num_kv_heads=self.heads)
+        self.pool = trunk_cache_init(band, num_pages + 1, page_size, device)
         self.free: List[int] = list(range(num_pages))   # min-heap by page id
         self.ref: List[int] = [0] * num_pages
         self.cow_copies = 0                         # lifetime CoW page copies

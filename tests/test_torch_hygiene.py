@@ -59,13 +59,21 @@ def test_port_imports_no_jax_and_no_reference_package():
                                     "repro_torch.runtime.trainer",
                                     "repro_torch.data.pipeline",
                                     "repro_torch.parallel.grad_compress",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.parallel.sharding",
+                                    "repro_torch.parallel.collectives",
+                                    "repro_torch.parallel.ctx",
+                                    "repro_torch.core.multicore_softmax",
+                                    "repro_torch.core.ring_attention"])
 def test_serving_obs_modules_import_no_jax(module):
-    """Each module of the serving observability and the captured step, and
-    of the tuner and the checkpoint reader, imported alone in a fresh
+    """Each module of the serving observability and the captured step, of
+    the tuner and the checkpoint reader, and of tensor parallelism (the
+    mesh and its spawner, the sharding rules, the collectives, the
+    multi-core softmax and ring attention), imported alone in a fresh
     process, pulls in neither JAX nor the reference package (whose
     ``serving/metrics.py``, ``perfmodel/model.py``, ``kernels/autotune.py``,
-    ``checkpoint/store.py`` and training modules it copies)."""
+    ``checkpoint/store.py``, training and parallel modules it copies)."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"bad = sorted(n for n in sys.modules if n.startswith('jax')"
@@ -81,8 +89,7 @@ def test_serving_obs_modules_import_no_jax(module):
 # each with the ROADMAP §1 item that brings it; no other name may be
 # missing.
 NOT_YET_PORTED = {
-    "core": {"ring_attention", "distributed_decode_attention",   # item 5
-             "sharded_softmax", "sharded_softmax_tree", "tree_allreduce"},
+    "core": set(),
     "kernels": set(),
     "models": set(),
     "serving": set(),
@@ -91,11 +98,7 @@ NOT_YET_PORTED = {
     "optim": set(),
     "runtime": set(),
     "data": set(),
-    "parallel": {"param_specs", "param_pspec", "batch_specs",    # item 5
-                 "cache_specs", "cache_specs_decode", "fit_spec",
-                 "logical_axes", "shard_tree", "shardings_of",
-                 "compressed_psum", "activation_sharding",
-                 "active_mesh", "maybe_shard",
+    "parallel": {"compressed_psum",                  # item 5, training half
                  "pipeline_apply", "stack_stages"},              # item 6
 }
 
@@ -188,10 +191,19 @@ def test_padded_engine_without_device_raises_without_card(no_card):
 
 @pytest.mark.parametrize("kw", [dict(mesh=2)])
 def test_later_slices_raise_not_implemented(kw):
+    """Serving takes a mesh since the tensor-parallel slice (without a
+    process group of that many ranks it raises ``ValueError``); the
+    training half of that slice is still to come, and ``Trainer(mesh=)``
+    refuses it."""
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import Trainer
     cfg = get_config("deepseek-7b-smoke")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="spawn"):
         EngineCore(cfg, params, device="cpu", **kw)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(NotImplementedError, match="training half.*slice"):
+        Trainer(cfg, dcfg, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw, match", [

@@ -111,6 +111,28 @@ def bf16_ulps(got, want, atol):
     return float((((g - w).abs() - atol).clamp_min(0.0) / ulp).max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_paged_attention_at_a_rank_head_band(cuda_device, pool, tmp_path):
+    """Kernel #2 in 2 gloo ranks on the card, each at its band of 16 of
+    deepseek-7b's 32 heads (the head count ``EngineCore(mesh=2)`` launches
+    it at): one split pass and one combine a rank, the gathered bands
+    within the plain version's tolerance (f32: atol 2e-5, rtol 1e-4;
+    bf16 and int8 pools in bf16: one ulp beyond the atol) and bit-equal to
+    the kernel's launch over all 32 heads."""
+    # by its bare name, from this directory: the card's machine may have
+    # another package called ``tests``
+    from _torch_tp_ranks import band_rank
+    from repro_torch.launch.mesh import spawn
+    for res in spawn(band_rank, 2, pool, root=str(tmp_path), timeout=300):
+        assert res["launches"] == (1, 1)
+        assert res["bits_equal_full"]
+        if pool == "float32":
+            assert res["close"], res["max_abs_err"]
+        else:
+            assert res["bf16_ulps"] <= 1.0, res["bf16_ulps"]
+
+
 def make_case(seed, dev, *, b=5, group=2, hkv=2, d=16, ps=8, p=6, lq=1,
               quant=False, exact_logits=False):
     g = torch.Generator().manual_seed(seed)

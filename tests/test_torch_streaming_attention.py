@@ -137,8 +137,10 @@ def test_plain_version_differentiates_on_cpu():
 
 def test_builtin_backends_are_the_references_names():
     assert set(t_api.list_backends()) == {"naive", "naive_decode", "jnp",
-                                          "pallas", "paged", "paged_varlen"}
-    assert set(t_api.list_backends()) <= set(j_api.list_backends())
+                                          "pallas", "paged", "paged_varlen",
+                                          "ring"}
+    assert set(t_api.list_backends()) == set(j_api.list_backends())
+    assert t_api._AUTO_ORDER == j_api._AUTO_ORDER
 
 
 @pytest.mark.parametrize("attn_backend,attn_impl", [
