@@ -377,7 +377,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    rtol 1e-4 (the reference tests' tolerances); the mesh step p50 beside
    the single-device eager p50, the all-gathers' wall time a step, and
    the phase's own seconds;
-18. print the card's name and power limit, then ``{"ok": true, "device":
+18. tensor-parallel training and the pipeline: #3 and its backward at a
+   rank's head band of deepseek-7b at mesh 2 (``TP_BAND``: 16 of 32
+   heads, 8 × 512 causal, bf16) held to their plain versions, bit-equal
+   to the same heads of the 32-head launch, and timed beside SDPA and
+   their bounds; then ``launch.mesh.spawn`` starts 2 ranks on this card
+   (``tp_train_rank``), each running ``Trainer(mesh=Mesh((1, 2), ("data",
+   "model")))`` on phase 16's deepseek-7b cut (4 layers, 8 × 512, bf16
+   moments, seed 0, the schedule of its 6 steps) for 2 steps: ZeRO-3
+   blocks, the split leaves all-gathered every step, #3 forward and
+   backward at the band (layers × steps a rank), the run's end saving the
+   gathered state (rank 0 writes); step 0's loss bit-equal to phase 16's,
+   the later losses and every gradient norm within ``TP_TRAIN_RTOL``; the
+   ranks' logs the same bits; then ``compressed_psum`` of seeded card
+   tensors = bf16(a) + bf16(b) widened, bit for bit, and
+   ``pipeline_apply`` over the 2 ranks (2 stages of 2 of the trained
+   layers, 4 microbatches of 2 × 512) bit-equal to the 4 layers in
+   sequence on each microbatch; then one device restores the mesh's
+   checkpoint and runs step 2, held to phase 16's the same way; each
+   rank's peak memory, the mesh step p50, the collectives' calls and
+   bytes a rank, the phase's seconds;
+19. print the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Phase 3 also holds #1 bit for bit at phase 14's shapes (falcon's chunk
@@ -504,6 +524,28 @@ TP_TIMEOUT_S = 420
 TP_SOFTMAX = (8, 102400)
 TP_RING = (2, 32, 1024, 128)
 TP_ATTN_TOL = dict(atol=5e-5, rtol=1e-4)
+# Phase 18: the training half in TP_RANKS gloo ranks: Trainer(mesh=Mesh((1,
+# TP_RANKS), ("data", "model"))) on phase 16's deepseek-7b cut (layers,
+# tokens, bf16 moments, seed, the 6-step schedule) for TP_TRAIN_STEPS steps,
+# then one step on one device from the mesh's checkpoint.  The mesh's
+# gradients are the single device's bits; its global norm sums each
+# leaf's squares in another order (PERF.md §6, PR 34): a pairwise f32
+# sum of n ≤ 4.2e8 squares (the embedding) is within log2(n)·2^-24 ≈
+# 1.7e-6 of its value in either order, so the two norms (the square
+# root halves it, the two orders double it) agree within ~1.7e-6, and
+# the later losses, which see the norm only through the clip scale, by
+# less: the norms and the later losses are held to phase 16's within
+# TP_TRAIN_RTOL, ~6× that bound (the CPU twins' 1e-5), step 0's loss bit
+# for bit.  #3 and its backward run at the band TP_BAND; the pipeline
+# at 2 stages of TP_TRAIN_LAYERS / 2 layers, TP_PIPE_M microbatches of
+# TP_PIPE_MB rows; compressed_psum on TP_PSUM_SHAPE
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS, TP_TRAIN_TOTAL = 4, 2, 6
+TP_TRAIN_SHAPE = (8, 512)
+TP_TRAIN_RTOL = 1e-5
+TP_BAND = ("deepseek-7b band 8 × 16 × 512² × 128 causal (mesh 2)",
+           (8, 16, 16, 512, 512, 128), dict(causal=True))
+TP_PIPE_M, TP_PIPE_MB = 4, 2
+TP_PSUM_SHAPE = (4096, 1024)
 # (M, K, N, what): the projections of an 8 × 512 batch, then the reference
 # microbenchmark's shape
 INT8_TIMED = [(4096, 1024, 1024, "wq/wk/wv/wo"), (4096, 1024, 4096, "up"),
@@ -6319,14 +6361,15 @@ def profiled_kernel_ms(fn, label, *, calls=10):
     return (sum(kernels) / 1e3 / calls if ok else None), len(kernels), launches
 
 
-def time_streaming_bwd(flush, launches):
+def time_streaming_bwd(flush, launches, cases=BWD_SHAPES):
     """The backward kernel at ``BWD_SHAPES`` in bf16 (the main path's
     dtype): its time as a caller sees it and on the device alone, the
     plain backward's, and at the cap-free shapes SDPA's forward plus
     backward (exact exp: the library column, not the same function) as a
     caller sees it, on the device alone (~1 ms of spin ahead) and as its
     kernels' sum in a profiler trace (free of autograd's host work),
-    beside the bound.  Bytes: q, k, v, out, dout read once and lse, dq,
+    beside the bound (``cases``: other shapes in ``BWD_SHAPES``' form).
+    Bytes: q, k, v, out, dout read once and lse, dq,
     dk, dv written or read once; operations: the five
     products of the reference's backward (S, dP, dV, dQ, dK: 10·D per
     visible pair) at the bf16 tensor-core peak."""
@@ -6335,7 +6378,7 @@ def time_streaming_bwd(flush, launches):
     from repro_torch.kernels.streaming_attention.ops import (
         attention_bwd_ref, streaming_attention_bwd)
     shapes = {}
-    for label, shape, kw in BWD_SHAPES:
+    for label, shape, kw in cases:
         b, hq, hkv, lq, lkv, d = shape
         q, k, v, o, lse, dout = bwd_inputs(shape, "bfloat16", kw, seed=37)
         scale = d ** -0.5
@@ -6389,7 +6432,7 @@ def time_streaming_bwd(flush, launches):
             f"{100 * max(t_bytes, t_ops) / ms:.1f}% of it); {CARD[0]}")
         del q, k, v, o, lse, dout
         torch.cuda.empty_cache()
-    first = shapes[BWD_SHAPES[0][0]]
+    first = shapes[cases[0][0]]
     return dict(
         name="streaming_attention_bwd", route="cuda",
         source="src/repro_torch/csrc/streaming_attention_bwd.cu",
@@ -6997,6 +7040,299 @@ def phase_tp_serving(prompts, want):
     return facts
 
 
+# ------------------------------------------- phase 18: TP training, pipeline --
+
+def tp_band_attention(flush):
+    """#3 and its backward at a rank's head band of phase 18's mesh (16 of
+    deepseek-7b's 32 heads, 8 × 512 causal, bf16): each held to its plain
+    version at that head count (the forward within one bf16 ulp beyond
+    the f32 atol, the backward within ``BWD_TOL``), the band's output and
+    gradients bit-equal to the same heads of the 32-head launch (a head's
+    arithmetic does not depend on the launch's head count: what makes the
+    mesh's step 0 the single device's), then timed beside their plain
+    versions, SDPA and their bounds → facts."""
+    import torch
+    from repro_torch.kernels.streaming_attention.ops import (
+        attention_bwd_ref, attention_ref, streaming_attention,
+        streaming_attention_bwd, streaming_attention_lse)
+    label, shape, kw = TP_BAND
+    b, hq, hkv, lq, lkv, d = shape
+    full = (b, hq * TP_RANKS, hkv * TP_RANKS, lq, lkv, d)
+    q, k, v, o, lse, dout = bwd_inputs(full, "bfloat16", kw, seed=43)
+    band = lambda t: t[:, :hq].contiguous()  # noqa: E731
+    qb, kb, vb, ob, lseb, doutb = (band(t) for t in (q, k, v, o, lse, dout))
+    scale = d ** -0.5
+    got = streaming_attention(qb, kb, vb, **kw)
+    got_lse = streaming_attention_lse(qb, kb, vb, **kw)[1]
+    grads = streaming_attention_bwd(qb, kb, vb, ob, lseb, doutb, scale=scale,
+                                    **kw)
+    whole = streaming_attention(q, k, v, **kw)
+    whole_grads = streaming_attention_bwd(q, k, v, o, lse, dout, scale=scale,
+                                          **kw)
+    same = (torch.equal(got, band(whole)) and torch.equal(got_lse, lseb)
+            and all(torch.equal(a, band(w))
+                    for a, w in zip(grads, whole_grads)))
+    fwd_ulps = bf16_ulps(got, attention_ref(qb, kb, vb, **kw))
+    want = attention_bwd_ref(qb, kb, vb, ob, lseb, doutb, scale=scale, **kw)
+    bwd_err = {n: float((a.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+               for n, a, w in zip(("dq", "dk", "dv"), grads, want)}
+    torch.cuda.synchronize()
+    log(f"[tp train band] #3 and its backward at {hq} of {hq * TP_RANKS} "
+        f"heads ({shape}, {kw}, bf16): the band's output, lse and gradients "
+        f"bit-equal to the same heads of the {hq * TP_RANKS}-head launch: "
+        f"{same}; forward vs plain {fwd_ulps:.2f} bf16 ulps beyond the f32 "
+        f"atol (limit 1); backward vs plain max|Δ| / max|plain| "
+        + ", ".join(f"{n} {e:.3g}" for n, e in bwd_err.items())
+        + f" (limit {BWD_TOL['bfloat16']:.3g}); {CARD[0]}")
+    if not same:
+        fail("tp train band: #3 at the head band differs from the same "
+             "heads of the full launch")
+    if fwd_ulps > 1.0:
+        fail(f"tp train band: #3 forward {fwd_ulps} bf16 ulps from plain")
+    if max(bwd_err.values()) > BWD_TOL["bfloat16"]:
+        fail(f"tp train band: #3 backward {bwd_err} over "
+             f"{BWD_TOL['bfloat16']}")
+    device_ms = cuda_ms(lambda: streaming_attention(qb, kb, vb, **kw),
+                        flush=flush, spin=True)
+    del q, k, v, o, lse, dout, qb, kb, vb, ob, lseb, doutb, got, grads
+    del whole, whole_grads, want
+    torch.cuda.empty_cache()
+    fwd = dict(time_streaming_calls([TP_BAND], flush, seed=43)[label],
+               device_ms=device_ms)
+    log(f"[time] streaming_attention {label}: device alone {device_ms:.4f} "
+        f"ms; {CARD[0]}")
+    bwd = time_streaming_bwd(flush, {}, cases=[TP_BAND])["shapes"][label]
+    return dict(label=label, bit_equal_full_launch=same,
+                forward_bf16_ulps=fwd_ulps, backward_rel_err=bwd_err,
+                forward=fwd, backward=bwd)
+
+
+def tp_train_config():
+    """(model config, data config, train config) of phase 18: phase 16's
+    deepseek-7b cut, its shape, moments and 6-step schedule."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import TrainConfig
+    cfg = get_config(MODEL).replace(num_layers=TP_TRAIN_LAYERS)
+    batch, seq = TP_TRAIN_SHAPE
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, corpus="lm")
+    tcfg = TrainConfig(steps=TP_TRAIN_TOTAL, ckpt_every=10 ** 6,
+                       keep_ckpts=1, moment_dtype="bfloat16")
+    return cfg, dcfg, tcfg
+
+
+def tp_train_rank(ckpt_dir):
+    """One rank of phase 18 (``launch.mesh.spawn``, a gloo group of
+    ``TP_RANKS`` on this card): ``Trainer(mesh=Mesh((1, TP_RANKS)))``
+    draws phase 16's seeded deepseek-7b cut and runs ``TP_TRAIN_STEPS``
+    steps (the main path; the run's end writes the checkpoint: rank 0
+    from the gathered blocks), then ``compressed_psum`` of seeded card
+    tensors, then ``pipeline_apply`` over the ranks (2 stages of the
+    trained weights' layers) against the same layers in sequence on every
+    microbatch → facts of this rank."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import configure_matmul_precision
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import layer_keys, trunk_apply
+    from repro_torch.parallel import (collectives, compressed_psum,
+                                      pipeline_apply, stack_stages)
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.runtime import Trainer
+    rank = dist.get_rank()
+    t_start = time.perf_counter()
+    cfg, dcfg, tcfg = tp_train_config()
+    mesh = Mesh((1, TP_RANKS), ("data", "model"))
+    tr = Trainer(cfg, dcfg, dataclasses.replace(tcfg, ckpt_dir=ckpt_dir),
+                 mesh=mesh, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_training_counts()
+    collectives.reset_traffic()
+    t0 = time.perf_counter()
+    metrics = tr.run(num_steps=TP_TRAIN_STEPS)               # the main path
+    torch.cuda.synchronize()
+    facts = dict(rank=rank, run_s=time.perf_counter() - t0,
+                 launches=read_training_counts(),
+                 traffic=dict(collectives.TRAFFIC),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 losses=[m["loss"] for m in metrics],
+                 grad_norms=[m["grad_norm"] for m in metrics],
+                 lrs=[m["lr"] for m in metrics],
+                 steps=[m["step"] for m in metrics],
+                 step_ms=[m["ms"] for m in metrics],
+                 block_shapes={k: list(v.shape) for k, v in tr.params.items()
+                               if k in ("embed", "wq", "wo", "up", "down")})
+    facts["step_ms_p50"] = float(np.percentile(facts["step_ms"][1:], 50))
+    layers = {k: v for k, v in gather_tree(tr.params, tr.specs, mesh).items()
+              if k in layer_keys(cfg)}
+    del tr, metrics
+    torch.cuda.empty_cache()
+    # compressed_psum: bf16 on the wire, the sum widened
+    g = torch.Generator(device=DEV).manual_seed(18)
+    ab = [torch.randn(TP_PSUM_SHAPE, generator=g, device=DEV) * 10
+          for _ in range(TP_RANKS)]
+    summed = compressed_psum({"g": ab[rank]}, mesh.axis("model"))["g"]
+    want = ab[0].to(torch.bfloat16)
+    for x in ab[1:]:
+        want = want + x.to(torch.bfloat16)
+    facts["psum_bit_equal"] = bool(summed.dtype == torch.float32
+                                   and torch.equal(summed, want.float()))
+    # the pipeline: stage s holds layers [s·L/S, (s+1)·L/S) of the trained
+    # weights; microbatches of seeded activations
+    pipe = Mesh((TP_RANKS,), ("pod",))
+    per = cfg.replace(num_layers=TP_TRAIN_LAYERS // TP_RANKS)
+    pos = torch.arange(TP_TRAIN_SHAPE[1], dtype=torch.int32, device=DEV)
+    configure_matmul_precision()
+    x = (torch.randn((TP_PIPE_M, TP_PIPE_MB, TP_TRAIN_SHAPE[1], cfg.d_model),
+                     generator=g, device=DEV)).to(torch.bfloat16)
+    stages = stack_stages(layers, TP_RANKS)
+    collectives.reset_traffic()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_apply(lambda p, h: trunk_apply(per, p, h, pos=pos)[0],
+                             stages, x, pipe, axis="pod")
+        torch.cuda.synchronize()
+        facts["pipeline_ms"] = (time.perf_counter() - t0) * 1e3
+        facts["pipeline_traffic"] = dict(collectives.TRAFFIC)
+        t0 = time.perf_counter()
+        seq = torch.stack([trunk_apply(cfg, layers, x[m], pos=pos)[0]
+                           for m in range(TP_PIPE_M)])
+        torch.cuda.synchronize()
+        facts["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+    facts["pipeline_bit_equal"] = bool(torch.equal(out, seq))
+    facts["pipeline_max_gap"] = float((out.float() - seq.float()).abs().max())
+    facts["pipeline_finite"] = bool(torch.isfinite(out).all())
+    facts["rank_s"] = time.perf_counter() - t_start
+    return facts
+
+
+def phase_tp_training(p16):
+    """Phase 18 (see the module docstring): ``p16`` is phase 16's
+    deepseek-7b facts, whose single-device losses and gradient norms the
+    mesh run is held to → its facts."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime import Trainer
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    band = tp_band_attention(lambda: flush_buf.zero_())
+    del flush_buf
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[tp train] {CARD[0]}; before spawning {TP_RANKS} ranks: "
+        f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free on the card")
+    cfg, dcfg, tcfg = tp_train_config()
+    want_loss, want_norm = p16["losses"], p16["grad_norms"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_train_") as tmp:
+        t_spawn = time.perf_counter()
+        ranks = spawn(tp_train_rank, TP_RANKS, tmp, timeout=TP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t_spawn
+        checkpoints = sorted(os.listdir(tmp))
+        # one device resumes the mesh's checkpoint for one more step
+        t_one = time.perf_counter()
+        one = Trainer(cfg, dcfg, dataclasses.replace(tcfg, ckpt_dir=tmp),
+                      device=DEV)
+        restored = one.restore()
+        one.ckpt = None                  # continue without writing again
+        reset_training_counts()
+        after = one.run(num_steps=1)
+        one_counts = read_training_counts()
+        del one
+        torch.cuda.empty_cache()
+        resume_s = time.perf_counter() - t_one
+    lead = ranks[0]
+    label = f"tp train mesh (1, {TP_RANKS})"
+    n = len(lead["losses"])
+    if any(r_["losses"] != lead["losses"] or r_["grad_norms"] !=
+           lead["grad_norms"] for r_ in ranks):
+        fail(f"{label}: the ranks logged different losses or norms")
+    if lead["steps"] != list(range(TP_TRAIN_STEPS)) or \
+            checkpoints != [f"step_{TP_TRAIN_STEPS:08d}"] or \
+            restored != TP_TRAIN_STEPS:
+        fail(f"{label}: steps {lead['steps']}, checkpoints {checkpoints}, "
+             f"restored {restored}")
+    if lead["losses"][0] != want_loss[0]:
+        fail(f"{label}: step 0 loss {lead['losses'][0]!r} is not phase 16's "
+             f"single-device {want_loss[0]!r}")
+    held = dict(loss=[], grad_norm=[])
+    got = dict(loss=lead["losses"] + [after[0]["loss"]],
+               grad_norm=lead["grad_norms"] + [after[0]["grad_norm"]])
+    want = dict(loss=want_loss[:n + 1], grad_norm=want_norm[:n + 1])
+    for key in held:
+        for i, (a, w) in enumerate(zip(got[key], want[key])):
+            rel = abs(a - w) / abs(w)
+            held[key].append(rel)
+            if rel > TP_TRAIN_RTOL:
+                fail(f"{label}: step {i} {key} {a!r} vs phase 16's {w!r}: "
+                     f"{rel:.3g} over {TP_TRAIN_RTOL}")
+    per_step = attention_calls(cfg)
+    for r_, f in enumerate(ranks):
+        c = f["launches"]
+        if c["fwd"] != per_step * n or c["bwd"] != per_step * n or \
+                c["bwd_by_variant"]["tensor_core"] != per_step * n:
+            fail(f"{label} rank {r_}: #3 forward {c['fwd']} and backward "
+                 f"{c['bwd']} launches (by variant {c['bwd_by_variant']}), "
+                 f"expected attention calls × steps = {per_step} × {n} at "
+                 f"the band")
+        if not f["psum_bit_equal"]:
+            fail(f"{label} rank {r_}: compressed_psum is not bf16(a) + "
+                 f"bf16(b) widened")
+        if not (f["pipeline_bit_equal"] and f["pipeline_finite"]):
+            fail(f"{label} rank {r_}: the pipeline's outputs differ from the "
+                 f"sequential forward by {f['pipeline_max_gap']}")
+    if one_counts["fwd"] != per_step or one_counts["bwd"] != per_step:
+        fail(f"{label}: the single-device step launched #3 {one_counts}")
+    phase_s = time.perf_counter() - t0
+    facts = dict(band=band, spawn_s=spawn_s, resume_s=resume_s,
+                 phase_s=phase_s, checkpoints=checkpoints,
+                 losses=got["loss"], grad_norms=got["grad_norm"],
+                 phase16_losses=want["loss"],
+                 phase16_grad_norms=want["grad_norm"], rel_err=held,
+                 limit=TP_TRAIN_RTOL,
+                 launches=[f["launches"] for f in ranks],
+                 ranks=[{k: v for k, v in f.items() if k != "launches"}
+                        for f in ranks])
+    bit_equal = [a == w for a, w in zip(got["loss"], want["loss"])]
+    log(f"[{label}] deepseek-7b cut to {cfg.num_layers} layers, "
+        f"{TP_TRAIN_SHAPE[0]} × {TP_TRAIN_SHAPE[1]} tokens, bf16 moments, "
+        f"{n} steps through Trainer(mesh=...).run() in {TP_RANKS} gloo ranks "
+        f"(blocks on rank 0 {lead['block_shapes']}), then step {n} on one "
+        f"device from the mesh's checkpoint {checkpoints}: losses "
+        f"{got['loss']} (phase 16's {want['loss']}; bit-equal "
+        f"{bit_equal}), grad norms {got['grad_norm']} (phase 16's "
+        f"{want['grad_norm']}); relative gaps {held} (limit "
+        f"{TP_TRAIN_RTOL}); mesh step ms p50 {lead['step_ms_p50']:.1f} "
+        f"(rank 1 {ranks[1]['step_ms_p50']:.1f}; phase 16's single device "
+        f"{p16['step_ms_p50']:.1f}); #3 forward / backward launches a rank "
+        f"{[(f['launches']['fwd'], f['launches']['bwd']) for f in ranks]} = "
+        f"{per_step} × {n} at {TP_BAND[1][1]} heads; collectives a rank "
+        + json.dumps([f["traffic"] for f in ranks])
+        + f"; peak {[round(f['peak_gib'], 2) for f in ranks]} GiB a rank; "
+        f"the run {[round(f['run_s'], 1) for f in ranks]} s a rank (its "
+        f"end's save included); {CARD[0]}")
+    log(f"[{label}] compressed_psum of {TP_PSUM_SHAPE} f32 card tensors = "
+        f"bf16(a) + bf16(b) widened, bit for bit on every rank; "
+        f"pipeline_apply over {TP_RANKS} stages of "
+        f"{TP_TRAIN_LAYERS // TP_RANKS} trained layers, M = {TP_PIPE_M} "
+        f"microbatches of {TP_PIPE_MB} × {TP_TRAIN_SHAPE[1]}: bit-equal to "
+        f"the sequential {TP_TRAIN_LAYERS}-layer forward on each "
+        f"microbatch; {lead['pipeline_ms']:.1f} ms (sequential "
+        f"{lead['sequential_ms']:.1f} ms), hops "
+        + json.dumps(lead["pipeline_traffic"])
+        + f"; spawn to join {spawn_s:.1f} s (ranks "
+        f"{[round(f['rank_s'], 1) for f in ranks]} s), one-device resume "
+        f"{resume_s:.1f} s; phase {phase_s:.1f} s; {CARD[0]}")
+    return facts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7242,6 +7578,17 @@ def main() -> int:
     by_name["paged_attention"]["families"][
         f"{MODEL} band (mesh {TP_RANKS})"] = tp["band"]
     mark("17 tensor-parallel serving")
+    tpt = phase_tp_training(training[MODEL])
+    sa = by_name["streaming_attention"]["launches_by_path"]
+    for r_, n in enumerate(tpt["launches"]):
+        path = f"training {MODEL} mesh (1, {TP_RANKS}) rank {r_}"
+        sa[path] = n["fwd"]
+        bwd["launches_by_path"][path] = n["bwd"]
+    bwd["launches"] = sum(bwd["launches_by_path"].values())
+    by_name["streaming_attention"]["band"] = tpt["band"]["forward"]
+    bwd["band"] = dict(tpt["band"]["backward"],
+                       rel_err=tpt["band"]["backward_rel_err"])
+    mark("18 tensor-parallel training, pipeline")
 
     summary = {k: {kk: vv for kk, vv in facts[k].items()
                    if kk not in ("streams", "kinds")} for k in ("bf16", "int8")}
@@ -7269,6 +7616,7 @@ def main() -> int:
     summary["lut_exp_backward_checks"] = lut_bwd_checks
     summary["training"] = training
     summary["tp_serving"] = tp
+    summary["tp_training"] = tpt
     summary["phase_s"] = phase_s
     log("[summary] " + json.dumps(summary))
     log("[phases] seconds " + json.dumps({k: round(v, 1)

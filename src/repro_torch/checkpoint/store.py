@@ -14,7 +14,8 @@ Layout (one directory per step)::
 - **atomic**: written into ``step_X.tmp-<pid>`` then ``os.replace``d into
   place, so a crash mid-write never leaves a step ``latest_step`` picks;
 - **verified**: the manifest carries a sha256 per leaf, checked on
-  restore;
+  restore (each leaf is read at its offset in the npz, without the zip
+  layer's CRC pass);
 - **bf16**: numpy has no bf16, and ``np.savez`` stores the reference's
   bf16 leaves as raw 2-byte void values (``|V2``); the port writes its
   bf16 leaves the same way, bit for bit, and reads them back by the
@@ -23,8 +24,10 @@ Layout (one directory per step)::
   before it returns (a CPU tensor is copied, never viewed: the optimizer
   may update it in place later) and writes in a background thread.
 
-A ``mesh`` / ``specs`` re-shard on restore comes with the training half
-of tensor parallelism (ROADMAP.md §1 item 5).
+- **elastic**: the files hold full leaves whatever the mesh that wrote
+  them; ``restore(mesh=, specs=)`` reads each leaf whole and keeps this
+  rank's block of it (``parallel.shard_tree``), as the reference's
+  ``device_put`` onto the mesh does.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import threading
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
@@ -115,7 +119,8 @@ def unflatten_into(reference: Any, flat: Dict[str, Any]) -> Any:
     """Map flat path → array (or tensor) onto the structure of
     ``reference``, a tree of tensors: each leaf a tensor of the reference
     leaf's shape, dtype and device (void leaves reinterpreted by bit view,
-    others cast)."""
+    others cast; a ``meta`` leaf — a shape and dtype only — stays on the
+    host)."""
     def build(node, prefix):
         join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
         if isinstance(node, dict):
@@ -134,7 +139,8 @@ def unflatten_into(reference: Any, flat: Dict[str, Any]) -> Any:
                              f"{tuple(node.shape)}")
         if isinstance(arr, np.ndarray):
             arr = _to_torch(arr, _dtype_name(node))
-        return arr.to(device=node.device, dtype=node.dtype)
+        dev = arr.device if node.device.type == "meta" else node.device
+        return arr.to(device=dev, dtype=node.dtype)
     return build(reference, "")
 
 
@@ -215,16 +221,22 @@ def save(ckpt_dir: str, step: int, tree: Any,
 def restore(ckpt_dir: str, reference: Any, step: Optional[int] = None,
             mesh=None, specs: Any = None, verify: bool = True
             ) -> Tuple[Any, int, Dict[str, Any]]:
-    """Restore onto the structure of ``reference`` (a tree of tensors) →
-    (tree, step, extra).  ``mesh`` / ``specs`` raise: the re-shard comes
-    with the training half of tensor parallelism."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "checkpoint.restore(mesh=, specs=): the re-shard onto a mesh "
-            "comes with the training half of the tensor-parallel slice of "
-            "the PyTorch port (ROADMAP.md §1 item 5)")
+    """Restore onto the structure of ``reference`` (a tree of tensors of
+    the full leaves' shapes) → (tree, step, extra).
+
+    With ``mesh`` and ``specs`` (a tree of specs matching ``reference``,
+    ``parallel.sharding``'s) each leaf is read whole and cut to this
+    rank's block (``shard_tree`` at the mesh's coordinates): the elastic
+    re-mesh.  The mesh may be a layout only (``Mesh(..., rank=r)``, no
+    process group)."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore takes mesh and specs together")
     flat, step, extra = restore_flat(ckpt_dir, step, verify)
-    return unflatten_into(reference, flat), step, extra
+    tree = unflatten_into(reference, flat)
+    if mesh is not None:
+        from repro_torch.parallel.sharding import shard_tree
+        tree = shard_tree(tree, specs, mesh)
+    return tree, step, extra
 
 
 def retain(ckpt_dir: str, keep: int = 3) -> None:
@@ -269,6 +281,47 @@ class AsyncCheckpointer:
             raise err
 
 
+def _read_member(path: str, info: zipfile.ZipInfo) -> np.ndarray:
+    """One stored (uncompressed) ``.npy`` member of an npz, read from its
+    offset in the file in one piece: ``np.load`` reads a member through
+    the zip layer in 256 KiB pieces with a CRC pass, ~3× slower at a
+    training state's gigabytes (the manifest's sha256 checks the bytes)."""
+    fmt = np.lib.format
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)
+        if head[:4] != b"PK\x03\x04":
+            raise IOError(f"{path}: no local header for {info.filename}")
+        name_len, extra_len = struct.unpack("<HH", head[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = fmt.read_magic(f)
+        read = (fmt.read_array_header_1_0 if version == (1, 0)
+                else fmt.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        count = int(np.prod(shape, dtype=np.int64))
+        arr = np.fromfile(f, dtype=dtype, count=count)
+    if arr.size != count:
+        raise IOError(f"{path}: {info.filename} is truncated")
+    return arr.reshape(shape, order="F" if fortran else "C")
+
+
+def _load_npz(path: str) -> Dict[str, np.ndarray]:
+    """{key: array} of an uncompressed npz (``np.savez``'s, which both
+    packages write), as ``np.load`` gives it: each member read at its
+    offset, the members on threads."""
+    with zipfile.ZipFile(path) as zf:
+        infos = {i.filename[:-len(".npy")]: i for i in zf.infolist()
+                 if i.filename.endswith(".npy")}
+    packed = [i.filename for i in infos.values()
+              if i.compress_type != zipfile.ZIP_STORED]
+    if packed:
+        raise IOError(f"{path}: compressed members {packed}; a checkpoint's "
+                      f"npz is written uncompressed (np.savez)")
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return dict(zip(infos, ex.map(lambda i: _read_member(path, i),
+                                      infos.values())))
+
+
 def restore_flat(ckpt_dir: str, step: Optional[int] = None,
                  verify: bool = True
                  ) -> Tuple[Dict[str, torch.Tensor], int, Dict[str, Any]]:
@@ -282,8 +335,7 @@ def restore_flat(ckpt_dir: str, step: Optional[int] = None,
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    with np.load(os.path.join(d, "arrays.npz")) as z:
-        raw = {k: z[k] for k in z.files}
+    raw = _load_npz(os.path.join(d, "arrays.npz"))
     leaves = manifest["leaves"]
     if verify:
         shas = _shas({k: raw[k] for k in leaves})

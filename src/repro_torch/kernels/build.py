@@ -157,9 +157,9 @@ def refuse_grad(what: str, *tensors, why: str = "") -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: the CUDA kernel has no backward{why}; a gradient "
-            f"through it on the card comes with a later slice of the "
-            f"PyTorch port (ROADMAP.md §1 item 6)")
+            f"{what}: the CUDA kernel has no backward{why}; no model the "
+            f"reference trains takes a gradient through it, so none is "
+            f"queued (ROADMAP.md, \"Still refused in the port\")")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -23,7 +23,11 @@ and ``decode_step`` only, as in the reference, which serves it through no
 engine.  The forward's attention goes through the registry
 (``cfg.attn_backend``) to the CUDA streaming-attention kernel on the card,
 and ``loss`` differentiates: every attention backward of a training step
-runs the kernel's backward (``runtime/trainer.py``).
+runs the kernel's backward (``runtime/trainer.py``).  On a mesh the
+trainer calls ``loss(params, batch, tp_axis=, dp_axes=)``: each layer's
+attention on this rank's head band, and the cross-entropy and the MoE
+statistics over the data-parallel ranks' rows (``lm.lm_apply``,
+``lm.cross_entropy``).
 
 The decoders' cached path: ``init_cache(batch, max_len)`` builds the
 contiguous cache (``lm.trunk_cache_init``: ring buffers for local layers
@@ -81,9 +85,11 @@ class Model:
     step_ragged: Optional[Callable] = None
 
 
-def _bert_loss(cfg, params, batch):
-    logits = LM.lm_apply(cfg, params, batch["tokens"], causal=False)
-    ce = LM.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+def _bert_loss(cfg, params, batch, *, tp_axis=None, dp_axes=()):
+    logits = LM.lm_apply(cfg, params, batch["tokens"], causal=False,
+                         tp_axis=tp_axis)
+    ce = LM.cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                          dp_axes)
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
@@ -91,16 +97,18 @@ def _bert_encode(cfg, params, batch, caches=None):
     return LM.lm_apply(cfg, params, batch["tokens"], causal=False), caches
 
 
-def _lm_loss_with_labels(cfg, params, batch):
+def _lm_loss_with_labels(cfg, params, batch, *, tp_axis=None, dp_axes=()):
     labels = batch.get("labels")
     if labels is not None and labels.shape == batch["tokens"].shape:
         prefix = batch.get("prefix_embed")
         logits, aux = LM.lm_apply(cfg, params, batch["tokens"],
-                                  prefix_embed=prefix, with_aux=True)
+                                  prefix_embed=prefix, with_aux=True,
+                                  tp_axis=tp_axis, dp_axes=dp_axes)
         lp = 0 if prefix is None else prefix.shape[1]
-        ce = LM.cross_entropy(logits[:, lp:], labels, batch.get("loss_mask"))
+        ce = LM.cross_entropy(logits[:, lp:], labels, batch.get("loss_mask"),
+                              dp_axes)
         return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
-    return LM.lm_loss(cfg, params, batch)
+    return LM.lm_loss(cfg, params, batch, tp_axis=tp_axis, dp_axes=dp_axes)
 
 
 def _init_cache(cfg, batch, max_len, device=None):

@@ -30,7 +30,8 @@ from repro_torch.core.streaming_attention import (
 from repro_torch.device import dense
 from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
-from repro_torch.parallel.collectives import all_gather, axis_index
+from repro_torch.parallel.collectives import (all_gather, axis_index,
+                                              axis_size, band, gather_grad)
 
 Params = Dict[str, torch.Tensor]
 
@@ -363,7 +364,8 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                pos: torch.Tensor, kind: str = "global",
                causal: bool = True, cache: Optional[Params] = None,
                cache_index=None, page_table: Optional[torch.Tensor] = None,
-               q_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+               q_len: Optional[torch.Tensor] = None,
+               tp_axis=None) -> torch.Tensor:
     """The full-sequence and padded-block branches of the reference
     ``attn_apply`` (layers.py:160-433).  x (B, L, D), pos (L,) or (B, L)
     positions (RoPE).
@@ -390,9 +392,26 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     (``cfg.attn_backend``, ``fallback=True``): with an int ``cache_index``
     the lengths are static, so on the card ``auto`` resolves a prefill to
     the CUDA streaming-attention kernel and a decode row to
-    ``naive_decode``, as the reference resolves them on a TPU."""
+    ``naive_decode``, as the reference resolves them on a TPU.
+
+    ``tp_axis`` — a mesh axis whose ranks all run this layer on the same
+    rows (a training step's model axis) — makes the cache-free branch
+    attend this rank's band of the heads when the KV head count divides
+    the axis (else every rank attends all heads): q/k/v are cut to the
+    band after RoPE and QK-norm (``collectives.band``: the bands'
+    gradients are all-gathered back), and one all-gather rebuilds the
+    head axis in rank order before ``wo`` (``gather_grad`` without a sum:
+    each rank keeps its band of the gradient), as ``attn_apply_ragged``
+    does for serving.  A head's arithmetic does not depend on how many
+    heads a call holds, so the output and every rank's gradients are the
+    single-device ones."""
     b, l, _ = x.shape
     q, k, v, window = _qkv(cfg, p, x, pos, kind)
+    banded = (tp_axis is not None and cache is None and page_table is None
+              and axis_size(tp_axis) > 1
+              and cfg.num_kv_heads % axis_size(tp_axis) == 0)
+    if banded:
+        q, k, v = (band(t, tp_axis, 1) for t in (q, k, v))
     scale = cfg.attn_scale or cfg.d_head ** -0.5
     if page_table is not None:
         out = _attend_padded(cfg, q, k, v, window, causal=causal, cache=cache,
@@ -430,6 +449,8 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     window=window, cap=cfg.attn_softcap, block_k=cfg.block_k,
                     exp_mode=cfg.exp_mode, q_offset=q_offset, kv_len=kv_len,
                     kv_pos=kv_pos, fallback=True)
+    if banded:
+        out = gather_grad(out, tp_axis, 1, sum_grads=False)
     out = out.transpose(1, 2).reshape(b, l, cfg.num_heads * cfg.d_head)
     return dense_apply(p["wo"], out)
 

@@ -63,6 +63,7 @@ from repro_torch.models.mamba import MAMBA_KEYS, mamba_apply, mamba_cache_init
 from repro_torch.models.mamba2 import (MAMBA2_KEYS, mamba2_apply,
                                        mamba2_cache_init)
 from repro_torch.models.moe import moe_apply
+from repro_torch.parallel.collectives import all_reduce
 from repro_torch.parallel.ctx import maybe_shard
 
 Params = Dict[str, torch.Tensor]
@@ -166,20 +167,20 @@ def _shared(cfg: ModelConfig, params: Params) -> Params:
 
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
            attend: Callable[[torch.Tensor], torch.Tensor], *,
-           with_aux: bool = False
+           with_aux: bool = False, dp_axes=()
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer: pre-norm attention (``attend`` of the normed stream),
     then the pre-norm MLP — or, for the MoE family, the experts — each
     through its post-block norm where the config has one, each added to
     the residual stream → (x, the MoE layer's load-balancing loss with
-    ``with_aux``, else None)."""
+    ``with_aux``, else None; over the global batch of ``dp_axes``)."""
     def post(name, h):
         return L.norm(cfg, p, name, h) if cfg.post_block_norm else h
     x = x + post("ln1_post", attend(L.norm(cfg, p, "ln1", x)))
     h = L.norm(cfg, p, "ln2", x)
     aux = None
     if cfg.family == "moe":
-        h, aux = moe_apply(cfg, p, h, with_aux=with_aux)
+        h, aux = moe_apply(cfg, p, h, with_aux=with_aux, dp_axes=dp_axes)
     else:
         h = L.mlp_apply(cfg, p, h)
     return x + post("ln2_post", h), aux
@@ -219,7 +220,8 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 caches: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index=None, with_aux: bool = False,
                 page_table: Optional[torch.Tensor] = None,
-                q_len: Optional[torch.Tensor] = None
+                q_len: Optional[torch.Tensor] = None,
+                tp_axis=None, dp_axes=()
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Every layer (``_block``) over the whole sequence; with ``caches``
     (``trunk_cache_init``) each layer writes its K/V rows at
@@ -229,12 +231,16 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     ``caches`` is the page pool and x a right-aligned block of ``q_len``
     (B,) live rows per lane (``layers.attn_apply``'s padded branch); an
     MoE layer routes every row of the block, padding included, as the
-    reference."""
+    reference.  A training step on a mesh passes ``tp_axis`` (the
+    cache-free attention of each layer whose KV heads divide it runs on
+    this rank's head band, ``layers.attn_apply``) and ``dp_axes`` (the
+    axes whose ranks hold the other rows of the batch: the MoE
+    load-balancing statistics are the global batch's)."""
     if page_table is not None:
         _ragged_family(cfg)
     if cfg.family in SSM_FAMILIES:
         x = _ssm_trunk(cfg, params, x, pos=pos, causal=causal, caches=caches,
-                       cache_index=cache_index)
+                       cache_index=cache_index, tp_axis=tp_axis)
         return x, (torch.zeros((), dtype=torch.float32, device=x.device)
                    if with_aux else None)
     period_layout(cfg)
@@ -248,8 +254,8 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         p = _layer(cfg, params, i)
         x, aux = _block(cfg, p, x, lambda h: L.attn_apply(
             cfg, p, h, pos=pos, kind=kind, causal=causal, cache=views[i],
-            cache_index=cache_index, page_table=page_table, q_len=q_len),
-            with_aux=with_aux)
+            cache_index=cache_index, page_table=page_table, q_len=q_len,
+            tp_axis=tp_axis), with_aux=with_aux, dp_axes=dp_axes)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -257,8 +263,8 @@ def trunk_apply(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 
 def _ssm_trunk(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                pos: torch.Tensor, causal: bool,
-               caches: Optional[Dict[str, torch.Tensor]], cache_index
-               ) -> torch.Tensor:
+               caches: Optional[Dict[str, torch.Tensor]], cache_index,
+               tp_axis=None) -> torch.Tensor:
     """The SSM families' trunk: every Mamba layer pre-norm around its
     mixer plus the residual; for the hybrid, the shared block (global
     attention over period ``j``'s ``k``/``v`` with a cache) before the
@@ -275,7 +281,7 @@ def _ssm_trunk(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             view = {k: caches[k][j] for k in kv} if caches is not None else None
             x, _ = _block(cfg, shared, x, lambda h: L.attn_apply(
                 cfg, shared, h, pos=pos, kind="global", causal=causal,
-                cache=view, cache_index=cache_index))
+                cache=view, cache_index=cache_index, tp_axis=tp_axis))
         p = _layer(cfg, params, i)
         x = x + apply(cfg, p, L.norm(cfg, p, "ln", x), cache=views[i])
     return x
@@ -297,7 +303,8 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
              cache_index=None,
              logits_rows: Optional[int] = None, with_aux: bool = False,
              page_table: Optional[torch.Tensor] = None,
-             q_len: Optional[torch.Tensor] = None):
+             q_len: Optional[torch.Tensor] = None,
+             tp_axis=None, dp_axes=()):
     """tokens (B, L) → f32 logits (B, L', V) (the reference's ``lm_apply``),
     or with ``with_aux`` (logits, the summed MoE load-balancing loss).
     ``prefix_embed`` (B, Lp, D) (vlm patches) is cast to the stream's dtype
@@ -309,7 +316,8 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     place.  ``logits_rows=n`` unembeds only the last n positions (the
     (B, L', V) logits are the largest activation).  ``page_table`` (B, P)
     and ``q_len`` (B,): ``caches`` is the page pool and the tokens a
-    right-aligned block (``lm_prefill_chunk_paged``)."""
+    right-aligned block (``lm_prefill_chunk_paged``).  ``tp_axis`` /
+    ``dp_axes``: a training step on a mesh (``trunk_apply``)."""
     if tokens.device.type == "cuda":
         configure_matmul_precision()
     lp = 0 if prefix_embed is None else prefix_embed.shape[1]
@@ -320,7 +328,7 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x, aux = trunk_apply(cfg, params, x, pos=pos, causal=causal,
                          caches=caches, cache_index=cache_index,
                          with_aux=with_aux, page_table=page_table,
-                         q_len=q_len)
+                         q_len=q_len, tp_axis=tp_axis, dp_axes=dp_axes)
     x = L.norm(cfg, params, "final_norm", x)
     if logits_rows is not None:
         x = x[:, -logits_rows:]
@@ -331,29 +339,43 @@ def lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy in f32 (masked mean with ``mask``)."""
+                  mask: Optional[torch.Tensor] = None,
+                  dp_axes=()) -> torch.Tensor:
+    """Mean token cross-entropy in f32 (masked mean with ``mask``).
+
+    ``dp_axes``: the mesh axes over which the ranks hold equal blocks of
+    the batch's rows.  The result is then this rank's term of the global
+    loss, whose mean over those ranks is the global batch's: the mean of
+    its rows, or with a mask its masked numerator over the global mask's
+    sum, times the ranks' count."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        den, n = torch.sum(mask), 1
+        for a in dp_axes:
+            den, n = all_reduce(den, "sum", a), n * a.size
+        return torch.sum(nll * mask) / torch.clamp(den, min=1.0) * n
     return torch.mean(nll)
 
 
-def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, tp_axis=None, dp_axes=()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss of the causal LM: the tokens' logits at 0..L-2
     against tokens 1..L-1 (behind a ``prefix_embed`` of the batch, whose
     rows score nothing), plus ``cfg.router_aux_weight`` times the MoE
-    load-balancing loss (0 for a dense model) → (loss, {"ce", "aux"})."""
+    load-balancing loss (0 for a dense model) → (loss, {"ce", "aux"}).
+    ``tp_axis`` / ``dp_axes``: a training step on a mesh (``lm_apply``,
+    ``cross_entropy``)."""
     tokens, prefix = batch["tokens"], batch.get("prefix_embed")
     logits, aux = lm_apply(cfg, params, tokens, prefix_embed=prefix,
-                           with_aux=True)
+                           with_aux=True, tp_axis=tp_axis, dp_axes=dp_axes)
     logits = logits[:, logits.shape[1] - tokens.shape[1]:]
-    ce = cross_entropy(logits[:, :-1], tokens[:, 1:], batch.get("loss_mask"))
+    ce = cross_entropy(logits[:, :-1], tokens[:, 1:], batch.get("loss_mask"),
+                       dp_axes)
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 

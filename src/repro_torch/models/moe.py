@@ -40,6 +40,7 @@ from repro_torch.core.lut_softmax import lut_softmax
 from repro_torch.device import configure_matmul_precision, dense
 from repro_torch.kernels.lut_exp.ops import lut_exp
 from repro_torch.models.layers import _ACTS
+from repro_torch.parallel.collectives import all_reduce, all_reduce_grad
 
 Params = Dict[str, torch.Tensor]
 
@@ -135,13 +136,17 @@ def _bmm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-              with_aux: bool = True
+              with_aux: bool = True, dp_axes=()
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, L, D) → (y (B, L, D), the load-balancing loss, an f32 scalar,
     or None without ``with_aux``).  ``p``: ``router`` (D, E) f32, ``up`` /
     ``gate`` (E, D, F), ``down`` (E, F, D).  Every token is routed, as the
     reference routes them: a caller's padding rows take expert capacity
-    too."""
+    too.  ``dp_axes``: the mesh axes whose ranks hold the batch's other
+    rows (a training step's data-parallel split).  The loss is not linear
+    in the rows, so the routed fractions and the mean probabilities are
+    summed over those ranks before the product (the latter under autograd:
+    each rank's loss takes the global statistics)."""
     if x.device.type == "cuda":
         configure_matmul_precision()       # the router must not run on TF32
     b, l, d = x.shape
@@ -189,7 +194,14 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     # Switch eq. 4: E · Σ_e f_e · P_e / k
     routed = ((route.expert[..., None] == torch.arange(e, device=dev))
               & route.keep[..., None]).to(torch.float32).sum(dim=(0, 1, 2))
-    frac_routed = routed / (g * tg)
-    frac_prob = torch.mean(probs, dim=(0, 1))
+    if dp_axes:
+        prob_sum, n = torch.sum(probs, dim=(0, 1)), g * tg
+        for a in dp_axes:
+            routed = all_reduce(routed, "sum", a)
+            prob_sum, n = all_reduce_grad(prob_sum, a), n * a.size
+        frac_routed, frac_prob = routed / n, prob_sum / n
+    else:
+        frac_routed = routed / (g * tg)
+        frac_prob = torch.mean(probs, dim=(0, 1))
     aux = e * torch.sum(frac_routed * frac_prob) / k
     return y, aux

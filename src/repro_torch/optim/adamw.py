@@ -56,9 +56,13 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        norm_fn: Callable[[Params], torch.Tensor] = global_norm
                         ) -> Tuple[Params, torch.Tensor]:
-    norm = global_norm(grads)
+    """Scale every leaf by min(1, max_norm / ``norm_fn(grads)``) → (the
+    scaled gradients, the norm).  ``norm_fn``: a sharded tree's global
+    norm (``runtime/trainer.py`` on a mesh)."""
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, norm
 
@@ -76,7 +80,8 @@ def _update_leaf(cfg: AdamWConfig, p, g, m, v, c1, c2, lr):
 
 def adamw_update(grads: Params, state: AdamWState, params: Params,
                  cfg: AdamWConfig, lr=None,
-                 scan_subtree: Optional[Iterable[str]] = None
+                 scan_subtree: Optional[Iterable[str]] = None,
+                 norm_fn: Callable[[Params], torch.Tensor] = global_norm
                  ) -> Tuple[Params, AdamWState, dict]:
     """One AdamW step → (params', state', {"grad_norm"}).  ``lr`` (a float
     or a 0-d f32 tensor) overrides ``cfg.lr`` (schedules).
@@ -87,11 +92,13 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
     temporaries are one slice instead of the whole stack, as the
     reference's ``lax.scan`` over its ``scan_subtree``.  The update is
     elementwise, so streamed and whole-leaf results are the same bits.
+    ``norm_fn`` computes the gradients' global norm (clipping and the
+    reported ``grad_norm``): a mesh's trees are blocks.
     """
     if cfg.grad_clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm_fn)
     else:
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
     lr = cfg.lr if lr is None else lr
     step = state.step + 1
     c1 = 1.0 - cfg.b1 ** step.float()

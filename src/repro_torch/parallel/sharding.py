@@ -21,9 +21,16 @@ Rules are keyed by leaf *path suffix*: the reference's paths, e.g.
 the reference's checkpoint (``params.to_flat`` / ``from_flat``) is walked
 as it is.  A leaf is anything with a ``.shape``.
 
+The port's own parameter dict (``{"wq": (L, D, Hq·Dh), ...}``) takes its
+specs from :func:`port_param_specs`: each key's reference path
+(``params.param_paths``) picks the rule, at the port leaf's shape (the
+rules split trailing dims only, and the port's leading layer dim is one
+they leave replicated).
+
 A mesh is anything with ``axis_names`` and a ``shape`` mapping axis →
 size (the port's ``launch/mesh.py::Mesh``, or a stand-in); only
-:func:`shard_tree` also reads the calling rank's coordinates.
+:func:`shard_tree` also reads the calling rank's coordinates, and
+:func:`gather_tree` its axes' process groups.
 """
 from __future__ import annotations
 
@@ -88,10 +95,19 @@ def _map_with_path(fn: Callable[[str, Any], Any], tree: Any,
     return fn(prefix[:-1], tree)
 
 
+def _is_record(x) -> bool:
+    """A named tuple (the optimizer's ``AdamWState``): a node, not a spec."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _map2(fn: Callable[[Any, Any], Any], tree: Any, other: Any) -> Any:
-    """``fn(leaf, other_leaf)`` over two dict trees of the same nesting."""
+    """``fn(leaf, other_leaf)`` over two trees (dicts and named tuples) of
+    the same nesting."""
     if isinstance(tree, dict):
         return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if _is_record(tree):
+        return type(tree)(*(_map2(fn, getattr(tree, f), getattr(other, f))
+                            for f in tree._fields))
     return fn(tree, other)
 
 
@@ -161,6 +177,17 @@ def param_specs(params: Any, mesh) -> Any:
     (the flat dict of ``params.to_flat``, or nested)."""
     return _map_with_path(
         lambda p, x: param_pspec(p, tuple(x.shape), mesh), params)
+
+
+def port_param_specs(params: Dict[str, Any], cfg, mesh) -> Dict[str, Spec]:
+    """{port key: spec} for the port's flat parameter dict of ``cfg`` (or
+    an optimizer moment of it): the rule of the key's first reference
+    path (``params.param_paths``; a layer-stacked key's paths differ only
+    in their period slot) at the port leaf's shape."""
+    from repro_torch.params import param_paths   # params imports models
+    paths = param_paths(cfg)
+    return {k: param_pspec(paths[k][0], tuple(x.shape), mesh)
+            for k, x in params.items()}
 
 
 # --------------------------------------------------------------------------
@@ -260,7 +287,7 @@ def pool_specs(pool: Any, mesh) -> Any:
 # --------------------------------------------------------------------------
 
 def _is_spec(x) -> bool:
-    return isinstance(x, tuple)
+    return isinstance(x, tuple) and not _is_record(x)
 
 
 def _axes_of(entry) -> Tuple[str, ...]:
@@ -288,6 +315,9 @@ def shardings_of(specs: Any, mesh) -> Any:
     reference's ``NamedSharding`` tree: what :func:`shard_tree` slices."""
     if _is_spec(specs):
         return sharding_of(specs, mesh)
+    if _is_record(specs):
+        return type(specs)(*(shardings_of(getattr(specs, f), mesh)
+                             for f in specs._fields))
     return {k: shardings_of(v, mesh) for k, v in specs.items()}
 
 
@@ -302,6 +332,23 @@ def _local_block(x, sharding: Dict[int, Tuple[Tuple[str, ...], int]], mesh):
         size = x.shape[dim] // n
         x = x.narrow(dim, idx * size, size)
     return x.contiguous()
+
+
+def _gather_leaf(x, sharding: Dict[int, Tuple[Tuple[str, ...], int]], mesh):
+    from repro_torch.parallel.collectives import all_gather
+    for dim, (axes, _) in sharding.items():
+        for a in reversed(axes):              # the innermost axis first
+            x = all_gather(x, mesh.axis(a), dim)
+    return x
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The inverse of :func:`shard_tree`: each leaf's blocks all-gathered
+    over the axes that split it, in the mesh's row-major block order →
+    the full leaves, on every rank (every rank of the mesh must call it,
+    the leaves in the same order)."""
+    return _map2(lambda x, s: _gather_leaf(x, s, mesh), tree,
+                 shardings_of(specs, mesh))
 
 
 def shard_tree(tree: Any, specs: Any, mesh) -> Any:

@@ -304,3 +304,149 @@ def band_rank(pool: str) -> dict:
                 bf16_ulps=float((((gf - wf).abs() - 2e-5).clamp_min(0.0)
                                  / ulp).max()),
                 bits_equal_full=bool(torch.equal(whole, full)))
+
+
+# ------------------------------------------------ tensor-parallel training --
+
+def _trainer(name, dcfg_kw, mesh=None, **kw):
+    """A port ``Trainer`` on the CPU: ``name`` in f32, the lm corpus."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    cfg = get_config(name).replace(dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, **dcfg_kw)
+    return Trainer(cfg, dcfg, TrainConfig(**kw), mesh=mesh, device="cpu")
+
+
+def _logged(metrics) -> list:
+    return [{k: m[k] for k in ("step", "loss", "lr", "grad_norm")}
+            for m in metrics]
+
+
+def train_mesh_rank(plan) -> dict:
+    """One rank of ``tests/test_torch_train_mesh.py``'s runs at
+    ``plan["shape"]`` ("data", "model"): each entry of ``plan["runs"]``
+    is (tag, what, config name, data fields, train fields, directory);
+    ``what`` says how the run goes ("stepwise": ``directory`` is one per
+    step, each holding that step's checkpoint) → {tag: its logged
+    metrics} and, for "refused", the error's text."""
+    import os
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime import FailureInjector
+    mesh = Mesh(plan["shape"], ("data", "model"))
+    out = {}
+    for tag, what, name, dkw, tkw, path in plan["runs"]:
+        kw = dict(tkw, ckpt_dir=path)
+        if what == "refused":
+            try:
+                _trainer(name, dkw, mesh, **kw)
+            except ValueError as e:
+                out[tag] = str(e)
+            continue
+        if what == "stepwise":         # each step from its own checkpoint
+            got = []
+            for step, d in enumerate(path):
+                tr = _trainer(name, dkw, mesh, **dict(tkw, ckpt_dir=d))
+                tr.restore(step=step)
+                got += tr.run(num_steps=1)
+            out[tag] = _logged(got)
+            continue
+        if what == "elastic":          # a single-device checkpoint, re-cut
+            tr = _trainer(name, dkw, None, **kw)
+            tr.restore(mesh=mesh)
+            out[tag] = _logged(tr.run(num_steps=plan["elastic_steps"]))
+            out[tag + " mesh"] = dict(tr.mesh.shape)
+            continue
+        tr = _trainer(name, dkw, mesh, **kw)
+        if what == "recover":          # a step-0 checkpoint, a failure at 2
+            tr.init()
+            tr.save()
+            tr.ckpt.wait()
+            got = tr.run(injector=FailureInjector(fail_at_steps=(2,)))
+            out[tag + " checkpoints"] = sorted(os.listdir(path))
+        else:
+            got = tr.run()
+        out[tag] = _logged(got)
+        if what == "blocks":
+            out[tag + " blocks"] = {k: tuple(v.shape)
+                                    for k, v in tr.params.items()}
+    return out
+
+
+# ---------------------------------------------------------- the pipeline --
+
+def pipeline_rank(inputs) -> dict:
+    """One stage of ``tests/test_torch_pipeline.py``: the reference test's
+    pipeline (``tanh(h @ w + b)`` per stage) over a ("pod",) mesh of every
+    rank, its gradient for a fixed cotangent ``c`` (each rank's share of
+    the stage parameters, and the input's), and ``compressed_psum`` of
+    this rank's gradient tree."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import compressed_psum, pipeline_apply
+    mesh = Mesh((dist.get_world_size(),), ("pod",))
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    params = {"w": t["ws"].clone().requires_grad_(),
+              "b": t["bs"].clone().requires_grad_()}
+    x = t["x"].clone().requires_grad_()
+    f = lambda p, h: torch.tanh(h @ p["w"] + p["b"])  # noqa: E731
+    out = pipeline_apply(f, params, x, mesh, axis="pod")
+    dw, db, dx = torch.autograd.grad(torch.sum(out * t["c"]),
+                                     (params["w"], params["b"], x))
+    with torch.no_grad():
+        plain = pipeline_apply(f, params, t["x"], mesh, axis="pod")
+    r = dist.get_rank()
+    summed = compressed_psum({"a": t["g"][r], "b": t["h"][r]},
+                             mesh.axis("pod"))
+    return dict(out=out.detach().numpy(), plain=plain.numpy(),
+                dw=dw.numpy(), db=db.numpy(), dx=dx.numpy(),
+                psum={k: v.numpy() for k, v in summed.items()})
+
+
+# ------------------------------------------ #3 and #3b at a head band --
+
+def attention_band_rank(dtype_name: str) -> dict:
+    """One rank of the card test of kernel #3 and its backward at a rank's
+    head band (the head count ``Trainer(mesh=)``'s model axis launches
+    them at): deepseek-7b's 32 heads of 128 over 2 × 256 causal rows,
+    drawn whole on every rank; this rank's band of 32 / ranks heads
+    through #3 under autograd; the outputs and the gradients' bands
+    all-gathered → whether they equal the 32-head launch's bit for bit,
+    the errors against the plain forward and backward, and the launches
+    the band made."""
+    import torch.distributed as dist
+    from repro_torch.kernels.streaming_attention.ops import (
+        attention_bwd_ref, attention_ref, streaming_attention,
+        streaming_attention_bwd, streaming_attention_lse)
+    from repro_torch.parallel.collectives import all_gather
+    n, r = dist.get_world_size(), dist.get_rank()
+    dev = torch.device("cuda", 0)
+    dt = getattr(torch, dtype_name)
+    b, h, length, d = 2, 32, 256, 128
+    g = torch.Generator().manual_seed(7)
+    q, k, v, dout = (torch.randn((b, h, length, d), generator=g).to(dev, dt)
+                     for _ in range(4))
+    hb = h // n
+    cut = lambda t: t[:, r * hb:(r + 1) * hb].contiguous()  # noqa: E731
+    qb, kb, vb = (cut(t).requires_grad_() for t in (q, k, v))
+    before = (streaming_attention.launches, streaming_attention_bwd.launches)
+    out = streaming_attention(qb, kb, vb, causal=True)
+    grads = torch.autograd.grad(out, (qb, kb, vb), cut(dout))
+    torch.cuda.synchronize()
+    launches = (streaming_attention.launches - before[0],
+                streaming_attention_bwd.launches - before[1])
+    whole = [all_gather(t.detach(), None, dim=1) for t in (out,) + grads]
+    qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+    full_out = streaming_attention(qf, kf, vf, causal=True)
+    full = [full_out.detach()] + list(torch.autograd.grad(
+        full_out, (qf, kf, vf), dout))
+    scale = d ** -0.5
+    o, lse = streaming_attention_lse(q, k, v, causal=True)
+    want = [attention_ref(q, k, v, causal=True)] + list(attention_bwd_ref(
+        q, k, v, o, lse, dout, scale=scale, causal=True))
+    rel = [float((a.float() - w.float()).abs().max()
+                 / w.float().abs().max()) for a, w in zip(whole, want)]
+    return dict(launches=launches,
+                bits_equal_full=all(torch.equal(a, f)
+                                    for a, f in zip(whole, full)),
+                rel_err=rel)

@@ -1,6 +1,7 @@
 """The port's checkpoint store (``repro_torch.checkpoint``) against the
 reference's: checkpoints written by ``repro.checkpoint.store.save`` are
-read by the port's ``restore_flat`` / ``restore_params`` / ``restore``,
+read by the port's ``restore_flat`` / ``restore_params`` / ``restore``
+(also cut to a rank's block of a mesh, ``restore(mesh=, specs=)``),
 and checkpoints the port's ``save`` / ``AsyncCheckpointer`` write are
 restored by the reference's ``restore``, bit for bit, f32 and bf16 leaves
 alike (npz keeps a bf16 leaf as raw ``|V2`` bytes); retention, half-written
@@ -26,6 +27,8 @@ from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro_torch.checkpoint import store as T  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.parallel import param_specs  # noqa: E402
 from repro_torch.params import from_flat, to_flat  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -165,8 +168,49 @@ def test_restore_onto_a_tree_of_tensors(written):
     wrong = {"params": dict(template["params"], **{first: torch.zeros(3)})}
     with pytest.raises(ValueError, match="shape mismatch"):
         T.restore(d, wrong)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        T.restore(d, template, mesh=object())
+    with pytest.raises(ValueError, match="together"):
+        T.restore(d, template, mesh=Mesh((2, 2), ("data", "model")))
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_restore_cuts_each_ranks_block(written, rank):
+    """The elastic re-shard in one process (the counterpart of the
+    reference's ``test_checkpoint.py::test_elastic_restore_onto_mesh``):
+    ``restore(mesh=, specs=)`` onto a layout-only 2 × 2 mesh at ``rank``
+    reads each leaf whole and keeps the rank's block — the block that
+    numpy slicing of the reference's full leaf at the rank's coordinates
+    gives, under the reference's rules — onto a shape-only template."""
+    from repro.parallel.sharding import param_specs as j_param_specs
+    dtype, d, params = written
+    flat = {f"params/{k}": v for k, v in J.flatten_tree(params).items()}
+    mesh = Mesh((2, 2), ("data", "model"), rank=rank)
+    template = {"params": {k: torch.empty(v.shape, device="meta",
+                                          dtype=getattr(torch, dtype))
+                           for k, v in J.flatten_tree(params).items()}}
+    specs = {"params": param_specs(template["params"], mesh)}
+    tree, step, _ = T.restore(d, template, step=3, mesh=mesh, specs=specs)
+    assert step == 3
+    # the reference's rules (they read only the mesh's axis names and
+    # sizes, so the layout-only mesh stands in for a 2 × 2 JAX mesh)
+    coords = dict(data=rank // 2, model=rank % 2)
+    split = 0
+    for path, spec in specs["params"].items():
+        want = flat[f"params/{path}"]
+        jspec = tuple(j_param_specs({path: jax.ShapeDtypeStruct(
+            want.shape, want.dtype)}, mesh)[path])
+        assert jspec == spec, path
+        for dim, axis in enumerate(jspec):
+            if axis is None:
+                continue
+            n = want.shape[dim] // 2
+            want = np.take(want, range(coords[axis] * n,
+                                       (coords[axis] + 1) * n), axis=dim)
+            split += 1
+        got = tree["params"][path]
+        assert got.device.type == "cpu" and got.shape == want.shape, path
+        assert np.array_equal(bits(got).numpy().view(np.uint8),
+                              np.ascontiguousarray(want).view(np.uint8)), path
+    assert split > 0
 
 
 def test_named_tuple_paths_and_scalars_round_trip(tmp_path):
@@ -190,6 +234,38 @@ def test_named_tuple_paths_and_scalars_round_trip(tmp_path):
     back, _, _ = J.restore(str(tmp_path / "t"), ref)
     assert int(back["opt"].step) == 7
     assert np.array_equal(np.asarray(back["opt"].m["w"]), w)
+
+
+@pytest.mark.parametrize("writer", ["savez", "savez_compressed"])
+def test_npz_read_equals_np_load(tmp_path, writer):
+    """The restore's npz reader (each member read at its offset) gives
+    ``np.load``'s arrays, dtypes and shapes: f32, bf16 as ``|V2``, a 0-d
+    leaf, a Fortran-ordered leaf, an empty one; a compressed npz, which
+    neither package writes, raises ``IOError``."""
+    rng = np.random.default_rng(3)
+    arrays = {
+        "params/w": rng.normal(size=(5, 7)).astype(np.float32),
+        "opt/m/w": rng.integers(-2 ** 15, 2 ** 15, size=(3, 4),
+                                dtype=np.int16).view("V2"),
+        "opt/.step": np.asarray(7, dtype=np.int32),
+        "fortran": np.asfortranarray(rng.normal(size=(4, 6))),
+        "empty": np.zeros((0, 3), dtype=np.float32),
+    }
+    path = str(tmp_path / "arrays.npz")
+    getattr(np, writer)(path, **arrays)
+    if writer == "savez_compressed":
+        with pytest.raises(IOError, match="compressed"):
+            T._load_npz(path)
+        return
+    got = T._load_npz(path)
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    assert list(got) == list(want)
+    def raw(a):
+        return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        np.testing.assert_array_equal(raw(got[k]), raw(w))
 
 
 def test_retention_and_half_written_steps(tmp_path):

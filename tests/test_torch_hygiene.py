@@ -64,16 +64,18 @@ def test_port_imports_no_jax_and_no_reference_package():
                                     "repro_torch.parallel.sharding",
                                     "repro_torch.parallel.collectives",
                                     "repro_torch.parallel.ctx",
+                                    "repro_torch.parallel.pipeline",
                                     "repro_torch.core.multicore_softmax",
                                     "repro_torch.core.ring_attention"])
 def test_serving_obs_modules_import_no_jax(module):
     """Each module of the serving observability and the captured step, of
     the tuner and the checkpoint reader, and of tensor parallelism (the
     mesh and its spawner, the sharding rules, the collectives, the
-    multi-core softmax and ring attention), imported alone in a fresh
-    process, pulls in neither JAX nor the reference package (whose
-    ``serving/metrics.py``, ``perfmodel/model.py``, ``kernels/autotune.py``,
-    ``checkpoint/store.py``, training and parallel modules it copies)."""
+    pipeline, the multi-core softmax and ring attention), imported alone
+    in a fresh process, pulls in neither JAX nor the reference package
+    (whose ``serving/metrics.py``, ``perfmodel/model.py``,
+    ``kernels/autotune.py``, ``checkpoint/store.py``, training and
+    parallel modules it copies)."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"bad = sorted(n for n in sys.modules if n.startswith('jax')"
@@ -98,8 +100,7 @@ NOT_YET_PORTED = {
     "optim": set(),
     "runtime": set(),
     "data": set(),
-    "parallel": {"compressed_psum",                  # item 5, training half
-                 "pipeline_apply", "stack_stages"},              # item 6
+    "parallel": set(),
 }
 
 
@@ -191,10 +192,9 @@ def test_padded_engine_without_device_raises_without_card(no_card):
 
 @pytest.mark.parametrize("kw", [dict(mesh=2)])
 def test_later_slices_raise_not_implemented(kw):
-    """Serving takes a mesh since the tensor-parallel slice (without a
-    process group of that many ranks it raises ``ValueError``); the
-    training half of that slice is still to come, and ``Trainer(mesh=)``
-    refuses it."""
+    """Serving and training take a mesh since the tensor-parallel slices:
+    without a process group of that many ranks both raise the same
+    ``ValueError``, which names ``spawn``."""
     from repro_torch.data import DataConfig
     from repro_torch.runtime import Trainer
     cfg = get_config("deepseek-7b-smoke")
@@ -202,7 +202,7 @@ def test_later_slices_raise_not_implemented(kw):
     with pytest.raises(ValueError, match="spawn"):
         EngineCore(cfg, params, device="cpu", **kw)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="training half.*slice"):
+    with pytest.raises(ValueError, match="spawn"):
         Trainer(cfg, dcfg, device="cpu", **kw)
 
 
@@ -569,11 +569,11 @@ def test_paged_attention_and_combine_refuse_a_gradient(monkeypatch):
     pool = _fake(np.zeros((5, 2, 8, 16), np.float32))
     tbl = _fake(np.zeros((2, 2), np.int32))
     lens = _fake(np.ones(2, np.int32))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no backward.*none is queued"):
         pa_ops.paged_attention(q, pool, pool, tbl, lens)
     part = _fake(np.zeros((2, 2, 3, 4), np.float32)).requires_grad_()
     acc = _fake(np.zeros((2, 2, 3, 4, 16), np.float32))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no backward.*none is queued"):
         pa_ops.paged_combine(part, part, acc, lens, page_size=8, kv_split=2)
 
 
@@ -583,12 +583,12 @@ def test_int8_and_quantize_refuse_a_gradient(monkeypatch):
     x = _fake(np.zeros((4, 32), np.float32)).requires_grad_()
     wq = quant.quantize(torch.ones(32, 16), axis=0)
     wq = type(wq)(_fake(wq.values), _fake(wq.scale))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no backward.*none is queued"):
         i8_ops.int8_matmul(x, wq)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no backward.*none is queued"):
         quant.quantize_dynamic(x)
     xv = _fake(np.zeros((4, 32), np.int8))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no backward.*none is queued"):
         i8_ops.int8_matmul_2d(xv, wq.values, x[0, 0], wq.scale)
 
 

@@ -133,6 +133,27 @@ def test_paged_attention_at_a_rank_head_band(cuda_device, pool, tmp_path):
             assert res["bf16_ulps"] <= 1.0, res["bf16_ulps"]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streaming_attention_at_a_rank_head_band(cuda_device, dtype,
+                                                 tmp_path):
+    """Kernel #3 and its backward in 2 gloo ranks on the card, each at its
+    band of 16 of deepseek-7b's 32 heads (what ``Trainer(mesh=)``'s model
+    axis launches): one forward and one backward launch a rank; the
+    gathered output and gradients bit-equal to the 32-head launch's (a
+    head's arithmetic does not depend on the launch's head count) and
+    within the plain versions' tolerances (the largest error over the
+    largest value: f32 3e-5, bf16 one bf16 ulp)."""
+    from _torch_tp_ranks import attention_band_rank
+    from repro_torch.launch.mesh import spawn
+    rel = 3e-5 if dtype == "float32" else 2.0 ** -7
+    for res in spawn(attention_band_rank, 2, dtype, root=str(tmp_path),
+                     timeout=300):
+        assert res["launches"] == (1, 1)
+        assert res["bits_equal_full"]
+        assert max(res["rel_err"]) <= rel, res["rel_err"]
+
+
 def make_case(seed, dev, *, b=5, group=2, hkv=2, d=16, ps=8, p=6, lq=1,
               quant=False, exact_logits=False):
     g = torch.Generator().manual_seed(seed)

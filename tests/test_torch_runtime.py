@@ -223,19 +223,50 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--distributed"])
-def test_train_cli_refuses_mesh(flag):
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        train_cli.main(["--arch", ARCH, "--device", "cpu", flag])
+def test_train_cli_refuses_mesh(flag, tmp_path, capsys, monkeypatch):
+    """``--mesh`` in one process trains on a 1-rank mesh, the same run as
+    without it; ``--distributed`` without ``torchrun``'s environment fails
+    with a message that names ``torchrun``."""
+    argv = ["--arch", ARCH, "--device", "cpu", "--steps", "2",
+            "--seq-len", "16", "--global-batch", "2"]
+    if flag == "--distributed":
+        for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="torchrun"):
+            train_cli.main(argv + [flag])
+        return
+    train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "mesh"), flag])
+    meshed = capsys.readouterr().out
+    train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    one = capsys.readouterr().out
+    loss = [ln.split("loss")[1].split()[0] for ln in meshed.splitlines()
+            if ln.startswith("step")]
+    assert len(loss) == 2 and loss == [
+        ln.split("loss")[1].split()[0] for ln in one.splitlines()
+        if ln.startswith("step")]
+    assert sorted(os.listdir(tmp_path / "mesh")) == ["step_00000002"]
 
 
 def test_trainer_refuses_mesh_and_defaults_to_card(monkeypatch, tmp_path):
+    """A mesh of several ranks needs a process group of that many (a
+    layout-only mesh, or an int, raises ``ValueError`` naming ``spawn``);
+    a 1-rank mesh trains, and ``restore(mesh=)`` re-cuts a single-device
+    checkpoint onto it, bit for bit; the card is the default device."""
+    from repro_torch.launch.mesh import Mesh
     cfg = get_config(ARCH)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Trainer(cfg, dcfg, mesh=object(), device="cpu")
-    tr = mk_trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tr.restore(mesh=object())
+    with pytest.raises(ValueError, match="spawn"):
+        Trainer(cfg, dcfg, mesh=Mesh((1, 2), ("data", "model")),
+                device="cpu")
+    with pytest.raises(ValueError, match="spawn"):
+        Trainer(cfg, dcfg, mesh=2, device="cpu")
+    tr = mk_trainer(tmp_path, steps=2)
+    tr.run()
+    one = mk_trainer(tmp_path, steps=2)
+    one.restore(mesh=Mesh((1, 1), ("data", "model")))
+    assert one.mesh.size == 1 and one.step == 2
+    for k, p in tr.params.items():
+        assert torch.equal(one.params[k], p), k
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, dcfg)
